@@ -1,5 +1,5 @@
-"""Device-resident array index: dense matrices, CSR BM25 postings and
-host-side metadata (counterpart of ``a_nice_rag_tpu.index``)."""
+"""Device-resident array index: dense matrices, CSR BM25 postings, IVF
+structures and host-side metadata (counterpart of ``a_nice_rag_tpu.index``)."""
 
 from a_nice_rag_tpu_torch.index.array_index import (  # noqa: F401
     ArrayIndex,
@@ -9,3 +9,17 @@ from a_nice_rag_tpu_torch.index.array_index import (  # noqa: F401
 )
 from a_nice_rag_tpu_torch.index.convert import from_reference_index  # noqa: F401
 from a_nice_rag_tpu_torch.index.io import load_index, save_index  # noqa: F401
+from a_nice_rag_tpu_torch.index.updates import (  # noqa: F401
+    append_documents,
+    delete_documents,
+    undelete_documents,
+)
+from a_nice_rag_tpu_torch.index.ivf import (  # noqa: F401
+    IVFDense,
+    attach_ivf,
+    build_ivf_dense,
+    build_ivf_quantized,
+    ivf_search,
+    load_ivf,
+    save_ivf,
+)

@@ -203,6 +203,11 @@ class ArrayIndex:
     # int8-quantized matrices; a model lives in EITHER ``dense`` or
     # ``dense_q``, never both.
     dense_q: Optional[Dict[str, QuantizedDense]] = None
+    # IVF ANN structures per model (index/ivf.py ``IVFDense``), attached
+    # with ``attach_ivf``: FusedRetriever(nprobe=p) probes p clusters
+    # instead of scanning the corpus. The IVF copy is permuted
+    # cluster-major beside the original matrix.
+    ivf: Optional[Dict[str, "IVFDense"]] = None  # noqa: F821
 
     def __post_init__(self) -> None:
         self._filter_cache: Dict[object, object] = {}

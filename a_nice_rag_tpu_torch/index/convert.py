@@ -1,9 +1,10 @@
 """Carry an index built by the JAX package over to this one.
 
 ``from_reference_index`` reads every field of an ``a_nice_rag_tpu``
-``ArrayIndex`` with ``np.asarray`` and uploads it to a torch device. It
-touches the reference object only through its attributes, so this module
-imports no jax: the caller's process already holds the JAX arrays.
+``ArrayIndex`` (IVF structures included, via ``from_reference_ivf``)
+with ``np.asarray`` and uploads it to a torch device. It touches the
+reference objects only through their attributes, so this module imports
+no jax: the caller's process already holds the JAX arrays.
 """
 
 from __future__ import annotations
@@ -13,19 +14,38 @@ import numpy as np
 from a_nice_rag_tpu_torch.device import DeviceLike, resolve_device
 from a_nice_rag_tpu_torch.index.array_index import ArrayIndex, CorpusMeta
 from a_nice_rag_tpu_torch.index.io import numpy_to_torch
+from a_nice_rag_tpu_torch.index.ivf import IVFDense
 from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays, Bm25DenseArrays
 from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
 
 
-def from_reference_index(ref_index, device: DeviceLike = "cpu") -> ArrayIndex:
-    """The port's ArrayIndex holding the same arrays as ``ref_index`` (a
-    JAX-package ArrayIndex), on ``device``. IVF structures are not
-    carried."""
+def _uploader(device: DeviceLike):
     dev = resolve_device(device)
 
     def t(x):
-        return numpy_to_torch(np.asarray(x), dev)
+        return None if x is None else numpy_to_torch(np.asarray(x), dev)
 
+    return t
+
+
+def from_reference_ivf(ref_ivf, device: DeviceLike = "cpu") -> IVFDense:
+    """The port's IVFDense holding the same arrays and layout as
+    ``ref_ivf`` (a JAX-package IVFDense), on ``device``."""
+    t = _uploader(device)
+    return IVFDense(
+        centroids=t(ref_ivf.centroids), perm=t(ref_ivf.perm),
+        cluster_start=t(ref_ivf.cluster_start), tile_n=int(ref_ivf.tile_n),
+        n_real=int(ref_ivf.n_real),
+        max_cluster_tiles=int(ref_ivf.max_cluster_tiles),
+        emb=t(ref_ivf.emb), values=t(ref_ivf.values),
+        scales=t(ref_ivf.scales), spilled=bool(ref_ivf.spilled),
+    )
+
+
+def from_reference_index(ref_index, device: DeviceLike = "cpu") -> ArrayIndex:
+    """The port's ArrayIndex holding the same arrays as ``ref_index`` (a
+    JAX-package ArrayIndex), IVF structures included, on ``device``."""
+    t = _uploader(device)
     rm = ref_index.meta
     meta = CorpusMeta(
         ids=list(rm.ids), sources=list(rm.sources),
@@ -58,6 +78,8 @@ def from_reference_index(ref_index, device: DeviceLike = "cpu") -> ArrayIndex:
                        else np.asarray(ref_index.bm25_doc_mask).copy()),
         bm25_dense=bm25_dense,
         dense_q=dense_q,
+        ivf={m: from_reference_ivf(iv, device)
+             for m, iv in (ref_index.ivf or {}).items()} or None,
     )
     index._version = getattr(ref_index, "_version", 0)
     return index

@@ -51,11 +51,17 @@ def numpy_to_torch(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
-        t = t.to(torch.float32)
+        t = t.to(torch.float32)  # npz has no bfloat16; f32 is exact
     return t.cpu().numpy()
 
 
+def _ivf_path(path: str, model: str) -> str:
+    return os.path.join(path, f"ivf_{model.replace('/', '_')}.npz")
+
+
 def save_index(index: ArrayIndex, path: str) -> None:
+    from a_nice_rag_tpu_torch.index.ivf import save_ivf  # imports this module
+
     os.makedirs(path, exist_ok=True)
     arrays: Dict[str, np.ndarray] = {}
     for model, emb in index.dense.items():
@@ -69,6 +75,8 @@ def save_index(index: ArrayIndex, path: str) -> None:
         arrays["bm25/impact"] = _host(index.bm25.impact)
         arrays["bm25/doc_mask"] = np.asarray(index.bm25_doc_mask)
     np.savez_compressed(os.path.join(path, "arrays.npz"), **arrays)
+    for model, ivf in (index.ivf or {}).items():
+        save_ivf(ivf, _ivf_path(path, model))
     meta = {
         "format_version": _FORMAT_VERSION,
         "n_docs": index.meta.n_docs,
@@ -82,7 +90,7 @@ def save_index(index: ArrayIndex, path: str) -> None:
         "vocab": index.vocab,
         "bm25_stats": index.bm25_stats,
         "deleted_rows": np.flatnonzero(index.meta.deleted).tolist(),
-        "ivf_models": [],
+        "ivf_models": list((index.ivf or {}).keys()),
     }
     with open(os.path.join(path, "meta.json"), "w", encoding="utf-8") as f:
         json.dump(meta, f)
@@ -91,8 +99,9 @@ def save_index(index: ArrayIndex, path: str) -> None:
 def load_index(
     path: str, emb_dtype: str = "float32", device: DeviceLike = "cpu"
 ) -> ArrayIndex:
-    """Load an index artifact onto ``device``. IVF structures in the
-    artifact are not read yet."""
+    """Load an index artifact, IVF structures included, onto ``device``."""
+    from a_nice_rag_tpu_torch.index.ivf import load_ivf  # imports this module
+
     dev = resolve_device(device)
     with open(os.path.join(path, "meta.json"), "r", encoding="utf-8") as f:
         meta_d = json.load(f)
@@ -141,6 +150,10 @@ def load_index(
         # it fits the default memory budget (as build_index does).
         if bm25.vocab_size * meta_d["n_docs_padded"] * 4 <= (4 << 30):
             bm25_dense = dense_impact_from_csr(bm25)
+    ivf = {
+        m: load_ivf(_ivf_path(path, m), dev)
+        for m in meta_d.get("ivf_models", [])
+    } or None
     return ArrayIndex(
         meta=meta,
         dense=dense,
@@ -150,4 +163,5 @@ def load_index(
         bm25_doc_mask=bm25_doc_mask,
         bm25_dense=bm25_dense,
         dense_q=dense_q,
+        ivf=ivf,
     )

@@ -7,9 +7,11 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
 The library lands in ``a_nice_rag_tpu_torch/_build/`` keyed by a hash of
-the source and the flags, so an edited source rebuilds. nvcc is found
-through ``CUDA_HOME`` or ``PATH``; without it the build raises. Only
-sources inside this package are ever built.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds. :func:`load_all` runs one nvcc per
+source, all at once. nvcc is found through ``CUDA_HOME`` or ``PATH``;
+without it the build raises. Only sources inside this package are ever
+built.
 """
 
 from __future__ import annotations
@@ -21,8 +23,9 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,9 +53,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -88,3 +93,11 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)))
     return _loaded[name]
+
+
+def load_all(names: Sequence[str]) -> None:
+    """Build every named source at once (one nvcc each), then load them."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(build, names))
+    for name in names:
+        load(name)

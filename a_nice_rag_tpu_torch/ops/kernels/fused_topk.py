@@ -51,11 +51,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def build_kernels() -> None:
-    """Compile and load the kernels now instead of at first launch."""
-    _library()
-
-
 def _split_plan(n: int, b: int, device: torch.device,
                 tile: int) -> Tuple[int, int]:
     """(splits, docs per split): enough doc splits that the grid puts
@@ -266,8 +261,3 @@ def fused_dense_top_k_int8(
 
 
 fused_dense_top_k_int8.launches = 0
-
-
-def reset_launch_counts() -> None:
-    fused_dense_top_k.launches = 0
-    fused_dense_top_k_int8.launches = 0

@@ -5,7 +5,9 @@ every active ranker (dense models, BM25), WRRF fusion and the final top-n
 in one call, with inputs and outputs on the index's device. At corpus
 scale on a CUDA device the dense lists and the common tier of two-tier
 BM25 stream through the fused top-k kernels (``ops.kernels``) instead of
-materializing [B, N] scores.
+materializing [B, N] scores. With ``nprobe`` set, models with an attached
+IVF take the ANN route: a tile table built on the device and K3/K4 over
+its tiles only.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import numpy as np
 import torch
 
 from a_nice_rag_tpu_torch.index.array_index import ArrayIndex
+from a_nice_rag_tpu_torch.index.ivf import (
+    build_tile_table,
+    default_max_tiles,
+    ivf_top_k,
+)
 from a_nice_rag_tpu_torch.ops.bm25 import (
     Bm25TwoTier,
     bm25_scores,
@@ -39,6 +46,17 @@ from a_nice_rag_tpu_torch.ops.quantized import (
 from a_nice_rag_tpu_torch.ops.topk import masked_top_k
 
 DENSE_BACKENDS = ("auto", "kernel", "torch")
+IVF_ROUTES = ("auto", "always")
+
+
+def _ivf_coverage(batch: int, nprobe: int, n_clusters: int) -> float:
+    """Expected fraction of clusters a batch's probe union schedules under
+    uniform cluster draws: ``1 - (1 - p/C)^B``. Host arithmetic on ints,
+    so the route it picks costs nothing per call."""
+    if n_clusters <= 0:
+        return 1.0
+    p = min(nprobe, n_clusters) / n_clusters
+    return 1.0 - (1.0 - p) ** max(1, batch)
 
 
 def _finite_ids(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -81,6 +99,9 @@ class FusedRetriever:
         budget: int = 16384,
         dense_backend: str = "auto",
         nprobe: Optional[int] = None,
+        ivf_max_tiles: Optional[int] = None,
+        ivf_route: str = "auto",
+        ivf_max_coverage: float = 0.25,
         two_tier_common="auto",
         two_tier_dtype: str = "bfloat16",
         t_max_hint: int = 16,
@@ -96,15 +117,25 @@ class FusedRetriever:
         rows); an int forces that width; 0/None disables. Only on the
         kernel route.
 
+        ``nprobe``: opt-in ANN. Models with an attached IVF
+        (``index.ivf``, see ``index.ivf.attach_ivf``) probe their top
+        ``nprobe`` clusters and score only the covering tiles (K3/K4).
+        Only unmasked calls probe: a filter or a tombstone takes the
+        exact route. ``ivf_max_tiles`` caps the tile table (default: no
+        truncation). ``ivf_route`` "auto" probes while the expected
+        cluster coverage ``1 - (1 - p/C)^B`` stays at or below
+        ``ivf_max_coverage`` (wider batches stream the whole corpus,
+        whose cost is shared by the batch); "always" probes at every
+        batch size. The 0.25 default is the JAX package's.
+
         On the kernel route a CSR-only BM25 list reports -1 for
         zero-score slots, while the torch scatter route fills them with
         arbitrary zero-score ids, so a query matching fewer than
         similarity_k docs can yield a shorter fused list there.
         """
-        if nprobe is not None:
-            raise NotImplementedError(
-                "IVF retrieval (nprobe=) is not ported yet: ROADMAP queue 1 "
-                "item 9 (ops/kmeans.py and index/ivf.py, with K3/K4)"
+        if ivf_route not in IVF_ROUTES:
+            raise ValueError(
+                f"ivf_route must be one of {IVF_ROUTES}, got {ivf_route!r}"
             )
         if dense_backend not in DENSE_BACKENDS:
             raise ValueError(
@@ -165,6 +196,14 @@ class FusedRetriever:
         # Exposed so callers can assert which route the configuration
         # took.
         self.use_kernel = use_kernel
+        self.nprobe = nprobe
+        self.ivf_max_tiles = ivf_max_tiles
+        self.ivf_route = ivf_route
+        self.ivf_max_coverage = float(ivf_max_coverage)
+        self._ivf_structs = tuple(
+            (index.ivf or {}).get(m) if nprobe else None
+            for m in self.model_names
+        )
         self._const_cache: Dict[tuple, torch.Tensor] = {}
 
     def run(self, dense_mats, bm25_arrays, q_embs, q_terms, mask, bm25_mask,
@@ -175,7 +214,10 @@ class FusedRetriever:
         k = self.similarity_k
         n = self.common_sections_n
         lists = []
-        for mat, q in zip(dense_mats, q_embs):
+        for mat, q, iv in zip(dense_mats, q_embs, self._ivf_structs):
+            if self._probe(iv, q.shape[0], mask):
+                lists.append(self._ivf_list(iv, q))
+                continue
             quantized = isinstance(mat, QuantizedDense)
             if self.use_kernel and quantized:
                 qv, qs = quantize_queries(q)
@@ -213,6 +255,27 @@ class FusedRetriever:
                 all_idx, weights, n, self.index.n_docs_padded, wrrf_k
             )
         return _finite_ids(fvals, fids), fvals, all_idx
+
+    def _probe(self, iv, batch: int, mask) -> bool:
+        """The IVF route for this call: an IVF is attached, no mask is
+        active, and the route or the coverage rule allows it."""
+        return iv is not None and mask is None and (
+            self.ivf_route == "always"
+            or _ivf_coverage(batch, self.nprobe, iv.n_clusters)
+            <= self.ivf_max_coverage
+        )
+
+    def _ivf_list(self, iv, q: torch.Tensor) -> torch.Tensor:
+        """ANN ids [B, similarity_k] (original rows, -1 unfilled): the
+        tile table of the batch's probed clusters, then K3/K4."""
+        mt = self.ivf_max_tiles or default_max_tiles(iv, q.shape[0],
+                                                     self.nprobe)
+        table, _ = build_tile_table(
+            iv.centroids, iv.cluster_start, q,
+            nprobe=min(self.nprobe, iv.n_clusters), max_tiles=mt,
+            tile_n=iv.tile_n, mct=iv.max_cluster_tiles,
+        )
+        return ivf_top_k(iv, q, table, self.similarity_k)[1]
 
     def _bm25_list(self, bm25_arrays, q_terms, bm25_mask) -> torch.Tensor:
         k = self.similarity_k

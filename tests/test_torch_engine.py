@@ -207,8 +207,9 @@ def test_route_decision_matches_jax(n_pad, k, backend, on_accelerator):
 
 def test_engine_rejects_ivf_and_unknown_backend(corpus):
     tidx = from_reference_index(_jax_index(corpus))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedRetriever(tidx, MODELS, use_bm25=True, nprobe=4)
+    with pytest.raises(ValueError, match="ivf_route"):
+        FusedRetriever(tidx, MODELS, use_bm25=True, nprobe=4,
+                       ivf_route="sometimes")
     with pytest.raises(ValueError):
         FusedRetriever(tidx, MODELS, use_bm25=True, dense_backend="pallas")
 
