@@ -84,7 +84,7 @@ def build_bm25_arrays(
     k1: float = 1.7,
     b: float = 0.83,
     epsilon: float = 0.05,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = "cuda",
 ) -> Tuple[Bm25Arrays, Dict[str, int], Dict[str, float]]:
     """Build eager-impact CSR postings from per-document token lists.
 
@@ -324,7 +324,7 @@ def build_index(
     streaming_align: int = 8192,
     streaming_threshold: int = 1 << 19,
     quantize_dense=False,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = "cuda",
 ) -> ArrayIndex:
     """Build the hybrid array index on ``device``.
 

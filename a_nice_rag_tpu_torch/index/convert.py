@@ -28,7 +28,7 @@ def _uploader(device: DeviceLike):
     return t
 
 
-def from_reference_ivf(ref_ivf, device: DeviceLike = "cpu") -> IVFDense:
+def from_reference_ivf(ref_ivf, device: DeviceLike = "cuda") -> IVFDense:
     """The port's IVFDense holding the same arrays and layout as
     ``ref_ivf`` (a JAX-package IVFDense), on ``device``."""
     t = _uploader(device)
@@ -42,7 +42,8 @@ def from_reference_ivf(ref_ivf, device: DeviceLike = "cpu") -> IVFDense:
     )
 
 
-def from_reference_index(ref_index, device: DeviceLike = "cpu") -> ArrayIndex:
+def from_reference_index(ref_index,
+                         device: DeviceLike = "cuda") -> ArrayIndex:
     """The port's ArrayIndex holding the same arrays as ``ref_index`` (a
     JAX-package ArrayIndex), IVF structures included, on ``device``."""
     t = _uploader(device)

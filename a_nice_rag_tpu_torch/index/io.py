@@ -97,7 +97,7 @@ def save_index(index: ArrayIndex, path: str) -> None:
 
 
 def load_index(
-    path: str, emb_dtype: str = "float32", device: DeviceLike = "cpu"
+    path: str, emb_dtype: str = "float32", device: DeviceLike = "cuda"
 ) -> ArrayIndex:
     """Load an index artifact, IVF structures included, onto ``device``."""
     from a_nice_rag_tpu_torch.index.ivf import load_ivf  # imports this module

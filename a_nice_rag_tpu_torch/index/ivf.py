@@ -92,7 +92,7 @@ def save_ivf(ivf: IVFDense, path: str) -> None:
     np.savez(path, **arrs)
 
 
-def load_ivf(path: str, device: DeviceLike = "cpu") -> IVFDense:
+def load_ivf(path: str, device: DeviceLike = "cuda") -> IVFDense:
     dev = resolve_device(device)
     with np.load(path) as z:
         layout = [int(v) for v in z["layout"]]

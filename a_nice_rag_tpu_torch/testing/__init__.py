@@ -1,3 +1,11 @@
-"""Measurement helpers for the port."""
+"""Measurement helpers and synthetic data for the port."""
 
-from a_nice_rag_tpu_torch.testing.timing import cuda_event_ms  # noqa: F401
+from a_nice_rag_tpu_torch.testing.synth import (  # noqa: F401
+    SynthCorpus,
+    synth_corpus,
+)
+from a_nice_rag_tpu_torch.testing.timing import (  # noqa: F401
+    chained_ms,
+    cuda_event_ms,
+    device_loop_ms,
+)

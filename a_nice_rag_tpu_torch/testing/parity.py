@@ -1,4 +1,5 @@
-"""Tie-aware comparison of two top-k results.
+"""Tie-aware comparison of two top-k results, and the stream sums'
+checks against their plain versions.
 
 Two correct top-k implementations agree on ids exactly except where
 scores tie: exactly (the order among equal scores is the caller's tie
@@ -9,6 +10,9 @@ accepts a differing id only where that holds and counts such swaps.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from a_nice_rag_tpu_torch.ops.kernels import stream
 
 
 def _host(x) -> np.ndarray:
@@ -57,3 +61,40 @@ def check_top_k(ref_vals, ref_ids, vals, ids, atol: float) -> int:
                 f"whose scores differ by {gap} (atol {atol})"
             )
     return swaps
+
+
+# Stream sums: float32 partial sums in another order than the plain
+# version's float64 sum, relative to the sum of absolute values.
+STREAM_RTOL = 1e-5
+
+
+def check_stream_sum(parts, bias=None, **launch) -> float:
+    """``stream_sum(parts, bias, **launch)`` against its plain version
+    within ``STREAM_RTOL`` of the sum of absolute values (the bias's
+    included). Returns the absolute difference."""
+    got = float(stream.stream_sum(parts, bias, **launch))
+    ref = float(stream.stream_sum_torch(parts, bias))
+    tol = STREAM_RTOL * (stream.abs_total(parts)
+                         + (0.0 if bias is None else abs(float(bias))))
+    if not abs(got - ref) <= tol:
+        raise AssertionError(f"stream_sum {got} differs from its plain "
+                             f"version {ref} (tolerance {tol}, {launch})")
+    return abs(got - ref)
+
+
+def check_stream_sum_busy(emb, seed, x_iters: int, grid: int,
+                          tile_rows: int) -> float:
+    """``stream_sum_busy`` against its plain version: every chain bit for
+    bit, the sum within ``STREAM_RTOL``. Returns the sum's difference."""
+    out, work = stream.stream_sum_busy(emb, seed, x_iters, grid, tile_rows)
+    ref_out, ref_work = stream.stream_sum_busy_torch(emb, seed, x_iters,
+                                                     grid, tile_rows)
+    if not torch.equal(work, ref_work):
+        raise AssertionError(f"stream_sum_busy: a chain differs from the "
+                             f"host's (X={x_iters})")
+    err = abs(float(out) - float(ref_out))
+    tol = STREAM_RTOL * (stream.abs_total(emb) + abs(float(seed)))
+    if not err <= tol:
+        raise AssertionError(f"stream_sum_busy: sum off by {err} (X="
+                             f"{x_iters}, tolerance {tol})")
+    return err

@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from csrc/ with nvcc (one nvcc per source,
 started together), holds each against its plain PyTorch version, then
 drives the port's main path, ``FusedRetriever.retrieve_device``, at the
-corpus sizes the repository was built for at scale:
+corpus sizes the repository was built for at scale, and the paths of the
+port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
 
   0. device check, card name and power limit, kernel build;
   1. K1 (fused_dense_top_k) against its plain version: f32 and bf16 rows,
@@ -28,7 +29,19 @@ corpus sizes the repository was built for at scale:
      the IVF/exact crossover record for B in {8, 16, 32, 64};
   7. stage C: 10.5M x 1024 int8 dense-only (bench.py's int8 configuration);
   8. stage E: stage C's matrix with a cluster-major IVF: micro-batches of
-     B = 8 through K4, B = 256 through K2.
+     B = 8 through K4, B = 256 through K2;
+  9. the stream kernels (stream_sum, stream_sum_busy) against their plain
+     versions: f32, bf16 and int8; 1, 2 and 8 parts; bias set and unset;
+     a ragged row count, one row, and views that start mid-vector; an
+     int8 case whose partial sums stay below 2^24, which must be exact;
+     the busy kernel's per-CTA chains bit for bit;
+ 10. stage F: the bench's headline stage at full width (9,728 x 2048 f32,
+     BM25 from tokens, B = 2048) through bench.headline_stage, with its
+     recall guards and route parity (both routes are torch there: 9,728
+     docs are below the kernel threshold);
+ 11. floor lines for stages A and C: bench.stream_floor (stream_sum) over
+     the matrices those stages hold, against their retrieve_device time;
+ 12. the overlap probe (probes.dma_overlap) at X in {0, 8, 64}.
 
 Stages A-C also print the retrieve_device time of one call (CUDA
 events, median of 10). Each kernel, its plain version and a one-call
@@ -39,24 +52,24 @@ operations over the peak rate of their type) is computed from the run's
 inputs. Prints one JSON object per phase or timing line, the kernels
 line, and, as the last line, {"ok": true, "device": {...}}. Any failed
 check raises, so the exit code is nonzero and no result line is printed.
-All data is made on the device from seeded torch.Generator streams.
+All data is made on the device from seeded torch.Generator streams,
+except stage F's corpus, which is the bench's numpy synth_corpus.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
 MODEL = "voyage-3-large"
 K1_SOURCE = "a_nice_rag_tpu_torch/csrc/fused_topk.cu"
 K3_SOURCE = "a_nice_rag_tpu_torch/csrc/ivf_topk.cu"
+STREAM_SOURCE = "a_nice_rag_tpu_torch/csrc/stream_sum.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -66,6 +79,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                         "a_nice_rag_tpu/ops/pallas/ivf_topk.py:143"),
     "ivf_dense_top_k_int8": (K3_SOURCE,
                              "a_nice_rag_tpu/ops/pallas/ivf_topk.py:174"),
+    # P1 (and P2: scripts/probe_hbm_stream.py:67, :119, :168, :224).
+    "stream_sum": (STREAM_SOURCE, "bench.py:226"),
+    "stream_sum_busy": (STREAM_SOURCE, "scripts/probe_dma_overlap.py:74"),
 }
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
@@ -83,14 +99,6 @@ def log(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 class Smoke:
     # Sizes of the phases (bench.py's configurations for stages A-E).
     N_KERNEL, D_KERNEL = (1 << 20) + 37, 256
@@ -105,11 +113,19 @@ class Smoke:
     CROSS_B = (8, 16, 32, 64)
     # Stage E: identity-permuted IVF over stage C, nprobe 8, k 25.
     TILE_E, NPROBE_E, K_E, BATCHES_E = 2048, 8, 25, 32
+    # Stream cases: rows x columns of each part (no multiple of any
+    # block), the int8 exact case, the busy kernel's chains and the
+    # overlap probe's X.
+    STREAM_ROWS, STREAM_D, EXACT_ROWS = 100_003, 64, 1 << 20
+    BUSY_X, OVERLAP_X = (0, 3), (0, 8, 64)
+    # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
+    HEADLINE = {}
 
     def __init__(self, port):
         self.p = port
         self.dev = port.require_cuda()
-        self.card = card_line()
+        self.b = port.bench  # data recipes and route checks shared with it
+        self.card = self.b.card_line()
         self.gen = torch.Generator(device=self.dev)
         self.max_err = {name: 0.0 for name in KERNELS}
         self.swaps = {name: 0 for name in KERNELS}
@@ -117,14 +133,18 @@ class Smoke:
         self.times = {}
         self.library = {}
         self.bounds = {}
+        self.retrieve_ms = {}
+        self.t0 = time.perf_counter()
+        self.timer = port.bench.Timer(
+            device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
+                                                        trials=1),
+            host_ms=lambda fn, n: port.chained_ms(fn, n=n, trials=1),
+        )
 
     # -- helpers ----------------------------------------------------------
 
     def seed(self, s: int) -> torch.Generator:
         return self.gen.manual_seed(s)
-
-    def unit(self, x: torch.Tensor) -> torch.Tensor:
-        return x * torch.rsqrt((x * x).sum(dim=1, keepdim=True) + 1e-12)
 
     def compare(self, name, ref, got, atol) -> None:
         (rv, ri), (v, i) = ref, got
@@ -167,9 +187,6 @@ class Smoke:
         self.bounds[name] = (max(t_bytes, t_ops),
                              "bytes" if t_bytes >= t_ops else "operations")
 
-    def recall10(self, ids, gold) -> float:
-        return float((ids[:, :10] == gold[:, None]).any(dim=1).float().mean())
-
     # -- phases -----------------------------------------------------------
 
     def phase0_build(self) -> None:
@@ -190,11 +207,11 @@ class Smoke:
 
     def kernel_cases(self, n, d, dtype):
         g = self.seed(101)
-        emb = self.unit(torch.randn((n, d), generator=g, device=self.dev))
+        emb = self.b.unit(torch.randn((n, d), generator=g, device=self.dev))
         # Exact ties across doc splits: the first rows again further on.
         for start in (n // 3, n // 2, n - 300):
             emb[start:start + 256] = emb[:256]
-        q = self.unit(torch.randn((self.B, d), generator=g, device=self.dev))
+        q = self.b.unit(torch.randn((self.B, d), generator=g, device=self.dev))
         half = torch.rand(n, generator=g, device=self.dev) < 0.5
         few = torch.zeros(n, dtype=torch.bool, device=self.dev)
         few[torch.randint(0, n, (5,), generator=g, device=self.dev)] = True
@@ -320,82 +337,15 @@ class Smoke:
             tie_swaps_k3=self.swaps["ivf_dense_top_k"],
             max_abs_err_k4=self.max_err["ivf_dense_top_k_int8"])
 
-    def planted_bm25(self, g, n, gold, v):
-        """CSR postings of v terms x DF docs; term j * T + t of query j
-        (t < T) holds that query's gold doc, so BM25 finds it."""
-        p = self.p
-        b, t, df = gold.shape[0], self.T, self.DF
-        doc_mat = torch.randint(0, n, (v, df), generator=g, device=self.dev,
-                                dtype=torch.int32)
-        doc_mat[: b * t, 0] = gold.to(torch.int32).repeat_interleave(t)
-        doc_mat = doc_mat.sort(dim=1).values
-        impact = torch.rand((v, df), generator=g, device=self.dev) + 0.5
-        bm25 = p.Bm25Arrays(
-            indptr=torch.arange(v + 1, device=self.dev, dtype=torch.int32) * df,
-            doc_ids=torch.cat([doc_mat.reshape(-1),
-                               torch.tensor([n], device=self.dev,
-                                            dtype=torch.int32)]),
-            impact=torch.cat([impact.reshape(-1),
-                              torch.zeros(1, device=self.dev)]),
-            n_docs_padded=n,
-        )
-        terms = torch.arange(b * t, device=self.dev,
-                             dtype=torch.int32).reshape(b, t)
-        return bm25, terms
-
     def stage_a_index(self):
         """bench.py's 2M configuration, built on the device."""
-        n, d, b = self.N_A, self.D_A, self.B
-        g = self.seed(11)
-        emb = self.unit(torch.randn((n, d), generator=g, device=self.dev))
-        emb = emb.to(torch.bfloat16)
-        gold = torch.randint(0, n, (b,), generator=g, device=self.dev)
-        q = emb[gold].float()
-        # cos(q, gold) ~ 1/sqrt(1 + 0.1^2 * 256) ~ 0.53: planted, not trivial.
-        q = self.unit(q + 0.10 * torch.randn(q.shape, generator=g,
-                                             device=self.dev))
-        bm25, terms = self.planted_bm25(g, n, gold, self.V)
-        return emb, gold, q, bm25, terms
+        return self.b.scale_2m_data(self.b.Scale2MConfig(
+            n=self.N_A, dim=self.D_A, batch=self.B, t=self.T, vocab=self.V,
+            df=self.DF), self.dev)
 
     def make_index(self, emb, bm25, n, sources=()):
-        p = self.p
-        meta = p.CorpusMeta(ids=[], sources=list(sources), contents=[],
-                            urls=[], n_docs=n, n_docs_padded=n)
-        return p.ArrayIndex(
-            meta=meta, dense={MODEL: emb}, bm25=bm25, vocab=None,
-            bm25_stats={"max_df": self.DF}, bm25_doc_mask=np.ones(n, dtype=bool),
-        )
-
-    def exact_dense(self, emb, q, ids):
-        rows = emb[ids.clamp(min=0).long()].double()  # [B, k, D]
-        s = torch.einsum("bkd,bd->bk", rows, q.double())
-        return torch.where(ids >= 0, s, float("-inf"))
-
-    def exact_bm25(self, bm25, terms, ids):
-        df = self.DF
-        starts = bm25.indptr[terms.clamp(min=0).long()].long()  # [B, T]
-        pos = starts[:, :, None] + torch.arange(df, device=self.dev)
-        live = (terms >= 0)[:, :, None].expand_as(pos)
-        docs = bm25.doc_ids[pos].reshape(terms.shape[0], -1)
-        imp = torch.where(live, bm25.impact[pos], 0.0).reshape(docs.shape)
-        hit = docs[:, None, :] == ids[:, :, None]
-        s = (hit.double() * imp[:, None, :].double()).sum(dim=-1)
-        return torch.where(ids >= 0, s, float("-inf"))
-
-    def compare_routes(self, got, ref, exact_fns, atols) -> int:
-        """Per-list ids of the kernel route against the torch route, up to
-        swaps between exact scores within the tolerance; then the fused
-        ids, exactly when no list swapped."""
-        (fids, fvals, lists), (rfids, rfvals, rlists) = got, ref
-        swaps = 0
-        for li, (fn, atol) in enumerate(zip(exact_fns, atols)):
-            swaps += self.p.check_top_k(fn(rlists[li]), rlists[li],
-                                        fn(lists[li]), lists[li], atol)
-        equal = torch.equal(fids, rfids)
-        if swaps == 0 and not equal:
-            raise AssertionError("fused ids differ from the torch route")
-        self.p.check_top_k(rfvals, rfids, fvals, fids, 1e-6)
-        return {"list_swaps": swaps, "fused_ids_equal_torch_route": equal}
+        return self.b.array_index(n, dense={MODEL: emb}, bm25=bm25,
+                                  df=self.DF, sources=sources)
 
     def phase4_stage_a(self):
         p = self.p
@@ -415,7 +365,7 @@ class Smoke:
                       {MODEL: 0.0, "BM25": 1.0})
         ])
         self.expect("stage A", counts, fused_dense_top_k=3)
-        r_h, r_d, r_b = (self.recall10(r[0], gold) for r in runs)
+        r_h, r_d, r_b = (self.b.recall_at_10(r[0], gold) for r in runs)
         assert r_h >= 0.99, f"2M hybrid recall@10 {r_h} below 0.99"
         assert r_d >= 0.95 and r_b >= 0.95, (r_d, r_b)
 
@@ -423,17 +373,18 @@ class Smoke:
                                     dense_backend="torch", **kw)
         assert not ref_retr.use_kernel
         ref = ref_retr.retrieve_device(qd, terms, w_h, None, 40.0)
-        routes = self.compare_routes(
+        routes = self.b.assert_route_parity(
             runs[0], ref,
-            [lambda ids: self.exact_dense(emb, q, ids),
-             lambda ids: self.exact_bm25(bm25, terms, ids)],
+            [lambda ids: self.b.exact_dense(emb, q, ids),
+             lambda ids: self.b.exact_bm25_uniform(bm25, terms, self.DF,
+                                                   ids)],
             [F32_ATOL, BM25_ATOL],
         )
+        self.retrieve_ms["A"] = p.cuda_event_ms(
+            lambda: retr.retrieve_device(qd, terms, w_h, None, 40.0))
         log(stage="A_2M_hybrid", recall10_hybrid=r_h, recall10_dense=r_d,
             recall10_bm25=r_b, k1_launches=counts["fused_dense_top_k"],
-            retrieve_ms=p.cuda_event_ms(
-                lambda: retr.retrieve_device(qd, terms, w_h, None, 40.0)),
-            **routes)
+            retrieve_ms=self.retrieve_ms["A"], **routes)
         del ref, ref_retr, runs
         return emb, q, bm25, terms
 
@@ -474,10 +425,11 @@ class Smoke:
         ref_retr = p.FusedRetriever(index, (MODEL,), use_bm25=True,
                                     dense_backend="torch", **kw)
         ref = ref_retr.retrieve_device(qd, terms_b, w, "CG", 40.0)
-        routes = self.compare_routes(
+        routes = self.b.assert_route_parity(
             out, ref,
-            [lambda ids: self.exact_dense(emb, q, ids),
-             lambda ids: self.exact_bm25(bm25, terms_b, ids)],
+            [lambda ids: self.b.exact_dense(emb, q, ids),
+             lambda ids: self.b.exact_bm25_uniform(bm25, terms_b, self.DF,
+                                                   ids)],
             [F32_ATOL, BM25_ATOL],
         )
         log(stage="B_2M_filtered_two_tier",
@@ -513,17 +465,18 @@ class Smoke:
         (gold + 0.05 noise) with planted BM25 terms."""
         n, d, c = self.N_D, self.D_D, self.CENTRES_D
         g = self.seed(41)
-        cent = self.unit(torch.randn((c, d), generator=g, device=self.dev))
+        cent = self.b.unit(torch.randn((c, d), generator=g, device=self.dev))
         which = torch.randint(0, c, (n,), generator=g, device=self.dev)
-        emb = self.unit(cent[which] + 0.08 * torch.randn(
+        emb = self.b.unit(cent[which] + 0.08 * torch.randn(
             (n, d), generator=g, device=self.dev)).to(torch.bfloat16)
         del cent, which
         n_q = self.BATCHES_D * self.B_MICRO
         gold = torch.randint(0, n, (n_q,), generator=g, device=self.dev)
         q = emb[gold].float()
-        q = self.unit(q + 0.05 * torch.randn(q.shape, generator=g,
+        q = self.b.unit(q + 0.05 * torch.randn(q.shape, generator=g,
                                              device=self.dev))
-        bm25, terms = self.planted_bm25(g, n, gold, self.V_D)
+        bm25, terms = self.b.planted_bm25(g, n, gold, self.V_D, self.T,
+                                          self.DF)
         return emb, gold, q, bm25, terms
 
     def phase6_stage_d(self):
@@ -561,8 +514,8 @@ class Smoke:
                     fused_dense_top_k=0)
         dense = torch.cat([r[2][0] for r in runs])
         fused = torch.cat([r[0] for r in runs])
-        r_dense, r_fused = self.recall10(dense, gold), self.recall10(fused,
-                                                                     gold)
+        r_dense = self.b.recall_at_10(dense, gold)
+        r_fused = self.b.recall_at_10(fused, gold)
         assert r_dense >= 0.90, f"2M IVF recall@10 {r_dense} below 0.90"
 
         wide, c_wide = self.main_path(lambda: call(retr, 0, self.B))
@@ -583,14 +536,15 @@ class Smoke:
                     fused_dense_top_k=0)
         ref = call(exact, 0, bm)
         qb = q[:bm]
-        swaps = p.check_top_k(self.exact_dense(emb, qb, ref[2][0]), ref[2][0],
-                              self.exact_dense(emb, qb, got[2][0]),
+        swaps = p.check_top_k(self.b.exact_dense(emb, qb, ref[2][0]),
+                              ref[2][0],
+                              self.b.exact_dense(emb, qb, got[2][0]),
                               got[2][0], FULL_PROBE_ATOL)
         log(stage="D_2M_ivf", recall10_dense_b8=r_dense,
             recall10_fused_b8=r_fused, calls_b8=nb,
             k3_launches_b8=counts["ivf_dense_top_k"],
             k1_launches_b8=counts["fused_dense_top_k"],
-            recall10_dense_b256=self.recall10(wide[2][0], gold[:self.B]),
+            recall10_dense_b256=self.b.recall_at_10(wide[2][0], gold[:self.B]),
             k1_launches_b256=c_wide["fused_dense_top_k"],
             k1_launches_filtered=c_filt["fused_dense_top_k"],
             full_probe_list_swaps_vs_exact=swaps)
@@ -694,30 +648,13 @@ class Smoke:
         """bench.py's int8 configuration: 4096 cluster centres, doc noise
         0.042, quantized chunk by chunk so the 43 GB f32 matrix never
         exists. Rows are cluster-major: row r belongs to centre r // per."""
-        n, d, b, c = self.N_C, self.D_C, self.B, self.CLUSTERS
-        per, chunks = n // c, self.CHUNKS
-        chunk = n // chunks
-        g = self.seed(23)
-        cent = self.unit(torch.randn((c, d), generator=g, device=self.dev))
-        values = torch.empty((n, d), dtype=torch.int8, device=self.dev)
-        scales = torch.empty((n,), dtype=torch.float32, device=self.dev)
-        for i in range(chunks):
-            rows = i * chunk + torch.arange(chunk, device=self.dev)
-            e = cent[rows // per] + 0.042 * torch.randn(
-                (chunk, d), generator=g, device=self.dev)
-            qd = self.p.quantize_embeddings(e)
-            values[i * chunk:(i + 1) * chunk] = qd.values
-            scales[i * chunk:(i + 1) * chunk] = qd.scales
-            del e, qd
-        gold = torch.randint(0, n, (b,), generator=g, device=self.dev)
-        q = self.planted_int8_queries(values, scales, gold, g)
+        values, scales, cent, g = self.b.int8_corpus(self.b.Int8Config(
+            n=self.N_C, dim=self.D_C, clusters=self.CLUSTERS,
+            chunks=self.CHUNKS), self.dev)
+        gold = torch.randint(0, self.N_C, (self.B,), generator=g,
+                             device=self.dev)
+        q = self.b.planted_int8_queries(values, scales, gold, g)
         return values, scales, gold, q, cent
-
-    def planted_int8_queries(self, values, scales, gold, g):
-        gq = self.unit(values[gold].float() * scales[gold][:, None])
-        # cos(q, gold) ~ 0.78.
-        return self.unit(gq + 0.025 * torch.randn(gq.shape, generator=g,
-                                                  device=self.dev))
 
     def phase7_stage_c(self):
         p = self.p
@@ -736,7 +673,7 @@ class Smoke:
             lambda: retr.retrieve_device({MODEL: q}, None, {MODEL: 1.0},
                                          None, 40.0))
         self.expect("stage C", counts, fused_dense_top_k_int8=1)
-        r10 = self.recall10(fids, gold)
+        r10 = self.b.recall_at_10(fids, gold)
         assert r10 >= 0.95, f"10.5M int8 recall@10 {r10} below 0.95"
         qv, qs = p.quantize_queries(q[:8])
         ref = p.kernels.fused_dense_top_k_int8_torch(values, scales, qv, qs, 25)
@@ -744,11 +681,12 @@ class Smoke:
             raise AssertionError("stage C ids differ from the plain version")
         got8 = p.kernels.fused_dense_top_k_int8(values, scales, qv, qs, 25)
         self.compare("fused_dense_top_k_int8", ref, got8, 0.0)
+        self.retrieve_ms["C"] = p.cuda_event_ms(lambda: retr.retrieve_device(
+            {MODEL: q}, None, {MODEL: 1.0}, None, 40.0))
         log(stage="C_10.5M_int8", recall10=r10,
             k2_launches=counts["fused_dense_top_k_int8"],
             ids_equal_plain_8_queries=True,
-            retrieve_ms=p.cuda_event_ms(lambda: retr.retrieve_device(
-                {MODEL: q}, None, {MODEL: 1.0}, None, 40.0)))
+            retrieve_ms=self.retrieve_ms["C"])
         return index, q, cent
 
     def phase8_stage_e(self, index, cent):
@@ -776,14 +714,14 @@ class Smoke:
         g = self.seed(29)
         bm, nb = self.B_MICRO, self.BATCHES_E
         gold = torch.randint(0, n, (nb * bm,), generator=g, device=self.dev)
-        q = self.planted_int8_queries(qd.values, qd.scales, gold, g)
+        q = self.b.planted_int8_queries(qd.values, qd.scales, gold, g)
         w = {MODEL: 1.0}
         runs, counts = self.main_path(lambda: [
             retr.retrieve_device({MODEL: q[i * bm:(i + 1) * bm]}, None, w,
                                  None, 40.0) for i in range(nb)])
         self.expect("stage E, B=8", counts, ivf_dense_top_k_int8=nb,
                     fused_dense_top_k_int8=0)
-        r10 = self.recall10(torch.cat([r[0] for r in runs]), gold)
+        r10 = self.b.recall_at_10(torch.cat([r[0] for r in runs]), gold)
         assert r10 >= 0.95, f"10.5M int8 IVF recall@10 {r10} below 0.95"
         # All BATCHES_E x B_MICRO = 256 queries at once.
         _, c_wide = self.main_path(lambda: retr.retrieve_device(
@@ -913,6 +851,137 @@ class Smoke:
         log(timing=name + "_library", what=what, ms=min(runs), ms_runs=runs,
             card=self.card)
 
+    # -- the bench's paths: stream kernels, stage F, floors, overlap -------
+
+    def stream_parts(self, g, dtype, m, rows, cols):
+        if dtype == torch.int8:
+            return [torch.randint(-127, 128, (rows, cols), generator=g,
+                                  device=self.dev, dtype=torch.int8)
+                    for _ in range(m)]
+        return [torch.randn((rows, cols), generator=g,
+                            device=self.dev).to(dtype) for _ in range(m)]
+
+    def check_stream(self, parts, bias=None) -> None:
+        err = self.p.check_stream_sum(parts, bias)
+        self.max_err["stream_sum"] = max(self.max_err["stream_sum"], err)
+
+    def phase9_stream_kernels(self) -> None:
+        """stream_sum and stream_sum_busy against their plain versions."""
+        k = self.p.kernels
+        g = self.seed(61)
+        rows, d = self.STREAM_ROWS, self.STREAM_D
+        bias = torch.tensor([3.25], device=self.dev)
+        cases = 0
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            for m in (1, 2, 8):
+                parts = self.stream_parts(g, dtype, m, rows, d)
+                for b in (None, bias):
+                    self.check_stream(parts, b)
+                    cases += 1
+            self.check_stream(self.stream_parts(g, dtype, 1, 1, 7), bias)
+            flat = parts[0].reshape(-1)
+            for start in (1, 3):  # views that start mid-vector
+                assert flat[start:].data_ptr() % 16 != 0
+                self.check_stream(flat[start:])
+            cases += 3
+        # Every partial sum below 2^24: float32 holds it exactly, so a
+        # dropped or doubled tile would show.
+        x = torch.randint(0, 2, (self.EXACT_ROWS, 15), generator=g,
+                          device=self.dev, dtype=torch.int8)
+        want = int(x.sum(dtype=torch.int64))
+        assert want < 2 ** 24
+        if float(k.stream_sum(x)) != float(want):
+            raise AssertionError("the int8 exact case is not exact")
+        grid = self.p.sm_grid(self.dev)
+        seed = torch.tensor(0.5, device=self.dev)
+        for dtype in (torch.float32, torch.bfloat16, torch.int8):
+            (emb,) = self.stream_parts(g, dtype, 1, rows, d)
+            for xi in self.BUSY_X:
+                err = self.p.check_stream_sum_busy(emb, seed, xi, grid, 16)
+                self.max_err["stream_sum_busy"] = max(
+                    self.max_err["stream_sum_busy"], err)
+        log(phase="stream_vs_plain", cases=cases, int8_exact=True,
+            busy_cases=3 * len(self.BUSY_X), busy_chains_bit_equal=True,
+            ok=True, max_abs_err=self.max_err["stream_sum"],
+            max_abs_err_busy=self.max_err["stream_sum_busy"])
+
+    def phase10_stage_f(self) -> None:
+        """The bench's headline stage at full width, through its own
+        function: recall guards and route parity inside."""
+        b = self.p.bench
+        cfg = b.HeadlineConfig(**self.HEADLINE)
+        out, counts = self.main_path(
+            lambda: b.headline_stage(self.dev, 1, self.timer, cfg))
+        # 9,728 docs are below the kernel threshold: both routes are torch.
+        self.expect("stage F", counts, fused_dense_top_k=0)
+        assert not out["kernel_route_headline"]
+        log(stage="F_headline", card=self.card,
+            **{key: v for key, v in out.items() if not key.endswith("_runs")})
+
+    def phase11_floor(self, stage, mat) -> None:
+        """The bench's stream floor over a stage's matrix, against the
+        stage's retrieve_device time, beside the library's sum."""
+        out, counts = self.main_path(
+            lambda: self.p.bench.stream_floor(mat, self.timer, repeats=2))
+        if counts["stream_sum"] < 1:
+            raise AssertionError("the floor never launched stream_sum")
+        lib = self.p.cuda_event_ms(lambda: torch.sum(mat, dtype=torch.float32))
+        n, d = mat.shape
+        log(floor=stage, shape=f"{n} x {d} {str(mat.dtype)[6:]}",
+            stream_ms=out["stream_ms"],
+            stream_ms_runs=[out["stream_ms_runs"]["min"],
+                            out["stream_ms_runs"]["max"]],
+            gb_s=out["stream_gb_s"], retrieve_ms=self.retrieve_ms[stage],
+            pct_of_floor=out["stream_ms"] / self.retrieve_ms[stage],
+            library_sum_ms=lib, library="torch.sum(x, dtype=torch.float32)",
+            stream_sum_launches=counts["stream_sum"], card=self.card)
+
+    def phase12_overlap(self, emb) -> None:
+        """The overlap probe on stage A's matrix: ms against X."""
+        grid = self.p.sm_grid(self.dev)
+        lines, counts = self.main_path(lambda: self.p.dma_overlap.run(
+            emb, self.timer.device_ms, grid, xs=self.OVERLAP_X, n_loop=10))
+        if counts["stream_sum_busy"] < 1:
+            raise AssertionError("the probe never launched stream_sum_busy")
+        n, d = emb.shape
+        log(probe="dma_overlap", shape=f"{n} x {d} bf16, tiles of "
+            f"{lines[0]['tile_rows']} rows, grid {grid}",
+            x_iters=[r["x_iters"] for r in lines],
+            ms=[r["ms"] for r in lines],
+            added_ms=[r["added_ms"] for r in lines],
+            ns_per_step_per_cta=[r["ns_per_step_per_cta"] for r in lines],
+            stream_gb_s=[r["stream_gb_s"] for r in lines],
+            chains_bit_equal=True, card=self.card)
+
+    def time_stream(self, emb) -> None:
+        """stream_sum and stream_sum_busy (X = 8) at stage A's matrix:
+        kernel, plain version, yardstick, bound."""
+        k = self.p.kernels
+        n, d = emb.shape
+        self.time_pair("stream_sum", lambda: k.stream_sum(emb),
+                       lambda: k.stream_sum_torch(emb),
+                       f"{n} x {d} bf16 (stage A's matrix)")
+        self.time_library("stream_sum",
+                          lambda: torch.sum(emb, dtype=torch.float32),
+                          "torch.sum(x, dtype=torch.float32)")
+        self.bound("stream_sum", n * d * 2 + 4, n * d, F32_FLOP_S)
+        grid, xi, tile_rows = self.p.sm_grid(self.dev), 8, 16
+        seed = torch.zeros((), device=self.dev)
+        self.time_pair(
+            "stream_sum_busy",
+            lambda: k.stream_sum_busy(emb, seed, xi, grid, tile_rows),
+            lambda: k.stream_sum_busy_torch(emb, seed, xi, grid, tile_rows),
+            f"{n} x {d} bf16, X={xi}, tiles of {tile_rows} rows, "
+            f"grid {grid}")
+        self.library["stream_sum_busy"] = None
+        log(timing="stream_sum_busy_library", ms=None,
+            what="none: no PyTorch call computes the per-CTA chains")
+        tiles = -(-n // tile_rows)
+        # Each tile: n*d/tiles adds; every thread of its CTA: X chain steps
+        # of a multiply and an add.
+        self.bound("stream_sum_busy", n * d * 2 + 4 + grid * 4,
+                   n * d + 2 * xi * tiles * 256, F32_FLOP_S)
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -935,18 +1004,27 @@ class Smoke:
         self.phase1_k1()
         self.phase2_k2()
         self.phase3_ivf_kernels()
+        self.phase9_stream_kernels()
+        torch.cuda.empty_cache()
+        self.phase10_stage_f()
         torch.cuda.empty_cache()
         emb, q, bm25, terms = self.phase4_stage_a()
         self.phase5_stage_b(emb, q, bm25, terms)
         self.time_k1(emb, q)
+        self.phase11_floor("A", emb)
+        self.phase12_overlap(emb)
+        self.time_stream(emb)
         del emb, q, bm25, terms
         torch.cuda.empty_cache()
         self.phase6_stage_d()
         torch.cuda.empty_cache()
         index, q, cent = self.phase7_stage_c()
         qd = index.dense_q[MODEL]
+        self.phase11_floor("C", qd.values)
+        torch.cuda.empty_cache()
         self.phase8_stage_e(index, cent)
         self.time_k2(qd.values, qd.scales, q)
+        log(phase="done", seconds=time.perf_counter() - self.t0)
         self.kernels_line()
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -957,7 +1035,7 @@ class _Port:
     """The port's entry points, imported only after the checks above."""
 
     def __init__(self):
-        from a_nice_rag_tpu_torch import require_cuda
+        from a_nice_rag_tpu_torch import bench, require_cuda
         from a_nice_rag_tpu_torch.index.array_index import (
             ArrayIndex,
             CorpusMeta,
@@ -971,6 +1049,8 @@ class _Port:
         from a_nice_rag_tpu_torch.ops import kernels
         from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
+        from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
+        from a_nice_rag_tpu_torch.probes import dma_overlap
         from a_nice_rag_tpu_torch.ops.quantized import (
             QuantizedDense,
             quantize_embeddings,
@@ -978,10 +1058,23 @@ class _Port:
         )
         from a_nice_rag_tpu_torch.retrieval import FusedRetriever
         from a_nice_rag_tpu_torch.retrieval.engine import _ivf_coverage
-        from a_nice_rag_tpu_torch.testing import cuda_event_ms
-        from a_nice_rag_tpu_torch.testing.parity import check_top_k
+        from a_nice_rag_tpu_torch.testing import (
+            chained_ms,
+            cuda_event_ms,
+            device_loop_ms,
+        )
+        from a_nice_rag_tpu_torch.testing.parity import (
+            check_stream_sum,
+            check_stream_sum_busy,
+            check_top_k,
+        )
 
         self.require_cuda = require_cuda
+        self.bench, self.dma_overlap = bench, dma_overlap
+        self.sm_grid = sm_grid
+        self.check_stream_sum = check_stream_sum
+        self.check_stream_sum_busy = check_stream_sum_busy
+        self.device_loop_ms, self.chained_ms = device_loop_ms, chained_ms
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf
         self.build_tile_table = build_tile_table

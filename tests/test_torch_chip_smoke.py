@@ -3,10 +3,11 @@
 The smoke run itself needs a GPU. Here its phases run on CPU tensors,
 where the kernel wrappers take their plain versions, with four fakes:
 each plain-version call through a wrapper counts as a launch, the
-retriever's route to the kernels is forced, CUDA synchronisation is a
-no-op, and the CUDA-event timer is a host clock. The tiny stage D and E
-sizes keep the IVF coverage rule's routes (IVF at B = 8, exact at
-B = 256). This keeps the script's control flow, shapes and checks working
+retriever's route to the kernels is forced at the stages' sizes (stage
+F's reference-scale corpus stays below it, as on the card), CUDA
+synchronisation is a no-op, and the CUDA timers are a host clock. The
+tiny stage D and E sizes keep the IVF coverage rule's routes (IVF at
+B = 8, exact at B = 256). This keeps the script's control flow, shapes and checks working
 between chip runs; what it says about the kernels themselves comes only
 from the card.
 """
@@ -20,6 +21,7 @@ import torch
 import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
 from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
+from a_nice_rag_tpu_torch.ops.kernels import stream as st
 
 
 class TinySmoke(chip_smoke.Smoke):
@@ -33,6 +35,9 @@ class TinySmoke(chip_smoke.Smoke):
         16384, 32, 128, 128, 4, 16, 8192)
     BATCHES_D = 64
     TILE_E, NPROBE_E, K_E, BATCHES_E = 16, 8, 25, 32
+    STREAM_ROWS, STREAM_D, EXACT_ROWS = 1003, 16, 4096
+    HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
+                    single_iters=2, p50_samples=3, recall_queries=64)
 
 
 def _host_ms(fn, n=3, warmup=1):
@@ -50,9 +55,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu, n/a")
     for mod, name in ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
-                      (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8")):
+                      (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8"),
+                      (st, "stream_sum"), (st, "stream_sum_busy")):
         wrapper, plain = getattr(mod, name), getattr(mod, name + "_torch")
         # Restored at teardown, so no other test sees these launches.
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
@@ -63,12 +68,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
 
         monkeypatch.setattr(mod, name + "_torch", counted)
     port = chip_smoke._Port()
+    monkeypatch.setattr(port.bench, "card_line", lambda: "cpu, n/a")
     port.require_cuda = lambda: torch.device("cpu")
     port.cuda_event_ms = _host_ms
+    port.device_loop_ms = lambda fn, n_loop, trials: _host_ms(fn, n_loop)
+    port.chained_ms = lambda fn, n, trials: _host_ms(fn, n)
+    port.sm_grid = lambda device, ctas_per_sm=4: 8
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
     monkeypatch.setattr(
         port.FusedRetriever, "_route_kernel",
-        classmethod(lambda cls, backend, n_pad, k, device: backend != "torch"),
+        classmethod(lambda cls, backend, n_pad, k, device:
+                    backend != "torch" and n_pad >= 4096),
     )
 
     TinySmoke(port).run()
@@ -80,16 +90,35 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [
         "fused_dense_top_k", "fused_dense_top_k_int8", "ivf_dense_top_k",
-        "ivf_dense_top_k_int8",
+        "ivf_dense_top_k_int8", "stream_sum", "stream_sum_busy",
     ]
     # K1: stage A 3 calls x 1 dense list, stage B dense + common tier,
     # stage D B = 256 and filtered. K2: stages C and E at B = 256. K3: 64
-    # micro-batches + the full probe. K4: 32 micro-batches.
-    assert [k["launches"] for k in kernels] == [7, 2, 65, 32]
+    # micro-batches + the full probe. K4: 32 micro-batches. Stage F: none.
+    # The stream kernels: the floor lines and the overlap probe, which
+    # time them (counts of the host timer's calls).
+    assert [k["launches"] for k in kernels][:4] == [7, 2, 65, 32]
+    assert all(k["launches"] >= 1 for k in kernels[4:])
     for k in kernels:
         assert k["bound_by"] in ("bytes", "operations")
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        assert k["route"] == "cuda" and k["source"].endswith(".cu")
+        for key in ("ms", "plain_ms", "bound_ms"):
             assert k[key] > 0, (k["name"], key)
+        assert k["library_ms"] is None if k["name"] == "stream_sum_busy" \
+            else k["library_ms"] > 0
+    assert kernels[4]["replaces"] == "bench.py:226"
+    stage_f = [json.loads(line) for line in lines if '"F_headline"' in line]
+    assert len(stage_f) == 1
+    assert stage_f[0]["recall@10_planted"] >= 0.90
+    assert stage_f[0]["headline_fused_ids_equal_torch_route"]
+    floors = [json.loads(line) for line in lines if '"floor"' in line]
+    assert [f["floor"] for f in floors] == ["A", "C"]
+    assert all(f["pct_of_floor"] > 0 for f in floors)
+    overlap = [json.loads(line) for line in lines if '"dma_overlap"' in line]
+    assert overlap[0]["x_iters"] == [0, 8, 64]
+    stream = [json.loads(line) for line in lines
+              if '"stream_vs_plain"' in line]
+    assert stream[0]["cases"] == 27 and stream[0]["int8_exact"]
     crossover = [json.loads(line) for line in lines if '"crossover"' in line]
     assert [(c["crossover"], c["B"]) for c in crossover] == [
         ("D_2M_bf16", 8), ("D_2M_bf16", 16), ("D_2M_bf16", 32),

@@ -111,13 +111,14 @@ def _run_both(jidx, tidx, c, backend, model_names=MODELS, use_bm25=True,
 @pytest.mark.parametrize("filt", [None, "CG,NG"])
 def test_engine_f32_matches_jax(corpus, backend, filt):
     jidx = _jax_index(corpus)
-    _run_both(jidx, from_reference_index(jidx), corpus, backend, filt=filt)
+    _run_both(jidx, from_reference_index(jidx, device="cpu"), corpus, backend,
+              filt=filt)
 
 
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_engine_quantized_matches_jax(corpus, backend):
     jidx = _jax_index(corpus, quantize_dense=True)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     assert tidx.dense_q and not tidx.dense
     _run_both(jidx, tidx, corpus, backend, filt="QS")
 
@@ -125,22 +126,22 @@ def test_engine_quantized_matches_jax(corpus, backend):
 @pytest.mark.parametrize("backend", ["xla", "pallas"])
 def test_engine_csr_only_matches_jax(corpus, backend):
     jidx = _jax_index(corpus, bm25_dense_max_bytes=0)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     assert tidx.bm25_dense is None
     _run_both(jidx, tidx, corpus, backend, filt="NG")
 
 
 def test_engine_two_tier_matches_jax(corpus):
     jidx = _jax_index(corpus, bm25_dense_max_bytes=0)
-    jr, tr, _ = _run_both(jidx, from_reference_index(jidx), corpus,
-                          "pallas", filt="CG", two_tier_common=8)
+    jr, tr, _ = _run_both(jidx, from_reference_index(jidx, device="cpu"),
+                          corpus, "pallas", filt="CG", two_tier_common=8)
     assert tr._two_tier is not None and tr._two_tier.v_common == 8
     assert tr._tt_rare_cap == jr._tt_rare_cap
 
 
 def test_engine_two_tier_auto_sizing_matches_jax(corpus):
     jidx = _jax_index(corpus, bm25_dense_max_bytes=0)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     for budget in (64, 256, 100_000):
         jr = JaxRetriever(jidx, MODELS, use_bm25=True, budget=budget,
                           dense_backend="pallas")
@@ -154,7 +155,7 @@ def test_engine_two_tier_auto_sizing_matches_jax(corpus):
 
 def test_engine_dense_only_and_bm25_only(corpus):
     jidx = _jax_index(corpus)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     _run_both(jidx, tidx, corpus, "xla", model_names=MODELS[:1],
               use_bm25=False)
     _run_both(jidx, tidx, corpus, "pallas", model_names=(), filt="CG")
@@ -165,7 +166,7 @@ def test_engine_from_saved_artifact(corpus, tmp_path):
     # no bfloat16); the port reads them back bit for bit.
     jidx = _jax_index(corpus, emb_dtype="bfloat16")
     save_index(jidx, str(tmp_path))
-    tidx = load_index(str(tmp_path), emb_dtype="bfloat16")
+    tidx = load_index(str(tmp_path), emb_dtype="bfloat16", device="cpu")
     assert tidx.dense[MODELS[0]].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         tidx.dense[MODELS[0]].float().numpy(),
@@ -181,7 +182,7 @@ def test_port_artifact_loads_in_jax(corpus, tmp_path):
     from a_nice_rag_tpu_torch.index import save_index as port_save_index
 
     jidx = _jax_index(corpus, emb_dtype="bfloat16", quantize_dense=[MODELS[1]])
-    port_save_index(from_reference_index(jidx), str(tmp_path))
+    port_save_index(from_reference_index(jidx, device="cpu"), str(tmp_path))
     back = jax_load_index(str(tmp_path), emb_dtype="bfloat16")
     np.testing.assert_array_equal(
         np.asarray(back.dense[MODELS[0]]).astype(np.float32),
@@ -206,7 +207,7 @@ def test_route_decision_matches_jax(n_pad, k, backend, on_accelerator):
 
 
 def test_engine_rejects_ivf_and_unknown_backend(corpus):
-    tidx = from_reference_index(_jax_index(corpus))
+    tidx = from_reference_index(_jax_index(corpus), device="cpu")
     with pytest.raises(ValueError, match="ivf_route"):
         FusedRetriever(tidx, MODELS, use_bm25=True, nprobe=4,
                        ivf_route="sometimes")
@@ -216,7 +217,7 @@ def test_engine_rejects_ivf_and_unknown_backend(corpus):
 
 def test_engine_mask_threading_and_stale_eviction(corpus):
     jidx = _jax_index(corpus)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     # 1200 docs pad to 1280 rows: the trivial mask is not all-true.
     assert tidx.filter_mask_or_none(None) is not None
     tr = FusedRetriever(tidx, MODELS, use_bm25=True, similarity_k=5,
@@ -234,3 +235,38 @@ def test_engine_mask_threading_and_stale_eviction(corpus):
     rows = np.asarray(fids)
     cg = tidx.meta.filter_mask("CG")
     assert cg[rows[rows >= 0]].all()
+
+
+def test_entry_points_default_to_the_card(corpus, tmp_path):
+    """Built or loaded without a device, an index goes to the card; on a
+    machine without one that raises instead of quietly staying on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device exists here")
+    from a_nice_rag_tpu.index.ivf import attach_ivf as jax_attach_ivf
+    from a_nice_rag_tpu_torch.index import build_bm25_arrays
+    from a_nice_rag_tpu_torch.index import build_index as port_build_index
+    from a_nice_rag_tpu_torch.index import save_index as port_save_index
+    from a_nice_rag_tpu_torch.index.convert import from_reference_ivf
+    from a_nice_rag_tpu_torch.index.ivf import load_ivf, save_ivf
+
+    jidx = _jax_index(corpus)
+    jax_attach_ivf(jidx, MODELS[0], n_clusters=4, tile_n=128)
+    tidx = from_reference_index(jidx, device="cpu")
+    port_save_index(tidx, str(tmp_path))
+    save_ivf(tidx.ivf[MODELS[0]], str(tmp_path / "one.npz"))
+    calls = {
+        "build_index": lambda: port_build_index(
+            ids=corpus.ids, sources=corpus.sources, contents=corpus.contents,
+            embeddings=corpus.embeddings, token_lists=corpus.tokens),
+        "build_bm25_arrays": lambda: build_bm25_arrays(corpus.tokens, 1280),
+        "load_index": lambda: load_index(str(tmp_path)),
+        "load_ivf": lambda: load_ivf(str(tmp_path / "one.npz")),
+        "from_reference_index": lambda: from_reference_index(jidx),
+        "from_reference_ivf": lambda: from_reference_ivf(jidx.ivf[MODELS[0]]),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA GPU is required"):
+            call()
+            pytest.fail(f"{name} ran without a GPU")
+    assert load_index(str(tmp_path), device="cpu").device.type == "cpu"

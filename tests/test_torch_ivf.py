@@ -156,7 +156,7 @@ def test_default_clusters_match_jax():
 def test_tile_table_matches_jax(clustered, case):
     x, q, _ = clustered
     ref = _jax_ivf(x)
-    iv = from_reference_ivf(ref)
+    iv = from_reference_ivf(ref, device="cpu")
     nprobe, max_tiles, qb = {
         "full": (12, ref.n_tiles, q),
         "partial": (3, None, q),
@@ -268,7 +268,7 @@ def test_ivf_wrappers_reject_unsupported_calls(bad):
 def test_ivf_search_on_converted_jax_ivf(clustered, int8, spill, nprobe):
     x, q, _ = clustered
     ref = _jax_ivf(x, int8=int8, spill=spill)
-    iv = from_reference_ivf(ref)
+    iv = from_reference_ivf(ref, device="cpu")
     _assert_ivf_equal(iv, ref)
     jv, ji, jn = jivf.ivf_search(ref, jnp.asarray(q), 9, nprobe=nprobe,
                                  interpret=True)
@@ -286,7 +286,7 @@ def test_ivf_search_on_converted_jax_ivf(clustered, int8, spill, nprobe):
 
 def test_ivf_search_full_probe_is_exact(clustered):
     x, q, _ = clustered
-    iv = from_reference_ivf(_jax_ivf(x))
+    iv = from_reference_ivf(_jax_ivf(x), device="cpu")
     vals, ids, n_unique = tivf.ivf_search(iv, _t(q), 9, nprobe=12)
     assert int(n_unique) == iv.n_tiles
     ref = q @ x.T
@@ -300,7 +300,7 @@ def test_tune_nprobe_matches_jax(clustered):
     ref = _jax_ivf(x, n_iters=12, seed=1)
     kw = dict(k=5, target_recall=0.9, candidates=(1, 2, 4, 8, 64))
     want = jivf.tune_nprobe(ref, jnp.asarray(q), interpret=True, **kw)
-    got = tivf.tune_nprobe(from_reference_ivf(ref), _t(q), **kw)
+    got = tivf.tune_nprobe(from_reference_ivf(ref, device="cpu"), _t(q), **kw)
     assert got == want
     assert got[1][got[0]] >= 0.9
 
@@ -338,7 +338,7 @@ def test_engine_ivf_route_and_filtered_fallback(tmp_path):
     c, jidx = _engine_index(128, seed=41)
     # The artifact the JAX package wrote loads here with its IVF.
     jax_save_index(jidx, str(tmp_path))
-    tidx = load_index(str(tmp_path))
+    tidx = load_index(str(tmp_path), device="cpu")
     assert tidx.ivf and MODEL in tidx.ivf
     _assert_ivf_equal(tidx.ivf[MODEL], jidx.ivf[MODEL])
     q = {MODEL: c.query_embeddings[MODEL]}
@@ -369,7 +369,7 @@ def test_engine_spilled_ivf_route():
     # and really take the IVF route.
     c, jidx = _engine_index(640, seed=3, spill=True, n_clusters=10,
                             tile_n=128)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     assert tidx.ivf[MODEL].spilled and tidx.filter_mask_or_none(None) is None
     q = {MODEL: c.query_embeddings[MODEL]}
     w = {MODEL: 1.0}
@@ -389,7 +389,7 @@ def test_engine_spilled_ivf_route():
 
 def test_engine_ivf_route_auto_batches(monkeypatch):
     c, jidx = _engine_index(128, seed=7)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     q8 = {MODEL: c.query_embeddings[MODEL]}
     q2 = {MODEL: c.query_embeddings[MODEL][:2]}
     terms8 = jidx.pad_term_ids(c.query_tokens, 8)
@@ -451,7 +451,7 @@ def _assert_index_equal(t, j):
 
 def test_ivf_with_online_updates(monkeypatch):
     c, jidx = _engine_index(128, seed=17)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     jr, tr = _pair(jidx, tidx, use_bm25=False, nprobe=8,
                    ivf_route="always")
     q = {MODEL: c.query_embeddings[MODEL][:1]}
@@ -493,7 +493,7 @@ def test_append_documents_matches_jax_bit_for_bit(build):
     jidx = build_index(ids=c.ids, sources=c.sources, contents=c.contents,
                        embeddings=c.embeddings, token_lists=c.tokens,
                        **build)
-    tidx = from_reference_index(jidx)
+    tidx = from_reference_index(jidx, device="cpu")
     jup.delete_documents(jidx, c.ids[:3])
     tup.delete_documents(tidx, c.ids[:3])
     rng = np.random.default_rng(8)
@@ -529,7 +529,7 @@ def _two_model_jax_index(emb_dtype="float32"):
 def test_jax_saved_ivf_loads_in_port(tmp_path, emb_dtype):
     jidx = _two_model_jax_index(emb_dtype)
     jax_save_index(jidx, str(tmp_path))
-    tidx = load_index(str(tmp_path), emb_dtype=emb_dtype)
+    tidx = load_index(str(tmp_path), emb_dtype=emb_dtype, device="cpu")
     assert sorted(tidx.ivf) == sorted(jidx.ivf)
     for m, ref in jidx.ivf.items():
         _assert_ivf_equal(tidx.ivf[m], ref)
@@ -537,12 +537,12 @@ def test_jax_saved_ivf_loads_in_port(tmp_path, emb_dtype):
 
 def test_port_saved_ivf_loads_in_jax(tmp_path):
     jidx = _two_model_jax_index()
-    save_index(from_reference_index(jidx), str(tmp_path))
+    save_index(from_reference_index(jidx, device="cpu"), str(tmp_path))
     back = jax_load_index(str(tmp_path))
     assert sorted(back.ivf) == sorted(jidx.ivf)
     for m, ref in jidx.ivf.items():
-        _assert_ivf_equal(from_reference_ivf(back.ivf[m]), ref)
-    tivf.save_ivf(from_reference_ivf(jidx.ivf[MODEL]),
+        _assert_ivf_equal(from_reference_ivf(back.ivf[m], device="cpu"), ref)
+    tivf.save_ivf(from_reference_ivf(jidx.ivf[MODEL], device="cpu"),
                   str(tmp_path / "one.npz"))
-    _assert_ivf_equal(tivf.load_ivf(str(tmp_path / "one.npz")),
+    _assert_ivf_equal(tivf.load_ivf(str(tmp_path / "one.npz"), device="cpu"),
                       jivf.load_ivf(str(tmp_path / "one.npz")))

@@ -12,6 +12,9 @@ same f32 products summed in another order); int8 exact. Ids agree up to
 swaps between scores within the tolerance, and every exact tie keeps the
 lower id. The IVF kernels (K3, K4) are held the same way, over tile
 tables with -1 padding, a ragged last tile and the dynamic row count.
+The stream sums: within 1e-5 of the sum of absolute values (float32
+partial sums in another order), exactly for int8 data whose partial sums
+stay below 2^24; the busy kernel's chains bit for bit.
 """
 
 import pytest
@@ -26,7 +29,12 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     ivf_dense_top_k_int8,
     ivf_dense_top_k_int8_torch,
     ivf_dense_top_k_torch,
+    stream_sum,
+    stream_sum_busy,
+    stream_sum_busy_torch,
+    stream_sum_torch,
 )
+from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
 from a_nice_rag_tpu_torch.ops.quantized import (
     quantize_embeddings,
     quantize_queries,
@@ -163,3 +171,96 @@ def test_cuda_ivf_wrapper_raises_instead_of_falling_back(cuda_device):
         ivf_dense_top_k(emb, q.cpu(), table, 3, tile_n=128, n_real=256)
     with pytest.raises(ValueError):
         ivf_dense_top_k(emb, q, table, 257, tile_n=128, n_real=256)
+
+
+def _stream_parts(g, dtype, m, rows, cols):
+    if dtype == "int8":
+        return [torch.randint(-127, 128, (rows, cols), generator=g,
+                              dtype=torch.int8) for _ in range(m)]
+    return [torch.randn((rows, cols), generator=g).to(getattr(torch, dtype))
+            for _ in range(m)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m,rows,cols,biased", [
+    (1, 100_003, 256, False), (2, 4099, 33, True), (8, 1, 7, True),
+    (3, 65_536, 256, False),
+])
+def test_cuda_stream_sum_matches_plain(cuda_device, dtype, m, rows, cols,
+                                       biased):
+    # f32 partial sums in another order: within 1e-5 of sum |x|.
+    g = torch.Generator().manual_seed(rows + m)
+    parts = [p.to(cuda_device) for p in _stream_parts(g, dtype, m, rows, cols)]
+    bias = torch.tensor([3.25], device=cuda_device) if biased else None
+    before = stream_sum.launches
+    got = stream_sum(parts, bias)
+    torch.cuda.synchronize()
+    assert stream_sum.launches == before + 1
+    assert got.shape == () and got.dtype == torch.float32
+    ref = stream_sum_torch(parts, bias)
+    assert abs(float(got) - float(ref)) <= 1e-5 * (abs_total(parts) + 3.25)
+
+
+def test_cuda_stream_sum_misaligned_views_and_launch_shapes(cuda_device):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((4097, 129), generator=g).to(torch.bfloat16).to(
+        cuda_device)
+    flat = x.reshape(-1)
+    tol = 1e-5 * abs_total(x)
+    for start in (1, 3, 7):  # views that start mid-vector
+        view = flat[start:]
+        assert view.data_ptr() % 16 != 0
+        assert abs(float(stream_sum(view)) - float(stream_sum_torch(view))) \
+            <= tol
+    ref = float(stream_sum_torch(x))
+    for ctas in (1, 2, 4, 8):
+        for unroll in (1, 2, 4, 8):
+            got = stream_sum(x, ctas_per_sm=ctas, unroll=unroll)
+            assert abs(float(got) - ref) <= tol, (ctas, unroll)
+    assert float(stream_sum(x)) == float(stream_sum(x))  # no atomics
+
+
+def test_cuda_stream_sum_int8_exact(cuda_device):
+    # Every partial sum stays below 2^24, so float32 holds it exactly: a
+    # dropped or doubled tile would show.
+    g = torch.Generator().manual_seed(6)
+    x = torch.randint(0, 2, (1 << 20, 15), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    want = float(x.sum(dtype=torch.int64))
+    assert want < 2 ** 24
+    assert float(stream_sum(x)) == want
+    assert float(stream_sum([x, x[:1000]], torch.tensor(
+        [2.0], device=cuda_device))) == want + float(
+            x[:1000].sum(dtype=torch.int64)) + 2.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("x_iters,grid,tile_rows", [
+    (0, 7, 16), (2, 132, 16), (5, 64, 3),
+])
+def test_cuda_stream_sum_busy_matches_plain(cuda_device, dtype, x_iters,
+                                            grid, tile_rows):
+    g = torch.Generator().manual_seed(x_iters + grid)
+    (emb,) = _stream_parts(g, dtype, 1, 30_011, 64)
+    emb = emb.to(cuda_device)
+    seed = torch.tensor(0.5, device=cuda_device)
+    before = stream_sum_busy.launches
+    out, work = stream_sum_busy(emb, seed, x_iters, grid, tile_rows)
+    torch.cuda.synchronize()
+    assert stream_sum_busy.launches == before + 1
+    ref_out, ref_work = stream_sum_busy_torch(emb, seed, x_iters, grid,
+                                              tile_rows)
+    assert torch.equal(work, ref_work)  # bit for bit
+    assert abs(float(out) - float(ref_out)) <= 1e-5 * (abs_total(emb) + 0.5)
+
+
+def test_cuda_stream_wrappers_raise_instead_of_falling_back(cuda_device):
+    x = torch.zeros((10, 4), device=cuda_device)
+    with pytest.raises(ValueError):
+        stream_sum(x, torch.zeros(1))  # bias on the CPU
+    with pytest.raises(TypeError):
+        stream_sum([x, x.to(torch.bfloat16)])
+    with pytest.raises(ValueError):
+        stream_sum(x.T)  # not contiguous
+    with pytest.raises(ValueError):
+        stream_sum_busy(x, torch.zeros((), device=cuda_device), 1, 0)

@@ -50,3 +50,29 @@ def test_port_sources_hold_no_jax_or_tpu_kernel_code():
         for p in files for m in pattern.finditer(p.read_text())
     ]
     assert not hits, hits
+
+
+_IMPORT_BENCH = """
+import importlib, sys
+names = ["chip_smoke", "a_nice_rag_tpu_torch.bench",
+         "a_nice_rag_tpu_torch.probes.hbm_stream",
+         "a_nice_rag_tpu_torch.probes.dma_overlap",
+         "a_nice_rag_tpu_torch.testing.synth",
+         "a_nice_rag_tpu_torch.ops.kernels.stream"]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m.startswith("a_nice_rag_tpu.") or m == "a_nice_rag_tpu")
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_bench_probes_and_smoke_import_neither_jax_nor_the_jax_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", _IMPORT_BENCH], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.split() == ["6"]

@@ -210,7 +210,7 @@ def _bm25_setup(n_docs=400, seed=31):
     terms = jidx.pad_term_ids(c.query_tokens, 16)
     terms[0, :3] = terms[0, 0]  # repeated query term counts each time
     terms[1, 2] = -1
-    return jidx, from_reference_index(jidx), terms
+    return jidx, from_reference_index(jidx, device="cpu"), terms
 
 
 def test_bm25_scatter_scores_and_top_k_match_jax():
