@@ -47,67 +47,12 @@
 //
 // No padding copy is made: ragged edges (B, N, D of any size) are
 // masked inside the kernel. The scoring, selection and merge code is
-// shared with the IVF kernels (topk_common.cuh). Plain C interface; each
-// entry point returns the cudaError_t of its launches (0 on success).
+// shared with the IVF kernels (topk_common.cuh); the split kernel and its
+// launcher with the probes of anatomy.cu (split_topk.cuh). Plain C
+// interface; each entry point returns the cudaError_t of its launches (0
+// on success).
 
-#include "topk_common.cuh"
-
-namespace {
-
-constexpr int KMAX = 128;
-
-template <typename ET, bool INT8>
-__global__ void __launch_bounds__(THREADS)
-    split_topk_kernel(const void* q, const ET* e, const float* escale,
-                      const uint8_t* mask, int B, int N, int D, int k,
-                      int docs_per_split, float* part_v, int* part_i) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const Smem sm = carve(smem_raw, k);
-  const int split = blockIdx.x;
-  const int n_splits = gridDim.x;
-  const int q0 = blockIdx.y * BQ;
-  const int begin = split * docs_per_split;
-  const int end = min(N, begin + docs_per_split);
-  const int tid = threadIdx.x;
-
-  init_lists(sm, k);
-  for (int tile0 = begin; tile0 < end; tile0 += TN) {
-    score_tile<ET, INT8>(q, e, escale, B, D, q0, tile0, end, sm);
-    if (tid < TN) {
-      int doc = tile0 + tid;
-      sm.keep[tid] = doc < end && (mask == nullptr || mask[doc] != 0);
-    }
-    __syncthreads();
-    fold_tile(sm, tile0, q0, B, k);
-    __syncthreads();
-  }
-  write_parts(sm, q0, B, k, split, n_splits, part_v, part_i);
-}
-
-template <typename ET, bool INT8>
-int launch(const void* q, const ET* e, const float* escale,
-           const uint8_t* mask, const float* qscale, int B, int N, int D,
-           int k, int n_splits, int docs_per_split, float* part_v,
-           int* part_i, float* out_v, int* out_i, cudaStream_t stream) {
-  if (k < 1 || k > KMAX || B < 1 || N < 1 || D < 1 || n_splits < 1 ||
-      docs_per_split < 1 || docs_per_split % TN != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      split_topk_kernel<ET, INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n_splits, (B + BQ - 1) / BQ);
-  split_topk_kernel<ET, INT8><<<grid, THREADS, smem, stream>>>(
-      q, e, escale, mask, B, N, D, k, docs_per_split, part_v, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_merge(part_v, part_i, B, n_splits, k,
-                                       qscale, out_v, out_i, stream));
-}
-
-}  // namespace
+#include "split_topk.cuh"
 
 extern "C" {
 

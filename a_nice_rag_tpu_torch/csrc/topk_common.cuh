@@ -1,5 +1,6 @@
 // Device code shared by the streaming top-k kernels (fused_topk.cu: K1,
-// K2; ivf_topk.cu: K3, K4).
+// K2; ivf_topk.cu: K3, K4) and their probes (anatomy.cu; int4.cu takes
+// the tile constants and dp4a_chunk).
 //
 // A CTA owns BQ queries and scores tiles of TN documents into shared
 // memory (score_tile). One warp per query row keeps a running top-k in
@@ -74,17 +75,18 @@ __device__ __forceinline__ void find_worst(const float* rv, const int* ri,
 }
 
 // Offer one warp-uniform candidate to a running list; refreshes the
-// cached worst entry after an insertion.
-__device__ __forceinline__ void offer(float cv, int ci, float* rv, int* ri,
+// cached worst entry after an insertion. Returns whether it entered.
+__device__ __forceinline__ bool offer(float cv, int ci, float* rv, int* ri,
                                       int k, int lane, float& wv, int& wi,
                                       int& ws) {
-  if (!better(cv, ci, wv, wi)) return;
+  if (!better(cv, ci, wv, wi)) return false;
   if (lane == 0) {
     rv[ws] = cv;
     ri[ws] = ci;
   }
   __syncwarp();
   find_worst(rv, ri, k, lane, wv, wi, ws);
+  return true;
 }
 
 struct Smem {
@@ -99,7 +101,7 @@ struct Smem {
   void* es;       // [DK][TN + 1] (f32 or i32)
 };
 
-inline size_t smem_bytes(int k) {
+__host__ __device__ inline size_t smem_bytes(int k) {
   return sizeof(float) * BQ * k + sizeof(int) * BQ * k +
          (sizeof(float) + 2 * sizeof(int)) * BQ +
          sizeof(float) * BQ * (TN + 1) + sizeof(float) * DK * (BQ + 1) +
@@ -145,13 +147,43 @@ __device__ __forceinline__ int load_word(const int8_t* row, int d, int D,
   return static_cast<int>(w);
 }
 
+// One staged depth chunk into a thread's 4 x 8 block of exact sums:
+// qs [DK][BQ + 1] and es [DK][TN + 1] hold 32-bit words of four int8
+// each; the thread owns queries ty * 4 + i and documents tx + 16 * j.
+// score_tile's int8 path and the stripped folds of int4.cu share it.
+__device__ __forceinline__ void dp4a_chunk(const int* qs, const int* es,
+                                           int ty, int tx,
+                                           int (&acc)[4][8]) {
+#pragma unroll 4
+  for (int w = 0; w < DK; ++w) {
+    int a[4], b[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = qs[w * (BQ + 1) + ty * 4 + i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = es[w * (TN + 1) + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Sees every 32-bit word the staging loops write to shared memory; the
+// top-k kernels pass this one, which does nothing.
+struct NoTap {
+  __device__ __forceinline__ void operator()(unsigned) const {}
+};
+
 // Score one tile [BQ, TN] into sm.scores. INT8: q is int8 [B, D], e is
 // int8 [N, D], escale the per-doc scales; else q is f32 [B, D] and e is
-// ET [N, D]. Rows at or past ``end`` score as zero rows.
-template <typename ET, bool INT8>
+// ET [N, D]. Rows at or past ``end`` score as zero rows. With DOT false
+// only the staging loops run (depth chunks into sm.qs / sm.es and their
+// barriers) and sm.scores is left alone; ``tap`` is handed each staged
+// word.
+template <typename ET, bool INT8, bool DOT = true, typename Tap = NoTap>
 __device__ void score_tile(const void* q, const ET* e, const float* escale,
                            int B, int D, int q0, int tile0, int end,
-                           const Smem& sm) {
+                           const Smem& sm, Tap&& tap = Tap()) {
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // docs tx + 16 * j
   const int ty = tid / 16;  // queries ty * 4 + i
@@ -173,36 +205,28 @@ __device__ void score_tile(const void* q, const ET* e, const float* escale,
     for (int w0 = 0; w0 < words; w0 += DK) {
       for (int x = tid; x < BQ * DK; x += THREADS) {
         int r = x / DK, w = x % DK, row = q0 + r, word = w0 + w;
-        qs[w * (BQ + 1) + r] =
-            (row < B && word < words)
-                ? load_word(qv + static_cast<size_t>(row) * D, 4 * word, D,
-                            q_aligned)
-                : 0;
+        const int v = (row < B && word < words)
+                          ? load_word(qv + static_cast<size_t>(row) * D,
+                                      4 * word, D, q_aligned)
+                          : 0;
+        qs[w * (BQ + 1) + r] = v;
+        tap(static_cast<unsigned>(v));
       }
       for (int x = tid; x < TN * DK; x += THREADS) {
         int r = x / DK, w = x % DK, doc = tile0 + r, word = w0 + w;
-        es[w * (TN + 1) + r] =
-            (doc < end && word < words)
-                ? load_word(reinterpret_cast<const int8_t*>(e) +
-                                static_cast<size_t>(doc) * D,
-                            4 * word, D, e_aligned)
-                : 0;
+        const int v = (doc < end && word < words)
+                          ? load_word(reinterpret_cast<const int8_t*>(e) +
+                                          static_cast<size_t>(doc) * D,
+                                      4 * word, D, e_aligned)
+                          : 0;
+        es[w * (TN + 1) + r] = v;
+        tap(static_cast<unsigned>(v));
       }
       __syncthreads();
-#pragma unroll 4
-      for (int w = 0; w < DK; ++w) {
-        int a[4], b[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[w * (BQ + 1) + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = es[w * (TN + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
+      if constexpr (DOT) dp4a_chunk(qs, es, ty, tx, acc);
       __syncthreads();
     }
+    if constexpr (!DOT) return;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       int doc = tile0 + tx + 16 * j;
@@ -225,19 +249,22 @@ __device__ void score_tile(const void* q, const ET* e, const float* escale,
     for (int d0 = 0; d0 < D; d0 += DK) {
       for (int x = tid; x < BQ * DK; x += THREADS) {
         int r = x / DK, dd = x % DK, row = q0 + r, d = d0 + dd;
-        qs[dd * (BQ + 1) + r] =
+        const float v =
             (row < B && d < D) ? qf[static_cast<size_t>(row) * D + d] : 0.f;
+        qs[dd * (BQ + 1) + r] = v;
+        tap(__float_as_uint(v));
       }
       for (int x = tid; x < TN * DK; x += THREADS) {
         int r = x / DK, dd = x % DK, doc = tile0 + r, d = d0 + dd;
-        es[dd * (TN + 1) + r] =
-            (doc < end && d < D)
-                ? to_f32(e[static_cast<size_t>(doc) * D + d])
-                : 0.f;
+        const float v = (doc < end && d < D)
+                            ? to_f32(e[static_cast<size_t>(doc) * D + d])
+                            : 0.f;
+        es[dd * (TN + 1) + r] = v;
+        tap(__float_as_uint(v));
       }
       __syncthreads();
 #pragma unroll 4
-      for (int dd = 0; dd < DK; ++dd) {
+      for (int dd = 0; dd < (DOT ? DK : 0); ++dd) {
         float a[4], b[8];
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = qs[dd * (BQ + 1) + ty * 4 + i];
@@ -250,6 +277,7 @@ __device__ void score_tile(const void* q, const ET* e, const float* escale,
       }
       __syncthreads();
     }
+    if constexpr (!DOT) return;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -258,13 +286,18 @@ __device__ void score_tile(const void* q, const ET* e, const float* escale,
   }
 }
 
-// Empty running lists, and their cached worst entries.
-__device__ inline void init_lists(const Smem& sm, int k) {
+// Empty running lists, and their cached worst entries. With ``seed``
+// [B], every slot of query q0 + r starts as (seed[q0 + r], EMPTY_ID):
+// only a document scoring at least the seed can enter.
+__device__ inline void init_lists(const Smem& sm, int k,
+                                  const float* seed = nullptr, int q0 = 0,
+                                  int B = 0) {
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   for (int x = tid; x < BQ * k; x += THREADS) {
-    sm.run_v[x] = -INFINITY;
+    const int row = q0 + x / k;
+    sm.run_v[x] = seed != nullptr && row < B ? seed[row] : -INFINITY;
     sm.run_i[x] = EMPTY_ID;
   }
   __syncthreads();
@@ -277,11 +310,25 @@ __device__ inline void init_lists(const Smem& sm, int k) {
   }
 }
 
+// Per-row counters of the probe variants of fold_tile: [BQ][COUNTERS].
+// INSERT and COUNT: insertions in the first EARLY_TILES tiles of the
+// CTA's range, insertions after them, windows of 32 columns whose ballot
+// fired, windows seen. !INSERT: documents that beat the row's worst
+// entry (counter 0).
+constexpr int COUNTERS = 4;
+constexpr int EARLY_TILES = 16;
+
 // Fold the scored tile (sm.scores, documents tile0 + col where
 // sm.keep[col]) into the running lists of the CTA's real queries. The
-// caller has synchronised after filling sm.scores and sm.keep.
+// caller has synchronised after filling sm.scores and sm.keep. The
+// probes' variants: COUNT adds to ``counts`` ([BQ][COUNTERS] in shared
+// memory, ``early`` picks the insertion counter); !INSERT only takes
+// the ballot against each row's cached worst entry and counts its bits,
+// so nothing is ever inserted.
+template <bool INSERT = true, bool COUNT = false>
 __device__ inline void fold_tile(const Smem& sm, int tile0, int q0, int B,
-                                 int k) {
+                                 int k, int* counts = nullptr,
+                                 bool early = false) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   for (int r = warp; r < BQ && q0 + r < B; r += WARPS) {
@@ -289,20 +336,35 @@ __device__ inline void fold_tile(const Smem& sm, int tile0, int q0, int B,
     int* ri = sm.run_i + r * k;
     float wv = sm.worst_v[r];
     int wi = sm.worst_i[r], ws = sm.worst_s[r];
+    int inserted = 0, fired = 0, beat = 0;
     for (int c = 0; c < TN; c += 32) {
       int col = c + lane;
       float s = sm.scores[r * (TN + 1) + col];
       bool cand = sm.keep[col] && better(s, tile0 + col, wv, wi);
       unsigned m = __ballot_sync(FULL, cand);
+      if constexpr (!INSERT) {
+        beat += __popc(m);
+        continue;
+      }
+      fired += m != 0u;
       while (m) {
         int src = __ffs(m) - 1;
         m &= m - 1;
         float cv = __shfl_sync(FULL, s, src);
-        offer(cv, tile0 + c + src, rv, ri, k, lane, wv, wi, ws);
+        inserted += offer(cv, tile0 + c + src, rv, ri, k, lane, wv, wi, ws);
       }
     }
     if (lane == 0) {
-      sm.worst_v[r] = wv; sm.worst_i[r] = wi; sm.worst_s[r] = ws;
+      if constexpr (INSERT) {
+        sm.worst_v[r] = wv; sm.worst_i[r] = wi; sm.worst_s[r] = ws;
+      } else {
+        counts[r * COUNTERS] += beat;
+      }
+      if constexpr (COUNT) {
+        counts[r * COUNTERS + (early ? 0 : 1)] += inserted;
+        counts[r * COUNTERS + 2] += fired;
+        counts[r * COUNTERS + 3] += TN / 32;
+      }
     }
   }
 }

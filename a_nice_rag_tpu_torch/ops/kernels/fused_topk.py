@@ -26,6 +26,7 @@ from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 K_MAX = 128
 _BLOCK_Q = 64  # queries per CTA, as in csrc/fused_topk.cu
 _CTAS_PER_SM = 3
+H100_SMS = 132
 # Plain versions score at most this many [B, chunk] scores, and upcast at
 # most this many [chunk, D] elements, at a time: a 10.7 GB int8 matrix is
 # never upcast whole.
@@ -51,11 +52,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device; for the CPU, an H100's, so plain versions
+    that follow the kernels' split plan reproduce the card's."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
 def _split_plan(n: int, b: int, device: torch.device,
                 tile: int) -> Tuple[int, int]:
     """(splits, docs per split): enough doc splits that the grid puts
     more than two CTAs on each SM; each split a whole number of tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     q_blocks = -(-b // _BLOCK_Q)
     tiles = -(-n // tile)
     splits = min(max(1, -(-_CTAS_PER_SM * sms // q_blocks)), tiles)
@@ -100,6 +109,11 @@ def _outputs(b: int, k: int, splits: int, device: torch.device):
     )
 
 
+def _chunk_rows(b: int, d: int) -> int:
+    """Documents per block of a plain version (see _PLAIN_CHUNK_ELEMS)."""
+    return max(1, _PLAIN_CHUNK_ELEMS // max(b, d, 1))
+
+
 def _plain_top_k(
     score_chunk: Callable[[int, int], torch.Tensor],
     n: int, b: int, d: int, k: int, device: torch.device,
@@ -111,7 +125,7 @@ def _plain_top_k(
     """
     run_v = torch.full((b, k), float("-inf"), device=device)
     run_i = torch.full((b, k), -1, dtype=torch.int64, device=device)
-    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(b, d, 1))
+    chunk = _chunk_rows(b, d)
     for s0 in range(0, n, chunk):
         s1 = min(n, s0 + chunk)
         cat_v = torch.cat([run_v, score_chunk(s0, s1)], dim=1)

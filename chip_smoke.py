@@ -41,7 +41,22 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      docs are below the kernel threshold);
  11. floor lines for stages A and C: bench.stream_floor (stream_sum) over
      the matrices those stages hold, against their retrieve_device time;
- 12. the overlap probe (probes.dma_overlap) at X in {0, 8, 64}.
+ 12. the overlap probe (probes.dma_overlap) at X in {0, 8, 64};
+ 13. the anatomy of K1/K2 (probes.kernel_anatomy: the staging loops,
+     + scoring, + the compare pass, + insertions and merge), each mode
+     first held against its plain version at N_KERNEL on integer-valued
+     rows (exact scores), then held again and timed on stage A's and
+     stage C's matrices;
+ 14. the counted fold (probes.iteration_count) at N_KERNEL against its
+     plain version (ids, values and every counter), then on stage A's
+     and stage C's matrices with and without a subsample tau, again
+     equal to its plain version there and its ids to K1's / K2's;
+ 15. the keys: xpack_keys / xpack_values over the 13 special values of
+     the JAX package's key test plus 2^24 normals, bit for bit, and
+     bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384];
+ 16. int4 (probes.int4): exact at 1024 x 256, B = 128, both unpacks,
+     then stage 2's folds over stage C's int8 matrix and a 5.4 GB packed
+     one.
 
 Stages A-C also print the retrieve_device time of one call (CUDA
 events, median of 10). Each kernel, its plain version and a one-call
@@ -59,6 +74,7 @@ except stage F's corpus, which is the bench's numpy synth_corpus.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -70,6 +86,9 @@ MODEL = "voyage-3-large"
 K1_SOURCE = "a_nice_rag_tpu_torch/csrc/fused_topk.cu"
 K3_SOURCE = "a_nice_rag_tpu_torch/csrc/ivf_topk.cu"
 STREAM_SOURCE = "a_nice_rag_tpu_torch/csrc/stream_sum.cu"
+ANATOMY_SOURCE = "a_nice_rag_tpu_torch/csrc/anatomy.cu"
+KEYS_SOURCE = "a_nice_rag_tpu_torch/csrc/keys.cu"
+INT4_SOURCE = "a_nice_rag_tpu_torch/csrc/int4.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -82,6 +101,25 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # P1 (and P2: scripts/probe_hbm_stream.py:67, :119, :168, :224).
     "stream_sum": (STREAM_SOURCE, "bench.py:226"),
     "stream_sum_busy": (STREAM_SOURCE, "scripts/probe_dma_overlap.py:74"),
+    # P4 (its "stage", "score" and "compare" modes; "full" is K1/K2).
+    "anatomy_top_k": (ANATOMY_SOURCE,
+                      "scripts/profile_kernel_anatomy.py:138"),
+    "anatomy_top_k_int8": (ANATOMY_SOURCE,
+                           "scripts/profile_kernel_anatomy.py:138"),
+    # P5.
+    "fused_top_k_counted": (ANATOMY_SOURCE,
+                            "scripts/probe_iteration_count.py:160"),
+    "fused_top_k_counted_int8": (ANATOMY_SOURCE,
+                                 "scripts/probe_iteration_count.py:160"),
+    # T1: the key map and its inverse.
+    "xpack_keys": (KEYS_SOURCE, "tests/test_pallas_fused.py:433"),
+    "xpack_values": (KEYS_SOURCE, "tests/test_pallas_fused.py:433"),
+    # P6 (the four kernels of :41, and :118).
+    "bf16_row_reduce": (KEYS_SOURCE, "scripts/probe_bf16_fold.py:41"),
+    # P7: stages 1 and 3 (:83, :243, :261), stage 2 (:167, :188).
+    "int4_scores": (INT4_SOURCE, "scripts/probe_int4.py:83"),
+    "int8_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:167"),
+    "int4_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:188"),
 }
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
@@ -118,6 +156,11 @@ class Smoke:
     # overlap probe's X.
     STREAM_ROWS, STREAM_D, EXACT_ROWS = 100_003, 64, 1 << 20
     BUSY_X, OVERLAP_X = (0, 3), (0, 8, 64)
+    # Probes: rows of int4 stage 2's packed matrix (stage C's count), the
+    # bf16 fold's shapes, the normals of the key map's case.
+    INT4_N = 10_485_760
+    BF16_SHAPES = ((128, 8192), (256, 16384))
+    KEY_NORMALS = 1 << 24
     # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
     HEADLINE = {}
 
@@ -159,9 +202,12 @@ class Smoke:
         if not bool((i[:, 1:] > i[:, :-1])[same & valid].all()):
             raise AssertionError(f"{name}: an exact tie kept the higher id")
 
-    def main_path(self, fn):
+    def main_path(self, fn, probed=()):
         """Run ``fn`` with every launch count set to 0 just before and read
-        just after: the counts of the port's main path alone."""
+        just after: the counts of the port's main path alone. Launches of
+        the kernels in ``probed`` (K1/K2 run by a probe of them) are
+        returned but stay out of the kernels line, which counts the
+        retrieval path's."""
         k = self.p.kernels
         torch.cuda.synchronize()
         k.reset_launch_counts()
@@ -169,15 +215,17 @@ class Smoke:
         torch.cuda.synchronize()
         got = {name: getattr(k, name).launches for name in KERNELS}
         for name, n in got.items():
-            self.main_launches[name] += n
+            if name not in probed:
+                self.main_launches[name] += n
         return out, got
 
     @staticmethod
-    def expect(stage, counts, **want) -> None:
+    def expect(stage, counts, at_least=False, **want) -> None:
         for name, n in want.items():
-            if counts[name] != n:
-                raise AssertionError(f"{stage}: launches {counts}, expected "
-                                     f"{name} = {n}")
+            if counts[name] < n if at_least else counts[name] != n:
+                raise AssertionError(
+                    f"{stage}: launches {counts}, expected {name} "
+                    f"{'>=' if at_least else '='} {n}")
 
     def bound(self, name, n_bytes, ops, op_rate) -> None:
         """The least time the card could take: bytes over the HBM rate or
@@ -198,9 +246,13 @@ class Smoke:
         seconds = time.perf_counter() - t0
         for name in self.p.kernels.SOURCES:
             report = self.p.build_log.get(name, (seconds, ""))[1]
+            entry = ""
             for line in report.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}:", line.strip(), flush=True)
+                found = re.search(r"entry function '(\w+)'", line)
+                if found:
+                    entry = found.group(1)
+                elif "registers" in line or "spill" in line:
+                    print(f"ptxas {name} {entry}:", line.strip(), flush=True)
         log(phase="build", seconds=round(seconds, 3),
             sources=list(self.p.kernels.SOURCES),
             torch=torch.__version__, cuda=torch.version.cuda)
@@ -831,18 +883,29 @@ class Smoke:
                    n * d + n * 4 + b * (d + 4) + b * 25 * 8, 2 * b * n * d,
                    INT8_OP_S)
 
-    def time_pair(self, name, kernel_fn, plain_fn, shape) -> None:
+    def time_pair(self, name, kernel_fn, plain_fn, shape,
+                  plain_n=10) -> None:
+        """plain_n < 10 for plain versions that take a tenth of a second
+        or more: their median of plain_n calls after one warm-up, or, for
+        plain_n = 1 (seconds a call), one call without a warm-up."""
         t = self.p.cuda_event_ms
+        warmup = 0 if plain_n == 1 else 1
+
+        def plain():
+            return t(plain_fn) if plain_n == 10 else t(plain_fn, n=plain_n,
+                                                       warmup=warmup)
         # plain, kernel, kernel, plain: drift shows as a gap between pairs.
-        p1 = t(plain_fn)
+        p1 = plain()
         k1 = t(kernel_fn)
         k2 = t(kernel_fn)
-        p2 = t(plain_fn)
+        p2 = plain()
         ms, plain_ms = min(k1, k2), min(p1, p2)
         self.times[name] = (ms, plain_ms)
         log(timing=name, shape=shape, ms=ms, plain_ms=plain_ms,
             ms_runs=[k1, k2], plain_ms_runs=[p1, p2], card=self.card,
-            method="CUDA events, median of 10 after 3 warm-ups")
+            method="CUDA events, median of 10 after 3 warm-ups"
+            + ("" if plain_n == 10 else
+               f" (plain: median of {plain_n} after {warmup} warm-up)"))
 
     def time_library(self, name, fn, what) -> None:
         t = self.p.cuda_event_ms
@@ -850,6 +913,10 @@ class Smoke:
         self.library[name] = min(runs)
         log(timing=name + "_library", what=what, ms=min(runs), ms_runs=runs,
             card=self.card)
+
+    def no_library(self, name, why) -> None:
+        self.library[name] = None
+        log(timing=name + "_library", ms=None, what="none: " + why)
 
     # -- the bench's paths: stream kernels, stage F, floors, overlap -------
 
@@ -973,14 +1040,310 @@ class Smoke:
             lambda: k.stream_sum_busy_torch(emb, seed, xi, grid, tile_rows),
             f"{n} x {d} bf16, X={xi}, tiles of {tile_rows} rows, "
             f"grid {grid}")
-        self.library["stream_sum_busy"] = None
-        log(timing="stream_sum_busy_library", ms=None,
-            what="none: no PyTorch call computes the per-CTA chains")
+        self.no_library("stream_sum_busy",
+                        "no PyTorch call computes the per-CTA chains")
         tiles = -(-n // tile_rows)
         # Each tile: n*d/tiles adds; every thread of its CTA: X chain steps
         # of a multiply and an add.
         self.bound("stream_sum_busy", n * d * 2 + 4 + grid * 4,
                    n * d + 2 * xi * tiles * 256, F32_FLOP_S)
+
+    # -- the probes of K1/K2, the keys and int4 (P4-P7, T1) --------------
+
+    def probe_ms(self, fn, n):
+        return self.p.cuda_event_ms(fn, n=n, warmup=1)
+
+    def exact_rows(self, n, d):
+        """Integer-valued rows and queries: every f32 score is an exact
+        integer, so the kernels' sums and the plain versions' agree bit
+        for bit, and exact ties are everywhere. Also int8 rows with
+        scales (float(acc) * scale is one rounding in both)."""
+        g = self.seed(131)
+        dev = self.dev
+        emb = torch.randint(-2, 3, (n, d), generator=g,
+                            device=dev).to(torch.bfloat16)
+        q = torch.randint(-2, 3, (self.B, d), generator=g, device=dev).float()
+        i8 = dict(generator=g, device=dev, dtype=torch.int8)
+        int8 = (torch.randint(-127, 128, (n, d), **i8),
+                torch.rand(n, generator=g, device=dev) + 0.5,
+                torch.randint(-127, 128, (self.B, d), **i8),
+                torch.rand(self.B, generator=g, device=dev) + 0.5)
+        return emb, q, int8
+
+    def counted_check(self, name, counted, plain, kernel, tau_fn) -> None:
+        """The counted fold equal to its plain version (values, ids and
+        every counter) and to the kernel it counts, with and without
+        tau."""
+        ref = kernel()
+        for tau in (None, tau_fn()):
+            got, want = counted(tau), plain(tau)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"(tau={tau is not None})")
+            if not (torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                raise AssertionError(f"{name} differs from the kernel it "
+                                     f"counts (tau={tau is not None})")
+
+    def phase13_14_probe_checks(self) -> None:
+        """P4's modes and P5's counted fold against their plain versions
+        at N_KERNEL, on exact rows."""
+        t0 = time.perf_counter()
+        k, a = self.p.kernels, self.p.anatomy
+        emb, q, (values, scales, qv, qs) = self.exact_rows(self.N_KERNEL,
+                                                           self.D_KERNEL)
+        self.max_err["anatomy_top_k"] = self.p.kernel_anatomy.check(emb, q, 32)
+        self.max_err["anatomy_top_k_int8"] = self.p.kernel_anatomy.check(
+            values, qv, 25, scales, qs)
+        self.counted_check(
+            "fused_top_k_counted",
+            lambda t: k.fused_top_k_counted(emb, q, 32, t),
+            lambda t: k.fused_top_k_counted_torch(emb, q, 32, t),
+            lambda: k.fused_dense_top_k(emb, q, 32),
+            lambda: a.subsample_tau(emb, q, 32))
+        args = (values, scales, qv, qs, 25)
+        self.counted_check(
+            "fused_top_k_counted_int8",
+            lambda t: k.fused_top_k_counted_int8(*args, t),
+            lambda t: k.fused_top_k_counted_int8_torch(*args, t),
+            lambda: k.fused_dense_top_k_int8(*args),
+            lambda: a.subsample_tau_int8(values, scales, qv, 25))
+        log(phase="probes_vs_plain", n=self.N_KERNEL, d=self.D_KERNEL,
+            b=self.B, anatomy_modes=["stage", "score", "compare", "full"],
+            anatomy_score_max_abs_err=self.max_err["anatomy_top_k"],
+            counted_equal_plain_and_kernel=True, tau=[False, True], ok=True,
+            seconds=time.perf_counter() - t0)
+
+    def phase13_anatomy(self, label, rows, q, kk, scales=None,
+                        q_scales=None) -> None:
+        """Every mode held against its plain version on a stage's matrix,
+        the ablation's times there, and the anatomy row's timing (its
+        "score" mode) beside its plain version and yardstick. The probe's
+        K1/K2 calls (its "full" mode) are reported in the anatomy line,
+        not in the kernels line."""
+        t0 = time.perf_counter()
+        int8 = scales is not None
+        name = "anatomy_top_k_int8" if int8 else "anatomy_top_k"
+        full = "fused_dense_top_k_int8" if int8 else "fused_dense_top_k"
+        err = self.p.kernel_anatomy.check(rows, q, kk, scales, q_scales)
+        self.max_err[name] = max(self.max_err[name], err)
+        line, counts = self.main_path(lambda: self.p.kernel_anatomy.run(
+            rows, q, kk, self.probe_ms, scales, q_scales), probed=(full,))
+        self.expect(f"anatomy {label}", counts, **{name: 3 * counts[full]})
+        (n, d), b = rows.shape, q.shape[0]
+        shape = (f"{n} x {d} {line['rows']}, B={b}, k={kk}, "
+                 f"{line['splits']} splits")
+        log(anatomy=label, shape=shape, **{key: line[key] for key in (
+            "ms", "loads_ms", "scoring_ms", "compare_ms", "insert_merge_ms",
+            "stage_gb_s", "byte_floor_ms")}, modes_equal_plain=True,
+            score_max_abs_err=err, full_mode_launches=counts[full],
+            card=self.card, seconds=time.perf_counter() - t0)
+        k = self.p.kernels
+        if int8:
+            args = (rows, scales, q, q_scales, kk, "score")
+            self.time_pair(name, lambda: k.anatomy_top_k_int8(*args),
+                           lambda: k.anatomy_top_k_int8_torch(*args),
+                           shape + ", mode score", plain_n=2)
+            self.time_library(name, lambda: self.int8_row_max(rows, q,
+                                                              scales),
+                              "torch._int_mm, row scales, amax per 2^21-row "
+                              "chunk, then the max over chunks")
+            self.bound(name, n * d + n * 4 + b * d + b * 4, 2 * b * n * d,
+                       INT8_OP_S)
+        else:
+            args = (rows, q, kk, "score")
+            self.time_pair(name, lambda: k.anatomy_top_k(*args),
+                           lambda: k.anatomy_top_k_torch(*args),
+                           shape + ", mode score")
+            self.time_library(name, lambda: torch.amax(
+                q.float() @ rows.float().T, dim=1),
+                "torch.amax(q @ emb.float().T, dim=1)")
+            self.bound(name, n * d * 2 + b * d * 4 + b * 4, 2 * b * n * d,
+                       F32_FLOP_S)
+
+    @staticmethod
+    def int8_row_max(values, qv, scales=None, step=1 << 21):
+        """Each row's best int8 product (times the row scales, if given):
+        torch._int_mm per chunk of the doc axis, whose [256, N] int32
+        product would take 10.7 GB at once."""
+        best = None
+        for s0 in range(0, values.shape[0], step):
+            acc = torch._int_mm(qv, values[s0:s0 + step].T)
+            m = (acc if scales is None else
+                 acc.float() * scales[s0:s0 + step][None]).amax(dim=1)
+            best = m if best is None else torch.maximum(best, m)
+        return best
+
+    def phase14_counted(self, label, rows, q, kk, scales=None,
+                        q_scales=None) -> None:
+        """The counted fold on a stage's matrix with and without tau, its
+        values, ids and every counter equal to its plain version's and its
+        ids to K1's / K2's (inside the probe), and its timing row. The
+        probe's K1/K2 calls (the reference and tau's subsample) are
+        reported in the counted line, not in the kernels line."""
+        t0 = time.perf_counter()
+        int8 = scales is not None
+        name = "fused_top_k_counted_int8" if int8 else "fused_top_k_counted"
+        full = "fused_dense_top_k_int8" if int8 else "fused_dense_top_k"
+        lines, counts = self.main_path(lambda: self.p.iteration_count.run(
+            rows, q, kk, self.probe_ms, scales, q_scales), probed=(full,))
+        self.expect(f"counted {label}", counts, at_least=True, **{name: 2})
+        (n, d), b = rows.shape, q.shape[0]
+        shape = (f"{n} x {d} {'int8' if int8 else str(rows.dtype)[6:]}, "
+                 f"B={b}, k={kk}, {lines[0]['splits']} splits")
+        keys = ("insertions_per_row", "insertions_early_per_row",
+                "insertions_late_per_row", "insertions_per_row_split",
+                "fired_windows_per_row", "windows_per_row", "fired_share",
+                "ms")
+        # One list per key: without tau, then with it.
+        log(counted=label, shape=shape, ids_equal_kernel=True,
+            equal_plain=True, tau=[False, True],
+            reference_and_tau_launches=counts[full],
+            **{key: [line[key] for line in lines] for key in keys},
+            card=self.card, seconds=time.perf_counter() - t0)
+        shape += ", no tau"
+        k = self.p.kernels
+        if int8:
+            args = (rows, scales, q, q_scales, kk)
+            self.time_pair(name, lambda: k.fused_top_k_counted_int8(*args),
+                           lambda: k.fused_top_k_counted_int8_torch(*args),
+                           shape, plain_n=1)
+            self.bound(name, n * d + n * 4 + b * (d + 4)
+                       + b * lines[0]["splits"] * 16 + b * kk * 8,
+                       2 * b * n * d, INT8_OP_S)
+        else:
+            self.time_pair(name, lambda: k.fused_top_k_counted(rows, q, kk),
+                           lambda: k.fused_top_k_counted_torch(rows, q, kk),
+                           shape, plain_n=1)
+            self.bound(name, n * d * rows.element_size() + b * d * 4
+                       + b * lines[0]["splits"] * 16 + b * kk * 8,
+                       2 * b * n * d, F32_FLOP_S)
+        self.no_library(name, "no PyTorch call counts a top-k's insertions")
+
+    def phase15_keys(self) -> None:
+        """T1 bit for bit over the JAX package's special values and 2^24
+        normals; P6 through its probe."""
+        t0 = time.perf_counter()
+        k = self.p.kernels
+        inf = float("inf")
+        special = torch.tensor(
+            [-inf, -3.3e38, -1.0, -2e-38, -1e-45, -0.0, 0.0, 1e-45, 2e-38,
+             0.5, 1.0, 3.3e38, inf], dtype=torch.float32, device=self.dev)
+        g = self.seed(151)
+        x = torch.cat([special, 10 * torch.randn(
+            self.KEY_NORMALS, generator=g, device=self.dev)])
+
+        def keys_and_back():
+            keys = k.xpack_keys(x)
+            return keys, k.xpack_values(keys)
+
+        (keys, back), counts = self.main_path(keys_and_back)
+        self.expect("keys", counts, xpack_keys=1, xpack_values=1)
+        if not (torch.equal(keys, k.xpack_keys_torch(x))
+                and torch.equal(back.view(torch.int32), x.view(torch.int32))
+                and torch.equal(k.xpack_values_torch(keys).view(torch.int32),
+                                x.view(torch.int32))):
+            raise AssertionError("the key map is not bit-exact")
+        ordered = x[torch.argsort(keys)]
+        if not bool((ordered[1:] >= ordered[:-1]).all()):
+            raise AssertionError("the keys do not order as the floats")
+        for name in ("xpack_keys", "xpack_values"):
+            self.max_err[name] = 0.0
+        lines, c6 = self.main_path(lambda: self.p.bf16_fold.run(
+            self.dev, self.probe_ms, self.BF16_SHAPES))
+        self.expect("bf16 fold", c6, at_least=True,
+                    bf16_row_reduce=len(lines))
+        self.max_err["bf16_row_reduce"] = 0.0
+        log(probe="keys", elements=x.numel(), special_values=13,
+            bit_equal_plain=True, round_trip_bit_equal=True, monotone=True,
+            bf16_fold=[{key: line[key] for key in (
+                "shape", "ms", "plain_ms", "packed_argmax_agreement",
+                "packed_value_agreement")} for line in lines],
+            card=self.card, seconds=time.perf_counter() - t0)
+        n = x.numel()
+        self.time_pair("xpack_keys", lambda: k.xpack_keys(x),
+                       lambda: k.xpack_keys_torch(x),
+                       f"{n} float32 (13 special + normals)")
+        self.time_pair("xpack_values", lambda: k.xpack_values(keys),
+                       lambda: k.xpack_values_torch(keys),
+                       f"{n} int32 keys")
+        for name in ("xpack_keys", "xpack_values"):
+            self.no_library(name, "no PyTorch call maps floats to "
+                            "order-preserving int32 keys")
+            self.bound(name, 8 * n, n, F32_FLOP_S)
+        r, w = self.BF16_SHAPES[-1]
+        xr = torch.randn((r, w), generator=g, device=self.dev)
+        self.time_pair("bf16_row_reduce", lambda: k.bf16_row_reduce(xr),
+                       lambda: k.bf16_row_reduce_torch(xr),
+                       f"[{r}, {w}] float32")
+        self.no_library("bf16_row_reduce", "torch.max gives the max and an "
+                        "argmax only, not the masked max or the packed key")
+        self.bound("bf16_row_reduce", r * w * 4 + r * 16, 6 * r * w,
+                   F32_FLOP_S)
+
+    def phase16_int4_exact(self) -> None:
+        """P7 stages 1 and 3: exact at the probe's small shape."""
+        t0 = time.perf_counter()
+        probe = self.p.int4_probe
+        line, counts = self.main_path(lambda: probe.check_exact(self.dev))
+        self.expect("int4 exact", counts, at_least=True, int4_scores=2,
+                    int4_fold_max=2, int8_fold_max=1)
+        for name in ("int4_scores", "int4_fold_max", "int8_fold_max"):
+            self.max_err[name] = 0.0
+        q8, e4, packed = probe.small_case(self.dev)
+        k = self.p.kernels
+        (n, d), b = e4.shape, q8.shape[0]
+        self.time_pair("int4_scores", lambda: k.int4_scores(q8, packed),
+                       lambda: k.int4_scores_torch(q8, packed),
+                       f"{n} x {d} int4 ({n} x {d // 2} packed), B={b}")
+        self.no_library("int4_scores", "no PyTorch call multiplies packed "
+                        "int4 rows")
+        self.bound("int4_scores", b * d + n * d // 2 + b * n * 4,
+                   2 * b * n * d, INT8_OP_S)
+        log(probe="int4_exact", **line, card=self.card,
+            seconds=time.perf_counter() - t0)
+
+    def phase16_int4_stage2(self, values) -> None:
+        """P7 stage 2: the int8 fold over stage C's resident matrix, the
+        int4 fold over a seeded packed matrix of as many rows."""
+        t0 = time.perf_counter()
+        probe, k = self.p.int4_probe, self.p.kernels
+        n, d = values.shape
+        q8, packed = probe.stage2_inputs(self.dev, self.INT4_N, d, self.B)
+        for got, want in (
+                (k.int8_fold_max(q8, values), k.int8_fold_max_torch(q8,
+                                                                    values)),
+                (k.int4_fold_max(q8, packed), k.int4_fold_max_torch(q8,
+                                                                    packed))):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError("a stage-2 fold is not exact")
+        lines, counts = self.main_path(lambda: probe.run_stage2(
+            q8, values, packed, self.probe_ms))
+        self.expect("int4 stage 2", counts, at_least=True, int8_fold_max=1,
+                    int4_fold_max=1)
+        log(probe="int4_stage2", lines=lines, exact_full_size=True,
+            card=self.card, seconds=time.perf_counter() - t0)
+        b = q8.shape[0]
+        np_ = packed.shape[0]
+        self.time_pair("int8_fold_max", lambda: k.int8_fold_max(q8, values),
+                       lambda: k.int8_fold_max_torch(q8, values),
+                       f"{n} x {d} int8, B={b}", plain_n=2)
+        self.time_library("int8_fold_max",
+                          lambda: self.int8_row_max(values, q8),
+                          "torch._int_mm and amax per 2^21-row chunk, then "
+                          "the max over chunks")
+        self.bound("int8_fold_max", n * d + b * d + b * 4, 2 * b * n * d,
+                   INT8_OP_S)
+        self.time_pair("int4_fold_max", lambda: k.int4_fold_max(q8, packed),
+                       lambda: k.int4_fold_max_torch(q8, packed),
+                       f"{np_} x {d} int4 ({np_} x {d // 2} packed), B={b}",
+                       plain_n=2)
+        self.no_library("int4_fold_max", "no PyTorch call multiplies packed "
+                        "int4 rows")
+        self.bound("int4_fold_max", np_ * d // 2 + b * d + b * 4,
+                   2 * b * np_ * d, INT8_OP_S)
 
     def kernels_line(self) -> None:
         rows = []
@@ -1005,6 +1368,9 @@ class Smoke:
         self.phase2_k2()
         self.phase3_ivf_kernels()
         self.phase9_stream_kernels()
+        self.phase13_14_probe_checks()
+        self.phase15_keys()
+        self.phase16_int4_exact()
         torch.cuda.empty_cache()
         self.phase10_stage_f()
         torch.cuda.empty_cache()
@@ -1014,6 +1380,8 @@ class Smoke:
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
         self.time_stream(emb)
+        self.phase13_anatomy("A", emb, q, 32)
+        self.phase14_counted("A", emb, q, 32)
         del emb, q, bm25, terms
         torch.cuda.empty_cache()
         self.phase6_stage_d()
@@ -1024,6 +1392,10 @@ class Smoke:
         torch.cuda.empty_cache()
         self.phase8_stage_e(index, cent)
         self.time_k2(qd.values, qd.scales, q)
+        qv, qs = self.p.quantize_queries(q)
+        self.phase13_anatomy("C", qd.values, qv, 25, qd.scales, qs)
+        self.phase14_counted("C", qd.values, qv, 25, qd.scales, qs)
+        self.phase16_int4_stage2(qd.values)
         log(phase="done", seconds=time.perf_counter() - self.t0)
         self.kernels_line()
         print(json.dumps({"ok": True, "device": {
@@ -1050,7 +1422,14 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
-        from a_nice_rag_tpu_torch.probes import dma_overlap
+        from a_nice_rag_tpu_torch.ops.kernels import anatomy
+        from a_nice_rag_tpu_torch.probes import (
+            bf16_fold,
+            dma_overlap,
+            int4,
+            iteration_count,
+            kernel_anatomy,
+        )
         from a_nice_rag_tpu_torch.ops.quantized import (
             QuantizedDense,
             quantize_embeddings,
@@ -1071,6 +1450,9 @@ class _Port:
 
         self.require_cuda = require_cuda
         self.bench, self.dma_overlap = bench, dma_overlap
+        self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy
+        self.iteration_count, self.bf16_fold = iteration_count, bf16_fold
+        self.int4_probe = int4
         self.sm_grid = sm_grid
         self.check_stream_sum = check_stream_sum
         self.check_stream_sum_busy = check_stream_sum_busy

@@ -19,9 +19,21 @@ import time
 import torch
 
 import chip_smoke
+from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
+from a_nice_rag_tpu_torch.ops.kernels import int4 as i4
 from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
+from a_nice_rag_tpu_torch.ops.kernels import keys as ks
 from a_nice_rag_tpu_torch.ops.kernels import stream as st
+
+WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
+           (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8"),
+           (st, "stream_sum"), (st, "stream_sum_busy"),
+           (an, "anatomy_top_k"), (an, "anatomy_top_k_int8"),
+           (an, "fused_top_k_counted"), (an, "fused_top_k_counted_int8"),
+           (ks, "xpack_keys"), (ks, "xpack_values"),
+           (ks, "bf16_row_reduce"), (i4, "int4_scores"),
+           (i4, "int8_fold_max"), (i4, "int4_fold_max"))
 
 
 class TinySmoke(chip_smoke.Smoke):
@@ -38,6 +50,7 @@ class TinySmoke(chip_smoke.Smoke):
     STREAM_ROWS, STREAM_D, EXACT_ROWS = 1003, 16, 4096
     HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
                     single_iters=2, p50_samples=3, recall_queries=64)
+    INT4_N, BF16_SHAPES, KEY_NORMALS = 4096, ((8, 512), (16, 1024)), 4096
 
 
 def _host_ms(fn, n=3, warmup=1):
@@ -55,9 +68,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    for mod, name in ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
-                      (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8"),
-                      (st, "stream_sum"), (st, "stream_sum_busy")):
+    for mod, name in WRAPPED:
         wrapper, plain = getattr(mod, name), getattr(mod, name + "_torch")
         # Restored at teardown, so no other test sees these launches.
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
@@ -88,25 +99,54 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
         "ok": True, "device": {"platform": "gpu", "kind": "cpu", "count": 1}
     }
     kernels = json.loads(lines[-2])["kernels"]
-    assert [k["name"] for k in kernels] == [
-        "fused_dense_top_k", "fused_dense_top_k_int8", "ivf_dense_top_k",
-        "ivf_dense_top_k_int8", "stream_sum", "stream_sum_busy",
-    ]
+    assert [k["name"] for k in kernels] == [name for _, name in WRAPPED]
     # K1: stage A 3 calls x 1 dense list, stage B dense + common tier,
     # stage D B = 256 and filtered. K2: stages C and E at B = 256. K3: 64
     # micro-batches + the full probe. K4: 32 micro-batches. Stage F: none.
-    # The stream kernels: the floor lines and the overlap probe, which
-    # time them (counts of the host timer's calls).
+    # The probes' calls of K1/K2 stay out of these counts. The stream
+    # kernels and the probes' own: counts of the host timer's calls.
     assert [k["launches"] for k in kernels][:4] == [7, 2, 65, 32]
     assert all(k["launches"] >= 1 for k in kernels[4:])
+    no_library = {"stream_sum_busy", "fused_top_k_counted",
+                  "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
+                  "bf16_row_reduce", "int4_scores", "int4_fold_max"}
     for k in kernels:
         assert k["bound_by"] in ("bytes", "operations")
         assert k["route"] == "cuda" and k["source"].endswith(".cu")
         for key in ("ms", "plain_ms", "bound_ms"):
             assert k[key] > 0, (k["name"], key)
-        assert k["library_ms"] is None if k["name"] == "stream_sum_busy" \
+        assert k["library_ms"] is None if k["name"] in no_library \
             else k["library_ms"] > 0
+        assert k["max_abs_err"] >= 0.0
     assert kernels[4]["replaces"] == "bench.py:226"
+    assert kernels[6]["replaces"] == "scripts/profile_kernel_anatomy.py:138"
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    probes = [r for r in records if r.get("phase") == "probes_vs_plain"]
+    assert probes[0]["counted_equal_plain_and_kernel"]
+    anatomy = [r for r in records if "anatomy" in r]
+    assert [a["anatomy"] for a in anatomy] == ["A", "C"]
+    for a in anatomy:
+        assert set(a["ms"]) == {"stage", "score", "compare", "full"}
+        assert a["seconds"] > 0 and a["modes_equal_plain"]
+        # The "full" mode's K1/K2: a warm-up and 5 timed calls.
+        assert a["full_mode_launches"] == 6
+    counted = [r for r in records if "counted" in r]
+    assert [c["counted"] for c in counted] == ["A", "C"]
+    for c in counted:
+        assert c["ids_equal_kernel"] and c["tau"] == [False, True]
+        assert c["equal_plain"]
+        # K1/K2 as the reference, and over tau's subsample.
+        assert c["reference_and_tau_launches"] == 2
+        # The warm start can only remove insertions.
+        assert c["insertions_per_row"][1] <= c["insertions_per_row"][0]
+        assert 0 < c["fired_share"][0] <= 1
+    keys = [r for r in records if r.get("probe") == "keys"]
+    assert keys[0]["bit_equal_plain"] and keys[0]["special_values"] == 13
+    assert [f["packed_argmax_agreement"] for f in keys[0]["bf16_fold"]] \
+        == [1.0, 1.0]
+    int4 = [r for r in records if str(r.get("probe")).startswith("int4")]
+    assert [i["probe"] for i in int4] == ["int4_exact", "int4_stage2"]
+    assert int4[0]["exact"] and int4[1]["exact_full_size"]
     stage_f = [json.loads(line) for line in lines if '"F_headline"' in line]
     assert len(stage_f) == 1
     assert stage_f[0]["recall@10_planted"] >= 0.90

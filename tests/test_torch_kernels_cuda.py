@@ -14,17 +14,29 @@ lower id. The IVF kernels (K3, K4) are held the same way, over tile
 tables with -1 padding, a ragged last tile and the dynamic row count.
 The stream sums: within 1e-5 of the sum of absolute values (float32
 partial sums in another order), exactly for int8 data whose partial sums
-stay below 2^24; the busy kernel's chains bit for bit.
+stay below 2^24; the busy kernel's chains bit for bit. The probes of
+K1/K2: the anatomy's "stage" bit for bit, "score" within 1e-5 of the
+largest |score| (int8 exactly), "compare" exactly; the counted fold's
+ids, values and counters exactly on integer-valued scores. The keys,
+``bf16_row_reduce`` and the int4 kernels bit for bit.
 """
 
 import pytest
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import (
+    anatomy,
+    bf16_row_reduce,
+    bf16_row_reduce_torch,
     fused_dense_top_k,
     fused_dense_top_k_int8,
     fused_dense_top_k_int8_torch,
     fused_dense_top_k_torch,
+    int4,
+    int4_fold_max,
+    int4_scores,
+    int8_fold_max,
+    int8_fold_max_torch,
     ivf_dense_top_k,
     ivf_dense_top_k_int8,
     ivf_dense_top_k_int8_torch,
@@ -33,8 +45,12 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     stream_sum_busy,
     stream_sum_busy_torch,
     stream_sum_torch,
+    xpack_keys,
+    xpack_keys_torch,
+    xpack_values,
 )
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
+from a_nice_rag_tpu_torch.probes import kernel_anatomy
 from a_nice_rag_tpu_torch.ops.quantized import (
     quantize_embeddings,
     quantize_queries,
@@ -264,3 +280,166 @@ def test_cuda_stream_wrappers_raise_instead_of_falling_back(cuda_device):
         stream_sum(x.T)  # not contiguous
     with pytest.raises(ValueError):
         stream_sum_busy(x, torch.zeros((), device=cuda_device), 1, 0)
+
+
+def _rows(g, kind, n, d, b, integer):
+    """(rows, queries, scales, q_scales) on the CPU: unit or small-integer
+    f32/bf16 rows with f32 queries, or quantized int8 rows and queries."""
+    if kind == "int8":
+        emb = _unit(torch.randn((n, d), generator=g))
+        emb[n // 2:n // 2 + 50] = emb[:50]
+        qd = quantize_embeddings(emb)
+        qv, qs = quantize_queries(torch.randn((b, d), generator=g))
+        return qd.values, qv, qd.scales, qs
+    if integer:  # every score an exact integer: ties everywhere
+        emb = torch.randint(-2, 3, (n, d), generator=g).float()
+        q = torch.randint(-2, 3, (b, d), generator=g).float()
+    else:
+        emb, q = (_unit(torch.randn((n, d), generator=g)),
+                  _unit(torch.randn((b, d), generator=g)))
+    return emb.to(getattr(torch, kind)), q, None, None
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,d,b,k", [
+    (70_001, 96, 7, 32), (50_000, 40, 130, 25), (4097, 256, 1, 1),
+])
+def test_cuda_anatomy_modes_match_plain(cuda_device, kind, n, d, b, k):
+    # "stage" bit for bit; "score" within 1e-5 of max |score| (f32 sums in
+    # another order; int8 exact); "compare" exactly, at a threshold no
+    # score lies near; "full" as K1/K2 are held.
+    g = torch.Generator().manual_seed(n + d + b)
+    rows, q, scales, q_scales = (
+        None if t is None else t.to(cuda_device)
+        for t in _rows(g, kind, n, d, b, integer=False))
+    wrapper = (anatomy.anatomy_top_k if scales is None
+               else anatomy.anatomy_top_k_int8)
+    before = wrapper.launches
+    kernel_anatomy.check(rows, q, k, scales, q_scales)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 3  # full goes through K1/K2
+
+
+def test_cuda_anatomy_score_keeps_negative_maxima(cuda_device):
+    # Rows whose best score is negative or zero, spread over many CTAs:
+    # the atomic float max must order them as floats.
+    emb = torch.tensor([[-1.0, 0.0], [-2.0, 0.0], [-3.0, 0.0]],
+                       device=cuda_device).repeat(7000, 1)
+    q = torch.tensor([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [2.0, 0.0]],
+                     device=cuda_device)
+    got = anatomy.anatomy_top_k(emb, q, 4, "score")
+    assert torch.equal(got, anatomy.anatomy_top_k_torch(emb, q, 4, "score"))
+    assert got.tolist() == [-1.0, 0.0, 3.0, -2.0]
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("n,d,b,k", [
+    (300_007, 32, 70, 32), (40_000, 64, 3, 128), (5000, 8, 256, 1),
+])
+def test_cuda_counted_fold_matches_plain(cuda_device, kind, n, d, b, k):
+    # Exact: integer f32/bf16 scores and int8 products need one rounding
+    # (none for f32), so kernel and plain version see the same scores and
+    # every counter must agree; the ids and values equal K1/K2's.
+    g = torch.Generator().manual_seed(n + k)
+    rows, q, scales, q_scales = (
+        None if t is None else t.to(cuda_device)
+        for t in _rows(g, kind, n, d, b, integer=True))
+    for use_tau in (False, True):
+        if scales is None:
+            tau = anatomy.subsample_tau(rows, q, k) if use_tau else None
+            got = anatomy.fused_top_k_counted(rows, q, k, tau)
+            want = anatomy.fused_top_k_counted_torch(rows, q, k, tau)
+            ref = fused_dense_top_k(rows, q, k)
+        else:
+            tau = (anatomy.subsample_tau_int8(rows, scales, q, k)
+                   if use_tau else None)
+            args = (rows, scales, q, q_scales, k)
+            got = anatomy.fused_top_k_counted_int8(*args, tau)
+            want = anatomy.fused_top_k_counted_int8_torch(*args, tau)
+            ref = fused_dense_top_k_int8(*args)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert torch.equal(a, w), use_tau
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        splits = anatomy.split_plan(n, b, cuda_device)[0]
+        assert got[2].shape == (b, splits, 4)
+
+
+def test_cuda_keys_bit_exact(cuda_device):
+    inf = float("inf")
+    special = torch.tensor([-inf, -3.3e38, -1.0, -2e-38, -1e-45, -0.0, 0.0,
+                            1e-45, 2e-38, 0.5, 1.0, 3.3e38, inf])
+    g = torch.Generator().manual_seed(9)
+    x = torch.cat([special, 10 * torch.randn(100_003, generator=g)])
+    x = x.to(cuda_device)
+    for start in (0, 1, 2, 3):  # 16-byte vectors and the scalar path
+        view = x[start:]
+        before = xpack_keys.launches
+        keys = xpack_keys(view)
+        back = xpack_values(keys[start % 2:])
+        torch.cuda.synchronize()
+        assert xpack_keys.launches == before + 1
+        assert torch.equal(keys, xpack_keys_torch(view))
+        assert torch.equal(back.view(torch.int32),
+                           view[start % 2:].view(torch.int32))
+    ordered = x[torch.argsort(xpack_keys(x))]
+    assert bool((ordered[1:] >= ordered[:-1]).all())
+
+
+@pytest.mark.parametrize("rows,width,integer", [
+    (128, 8192, False), (7, 1, False), (3, 65_536, True), (33, 1000, True),
+])
+def test_cuda_bf16_row_reduce_matches_plain(cuda_device, rows, width,
+                                            integer):
+    g = torch.Generator().manual_seed(rows + width)
+    x = (torch.randint(-3, 4, (rows, width), generator=g).float()
+         if integer else torch.randn((rows, width), generator=g))
+    x = x.to(cuda_device)
+    before = bf16_row_reduce.launches
+    got = bf16_row_reduce(x)
+    torch.cuda.synchronize()
+    assert bf16_row_reduce.launches == before + 1
+    for a, w in zip(got, bf16_row_reduce_torch(x)):
+        assert torch.equal(a, w)
+    ref = torch.argmax(x.to(torch.bfloat16).float(), dim=1)
+    assert torch.equal(got[1].long(), ref) and torch.equal(got[3].long(), ref)
+
+
+@pytest.mark.parametrize("n,d,b", [
+    (1024, 256, 128), (5001, 40, 3), (300, 8, 65), (70_000, 1024, 256),
+])
+def test_cuda_int4_matches_plain(cuda_device, n, d, b):
+    # Exact integers throughout (float64 holds every sum: |sum| < 2^20).
+    g = torch.Generator().manual_seed(n + d)
+    e4 = torch.randint(-8, 8, (n, d), generator=g, dtype=torch.int8)
+    q8 = torch.randint(-128, 128, (b, d), generator=g, dtype=torch.int8)
+    e8 = torch.randint(-128, 128, (n, d), generator=g, dtype=torch.int8)
+    q8, e4, e8 = q8.to(cuda_device), e4.to(cuda_device), e8.to(cuda_device)
+    want = (q8.double() @ e4.double().T).to(torch.int32)
+    packed = int4.pack_int4(e4)
+    for unpack in int4.UNPACKS:
+        before = int4_fold_max.launches
+        got = int4_fold_max(q8, packed, unpack)
+        torch.cuda.synchronize()
+        assert int4_fold_max.launches == before + 1
+        assert torch.equal(got, want.amax(dim=1))
+        if n * b <= 1 << 24:
+            assert torch.equal(int4_scores(q8, packed, unpack), want)
+    assert torch.equal(int8_fold_max(q8, e8), int8_fold_max_torch(q8, e8))
+
+
+def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda_device):
+    emb = torch.zeros((300, 8), device=cuda_device)
+    q = torch.zeros((2, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        anatomy.anatomy_top_k(emb, q, 4, "compare")  # no threshold
+    with pytest.raises(ValueError):
+        anatomy.fused_top_k_counted(emb, q.cpu(), 4)
+    with pytest.raises(TypeError):
+        xpack_keys(torch.zeros(8, dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError):
+        bf16_row_reduce(torch.zeros((2, 70_000), device=cuda_device))
+    q8 = torch.zeros((2, 12), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # D % 8 != 0
+        int4_fold_max(q8, torch.zeros((5, 6), dtype=torch.int8,
+                                      device=cuda_device))

@@ -57,8 +57,15 @@ import importlib, sys
 names = ["chip_smoke", "a_nice_rag_tpu_torch.bench",
          "a_nice_rag_tpu_torch.probes.hbm_stream",
          "a_nice_rag_tpu_torch.probes.dma_overlap",
+         "a_nice_rag_tpu_torch.probes.kernel_anatomy",
+         "a_nice_rag_tpu_torch.probes.iteration_count",
+         "a_nice_rag_tpu_torch.probes.bf16_fold",
+         "a_nice_rag_tpu_torch.probes.int4",
          "a_nice_rag_tpu_torch.testing.synth",
-         "a_nice_rag_tpu_torch.ops.kernels.stream"]
+         "a_nice_rag_tpu_torch.ops.kernels.stream",
+         "a_nice_rag_tpu_torch.ops.kernels.anatomy",
+         "a_nice_rag_tpu_torch.ops.kernels.keys",
+         "a_nice_rag_tpu_torch.ops.kernels.int4"]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -75,4 +82,4 @@ def test_bench_probes_and_smoke_import_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["6"]
+    assert proc.stdout.split() == ["13"]
