@@ -12,11 +12,13 @@
 //
 // Contract. anr_anatomy_{f32,bf16,int8} run the split kernel of K1/K2
 // (split_topk.cuh) in one of its probe modes, on K1/K2's grid, block and
-// shared-memory layout for the given k:
-//   MODE_STAGE    words [ceil(B / 64)][n_splits] u32: per CTA, the XOR
-//                 of the 32-bit words its staging loops wrote (the query
-//                 block's f32 words or packed int8 words once per tile,
-//                 the range's document words once);
+// shared-memory layout for the given k (and, int8, query block bq):
+//   MODE_STAGE    words [query blocks][n_splits] u32: per CTA, the XOR
+//                 of the 32-bit words it staged (f32/bf16 rows: the query
+//                 block's f32 words once per tile, the range's document
+//                 words once; int8 rows: the query block's zero-padded
+//                 words once, every document word of the range once, each
+//                 read back from shared memory after its copy landed);
 //   MODE_SCORE    row_max [B] f32: the best selection score of each row
 //                 (f32 rows: q . e; int8 rows: float(q8 . e8) * doc
 //                 scale);
@@ -31,10 +33,11 @@
 //                 score).
 // The "full" time of the ablation is K1/K2 itself (fused_topk.cu).
 //
-// What bounds it on an H100: as K1/K2, FFMA (K1) or __dp4a (K2)
-// operations for every mode that scores; MODE_STAGE reads the same bytes
-// as K1/K2 (the 2^21 x 256 bf16 matrix: 0.32 ms at 3.35 TB/s) but stages
-// them into shared memory through K1's own loops and barriers. Each mode
+// What bounds it on an H100: as K1/K2, FFMA (K1) or int8 tensor-core
+// (K2) operations for every mode that scores, and bytes; MODE_STAGE reads
+// the same bytes as K1/K2 (the 2^21 x 256 bf16 matrix: 0.32 ms at 3.35
+// TB/s) but stages them into shared memory through K1/K2's own loops,
+// copies and barriers. Each mode
 // differs from the next by one part of the work, so the four times
 // split K1/K2 into loads, scoring, the compare pass, and insertions plus
 // merge. The counters cost a few integer adds per window.
@@ -48,16 +51,8 @@
 
 namespace {
 
-template <typename ET, bool INT8>
-int anatomy(int mode, const void* q, const ET* e, const float* escale,
-            const float* qscale, int B, int N, int D, int k, int n_splits,
-            int docs_per_split, Probe probe, float* part_v, int* part_i,
-            float* out_v, int* out_i, cudaStream_t stream) {
-  auto run = [&](auto tag) {
-    return launch<ET, INT8, decltype(tag)::value>(
-        q, e, escale, nullptr, qscale, B, N, D, k, n_splits, docs_per_split,
-        part_v, part_i, out_v, out_i, stream, probe);
-  };
+template <typename Launch>
+int by_mode(int mode, Launch&& run) {
   switch (mode) {
     case MODE_STAGE:
       return run(std::integral_constant<int, MODE_STAGE>());
@@ -72,6 +67,18 @@ int anatomy(int mode, const void* q, const ET* e, const float* escale,
   }
 }
 
+template <typename ET>
+int anatomy(int mode, const float* q, const ET* e, int B, int N, int D,
+            int k, int n_splits, int docs_per_split, Probe probe,
+            float* part_v, int* part_i, float* out_v, int* out_i,
+            cudaStream_t stream) {
+  return by_mode(mode, [&](auto tag) {
+    return launch<ET, decltype(tag)::value>(
+        q, e, nullptr, B, N, D, k, n_splits, docs_per_split, part_v, part_i,
+        out_v, out_i, stream, probe);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -81,11 +88,9 @@ int anr_anatomy_f32(int mode, const float* q, const float* e, int B, int N,
                     const float* thr, int* counts, unsigned* words,
                     float* row_max, float* part_v, int* part_i, float* out_v,
                     int* out_i, void* stream) {
-  return anatomy<float, false>(mode, q, e, nullptr, nullptr, B, N, D, k,
-                               n_splits, docs_per_split,
-                               Probe{thr, counts, words, row_max}, part_v,
-                               part_i, out_v, out_i,
-                               static_cast<cudaStream_t>(stream));
+  return anatomy<float>(mode, q, e, B, N, D, k, n_splits, docs_per_split,
+                        Probe{thr, counts, words, row_max}, part_v, part_i,
+                        out_v, out_i, static_cast<cudaStream_t>(stream));
 }
 
 int anr_anatomy_bf16(int mode, const float* q, const void* e, int B, int N,
@@ -93,23 +98,25 @@ int anr_anatomy_bf16(int mode, const float* q, const void* e, int B, int N,
                      const float* thr, int* counts, unsigned* words,
                      float* row_max, float* part_v, int* part_i,
                      float* out_v, int* out_i, void* stream) {
-  return anatomy<__nv_bfloat16, false>(
-      mode, q, static_cast<const __nv_bfloat16*>(e), nullptr, nullptr, B, N,
-      D, k, n_splits, docs_per_split, Probe{thr, counts, words, row_max},
-      part_v, part_i, out_v, out_i, static_cast<cudaStream_t>(stream));
+  return anatomy<__nv_bfloat16>(
+      mode, q, static_cast<const __nv_bfloat16*>(e), B, N, D, k, n_splits,
+      docs_per_split, Probe{thr, counts, words, row_max}, part_v, part_i,
+      out_v, out_i, static_cast<cudaStream_t>(stream));
 }
 
 int anr_anatomy_int8(int mode, const int8_t* q_values, const float* q_scales,
                      const int8_t* values, const float* scales, int B, int N,
-                     int D, int k, int n_splits, int docs_per_split,
+                     int D, int k, int bq, int n_splits, int docs_per_split,
                      const float* thr, int* counts, unsigned* words,
                      float* row_max, float* part_v, int* part_i,
                      float* out_v, int* out_i, void* stream) {
-  return anatomy<int8_t, true>(mode, q_values, values, scales, q_scales, B,
-                               N, D, k, n_splits, docs_per_split,
-                               Probe{thr, counts, words, row_max}, part_v,
-                               part_i, out_v, out_i,
-                               static_cast<cudaStream_t>(stream));
+  const Probe probe{thr, counts, words, row_max};
+  return by_mode(mode, [&](auto tag) {
+    return launch_int8<decltype(tag)::value>(
+        q_values, values, scales, nullptr, q_scales, B, N, D, k, bq,
+        n_splits, docs_per_split, part_v, part_i, out_v, out_i,
+        static_cast<cudaStream_t>(stream), probe);
+  });
 }
 
 }  // extern "C"

@@ -2,14 +2,15 @@
 // K2; ivf_topk.cu: K3, K4) and their probes (anatomy.cu; int4.cu takes
 // the tile constants and dp4a_chunk).
 //
-// A CTA owns BQ queries and scores tiles of TN documents into shared
-// memory (score_tile). One warp per query row keeps a running top-k in
-// shared memory: a document enters only if it beats the current worst
-// entry under (score desc, id asc), and evicts it (fold_tile). Every CTA
-// writes its k survivors per query; merge_kernel merges the per-split
-// lists of each query and writes them sorted, with (-inf, -1) in
-// unfilled slots. Scores are IEEE float32 (FFMA) for float rows and exact
-// int32 (__dp4a) for int8 rows, selected on float(acc) * doc_scale.
+// A CTA owns a block of queries and scores tiles of TN documents into
+// shared memory: score_tile here for float rows (K1, K3: IEEE float32,
+// FFMA, 64 queries), int8_mma.cuh for int8 rows (K2, K4: exact int32 on
+// the int8 tensor cores, 16 or 64 queries, selected on float(acc) *
+// doc_scale). One warp per query row keeps a running top-k in shared
+// memory: a document enters only if it beats the current worst entry
+// under (score desc, id asc), and evicts it (fold_tile). Every CTA writes
+// its k survivors per query; merge_kernel merges the per-split lists of
+// each query and writes them sorted, with (-inf, -1) in unfilled slots.
 
 #pragma once
 
@@ -20,7 +21,7 @@
 
 namespace {
 
-constexpr int BQ = 64;        // queries per CTA
+constexpr int BQ = 64;        // queries per CTA of the float kernels
 constexpr int TN = 128;       // documents per tile
 constexpr int THREADS = 256;  // 16 x 16 threads, each a 4 x 8 score block
 constexpr int WARPS = THREADS / 32;
@@ -89,17 +90,23 @@ __device__ __forceinline__ bool offer(float cv, int ci, float* rv, int* ri,
   return true;
 }
 
-struct Smem {
-  float* run_v;   // [BQ][k]
-  int* run_i;     // [BQ][k]
-  float* worst_v; // [BQ]
-  int* worst_i;   // [BQ]
-  int* worst_s;   // [BQ]
-  float* scores;  // [BQ][TN + 1]
+// A CTA's shared memory for a query block of BQN rows. The float
+// kernels stage depth chunks in qs / es (carve); the int8 path holds its
+// whole query block in qs and a ring of doc chunks in es (carve_int8).
+template <int BQN>
+struct SmemT {
+  static constexpr int ROWS = BQN;
+  float* run_v;   // [BQN][k]
+  int* run_i;     // [BQN][k]
+  float* worst_v; // [BQN]
+  int* worst_i;   // [BQN]
+  int* worst_s;   // [BQN]
+  float* scores;  // [BQN][TN + 1]
   uint8_t* keep;  // [TN]
-  void* qs;       // [DK][BQ + 1] (f32 or i32)
-  void* es;       // [DK][TN + 1] (f32 or i32)
+  void* qs;       // float: [DK][BQ + 1] f32
+  void* es;       // float: [DK][TN + 1] f32
 };
+using Smem = SmemT<BQ>;
 
 __host__ __device__ inline size_t smem_bytes(int k) {
   return sizeof(float) * BQ * k + sizeof(int) * BQ * k +
@@ -130,27 +137,10 @@ __device__ inline Smem carve(char* base, int k) {
   return s;
 }
 
-// Load 4 consecutive int8 of a row (zero past the row's end) as one
-// 32-bit word for __dp4a.
-__device__ __forceinline__ int load_word(const int8_t* row, int d, int D,
-                                         bool aligned) {
-  if (aligned && d + 4 <= D) {
-    return *reinterpret_cast<const int*>(row + d);
-  }
-  unsigned w = 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (d + b < D) {
-      w |= (static_cast<unsigned>(static_cast<uint8_t>(row[d + b])) << (8 * b));
-    }
-  }
-  return static_cast<int>(w);
-}
-
 // One staged depth chunk into a thread's 4 x 8 block of exact sums:
 // qs [DK][BQ + 1] and es [DK][TN + 1] hold 32-bit words of four int8
 // each; the thread owns queries ty * 4 + i and documents tx + 16 * j.
-// score_tile's int8 path and the stripped folds of int4.cu share it.
+// The stripped folds of int4.cu use it.
 __device__ __forceinline__ void dp4a_chunk(const int* qs, const int* es,
                                            int ty, int tx,
                                            int (&acc)[4][8]) {
@@ -174,134 +164,81 @@ struct NoTap {
   __device__ __forceinline__ void operator()(unsigned) const {}
 };
 
-// Score one tile [BQ, TN] into sm.scores. INT8: q is int8 [B, D], e is
-// int8 [N, D], escale the per-doc scales; else q is f32 [B, D] and e is
-// ET [N, D]. Rows at or past ``end`` score as zero rows. With DOT false
-// only the staging loops run (depth chunks into sm.qs / sm.es and their
-// barriers) and sm.scores is left alone; ``tap`` is handed each staged
-// word.
-template <typename ET, bool INT8, bool DOT = true, typename Tap = NoTap>
-__device__ void score_tile(const void* q, const ET* e, const float* escale,
-                           int B, int D, int q0, int tile0, int end,
-                           const Smem& sm, Tap&& tap = Tap()) {
+// Score one tile [BQ, TN] of float rows into sm.scores: q is f32 [B, D],
+// e is ET [N, D]. Rows at or past ``end`` score as zero rows. With DOT
+// false only the staging loops run (depth chunks into sm.qs / sm.es and
+// their barriers) and sm.scores is left alone; ``tap`` is handed each
+// staged word.
+template <typename ET, bool DOT = true, typename Tap = NoTap>
+__device__ void score_tile(const float* qf, const ET* e, int B, int D,
+                           int q0, int tile0, int end, const Smem& sm,
+                           Tap&& tap = Tap()) {
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // docs tx + 16 * j
   const int ty = tid / 16;  // queries ty * 4 + i
-  if constexpr (INT8) {
-    int acc[4][8];
+  float acc[4][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0;
-    int* qs = static_cast<int*>(sm.qs);
-    int* es = static_cast<int*>(sm.es);
-    const int8_t* qv = static_cast<const int8_t*>(q);
-    // Whole-word loads need 4-byte aligned rows.
-    const bool q_aligned =
-        D % 4 == 0 && reinterpret_cast<uintptr_t>(qv) % 4 == 0;
-    const bool e_aligned =
-        D % 4 == 0 && reinterpret_cast<uintptr_t>(e) % 4 == 0;
-    const int words = (D + 3) / 4;
-    for (int w0 = 0; w0 < words; w0 += DK) {
-      for (int x = tid; x < BQ * DK; x += THREADS) {
-        int r = x / DK, w = x % DK, row = q0 + r, word = w0 + w;
-        const int v = (row < B && word < words)
-                          ? load_word(qv + static_cast<size_t>(row) * D,
-                                      4 * word, D, q_aligned)
-                          : 0;
-        qs[w * (BQ + 1) + r] = v;
-        tap(static_cast<unsigned>(v));
-      }
-      for (int x = tid; x < TN * DK; x += THREADS) {
-        int r = x / DK, w = x % DK, doc = tile0 + r, word = w0 + w;
-        const int v = (doc < end && word < words)
-                          ? load_word(reinterpret_cast<const int8_t*>(e) +
-                                          static_cast<size_t>(doc) * D,
-                                      4 * word, D, e_aligned)
-                          : 0;
-        es[w * (TN + 1) + r] = v;
-        tap(static_cast<unsigned>(v));
-      }
-      __syncthreads();
-      if constexpr (DOT) dp4a_chunk(qs, es, ty, tx, acc);
-      __syncthreads();
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float* qs = static_cast<float*>(sm.qs);
+  float* es = static_cast<float*>(sm.es);
+  for (int d0 = 0; d0 < D; d0 += DK) {
+    for (int x = tid; x < BQ * DK; x += THREADS) {
+      int r = x / DK, dd = x % DK, row = q0 + r, d = d0 + dd;
+      const float v =
+          (row < B && d < D) ? qf[static_cast<size_t>(row) * D + d] : 0.f;
+      qs[dd * (BQ + 1) + r] = v;
+      tap(__float_as_uint(v));
     }
-    if constexpr (!DOT) return;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int doc = tile0 + tx + 16 * j;
-      float sc = doc < end ? escale[doc] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        sm.scores[(ty * 4 + i) * (TN + 1) + tx + 16 * j] =
-            static_cast<float>(acc[i][j]) * sc;
-      }
+    for (int x = tid; x < TN * DK; x += THREADS) {
+      int r = x / DK, dd = x % DK, doc = tile0 + r, d = d0 + dd;
+      const float v = (doc < end && d < D)
+                          ? to_f32(e[static_cast<size_t>(doc) * D + d])
+                          : 0.f;
+      es[dd * (TN + 1) + r] = v;
+      tap(__float_as_uint(v));
     }
-  } else {
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float* qs = static_cast<float*>(sm.qs);
-    float* es = static_cast<float*>(sm.es);
-    const float* qf = static_cast<const float*>(q);
-    for (int d0 = 0; d0 < D; d0 += DK) {
-      for (int x = tid; x < BQ * DK; x += THREADS) {
-        int r = x / DK, dd = x % DK, row = q0 + r, d = d0 + dd;
-        const float v =
-            (row < B && d < D) ? qf[static_cast<size_t>(row) * D + d] : 0.f;
-        qs[dd * (BQ + 1) + r] = v;
-        tap(__float_as_uint(v));
-      }
-      for (int x = tid; x < TN * DK; x += THREADS) {
-        int r = x / DK, dd = x % DK, doc = tile0 + r, d = d0 + dd;
-        const float v = (doc < end && d < D)
-                            ? to_f32(e[static_cast<size_t>(doc) * D + d])
-                            : 0.f;
-        es[dd * (TN + 1) + r] = v;
-        tap(__float_as_uint(v));
-      }
-      __syncthreads();
+    __syncthreads();
 #pragma unroll 4
-      for (int dd = 0; dd < (DOT ? DK : 0); ++dd) {
-        float a[4], b[8];
+    for (int dd = 0; dd < (DOT ? DK : 0); ++dd) {
+      float a[4], b[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[dd * (BQ + 1) + ty * 4 + i];
+      for (int i = 0; i < 4; ++i) a[i] = qs[dd * (BQ + 1) + ty * 4 + i];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) b[j] = es[dd * (TN + 1) + tx + 16 * j];
+      for (int j = 0; j < 8; ++j) b[j] = es[dd * (TN + 1) + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-    if constexpr (!DOT) return;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sm.scores[(ty * 4 + i) * (TN + 1) + tx + 16 * j] = acc[i][j];
+    __syncthreads();
   }
+  if constexpr (!DOT) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sm.scores[(ty * 4 + i) * (TN + 1) + tx + 16 * j] = acc[i][j];
 }
 
 // Empty running lists, and their cached worst entries. With ``seed``
 // [B], every slot of query q0 + r starts as (seed[q0 + r], EMPTY_ID):
 // only a document scoring at least the seed can enter.
-__device__ inline void init_lists(const Smem& sm, int k,
+template <int BQN>
+__device__ inline void init_lists(const SmemT<BQN>& sm, int k,
                                   const float* seed = nullptr, int q0 = 0,
                                   int B = 0) {
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  for (int x = tid; x < BQ * k; x += THREADS) {
+  for (int x = tid; x < BQN * k; x += THREADS) {
     const int row = q0 + x / k;
     sm.run_v[x] = seed != nullptr && row < B ? seed[row] : -INFINITY;
     sm.run_i[x] = EMPTY_ID;
   }
   __syncthreads();
-  for (int r = warp; r < BQ; r += WARPS) {
+  for (int r = warp; r < BQN; r += WARPS) {
     float wv; int wi, ws;
     find_worst(sm.run_v + r * k, sm.run_i + r * k, k, lane, wv, wi, ws);
     if (lane == 0) {
@@ -310,7 +247,7 @@ __device__ inline void init_lists(const Smem& sm, int k,
   }
 }
 
-// Per-row counters of the probe variants of fold_tile: [BQ][COUNTERS].
+// Per-row counters of the probe variants of fold_tile: [BQN][COUNTERS].
 // INSERT and COUNT: insertions in the first EARLY_TILES tiles of the
 // CTA's range, insertions after them, windows of 32 columns whose ballot
 // fired, windows seen. !INSERT: documents that beat the row's worst
@@ -321,17 +258,17 @@ constexpr int EARLY_TILES = 16;
 // Fold the scored tile (sm.scores, documents tile0 + col where
 // sm.keep[col]) into the running lists of the CTA's real queries. The
 // caller has synchronised after filling sm.scores and sm.keep. The
-// probes' variants: COUNT adds to ``counts`` ([BQ][COUNTERS] in shared
+// probes' variants: COUNT adds to ``counts`` ([BQN][COUNTERS] in shared
 // memory, ``early`` picks the insertion counter); !INSERT only takes
 // the ballot against each row's cached worst entry and counts its bits,
 // so nothing is ever inserted.
-template <bool INSERT = true, bool COUNT = false>
-__device__ inline void fold_tile(const Smem& sm, int tile0, int q0, int B,
-                                 int k, int* counts = nullptr,
+template <bool INSERT = true, bool COUNT = false, int BQN>
+__device__ inline void fold_tile(const SmemT<BQN>& sm, int tile0, int q0,
+                                 int B, int k, int* counts = nullptr,
                                  bool early = false) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  for (int r = warp; r < BQ && q0 + r < B; r += WARPS) {
+  for (int r = warp; r < BQN && q0 + r < B; r += WARPS) {
     float* rv = sm.run_v + r * k;
     int* ri = sm.run_i + r * k;
     float wv = sm.worst_v[r];
@@ -371,10 +308,11 @@ __device__ inline void fold_tile(const Smem& sm, int tile0, int q0, int B,
 
 // Write the CTA's running lists to its split's slot of the partial
 // outputs part_v / part_i [B][n_splits][k].
-__device__ inline void write_parts(const Smem& sm, int q0, int B, int k,
-                                   int split, int n_splits, float* part_v,
-                                   int* part_i) {
-  for (int x = threadIdx.x; x < BQ * k; x += THREADS) {
+template <int BQN>
+__device__ inline void write_parts(const SmemT<BQN>& sm, int q0, int B,
+                                   int k, int split, int n_splits,
+                                   float* part_v, int* part_i) {
+  for (int x = threadIdx.x; x < BQN * k; x += THREADS) {
     int r = x / k, slot = x % k;
     if (q0 + r < B) {
       size_t o = (static_cast<size_t>(q0 + r) * n_splits + split) * k + slot;

@@ -8,10 +8,12 @@ the given k, and replace the TPU probes of the repository:
   ``scripts/profile_kernel_anatomy.py:138``): K1/K2 with part of the
   work per tile taken away. ``mode`` is one of
 
-  - ``"stage"``: the staging loops alone. Returns int32 [ceil(B / 64),
-    splits]: per CTA, the XOR of every 32-bit word it staged (the query
-    block's f32 words, or packed int8 words, once per tile; each
-    document's words once). XOR does not depend on order: exact.
+  - ``"stage"``: the staging alone. Returns int32 [query blocks,
+    splits]: per CTA, the XOR of every 32-bit word it staged: each
+    document's words once, and the query block's f32 words once per tile
+    (K1) or its int8 words, zero-padded, once (K2, which stages the block
+    once per CTA and reads each word back after its copy landed). XOR
+    does not depend on order: exact.
   - ``"score"``: + scoring. Returns f32 [B]: each row's best selection
     score (f32 rows q . e; int8 rows float(q8 . e8) * doc scale).
   - ``"compare"``: + the fold's ballot against ``threshold`` [B] f32 (the
@@ -34,13 +36,14 @@ the given k, and replace the TPU probes of the repository:
 
 On CUDA tensors each wrapper launches its kernel or raises; it takes its
 plain PyTorch version only for tensors on the CPU, where the split plan
-is an H100's (132 SMs). ``.launches`` counts kernel launches. The plain
-versions compute each output directly: the XOR over the words, the max
-and the count over the score matrix, and the counts by replaying each
-split's running list window by window (document j of a split enters iff
-fewer than k earlier documents of the split beat it under (score desc,
-id asc) and, with tau, it scores at least tau; a window fires iff its
-best document enters).
+is an H100's (132 SMs): ``split_plan`` for K1's, ``split_plan_int8``
+(``int8_plan.fused_plan``) for K2's query block and splits.
+``.launches`` counts kernel launches. The plain versions compute each
+output directly: the XOR over the words, the max and the count over the
+score matrix, and the counts by replaying each split's running list
+window by window (document j of a split enters iff fewer than k earlier
+documents of the split beat it under (score desc, id asc) and, with tau,
+it scores at least tau; a window fires iff its best document enters).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels import _build, int8_plan
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _BLOCK_Q,
     _I,
@@ -62,6 +65,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _launch,
     _outputs,
     _ptr,
+    _sm_count,
     _split_plan,
     fused_dense_top_k,
     fused_dense_top_k_int8,
@@ -93,7 +97,8 @@ def _library() -> ctypes.CDLL:
         tail = [_I] * 6 + [_P] * 9  # B N D k splits per, 8 buffers, stream
         lib.anr_anatomy_f32.argtypes = [_I, _P, _P] + tail
         lib.anr_anatomy_bf16.argtypes = [_I, _P, _P] + tail
-        lib.anr_anatomy_int8.argtypes = [_I, _P, _P, _P, _P] + tail
+        # ... B N D k bq splits per, 8 buffers, stream
+        lib.anr_anatomy_int8.argtypes = [_I] + [_P] * 4 + [_I] * 7 + [_P] * 9
         for fn in (lib.anr_anatomy_f32, lib.anr_anatomy_bf16,
                    lib.anr_anatomy_int8):
             fn.restype = _I
@@ -102,9 +107,16 @@ def _library() -> ctypes.CDLL:
 
 
 def split_plan(n: int, b: int, device: torch.device) -> Tuple[int, int]:
-    """(doc splits, docs per split) of K1/K2 for [n, *] rows and b
-    queries on ``device``."""
+    """(doc splits, docs per split) of K1 for [n, *] rows and b queries
+    on ``device``."""
     return _split_plan(n, b, device, TILE_DOCS)
+
+
+def split_plan_int8(n: int, b: int, d: int, k: int,
+                    device: torch.device) -> int8_plan.FusedPlan:
+    """(query block, doc splits, docs per split) of K2 for [n, d] rows,
+    b queries and k on ``device``."""
+    return int8_plan.fused_plan(n, b, d, k, _sm_count(device))
 
 
 def _check_vector(t: Optional[torch.Tensor], name: str, b: int,
@@ -205,16 +217,18 @@ def _int8_words(x: torch.Tensor) -> torch.Tensor:
 
 
 def _staged_xor(q_words: torch.Tensor, e_words: torch.Tensor,
-                plan: Tuple[int, int]) -> torch.Tensor:
-    """[q_blocks, splits]: each CTA's XOR of the words it staged. The
-    query block is staged once per tile, so it stays in the XOR only for
-    an odd count of tiles. The whole splits are one view of the rows and
-    the last, partial one is taken apart, so the matrix is never
-    copied."""
+                plan: Tuple[int, int], block: int = _BLOCK_Q,
+                query_once: bool = False) -> torch.Tensor:
+    """[q_blocks, splits]: each CTA's XOR of the words it staged, for
+    query blocks of ``block`` rows. K1 stages its query block once per
+    tile, so the block stays in the XOR only for an odd count of tiles;
+    K2 (``query_once``) stages it once per CTA. The whole splits are one
+    view of the rows and the last, partial one is taken apart, so the
+    matrix is never copied."""
     splits, per = plan
     (b, _), n = q_words.shape, e_words.shape[0]
-    qb = -(-b // _BLOCK_Q)
-    qx = _xor_rows(F.pad(q_words, (0, 0, 0, qb * _BLOCK_Q - b))
+    qb = -(-b // block)
+    qx = _xor_rows(F.pad(q_words, (0, 0, 0, qb * block - b))
                    .reshape(qb, -1))
     whole = n // per
     ex = torch.zeros(splits, dtype=torch.int32, device=e_words.device)
@@ -224,7 +238,7 @@ def _staged_xor(q_words: torch.Tensor, e_words: torch.Tensor,
         ex[whole:] = _xor_rows(e_words[whole * per:].reshape(1, -1))
     starts = torch.arange(splits, device=e_words.device) * per
     tiles = -(-(n - starts).clamp(max=per) // TILE_DOCS)
-    odd = (tiles % 2 == 1)[None, :]
+    odd = (query_once | (tiles % 2 == 1))[None, :]
     return torch.bitwise_xor(ex[None, :],
                              torch.where(odd, qx[:, None], 0))
 
@@ -322,8 +336,9 @@ def anatomy_top_k_int8_torch(values: torch.Tensor, scales: torch.Tensor,
         return fused_dense_top_k_int8_torch(values, scales, q_values,
                                             q_scales, k)
     if mode == "stage":
+        plan = split_plan_int8(n, b, d, k, dev)
         return _staged_xor(_int8_words(q_values), _int8_words(values),
-                           split_plan(n, b, dev))
+                           (plan.splits, plan.per), plan.bq, query_once=True)
     scores = _int8_scores(values, scales, q_values)
     if mode == "score":
         return _row_max(scores, n, b, d, dev)
@@ -331,13 +346,14 @@ def anatomy_top_k_int8_torch(values: torch.Tensor, scales: torch.Tensor,
     return _count_at_least(scores, threshold, n, b, d)
 
 
-def _probe_buffers(mode: str, b: int, splits: int, dev: torch.device):
+def _probe_buffers(mode: str, b: int, splits: int, dev: torch.device,
+                   block: int = _BLOCK_Q):
     """(counts, words, row_max) for one probe mode, filled as the kernel's
     atomics expect; None where the mode writes nothing."""
     if mode == "compare":
         return torch.zeros((b,), dtype=torch.int32, device=dev), None, None
     if mode == "stage":
-        qb = -(-b // _BLOCK_Q)
+        qb = -(-b // block)
         return None, torch.zeros((qb, splits), dtype=torch.int32,
                                  device=dev), None
     return None, None, torch.full((b,), float("-inf"), device=dev)
@@ -393,12 +409,13 @@ def anatomy_top_k_int8(values: torch.Tensor, scales: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _library()
-    splits, per = split_plan(n, b, dev)
-    counts, words, row_max = _probe_buffers(mode, b, splits, dev)
+    plan = split_plan_int8(n, b, d, k, dev)
+    counts, words, row_max = _probe_buffers(mode, b, plan.splits, dev,
+                                            plan.bq)
     with torch.cuda.device(dev):
         _launch(lib.anr_anatomy_int8, _MODE_CODES[mode], q_values.data_ptr(),
                 q_scales.data_ptr(), values.data_ptr(), scales.data_ptr(), b,
-                n, d, k, splits, per, _ptr(threshold), _ptr(counts),
+                n, d, k, *plan, _ptr(threshold), _ptr(counts),
                 _ptr(words), _ptr(row_max), None, None, None, None,
                 device=dev)
     anatomy_top_k_int8.launches += 1
@@ -430,19 +447,22 @@ def fused_top_k_counted_int8_torch(values: torch.Tensor,
     _check_vector(tau, "tau", b, dev, False)
     vals, ids, counts = _counted_plain(
         _int8_scores(values, scales, q_values), n, b, d, k,
-        split_plan(n, b, dev), tau, dev)
+        split_plan_int8(n, b, d, k, dev)[-2:], tau, dev)
     return torch.where(ids < 0, float("-inf"),
                        vals * q_scales[:, None]), ids, counts
 
 
 def _counted_launch(fn, head, b: int, n: int, d: int, k: int,
-                    tau: Optional[torch.Tensor], dev: torch.device):
-    splits, per = split_plan(n, b, dev)
+                    tau: Optional[torch.Tensor], dev: torch.device,
+                    plan: Tuple[int, ...]):
+    """``plan``: (splits, per) for K1, (query block, splits, per) for
+    K2, passed on as the entry point takes them."""
+    splits = plan[-2]
     part_v, part_i, out_v, out_i = _outputs(b, k, splits, dev)
     counts = torch.empty((b, splits, len(COUNTERS)), dtype=torch.int32,
                          device=dev)
     with torch.cuda.device(dev):
-        _launch(fn, _COUNTED, *head, b, n, d, k, splits, per, _ptr(tau),
+        _launch(fn, _COUNTED, *head, b, n, d, k, *plan, _ptr(tau),
                 counts.data_ptr(), None, None, part_v.data_ptr(),
                 part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
                 device=dev)
@@ -464,7 +484,7 @@ def fused_top_k_counted(emb: torch.Tensor, queries: torch.Tensor, k: int,
     fn = (lib.anr_anatomy_f32 if emb.dtype == torch.float32
           else lib.anr_anatomy_bf16)
     out = _counted_launch(fn, (q.data_ptr(), emb.data_ptr()), b, n, d, k,
-                          tau, dev)
+                          tau, dev, split_plan(n, b, dev))
     fused_top_k_counted.launches += 1
     return out
 
@@ -488,7 +508,7 @@ def fused_top_k_counted_int8(values: torch.Tensor, scales: torch.Tensor,
     out = _counted_launch(
         lib.anr_anatomy_int8, (q_values.data_ptr(), q_scales.data_ptr(),
                                values.data_ptr(), scales.data_ptr()),
-        b, n, d, k, tau, dev)
+        b, n, d, k, tau, dev, split_plan_int8(n, b, d, k, dev))
     fused_top_k_counted_int8.launches += 1
     return out
 

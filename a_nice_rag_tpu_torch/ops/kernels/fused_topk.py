@@ -8,9 +8,17 @@ launches its kernel from ``csrc/fused_topk.cu`` or raises; it takes its
 plain PyTorch version only for tensors on the CPU. ``.launches`` on each
 wrapper counts kernel launches, so a run can show which path it took.
 
+K1 scores in f32 on the CUDA cores, 64 queries per CTA. K2 scores on the
+int8 tensor cores (``csrc/int8_mma.cuh``): each CTA holds its query block
+(16 queries for B <= 16, else 64) in shared memory for its whole doc
+range, and streams the doc tiles through a ring of 16-byte asynchronous
+copies; ``int8_plan.fused_plan`` picks the block and the doc splits.
+
 Contract: values [B, k] f32 descending and ids [B, k] int32 under the tie
 rule (score desc, doc id asc); masked documents are never candidates and
-unfilled slots hold (-inf, -1). k <= 128; B, N and D take any size.
+unfilled slots hold (-inf, -1). k <= 128; B, N and D take any size (K2: D
+up to the depth whose 16-query block fits in a CTA's shared memory, about
+9,800), and rows of any alignment.
 """
 
 from __future__ import annotations
@@ -20,11 +28,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels import _build, int8_plan
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
 K_MAX = 128
-_BLOCK_Q = 64  # queries per CTA, as in csrc/fused_topk.cu
+_BLOCK_Q = 64  # queries per CTA of the float kernels (K1, K3)
 _CTAS_PER_SM = 3
 H100_SMS = 132
 # Plain versions score at most this many [B, chunk] scores, and upcast at
@@ -42,14 +50,24 @@ def _library() -> ctypes.CDLL:
         common = [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
         lib.anr_fused_topk_f32.argtypes = [_P, _P, _P] + common
         lib.anr_fused_topk_bf16.argtypes = [_P, _P, _P] + common
-        lib.anr_fused_topk_int8.argtypes = [_P, _P, _P, _P, _P] + common
+        # q, q scales, values, scales, mask; B N D k bq splits per;
+        # outputs, stream.
+        lib.anr_fused_topk_int8.argtypes = [_P] * 5 + [_I] * 7 + [_P] * 5
         for fn in (lib.anr_fused_topk_f32, lib.anr_fused_topk_bf16,
                    lib.anr_fused_topk_int8):
             fn.restype = _I
         lib.anr_topk_tile_docs.argtypes = []
         lib.anr_topk_tile_docs.restype = _I
+        lib.anr_int8_smem_bytes.argtypes = [_I, _I, _I]
+        lib.anr_int8_smem_bytes.restype = ctypes.c_longlong
         lib._anr_bound = True
     return lib
+
+
+def int8_smem_bytes(bq: int, d: int, k: int) -> int:
+    """The dynamic shared memory of a K2 or K4 CTA, as the source
+    computes it (``int8_plan.smem_bytes`` must agree)."""
+    return int(_library().anr_int8_smem_bytes(bq, d, k))
 
 
 def _sm_count(device: torch.device) -> int:
@@ -62,8 +80,9 @@ def _sm_count(device: torch.device) -> int:
 
 def _split_plan(n: int, b: int, device: torch.device,
                 tile: int) -> Tuple[int, int]:
-    """(splits, docs per split): enough doc splits that the grid puts
-    more than two CTAs on each SM; each split a whole number of tiles."""
+    """(splits, docs per split) of the float kernels: enough doc splits
+    that the grid puts more than two CTAs on each SM; each split a whole
+    number of tiles."""
     sms = _sm_count(device)
     q_blocks = -(-b // _BLOCK_Q)
     tiles = -(-n // tile)
@@ -238,7 +257,8 @@ def fused_dense_top_k_int8(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: streaming int8 scoring + top-k. values [N, D] int8 + scales
     [N] f32 (ops.quantized layout); q_values [B, D] int8 + q_scales [B]
-    f32; mask: optional [N] bool."""
+    f32; mask: optional [N] bool. Row-major views of any base alignment
+    (``values[1:]``) are taken as they are."""
     _check_k(k)
     if values.ndim != 2 or q_values.ndim != 2 \
             or q_values.shape[1] != values.shape[1]:
@@ -262,12 +282,12 @@ def fused_dense_top_k_int8(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _library()
-    splits, per_split = _split_plan(n, b, dev, lib.anr_topk_tile_docs())
-    part_v, part_i, out_v, out_i = _outputs(b, k, splits, dev)
+    plan = int8_plan.fused_plan(n, b, d, k, _sm_count(dev))
+    part_v, part_i, out_v, out_i = _outputs(b, k, plan.splits, dev)
     with torch.cuda.device(dev):
         _launch(lib.anr_fused_topk_int8, q_values.data_ptr(),
                 q_scales.data_ptr(), values.data_ptr(), scales.data_ptr(),
-                _ptr(mask), b, n, d, k, splits, per_split,
+                _ptr(mask), b, n, d, k, *plan,
                 part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
                 out_i.data_ptr(), device=dev)
     fused_dense_top_k_int8.launches += 1

@@ -16,6 +16,14 @@ then carries one more slot, holding the real-row count, which is read on
 the device. Returns values [B, k] f32 descending and PERMUTED row ids
 [B, k] int32 under the tie rule (score desc, row asc), (-inf, -1) in
 unfilled slots. k <= 256.
+
+K3 gives each CTA whole table slots and a 64-query block. K4 splits the
+table into (slot, 128-row sub-tile) work items, dealt to the CTAs the
+SMs hold (two each at B = 8, D = 1024) in ascending slot order
+(``int8_plan.ivf_plan`` and ``ivf_items``, which mirrors the kernel's
+walk), and scores them as K2 does: a query block of 16 for B <= 16 (else
+64) held in shared memory, doc rows streamed through a ring of 16-byte
+asynchronous copies, exact int32 sums on the int8 tensor cores.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import Callable, Tuple
 
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels import _build, int8_plan
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _BLOCK_Q,
     _CTAS_PER_SM,
@@ -34,6 +42,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _check,
     _launch,
     _outputs,
+    _sm_count,
 )
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
@@ -44,10 +53,13 @@ _BIG_ID = 2**31 - 1
 def _library():
     lib = _build.load("ivf_topk")
     if not hasattr(lib, "_anr_bound"):
-        common = [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+        # table; max_tiles n_real B D k tile_n splits; outputs, stream.
+        common = [_P] + [_I] * 7 + [_P] * 5
         lib.anr_ivf_topk_f32.argtypes = [_P, _P] + common
         lib.anr_ivf_topk_bf16.argtypes = [_P, _P] + common
-        lib.anr_ivf_topk_int8.argtypes = [_P, _P, _P, _P] + common
+        # q, q scales, values, scales, table; max_tiles n_real B D k tile_n
+        # bq walkers; outputs, stream.
+        lib.anr_ivf_topk_int8.argtypes = [_P] * 5 + [_I] * 8 + [_P] * 5
         for fn in (lib.anr_ivf_topk_f32, lib.anr_ivf_topk_bf16,
                    lib.anr_ivf_topk_int8):
             fn.restype = _I
@@ -56,8 +68,8 @@ def _library():
 
 
 def _splits(max_tiles: int, b: int, device: torch.device) -> int:
-    """Slot splits: enough that the grid puts more than two CTAs on each
-    SM, at most one per table slot."""
+    """K3's slot splits: enough that the grid puts more than two CTAs on
+    each SM, at most one per table slot."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_blocks = -(-b // _BLOCK_Q)
     return min(max(1, -(-_CTAS_PER_SM * sms // q_blocks)), max_tiles)
@@ -214,13 +226,13 @@ def ivf_dense_top_k_int8(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _library()
-    splits = _splits(max_tiles, b, dev)
-    part_v, part_i, out_v, out_i = _outputs(b, k, splits, dev)
+    plan = int8_plan.ivf_plan(max_tiles, tile_n, b, d, k, _sm_count(dev))
+    part_v, part_i, out_v, out_i = _outputs(b, k, plan.walkers, dev)
     with torch.cuda.device(dev):
         _launch(lib.anr_ivf_topk_int8, q_values.data_ptr(),
                 q_scales.data_ptr(), values.data_ptr(), scales.data_ptr(),
                 tile_table.data_ptr(), max_tiles, n_real, b, d, k, tile_n,
-                splits, part_v.data_ptr(), part_i.data_ptr(),
+                plan.bq, plan.walkers, part_v.data_ptr(), part_i.data_ptr(),
                 out_v.data_ptr(), out_i.data_ptr(), device=dev)
     ivf_dense_top_k_int8.launches += 1
     return out_v, out_i

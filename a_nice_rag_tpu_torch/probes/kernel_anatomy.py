@@ -128,7 +128,8 @@ def run(emb: torch.Tensor, queries: torch.Tensor, k: int, time_ms: TimeFn,
         "scoring_ms": ms["score"] - ms["stage"],
         "compare_ms": ms["compare"] - ms["score"],
         "insert_merge_ms": ms["full"] - ms["compare"],
-        "splits": A.split_plan(n, b, emb.device)[0],
+        "splits": (A.split_plan(n, b, emb.device)[0] if scales is None else
+                   A.split_plan_int8(n, b, d, k, emb.device).splits),
         "stage_gb_s": nbytes / 1e9 / ms["stage"] * 1e3,
         "byte_floor_ms": nbytes / HBM_BYTES_S * 1e3,
     }

@@ -14,11 +14,17 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      with and without a mask, N = 2^20 + 37, k in {1, 32, 128},
      B in {1, 7, 256}, duplicated rows (exact ties across doc splits),
      and k larger than the count of valid docs;
-  2. K2 (fused_dense_top_k_int8) against its plain version, same cases;
+  2. K2 (fused_dense_top_k_int8) against its plain version, same cases,
+     then the int8 path's edges at N_EDGE rows: D in {1, 33, 37, 1024},
+     B at the query-block switch (8, 16, 17, 64, 65, 256), k in {1, 25,
+     128}, rows and queries holding -128 and 127, exact ties across
+     sub-tiles, tiles and CTAs, and rows whose base is not 16-byte aligned
+     (values[1:] and a copy at an odd address), each torch.equal;
   3. K3/K4 (ivf_dense_top_k, ivf_dense_top_k_int8) against their plain
      versions on the same matrix in f32, bf16 and int8: tile_n 1024 and
      2048, a ragged last tile, static and dynamic (trailing-slot) row
      counts, -1 padded tables, k in {1, 16, 128, 256}, B in {1, 8, 256};
+     then K4 on phase 2's edge rows (k up to 256), each torch.equal;
   4. stage A: 2^21 x 256 bf16 dense + CSR BM25 hybrid (bench.py's 2M
      configuration), planted recall and id equality with the torch route;
   5. stage B: the same index with a filter mask over half the docs and
@@ -140,6 +146,10 @@ def log(**fields) -> None:
 class Smoke:
     # Sizes of the phases (bench.py's configurations for stages A-E).
     N_KERNEL, D_KERNEL = (1 << 20) + 37, 256
+    # The int8 path's edge cases: rows, depths, batches at the query-block
+    # switch, k, the IVF tile.
+    N_EDGE, EDGE_D = 70_001, (1, 33, 37, 1024)
+    EDGE_B, EDGE_K, EDGE_TILE = (8, 16, 17, 64, 65, 256), (1, 25, 128), 1024
     IVF_TILES = (1024, 2048)
     N_A, D_A, B, T, V, DF = 1 << 21, 256, 256, 16, 1 << 17, 16
     N_C, D_C, CLUSTERS, CHUNKS = 10_485_760, 1024, 4096, 40
@@ -256,6 +266,25 @@ class Smoke:
         log(phase="build", seconds=round(seconds, 3),
             sources=list(self.p.kernels.SOURCES),
             torch=torch.__version__, cuda=torch.version.cuda)
+        self.int8_plan_line()
+
+    def int8_plan_line(self) -> None:
+        """The int8 kernels' query block, dynamic shared memory (the
+        source's sum, held against int8_plan's) and CTAs per SM at the
+        main path's shapes."""
+        plan = self.p.int8_plan
+        shapes = []
+        for b, d, kk in ((self.B, self.D_C, 25), (self.B_MICRO, self.D_C, 25),
+                         (self.B_MICRO, self.D_C, 256)):
+            bq = plan.query_block(b, d, kk)
+            smem = self.p.int8_smem_bytes(bq, d, kk)
+            if smem != plan.smem_bytes(bq, d, kk):
+                raise AssertionError(f"int8 shared memory {smem} != the "
+                                     f"plan's {plan.smem_bytes(bq, d, kk)}")
+            shapes.append({"b": b, "d": d, "k": kk, "bq": bq,
+                           "smem_bytes": smem,
+                           "ctas_per_sm": plan.ctas_per_sm(bq, d, kk)})
+        log(phase="int8_plan", shapes=shapes)
 
     def kernel_cases(self, n, d, dtype):
         g = self.seed(101)
@@ -306,8 +335,66 @@ class Smoke:
                 raise AssertionError(f"K2 differs from its plain version "
                                      f"(k={kk}, B={b}, mask={mask is not None})")
             self.compare("fused_dense_top_k_int8", ref, got, 0.0)
-        log(phase="k2_vs_plain", cases=len(cases), ok=True,
+        edges = 0
+        for d in self.EDGE_D:
+            values, scales, qv, qs, half = self.edge_rows(d)
+            views = [(values, scales, f"D={d}"),
+                     (values[1:], scales[1:], f"D={d}, values[1:]"),
+                     (self.odd_address(values), scales,
+                      f"D={d}, odd address")]
+            for rows, scl, what in views:
+                for b in self.EDGE_B:
+                    for kk in self.EDGE_K:
+                        mask = half[:rows.shape[0]] if kk == 25 else None
+                        args = (rows, scl, qv[:b], qs[:b], kk)
+                        self.equal_int8(
+                            k.fused_dense_top_k_int8(*args, mask=mask),
+                            k.fused_dense_top_k_int8_torch(*args, mask=mask),
+                            f"K2, {what}, B={b}, k={kk}")
+                        edges += 1
+            del values, scales
+        log(phase="k2_vs_plain", cases=len(cases), edge_cases=edges,
+            edge_d=list(self.EDGE_D), edge_b=list(self.EDGE_B),
+            edge_k=list(self.EDGE_K), ok=True,
             max_abs_err=self.max_err["fused_dense_top_k_int8"])
+
+    @staticmethod
+    def equal_int8(got, ref, what) -> None:
+        """Values and ids equal. (The tie rule holds on the selection
+        scores, before the query scale: two of them may round to one
+        emitted value, so the emitted values' ties are not checked.)"""
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{what}: differs from the plain version")
+
+    def odd_address(self, t):
+        """A copy of t whose base is one byte past a 16-byte boundary."""
+        buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=self.dev)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 1
+        return view
+
+    def edge_rows(self, d):
+        """N_EDGE int8 rows of depth d over the full range, 256 queries:
+        rows 0-31 copies of queries 0-7 (each query's best rows), copied
+        again across sub-tiles (64), a tile boundary (100) and far off
+        (n // 2, n - 40: other CTAs), scales with them, so exact ties sit
+        at the top of the lists; all-127 and all--128 rows and queries."""
+        g = self.seed(171 + d)
+        n, i8 = self.N_EDGE, dict(device=self.dev, dtype=torch.int8)
+        values = torch.randint(-128, 128, (n, d), generator=g, **i8)
+        qv = torch.randint(-128, 128, (256, d), generator=g, **i8)
+        qv[8], qv[9] = 127, -128
+        values[40], values[41] = 127, -128
+        scales = torch.rand(n, generator=g, device=self.dev) + 0.5
+        values[:32] = qv[torch.arange(32, device=self.dev) % 8]
+        for start in (64, 100, n // 2, n - 40):
+            values[start:start + 32] = values[:32]
+            scales[start:start + 32] = scales[:32]
+        qs = torch.rand(256, generator=g, device=self.dev) + 0.5
+        half = torch.rand(n, generator=g, device=self.dev) < 0.5
+        return values, scales, qv, qs, half
 
     def ivf_tables(self, n, tile_n):
         """Tile tables over a matrix of n real rows in tiles of tile_n:
@@ -384,10 +471,43 @@ class Smoke:
                                              f"real rows ({name})")
                     count += 1
             del tables
-        log(phase="k3_k4_vs_plain", cases=count, ok=True,
+        edges = self.k4_edges()
+        log(phase="k3_k4_vs_plain", cases=count, k4_edge_cases=edges,
+            ok=True,
             max_abs_err_k3=self.max_err["ivf_dense_top_k"],
             tie_swaps_k3=self.swaps["ivf_dense_top_k"],
             max_abs_err_k4=self.max_err["ivf_dense_top_k_int8"])
+
+    def k4_edges(self) -> int:
+        """K4 on phase 2's edge rows: each depth, aligned and at an odd
+        address, over the full, partial and dynamic tables of EDGE_TILE
+        (a ragged last tile), every B of EDGE_B, k cycling through 1, 25,
+        128 and 256."""
+        k, t = self.p.kernels, self.EDGE_TILE
+        n = self.N_EDGE
+        npad = -(-n // t) * t
+        tables = self.ivf_tables(n, t)
+        ks = (1, 25, 128, 256)
+        count = 0
+        for d in self.EDGE_D:
+            values, scales, qv, qs, _ = self.edge_rows(d)
+            vals = torch.cat([values, values[: npad - n]])
+            scl = torch.cat([scales, scales[: npad - n]])
+            for rows, what in ((vals, "aligned"),
+                               (self.odd_address(vals), "odd address")):
+                for name in ("full", "partial", "dynamic"):
+                    table, n_real = tables[name]
+                    for b in self.EDGE_B:
+                        kk = ks[count % len(ks)]
+                        args = (rows, scl, qv[:b], qs[:b], table, kk)
+                        kw = dict(tile_n=t, n_real=n_real)
+                        self.equal_int8(
+                            k.ivf_dense_top_k_int8(*args, **kw),
+                            k.ivf_dense_top_k_int8_torch(*args, **kw),
+                            f"K4, D={d}, {what}, {name}, B={b}, k={kk}")
+                        count += 1
+            del values, vals
+        return count
 
     def stage_a_index(self):
         """bench.py's 2M configuration, built on the device."""
@@ -1422,7 +1542,10 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
-        from a_nice_rag_tpu_torch.ops.kernels import anatomy
+        from a_nice_rag_tpu_torch.ops.kernels import anatomy, int8_plan
+        from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+            int8_smem_bytes,
+        )
         from a_nice_rag_tpu_torch.probes import (
             bf16_fold,
             dma_overlap,
@@ -1453,6 +1576,7 @@ class _Port:
         self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy
         self.iteration_count, self.bf16_fold = iteration_count, bf16_fold
         self.int4_probe = int4
+        self.int8_plan, self.int8_smem_bytes = int8_plan, int8_smem_bytes
         self.sm_grid = sm_grid
         self.check_stream_sum = check_stream_sum
         self.check_stream_sum_busy = check_stream_sum_busy

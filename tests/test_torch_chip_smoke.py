@@ -2,7 +2,8 @@
 
 The smoke run itself needs a GPU. Here its phases run on CPU tensors,
 where the kernel wrappers take their plain versions, with four fakes:
-each plain-version call through a wrapper counts as a launch, the
+each plain-version call through a wrapper counts as a launch (and the
+source's int8 shared-memory sum is int8_plan's), the
 retriever's route to the kernels is forced at the stages' sizes (stage
 F's reference-scale corpus stays below it, as on the card), CUDA
 synchronisation is a no-op, and the CUDA timers are a host clock. The
@@ -22,6 +23,7 @@ import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
 from a_nice_rag_tpu_torch.ops.kernels import int4 as i4
+from a_nice_rag_tpu_torch.ops.kernels import int8_plan
 from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
 from a_nice_rag_tpu_torch.ops.kernels import keys as ks
 from a_nice_rag_tpu_torch.ops.kernels import stream as st
@@ -38,6 +40,7 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
 
 class TinySmoke(chip_smoke.Smoke):
     N_KERNEL, D_KERNEL = 3000 + 37, 32
+    N_EDGE, EDGE_D, EDGE_TILE = 3000 + 37, (1, 33, 37, 64), 256
     IVF_TILES = (128, 256)
     N_A, D_A, B, T, V, DF = 4096, 32, 16, 16, 1024, 16
     # 512 clusters of 16 rows: nprobe 8 covers 0.12 of them at B = 8.
@@ -85,6 +88,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     port.device_loop_ms = lambda fn, n_loop, trials: _host_ms(fn, n_loop)
     port.chained_ms = lambda fn, n, trials: _host_ms(fn, n)
     port.sm_grid = lambda device, ctas_per_sm=4: 8
+    port.int8_smem_bytes = int8_plan.smem_bytes
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
     monkeypatch.setattr(
         port.FusedRetriever, "_route_kernel",
@@ -156,6 +160,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert all(f["pct_of_floor"] > 0 for f in floors)
     overlap = [json.loads(line) for line in lines if '"dma_overlap"' in line]
     assert overlap[0]["x_iters"] == [0, 8, 64]
+    k2 = [r for r in records if r.get("phase") == "k2_vs_plain"]
+    # 4 depths x 3 views x 6 batches x 3 k.
+    assert k2[0]["edge_cases"] == 216 and k2[0]["edge_b"][2] == 17
+    k4 = [r for r in records if r.get("phase") == "k3_k4_vs_plain"]
+    assert k4[0]["k4_edge_cases"] == 4 * 2 * 3 * 6
+    plan = [r for r in records if r.get("phase") == "int8_plan"]
+    # The tiny B is 16: every block is the small one.
+    assert [s["bq"] for s in plan[0]["shapes"]] == [16, 16, 16]
+    assert all(s["ctas_per_sm"] >= 1 for s in plan[0]["shapes"])
     stream = [json.loads(line) for line in lines
               if '"stream_vs_plain"' in line]
     assert stream[0]["cases"] == 27 and stream[0]["int8_exact"]

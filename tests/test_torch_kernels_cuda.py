@@ -12,7 +12,11 @@ same f32 products summed in another order); int8 exact. Ids agree up to
 swaps between scores within the tolerance, and every exact tie keeps the
 lower id. The IVF kernels (K3, K4) are held the same way, over tile
 tables with -1 padding, a ragged last tile and the dynamic row count.
-The stream sums: within 1e-5 of the sum of absolute values (float32
+The int8 path of K2 and K4 (cp.async staging, int8 tensor-core MMA, a
+16-query block up to B = 16) exactly at its edges: D in {1, 33, 37,
+1024}, B at the block switch, k up to 128 (K4 256), -128 and 127, ties
+across sub-tiles, tiles and CTAs, rows at addresses that are not 16-byte
+aligned. The stream sums: within 1e-5 of the sum of absolute values (float32
 partial sums in another order), exactly for int8 data whose partial sums
 stay below 2^24; the busy kernel's chains bit for bit. The probes of
 K1/K2: the anatomy's "stage" bit for bit, "score" within 1e-5 of the
@@ -49,6 +53,8 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     xpack_keys_torch,
     xpack_values,
 )
+from a_nice_rag_tpu_torch.ops.kernels import int8_plan
+from a_nice_rag_tpu_torch.ops.kernels.fused_topk import int8_smem_bytes
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
 from a_nice_rag_tpu_torch.probes import kernel_anatomy
 from a_nice_rag_tpu_torch.ops.quantized import (
@@ -124,6 +130,86 @@ def test_cuda_fused_int8_matches_plain(cuda_device, n, d, b, k, masked):
                                           mask=mask)
     assert torch.equal(ki, pi)
     assert torch.equal(kv, pv)
+
+
+def _edge_rows(n, d, dev):
+    """Full-range int8 rows and 256 queries: rows 0-31 copies of queries
+    0-7, copied again across sub-tiles, a tile boundary and other CTAs
+    (scales with them, so exact ties top the lists); all-127 and all--128
+    rows and queries."""
+    g = torch.Generator().manual_seed(d)
+    values = torch.randint(-128, 128, (n, d), generator=g, dtype=torch.int8)
+    qv = torch.randint(-128, 128, (256, d), generator=g, dtype=torch.int8)
+    qv[8], qv[9] = 127, -128
+    values[40], values[41] = 127, -128
+    scales = torch.rand(n, generator=g) + 0.5
+    values[:32] = qv[torch.arange(32) % 8]
+    for start in (64, 100, n // 2, n - 40):
+        values[start:start + 32] = values[:32]
+        scales[start:start + 32] = scales[:32]
+    qs = torch.rand(256, generator=g) + 0.5
+    return [t.to(dev) for t in (values, scales, qv, qs)]
+
+
+def _odd_address(t):
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 1
+    return view
+
+
+@pytest.mark.parametrize("d", [1, 33, 37, 1024])
+@pytest.mark.parametrize("view", ["as_is", "rows_from_1", "odd_address"])
+def test_cuda_int8_path_edges_k2(cuda_device, d, view):
+    values, scales, qv, qs = _edge_rows(20_011, d, cuda_device)
+    if view == "rows_from_1":
+        values, scales = values[1:], scales[1:]
+    elif view == "odd_address":
+        values = _odd_address(values)
+    for b in (8, 16, 17, 64, 65, 256):
+        for k in (1, 25, 128):
+            args = (values, scales, qv[:b], qs[:b], k)
+            kv, ki = fused_dense_top_k_int8(*args)
+            pv, pi = fused_dense_top_k_int8_torch(*args)
+            torch.cuda.synchronize()
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+
+
+@pytest.mark.parametrize("d", [1, 33, 37, 1024])
+@pytest.mark.parametrize("odd", [False, True])
+def test_cuda_int8_path_edges_k4(cuda_device, d, odd):
+    tile_n, n_real = 1024, 20_011  # last tile ragged (555 rows)
+    values, scales, qv, qs = _edge_rows(n_real, d, cuda_device)
+    npad = -(-n_real // tile_n) * tile_n
+    values = torch.cat([values, values[:npad - n_real]])
+    scales = torch.cat([scales, scales[:npad - n_real]])
+    if odd:
+        values = _odd_address(values)
+    tiles = npad // tile_n
+    full = torch.arange(tiles, dtype=torch.int32)
+    part = torch.full((tiles,), -1, dtype=torch.int32)
+    part[:5] = torch.tensor([0, 3, 10, 11, tiles - 1], dtype=torch.int32)
+    dynamic = torch.cat([part, torch.tensor([n_real], dtype=torch.int32)])
+    ks = (1, 25, 128, 256)
+    case = 0
+    for table, nr in ((full, n_real), (part, n_real), (dynamic, 0)):
+        table = table.to(cuda_device)
+        for b in (8, 16, 17, 64, 65, 256):
+            k = ks[case % len(ks)]
+            case += 1
+            args = (values, scales, qv[:b], qs[:b], table, k)
+            kv, ki = ivf_dense_top_k_int8(*args, tile_n=tile_n, n_real=nr)
+            pv, pi = ivf_dense_top_k_int8_torch(*args, tile_n=tile_n,
+                                                n_real=nr)
+            torch.cuda.synchronize()
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k, nr)
+
+
+def test_cuda_int8_shared_memory_matches_plan(cuda_device):
+    for bq, d, k in ((16, 1, 1), (16, 37, 256), (64, 1024, 25),
+                     (64, 1040, 128)):
+        assert int8_smem_bytes(bq, d, k) == int8_plan.smem_bytes(bq, d, k)
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
@@ -361,7 +447,8 @@ def test_cuda_counted_fold_matches_plain(cuda_device, kind, n, d, b, k):
         for a, w in zip(got, want):
             assert torch.equal(a, w), use_tau
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        splits = anatomy.split_plan(n, b, cuda_device)[0]
+        splits = (anatomy.split_plan(n, b, cuda_device)[0] if scales is None
+                  else anatomy.split_plan_int8(n, b, d, k, cuda_device).splits)
         assert got[2].shape == (b, splits, 4)
 
 

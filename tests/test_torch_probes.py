@@ -180,21 +180,57 @@ def test_anatomy_int8_modes_against_direct_computation():
     got = A.anatomy_top_k_int8(*args, 25, "compare", thr)
     assert np.array_equal(got.numpy(),
                           (scores >= thr.numpy()[:, None]).sum(axis=1))
+    # stage: K2 stages its query block once per CTA (zero-padded words)
+    # and each document's words once.
     words = np.pad(values, ((0, 0), (0, -d % 4))).view(np.uint32)
     qx = np.bitwise_xor.reduce(np.pad(q_values, ((0, 0), (0, -d % 4)))
                                .view(np.uint32).ravel())
-    splits, per = A.split_plan(n, b, torch.device("cpu"))
+    bq, splits, per = A.split_plan_int8(n, b, d, 25, torch.device("cpu"))
+    assert bq == 16
     got = A.anatomy_top_k_int8(*args, 25, "stage").numpy().view(np.uint32)
+    assert got.shape == (1, splits)
     for sp in range(splits):
         docs = words[sp * per:min(n, sp * per + per)]
-        odd = -(-docs.shape[0] // 128) % 2
-        assert got[0, sp] == (np.bitwise_xor.reduce(docs.ravel())
-                              ^ (qx if odd else np.uint32(0)))
+        assert got[0, sp] == np.bitwise_xor.reduce(docs.ravel()) ^ qx
     vals, ids = A.anatomy_top_k_int8(*args, 25, "full")
     order = np.lexsort((np.arange(n)[None, :].repeat(b, 0), -scores))[:, :25]
     assert np.array_equal(ids.numpy(), order)
     assert np.array_equal(
         vals.numpy(), np.take_along_axis(scores, order, 1) * q_scales[:, None])
+
+
+def _odd_and_even_splits(b, d, k):
+    """The first row count from 30,000 up (in steps of 997) whose K2 plan
+    has splits of an odd and of an even number of tiles."""
+    for n in range(30_000, 200_000, 997):
+        plan = A.split_plan_int8(n, b, d, k, torch.device("cpu"))
+        if len({-(-min(plan.per, n - s * plan.per) // 128) % 2
+                for s in range(plan.splits)}) == 2:
+            return n
+    raise AssertionError("no such row count")
+
+
+@pytest.mark.parametrize("d,b", [(37, 20), (16, 5)])
+def test_anatomy_int8_stage_xor_takes_the_query_block_once(d, b):
+    # Splits of several tiles, even and odd counts: K2's query block
+    # enters each CTA's XOR once, whatever the count (K1's once per tile).
+    n = _odd_and_even_splits(b, d, 25)
+    rng = np.random.default_rng(n)
+    values = rng.integers(-128, 128, (n, d), dtype=np.int8)
+    q_values = rng.integers(-128, 128, (b, d), dtype=np.int8)
+    args = [torch.tensor(a) for a in (
+        values, rng.uniform(0.5, 1.5, n).astype(np.float32), q_values,
+        rng.uniform(0.5, 1.5, b).astype(np.float32))]
+    bq, splits, per = A.split_plan_int8(n, b, d, 25, torch.device("cpu"))
+    assert bq == (64 if b > 16 else 16) and per > 128
+    words = np.pad(values, ((0, 0), (0, -d % 4))).view(np.uint32)
+    qw = np.pad(q_values, ((0, bq - b), (0, -d % 4))).view(np.uint32)
+    got = A.anatomy_top_k_int8(*args, 25, "stage").numpy().view(np.uint32)
+    assert got.shape == (1, splits)
+    for sp in range(splits):
+        docs = words[sp * per:min(n, sp * per + per)]
+        assert got[0, sp] == (np.bitwise_xor.reduce(docs.ravel())
+                              ^ np.bitwise_xor.reduce(qw.ravel()))
 
 
 # -- P5: the counted fold ---------------------------------------------------
@@ -287,8 +323,8 @@ def test_counted_fold_int8_matches_k2():
     for t in (None, tau):
         vals, ids, counts = A.fused_top_k_counted_int8(*args, k, t)
         assert torch.equal(ids, ref[1]) and torch.equal(vals, ref[0])
-        assert counts.shape == (b, A.split_plan(n, b, torch.device("cpu"))[0],
-                                4)
+        splits = A.split_plan_int8(n, b, d, k, torch.device("cpu")).splits
+        assert counts.shape == (b, splits, 4)
 
 
 # -- P6: bf16 row reductions and the packed key ------------------------------
