@@ -819,8 +819,12 @@ def crossover_stage(device, repeats: int, timer: Timer,
 # -- main -------------------------------------------------------------------
 
 
-def run_stages(device, repeats: int, timer: Timer) -> dict:
-    """Every stage in turn (the ivf and crossover stages share one
+STAGES = ("headline", "2m", "int8", "ivf", "crossover")
+
+
+def run_stages(device, repeats: int, timer: Timer,
+               names: Sequence[str] = STAGES) -> dict:
+    """The named stages in turn (the ivf and crossover stages share one
     corpus), each stage's seconds beside its keys."""
     shared: Dict[str, IvfCorpus] = {}
 
@@ -839,7 +843,8 @@ def run_stages(device, repeats: int, timer: Timer) -> dict:
                                              corpus=ivf_corpus_once()),
     }
     out: dict = {}
-    for name, stage in stages.items():
+    for name in names:
+        stage = stages[name]
         t0 = time.perf_counter()
         out.update(stage())
         out[f"stage_seconds_{name}"] = time.perf_counter() - t0
@@ -854,9 +859,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repeats", type=int, default=5,
                     help="repeats R of every timed key (default 5)")
+    ap.add_argument("--stages", default=",".join(STAGES),
+                    help="comma-separated stages to run, in the bench's "
+                         f"order (default all: {','.join(STAGES)})")
     args = ap.parse_args(argv)
     if args.repeats < 1:
         ap.error("repeats must be at least 1")
+    names = args.stages.split(",")
+    if not names or not set(names) <= set(STAGES):
+        ap.error(f"--stages takes names from {','.join(STAGES)}")
+    names = [n for n in STAGES if n in names]
     device = require_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -866,9 +878,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "metric": "hybrid_retrieval_qps_per_chip", "unit": "queries/s",
         "platform": "gpu", "device_kind": torch.cuda.get_device_name(device),
         "device_count": torch.cuda.device_count(), "card": card_line(),
-        "repeats": args.repeats,
+        "repeats": args.repeats, "stages": names,
     }
-    out.update(run_stages(device, args.repeats, cuda_timer()))
+    out.update(run_stages(device, args.repeats, cuda_timer(), names))
     out["bench_seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
     return 0

@@ -2,8 +2,9 @@
 // and K4 (ivf_topk.cu), and of K2's probe variants (anatomy.cu).
 //
 // A CTA owns BQN queries (16 or 64) and walks a sequence of tiles of up
-// to TN documents (a Walk: K2 a contiguous doc range, K4 its share of
-// the IVF table's sub-tiles). stream_int8 scores every tile into
+// to TN documents (a Walk of topk_common.cuh: K2 a contiguous doc range,
+// K4 its share of the IVF table's sub-tiles; every row, or every
+// TAU_STRIDE-th for the tau pass). stream_int8 scores every tile into
 // sm.scores as float(acc) * doc_scale, acc the exact int32 dot, and hands
 // it to the caller's fold.
 //
@@ -19,9 +20,8 @@
 //   size past D and past the tile's last row; any other rows (D = 37, a
 //   view such as values[1:]) are loaded byte by byte into the same layout
 //   by the same threads, zero-filled the same way.
-// * Layout. Each 128-byte row of a chunk holds eight 16-byte segments;
-//   segment s of row r sits at position s ^ (r & 7), so the eight rows an
-//   ldmatrix reads at one segment fall on distinct banks.
+// * Layout. Each 128-byte row of a chunk holds eight 16-byte segments,
+//   XOR-swizzled by row (topk_common.cuh's swizzle).
 // * Scoring. mma.sync.m16n8k32.row.col.s32.s8.s8.s32: documents are the
 //   M side (row-major, depth-contiguous as stored), queries the N side
 //   (each query row depth-contiguous: the col layout); neither operand is
@@ -37,24 +37,13 @@
 
 namespace {
 
-constexpr int CH = 128;           // bytes of depth per staged chunk
-constexpr int STAGES = 3;         // chunks in the ring
-constexpr int SEGS = CH / 16;     // 16-byte segments per chunk row
-
-__host__ __device__ constexpr int depth_pad(int D) {
-  return (D + CH - 1) / CH * CH;
-}
-
 // Dynamic shared memory of the int8 path for a block of bq queries:
-// ring, query block, scores, running lists, worst entries, keep. The
-// probe modes add their counters after it. ops/kernels/int8_plan.py
-// computes the same number.
+// ring, query block, then the shared tail (scores, running lists, worst
+// entries, keep). The probe modes add their counters after it.
+// ops/kernels/topk_plan.py computes the same number.
 __host__ __device__ inline size_t smem_bytes_int8(int bq, int D, int k) {
   return static_cast<size_t>(STAGES) * TN * CH +
-         static_cast<size_t>(bq) * depth_pad(D) +
-         sizeof(float) * bq * (TN + 1) +
-         (sizeof(float) + sizeof(int)) * static_cast<size_t>(bq) * k +
-         (sizeof(float) + 2 * sizeof(int)) * bq + TN;
+         static_cast<size_t>(bq) * depth_pad(D) + smem_tail_bytes(bq, k);
 }
 
 template <int BQN>
@@ -64,51 +53,8 @@ __device__ inline SmemT<BQN> carve_int8(char* base, int D, int k) {
   base += STAGES * TN * CH;
   s.qs = base;  // query block [BQN][Dpad]
   base += static_cast<size_t>(BQN) * depth_pad(D);
-  s.scores = reinterpret_cast<float*>(base);
-  base += sizeof(float) * BQN * (TN + 1);
-  s.run_v = reinterpret_cast<float*>(base);
-  base += sizeof(float) * BQN * k;
-  s.run_i = reinterpret_cast<int*>(base);
-  base += sizeof(int) * BQN * k;
-  s.worst_v = reinterpret_cast<float*>(base);
-  base += sizeof(float) * BQN;
-  s.worst_i = reinterpret_cast<int*>(base);
-  base += sizeof(int) * BQN;
-  s.worst_s = reinterpret_cast<int*>(base);
-  base += sizeof(int) * BQN;
-  s.keep = reinterpret_cast<uint8_t*>(base);
+  carve_tail(s, base, k);
   return s;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(const void* p, unsigned& r0,
-                                        unsigned& r1, unsigned& r2,
-                                        unsigned& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(smem_addr(p))
-      : "memory");
 }
 
 __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
@@ -120,50 +66,11 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Byte offset of 16-byte segment ``seg`` of row ``row`` in a layout of
-// 128-byte row chunks (row_bytes a multiple of 128).
-__device__ __forceinline__ int swizzle(int row, int row_bytes, int chunk,
-                                       int seg) {
-  return row * row_bytes + chunk * CH + ((seg ^ (row & 7)) << 4);
-}
-
-// Stage bytes src[0, 16) to dst, zero from byte ``valid`` on (valid <= 0:
-// all zero, src is not read). vec: a cp.async copy (src 16-byte aligned;
-// ``base`` stands in for src when nothing is read); else byte loads.
-__device__ __forceinline__ void stage16(char* dst, const int8_t* src,
-                                        int valid, bool vec,
-                                        const int8_t* base) {
-  valid = max(0, min(16, valid));
-  if (vec) {
-    cp_async16(dst, valid > 0 ? src : base, valid);
-    return;
-  }
-  unsigned w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int b = 0; b < 16; ++b) {
-    if (b < valid) {
-      w[b >> 2] |= static_cast<unsigned>(static_cast<uint8_t>(src[b]))
-                   << (8 * (b & 3));
-    }
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// K2's walk: the split's documents [begin, end) in tiles of TN, in order.
-struct SplitWalk {
-  int begin, end;
-  __device__ __forceinline__ bool tile(int j, int& t0, int& t1) const {
-    t0 = begin + j * TN;
-    if (t0 >= end) return false;
-    t1 = min(end, t0 + TN);
-    return true;
-  }
-};
-
 // Score the tiles of ``walk`` for queries q0.. of q [B, D] against e
-// [*, D] (int8, row scales escale). After tile j (documents [t0, t1);
-// t1 == t0 for a tile with no real row) has landed in sm.scores and
-// sm.keep (documents t0 + col < t1 and, with ``mask``, mask[t0 + col]),
+// [*, D] (int8, row scales escale). After tile j (documents t0, t0 +
+// stride, ... < t1, stride = walk.stride; t1 == t0 for a tile with no
+// real row) has landed in sm.scores and sm.keep (column col: document
+// t0 + col * stride < t1 and, with ``mask``, mask of it),
 // and after a barrier, every thread calls on_tile(j, t0, t1); the next
 // tile's scores are written only after the next barrier. With DOT false
 // nothing is scored or folded: each thread reads back the words its
@@ -214,7 +121,7 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
     if (pok) {
       char* slot = ring + (f % STAGES) * (TN * CH);
       for (int x = tid; x < TN * SEGS; x += THREADS) {
-        const int r = x / SEGS, s = x % SEGS, doc = pt0 + r;
+        const int r = x / SEGS, s = x % SEGS, doc = pt0 + r * walk.stride;
         const int d0 = c * CH + 16 * s;
         stage16(slot + swizzle(r, CH, 0, s),
                 e + static_cast<size_t>(doc < pt1 ? doc : 0) * D + d0,
@@ -282,7 +189,8 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int col = wm * WM + mt * 16 + g + 8 * h;
-          const float sc = t0 + col < t1 ? escale[t0 + col] : 0.f;
+          const int doc = t0 + col * walk.stride;
+          const float sc = doc < t1 ? escale[doc] : 0.f;
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
@@ -296,7 +204,7 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
         }
       }
       if (tid < TN) {
-        const int doc = t0 + tid;
+        const int doc = t0 + tid * walk.stride;
         sm.keep[tid] = doc < t1 && (mask == nullptr || mask[doc] != 0);
       }
       __syncthreads();
@@ -306,5 +214,29 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
   cp_async_wait<0>();
   return xr;
 }
+
+// The int8 rows of K2 / K4 as the split kernels of split_topk.cuh take
+// them: q [B, D] int8 queries, e [*, D] int8 rows with scales escale, an
+// optional [N] mask.
+struct Int8Rows {
+  const int8_t* q;
+  const int8_t* e;
+  const float* escale;
+  const uint8_t* mask;
+  int B, D;
+  __host__ __device__ size_t smem_bytes(int bq, int k) const {
+    return smem_bytes_int8(bq, D, k);
+  }
+  template <int BQN>
+  __device__ SmemT<BQN> carve(char* base, int k) const {
+    return carve_int8<BQN>(base, D, k);
+  }
+  template <int BQN, bool DOT, typename Walk, typename OnTile>
+  __device__ unsigned stream(int q0, const Walk& walk, const SmemT<BQN>& sm,
+                             OnTile&& on_tile) const {
+    return stream_int8<BQN, DOT>(q, e, escale, mask, B, D, q0, walk, sm,
+                                 on_tile);
+  }
+};
 
 }  // namespace

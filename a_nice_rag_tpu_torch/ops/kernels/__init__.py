@@ -18,6 +18,11 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_dense_top_k_int8,
     fused_dense_top_k_int8_torch,
     fused_dense_top_k_torch,
+    split_query,
+    subsample_tau,
+    subsample_tau_int8,
+    subsample_tau_int8_torch,
+    subsample_tau_torch,
 )
 from a_nice_rag_tpu_torch.ops.kernels.int4 import (  # noqa: F401
     int4_fold_max,
@@ -32,6 +37,8 @@ from a_nice_rag_tpu_torch.ops.kernels.ivf_topk import (  # noqa: F401
     ivf_dense_top_k_int8,
     ivf_dense_top_k_int8_torch,
     ivf_dense_top_k_torch,
+    ivf_subsample_tau_int8_torch,
+    ivf_subsample_tau_torch,
 )
 from a_nice_rag_tpu_torch.ops.kernels.keys import (  # noqa: F401
     bf16_row_reduce,

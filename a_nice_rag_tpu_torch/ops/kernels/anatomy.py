@@ -9,16 +9,20 @@ the given k, and replace the TPU probes of the repository:
   work per tile taken away. ``mode`` is one of
 
   - ``"stage"``: the staging alone. Returns int32 [query blocks,
-    splits]: per CTA, the XOR of every 32-bit word it staged: each
-    document's words once, and the query block's f32 words once per tile
-    (K1) or its int8 words, zero-padded, once (K2, which stages the block
-    once per CTA and reads each word back after its copy landed). XOR
-    does not depend on order: exact.
+    splits]: per CTA, the XOR of every 32-bit word it staged, each read
+    back after its copy landed: each document's words once (zero-padded
+    to whole words), and the query block's words (K1: the f32 query for
+    f32 rows, its three bf16 planes ``split_query`` for bf16 rows; K2: the
+    int8 query), zero-padded, once where the block is resident in shared
+    memory and once per tile where it streams. XOR does not depend on
+    order: exact.
   - ``"score"``: + scoring. Returns f32 [B]: each row's best selection
     score (f32 rows q . e; int8 rows float(q8 . e8) * doc scale).
   - ``"compare"``: + the fold's ballot against ``threshold`` [B] f32 (the
-    running list's worst entry, pinned). Returns int32 [B]: the documents
-    scoring at least the threshold. Timed at +inf, so nothing enters.
+    running list's worst entry, pinned; K1 takes it only in the rows its
+    scoring flagged as holding a score at least the threshold). Returns
+    int32 [B]: the documents scoring at least the threshold. Timed at
+    +inf, so nothing enters.
   - ``"full"``: K1/K2 themselves, through their own wrappers.
 
   The four times, in this order, split K1/K2 into the loads, the
@@ -32,12 +36,14 @@ the given k, and replace the TPU probes of the repository:
   and windows seen. With ``tau`` [B] f32 every slot starts as (tau,
   empty): a document enters only if it scores at least tau, and the ids
   stay exact as long as tau is at most the k-th best score
-  (``subsample_tau`` gives such a bound).
+  (``subsample_tau``, K1/K2's own warm start, gives such a bound). The
+  probe runs no tau pass of its own: without ``tau`` it counts the cold
+  fold.
 
 On CUDA tensors each wrapper launches its kernel or raises; it takes its
 plain PyTorch version only for tensors on the CPU, where the split plan
-is an H100's (132 SMs): ``split_plan`` for K1's, ``split_plan_int8``
-(``int8_plan.fused_plan``) for K2's query block and splits.
+is an H100's (132 SMs): ``split_plan`` for K1's query block and splits,
+``split_plan_int8`` for K2's (``topk_plan.fused_plan``).
 ``.launches`` counts kernel launches. The plain versions compute each
 output directly: the XOR over the words, the max and the count over the
 score matrix, and the counts by replaying each split's running list
@@ -54,38 +60,39 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from a_nice_rag_tpu_torch.ops.kernels import _build, int8_plan
-from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
-    _BLOCK_Q,
+from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
+    TAU_SLACK,
+    TAU_STRIDE,
     _I,
     _P,
+    _ROWS,
     _check,
     _chunk_rows,
     _check_k,
+    _float_scores,
+    _int8_scores,
     _launch,
     _outputs,
     _ptr,
     _sm_count,
-    _split_plan,
+    _workspace,
     fused_dense_top_k,
     fused_dense_top_k_int8,
     fused_dense_top_k_int8_torch,
     fused_dense_top_k_torch,
+    split_query,
+    subsample_tau,
+    subsample_tau_int8,
 )
-from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
 MODES = ("stage", "score", "compare", "full")
 _MODE_CODES = {"stage": 1, "score": 2, "compare": 3}
 _COUNTED = 4
-TILE_DOCS = 128  # TN of csrc/topk_common.cuh
+TILE_DOCS = topk_plan.TN
 WINDOW = 32  # columns per ballot
 EARLY_TILES = 16
 COUNTERS = ("early", "late", "fired", "seen")
-TAU_STRIDE = 64
-# tau from a subsample is lowered by this much relative to |tau| (and
-# 1e-30): room for a second summation order when the subsample is scored
-# apart from the full matrix.
-TAU_SLACK = 1e-5
 _EMPTY_ID = 2**31 - 1
 
 ScoreChunk = Callable[[int, int], torch.Tensor]
@@ -94,11 +101,14 @@ ScoreChunk = Callable[[int, int], torch.Tensor]
 def _library() -> ctypes.CDLL:
     lib = _build.load("anatomy")
     if not hasattr(lib, "_anr_bound"):
-        tail = [_I] * 6 + [_P] * 9  # B N D k splits per, 8 buffers, stream
-        lib.anr_anatomy_f32.argtypes = [_I, _P, _P] + tail
-        lib.anr_anatomy_bf16.argtypes = [_I, _P, _P] + tail
-        # ... B N D k bq splits per, 8 buffers, stream
-        lib.anr_anatomy_int8.argtypes = [_I] + [_P] * 4 + [_I] * 7 + [_P] * 9
+        # mode, q, e; B N D k bq qres splits per; thr counts words row_max
+        # workspace out_v out_i stream.
+        floats = [_I, _P, _P] + [_I] * 8 + [_P] * 8
+        lib.anr_anatomy_f32.argtypes = floats
+        lib.anr_anatomy_bf16.argtypes = floats
+        # mode, q, q scales, values, scales; B N D k bq splits per; the
+        # same buffers.
+        lib.anr_anatomy_int8.argtypes = [_I] + [_P] * 4 + [_I] * 7 + [_P] * 8
         for fn in (lib.anr_anatomy_f32, lib.anr_anatomy_bf16,
                    lib.anr_anatomy_int8):
             fn.restype = _I
@@ -106,17 +116,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def split_plan(n: int, b: int, device: torch.device) -> Tuple[int, int]:
-    """(doc splits, docs per split) of K1 for [n, *] rows and b queries
-    on ``device``."""
-    return _split_plan(n, b, device, TILE_DOCS)
+def split_plan(n: int, b: int, d: int, k: int, rows: str,
+               device: torch.device) -> topk_plan.FusedPlan:
+    """(query block, doc splits, docs per split) of K1 for [n, d] rows of
+    ``rows`` ("float32" or "bfloat16"), b queries and k on ``device``."""
+    return topk_plan.fused_plan(n, b, d, k, _sm_count(device), rows)
 
 
 def split_plan_int8(n: int, b: int, d: int, k: int,
-                    device: torch.device) -> int8_plan.FusedPlan:
+                    device: torch.device) -> topk_plan.FusedPlan:
     """(query block, doc splits, docs per split) of K2 for [n, d] rows,
     b queries and k on ``device``."""
-    return int8_plan.fused_plan(n, b, d, k, _sm_count(device))
+    return topk_plan.fused_plan(n, b, d, k, _sm_count(device))
 
 
 def _check_vector(t: Optional[torch.Tensor], name: str, b: int,
@@ -162,17 +173,6 @@ def _check_int8_rows(values, scales, q_values, q_scales, k: int):
 # -- plain pieces --------------------------------------------------------
 
 
-def _float_scores(emb: torch.Tensor, queries: torch.Tensor) -> ScoreChunk:
-    q = queries.to(torch.float32)
-    return lambda s0, s1: q @ emb[s0:s1].to(torch.float32).T
-
-
-def _int8_scores(values: torch.Tensor, scales: torch.Tensor,
-                 q_values: torch.Tensor) -> ScoreChunk:
-    return lambda s0, s1: (int8_dot(q_values, values[s0:s1])
-                           .to(torch.float32) * scales[s0:s1][None, :])
-
-
 def _row_max(scores: ScoreChunk, n: int, b: int, d: int,
              device: torch.device) -> torch.Tensor:
     best = torch.full((b,), float("-inf"), device=device)
@@ -203,32 +203,34 @@ def _xor_rows(x: torch.Tensor) -> torch.Tensor:
                                                    device=x.device)
 
 
-def _float_words(x: torch.Tensor) -> torch.Tensor:
-    """The f32 words the staging loops write for f32 or bf16 rows."""
-    return x.to(torch.float32).contiguous().view(torch.int32)
-
-
-def _int8_words(x: torch.Tensor) -> torch.Tensor:
-    """The little-endian 32-bit words of int8 rows, the last one of a row
-    zero-padded, as the staging loops load them (a view when D % 4 ==
-    0)."""
-    pad = -x.shape[1] % 4
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """The little-endian 32-bit words of the rows (last dimension) of x
+    (int8, bf16 or f32), the last word of a row zero-padded, as the
+    staging copies load them."""
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    pad = -x.shape[-1] % (4 // x.element_size())
     return (F.pad(x, (0, pad)) if pad else x).contiguous().view(torch.int32)
 
 
 def _staged_xor(q_words: torch.Tensor, e_words: torch.Tensor,
-                plan: Tuple[int, int], block: int = _BLOCK_Q,
-                query_once: bool = False) -> torch.Tensor:
+                plan: Tuple[int, int], block: int,
+                query_once: bool) -> torch.Tensor:
     """[q_blocks, splits]: each CTA's XOR of the words it staged, for
-    query blocks of ``block`` rows. K1 stages its query block once per
-    tile, so the block stays in the XOR only for an odd count of tiles;
-    K2 (``query_once``) stages it once per CTA. The whole splits are one
-    view of the rows and the last, partial one is taken apart, so the
-    matrix is never copied."""
+    query blocks of ``block`` rows; q_words [planes, B, W] (or [B, W]).
+    A resident query block (``query_once``) enters each CTA's XOR once; a
+    streamed one is staged once per tile, so it stays in the XOR only for
+    an odd count of tiles. The whole splits are one view of the rows and
+    the last, partial one is taken apart, so the matrix is never
+    copied."""
     splits, per = plan
-    (b, _), n = q_words.shape, e_words.shape[0]
+    if q_words.ndim == 2:
+        q_words = q_words[None]
+    planes, b, w = q_words.shape
+    n = e_words.shape[0]
     qb = -(-b // block)
     qx = _xor_rows(F.pad(q_words, (0, 0, 0, qb * block - b))
+                   .reshape(planes, qb, block * w).permute(1, 0, 2)
                    .reshape(qb, -1))
     whole = n // per
     ex = torch.zeros(splits, dtype=torch.int32, device=e_words.device)
@@ -241,6 +243,21 @@ def _staged_xor(q_words: torch.Tensor, e_words: torch.Tensor,
     odd = (query_once | (tiles % 2 == 1))[None, :]
     return torch.bitwise_xor(ex[None, :],
                              torch.where(odd, qx[:, None], 0))
+
+
+def _float_plan(n: int, b: int, d: int, k: int, rows: str,
+                dev: torch.device):
+    """K1's plan and whether its query block is resident."""
+    plan = split_plan(n, b, d, k, rows, dev)
+    return plan, topk_plan.resident(plan.bq, d, k, rows)
+
+
+def _query_planes(emb: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """The query planes K1 stages: the f32 query, or for bf16 rows its
+    three bf16 pieces."""
+    if emb.dtype == torch.bfloat16:
+        return split_query(queries)
+    return queries.to(torch.float32)[None]
 
 
 def _counted_plain(scores: ScoreChunk, n: int, b: int, d: int, k: int,
@@ -316,8 +333,9 @@ def anatomy_top_k_torch(emb: torch.Tensor, queries: torch.Tensor, k: int,
     if mode == "full":
         return fused_dense_top_k_torch(emb, queries, k)
     if mode == "stage":
-        return _staged_xor(_float_words(queries), _float_words(emb),
-                           split_plan(n, b, dev))
+        plan, qres = _float_plan(n, b, d, k, _ROWS[emb.dtype], dev)
+        return _staged_xor(_words(_query_planes(emb, queries)), _words(emb),
+                           plan[1:], plan.bq, query_once=qres)
     scores = _float_scores(emb, queries)
     if mode == "score":
         return _row_max(scores, n, b, d, dev)
@@ -337,8 +355,8 @@ def anatomy_top_k_int8_torch(values: torch.Tensor, scales: torch.Tensor,
                                             q_scales, k)
     if mode == "stage":
         plan = split_plan_int8(n, b, d, k, dev)
-        return _staged_xor(_int8_words(q_values), _int8_words(values),
-                           (plan.splits, plan.per), plan.bq, query_once=True)
+        return _staged_xor(_words(q_values), _words(values), plan[1:],
+                           plan.bq, query_once=True)
     scores = _int8_scores(values, scales, q_values)
     if mode == "score":
         return _row_max(scores, n, b, d, dev)
@@ -347,7 +365,7 @@ def anatomy_top_k_int8_torch(values: torch.Tensor, scales: torch.Tensor,
 
 
 def _probe_buffers(mode: str, b: int, splits: int, dev: torch.device,
-                   block: int = _BLOCK_Q):
+                   block: int):
     """(counts, words, row_max) for one probe mode, filled as the kernel's
     atomics expect; None where the mode writes nothing."""
     if mode == "compare":
@@ -374,16 +392,19 @@ def anatomy_top_k(emb: torch.Tensor, queries: torch.Tensor, k: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _library()
+    rows = _ROWS[emb.dtype]
     q = queries.to(torch.float32).contiguous()
-    splits, per = split_plan(n, b, dev)
-    counts, words, row_max = _probe_buffers(mode, b, splits, dev)
-    fn = (lib.anr_anatomy_f32 if emb.dtype == torch.float32
+    plan, qres = _float_plan(n, b, d, k, rows, dev)
+    counts, words, row_max = _probe_buffers(mode, b, plan.splits, dev,
+                                            plan.bq)
+    ws = _workspace(b, k, plan.splits, 0, d, rows == "bfloat16", dev)
+    fn = (lib.anr_anatomy_f32 if rows == "float32"
           else lib.anr_anatomy_bf16)
     with torch.cuda.device(dev):
         _launch(fn, _MODE_CODES[mode], q.data_ptr(), emb.data_ptr(), b, n,
-                d, k, splits, per, _ptr(threshold), _ptr(counts),
-                _ptr(words), _ptr(row_max), None, None, None, None,
-                device=dev)
+                d, k, plan.bq, int(qres), plan.splits, plan.per,
+                _ptr(threshold), _ptr(counts), _ptr(words), _ptr(row_max),
+                ws.data_ptr(), None, None, device=dev)
     anatomy_top_k.launches += 1
     return {"stage": words, "score": row_max, "compare": counts}[mode]
 
@@ -412,11 +433,12 @@ def anatomy_top_k_int8(values: torch.Tensor, scales: torch.Tensor,
     plan = split_plan_int8(n, b, d, k, dev)
     counts, words, row_max = _probe_buffers(mode, b, plan.splits, dev,
                                             plan.bq)
+    ws = _workspace(b, k, plan.splits, 0, d, False, dev)
     with torch.cuda.device(dev):
         _launch(lib.anr_anatomy_int8, _MODE_CODES[mode], q_values.data_ptr(),
                 q_scales.data_ptr(), values.data_ptr(), scales.data_ptr(), b,
                 n, d, k, *plan, _ptr(threshold), _ptr(counts),
-                _ptr(words), _ptr(row_max), None, None, None, None,
+                _ptr(words), _ptr(row_max), ws.data_ptr(), None, None,
                 device=dev)
     anatomy_top_k_int8.launches += 1
     return {"stage": words, "score": row_max, "compare": counts}[mode]
@@ -434,7 +456,8 @@ def fused_top_k_counted_torch(emb: torch.Tensor, queries: torch.Tensor,
     n, d, b, dev = _check_rows(emb, queries, k)
     _check_vector(tau, "tau", b, dev, False)
     return _counted_plain(_float_scores(emb, queries), n, b, d, k,
-                          split_plan(n, b, dev), tau, dev)
+                          split_plan(n, b, d, k, _ROWS[emb.dtype], dev)[1:],
+                          tau, dev)
 
 
 def fused_top_k_counted_int8_torch(values: torch.Tensor,
@@ -447,25 +470,25 @@ def fused_top_k_counted_int8_torch(values: torch.Tensor,
     _check_vector(tau, "tau", b, dev, False)
     vals, ids, counts = _counted_plain(
         _int8_scores(values, scales, q_values), n, b, d, k,
-        split_plan_int8(n, b, d, k, dev)[-2:], tau, dev)
+        split_plan_int8(n, b, d, k, dev)[1:], tau, dev)
     return torch.where(ids < 0, float("-inf"),
                        vals * q_scales[:, None]), ids, counts
 
 
 def _counted_launch(fn, head, b: int, n: int, d: int, k: int,
                     tau: Optional[torch.Tensor], dev: torch.device,
-                    plan: Tuple[int, ...]):
-    """``plan``: (splits, per) for K1, (query block, splits, per) for
-    K2, passed on as the entry point takes them."""
+                    plan: Tuple[int, ...], pieces: bool):
+    """``plan``: (query block, resident, splits, per) for K1, (query
+    block, splits, per) for K2, passed on as the entry point takes them."""
     splits = plan[-2]
-    part_v, part_i, out_v, out_i = _outputs(b, k, splits, dev)
+    out_v, out_i = _outputs(b, k, dev)
+    ws = _workspace(b, k, splits, 0, d, pieces, dev)
     counts = torch.empty((b, splits, len(COUNTERS)), dtype=torch.int32,
                          device=dev)
     with torch.cuda.device(dev):
         _launch(fn, _COUNTED, *head, b, n, d, k, *plan, _ptr(tau),
-                counts.data_ptr(), None, None, part_v.data_ptr(),
-                part_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                device=dev)
+                counts.data_ptr(), None, None, ws.data_ptr(),
+                out_v.data_ptr(), out_i.data_ptr(), device=dev)
     return out_v, out_i, counts
 
 
@@ -480,11 +503,14 @@ def fused_top_k_counted(emb: torch.Tensor, queries: torch.Tensor, k: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     lib = _library()
+    rows = _ROWS[emb.dtype]
     q = queries.to(torch.float32).contiguous()
-    fn = (lib.anr_anatomy_f32 if emb.dtype == torch.float32
+    fn = (lib.anr_anatomy_f32 if rows == "float32"
           else lib.anr_anatomy_bf16)
+    plan, qres = _float_plan(n, b, d, k, rows, dev)
     out = _counted_launch(fn, (q.data_ptr(), emb.data_ptr()), b, n, d, k,
-                          tau, dev, split_plan(n, b, dev))
+                          tau, dev, (plan.bq, int(qres), plan.splits,
+                                     plan.per), rows == "bfloat16")
     fused_top_k_counted.launches += 1
     return out
 
@@ -508,32 +534,10 @@ def fused_top_k_counted_int8(values: torch.Tensor, scales: torch.Tensor,
     out = _counted_launch(
         lib.anr_anatomy_int8, (q_values.data_ptr(), q_scales.data_ptr(),
                                values.data_ptr(), scales.data_ptr()),
-        b, n, d, k, tau, dev, split_plan_int8(n, b, d, k, dev))
+        b, n, d, k, tau, dev, tuple(split_plan_int8(n, b, d, k, dev)),
+        False)
     fused_top_k_counted_int8.launches += 1
     return out
 
 
 fused_top_k_counted_int8.launches = 0
-
-
-def _lowered(kth: torch.Tensor) -> torch.Tensor:
-    return kth - kth.abs() * TAU_SLACK - 1e-30
-
-
-def subsample_tau(emb: torch.Tensor, queries: torch.Tensor,
-                  k: int) -> torch.Tensor:
-    """A lower bound on each row's k-th best score: the k-th best over
-    every ``TAU_STRIDE``-th document (K1 on the subsample), lowered by
-    ``TAU_SLACK``. As ``scripts/probe_iteration_count.py:57-67``."""
-    vals, _ = fused_dense_top_k(emb[::TAU_STRIDE].contiguous(), queries, k)
-    return _lowered(vals[:, -1])
-
-
-def subsample_tau_int8(values: torch.Tensor, scales: torch.Tensor,
-                       q_values: torch.Tensor, k: int) -> torch.Tensor:
-    """``subsample_tau`` on K2's selection scores (query scales of 1)."""
-    ones = torch.ones((q_values.shape[0],), device=values.device)
-    vals, _ = fused_dense_top_k_int8(values[::TAU_STRIDE].contiguous(),
-                                     scales[::TAU_STRIDE].contiguous(),
-                                     q_values, ones, k)
-    return _lowered(vals[:, -1])

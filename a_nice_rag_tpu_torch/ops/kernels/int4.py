@@ -26,18 +26,20 @@ import ctypes
 
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _I,
     _P,
     _check,
     _launch,
-    _split_plan,
+    _sm_count,
 )
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
 UNPACKS = ("mask", "shift")
 TILE_DOCS = 128  # TN of csrc/int4.cu
+_BLOCK_Q = 64  # queries per CTA (BQ of csrc/topk_common.cuh)
+_CTAS_PER_SM = 3
 _INT32_MIN = -(2**31)
 # Plain versions unpack and multiply at most this many documents at once.
 _PLAIN_CHUNK_ROWS = 1 << 18
@@ -151,7 +153,11 @@ def int8_fold_max_torch(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
 
 
 def _plan(n: int, b: int, dev: torch.device):
-    return _split_plan(n, b, dev, TILE_DOCS)
+    """(splits, docs per split): enough doc splits that the grid of 64-query
+    blocks puts three CTAs on each SM; each split a whole number of
+    tiles."""
+    return topk_plan.doc_splits(n, b, _BLOCK_Q, _CTAS_PER_SM,
+                                _sm_count(dev), TILE_DOCS)
 
 
 def int4_scores(q8: torch.Tensor, packed: torch.Tensor,

@@ -12,7 +12,12 @@ list cold, so a split of n documents takes about k (1 + ln(n / k))
 insertions on random scores; the run with ``tau`` (each row's k-th best
 over every 64th document, lowered by ``TAU_SLACK``, seeding every slot)
 says how many of them a warm start removes. Both runs' ids and values
-must equal K1/K2's, and every output the plain version's.
+must equal K1/K2's, and every output the plain version's: exactly for
+int8 rows; for float rows, whose kernel scores (bf16 tensor-core MMA, or
+FFMA) and the plain version's f32 matmul differ by a few ulps, the
+values and ids up to ties within ``FLOAT_RTOL`` of the largest |value|
+(``check_top_k``), and the counters up to ``COUNT_SLACK`` of their
+total (a near-tie of two scores can flip one insertion).
 
 Default: the TPU probe's shape, 4,005,888 x 256 bf16 rows (randn), B =
 256, k = 32; ``int8``: 10,485,760 x 1024, B = 256, k = 25 (the rows of
@@ -33,9 +38,33 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     fused_dense_top_k,
     fused_dense_top_k_int8,
 )
+from a_nice_rag_tpu_torch.testing.parity import check_top_k
 
 TimeFn = Callable[[Callable[[], object], int], float]
 N_LOOP = 5  # timed calls per run, after one warm-up
+# Float rows against the plain version: values within FLOAT_RTOL of the
+# largest |value| (the port's bf16 tolerance, 1e-4 on unit-norm rows),
+# counters within COUNT_SLACK of their total.
+FLOAT_RTOL = 1e-4
+COUNT_SLACK = 1e-4
+
+
+def _check_plain(out, plain, exact: bool, tau: bool) -> int:
+    """Raise unless the counted fold's (values, ids, counts) match the
+    plain version's (exactly, or for float rows up to near-ties); returns
+    the counters' total absolute difference."""
+    what = f"counted fold (tau={tau}) differs from its plain version"
+    if exact:
+        if not all(torch.equal(a, b) for a, b in zip(out, plain)):
+            raise AssertionError(what)
+        return 0
+    finite = plain[0][torch.isfinite(plain[0])]
+    scale = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
+    check_top_k(plain[0], plain[1], out[0], out[1], FLOAT_RTOL * scale)
+    diff = int((out[2].long() - plain[2].long()).abs().sum())
+    if diff > COUNT_SLACK * max(1, int(plain[2].long().sum())):
+        raise AssertionError(f"{what}: counters off by {diff}")
+    return diff
 
 
 def _line(counts: torch.Tensor, ms: float, tau: bool, k: int) -> dict:
@@ -88,11 +117,11 @@ def run(rows: torch.Tensor, queries: torch.Tensor, k: int, time_ms: TimeFn,
         if not (torch.equal(ids, ref[1]) and torch.equal(vals, ref[0])):
             raise AssertionError(f"counted fold (tau={t is not None}) "
                                  f"differs from the kernel it counts")
-        if not all(torch.equal(a, b) for a, b in zip(out, counted_plain(t))):
-            raise AssertionError(f"counted fold (tau={t is not None}) "
-                                 f"differs from its plain version")
+        off = _check_plain(out, counted_plain(t), scales is not None,
+                           t is not None)
         ms = time_ms(lambda tt=t: counted(tt), N_LOOP)
-        lines.append(_line(counts, ms, t is not None, k))
+        lines.append({**_line(counts, ms, t is not None, k),
+                      "counters_off_plain": off})
     return lines
 
 

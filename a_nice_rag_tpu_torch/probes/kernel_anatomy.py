@@ -7,10 +7,15 @@ the TPU kernel's time the same way, docs/BENCHMARKS.md:234-252). Four
 calls share K1/K2's grid, block and shared-memory layout and differ only
 in the work per tile (``ops.kernels.anatomy``):
 
-  stage    the staging loops (the tile's bytes into shared memory);
-  score    + scoring;
-  compare  + the fold's ballot against a threshold of +inf (no insertion);
-  full     K1/K2 as they are: + insertions and the merge.
+  stage    the staging (the query block and the tiles' bytes through the
+           ring of copies into shared memory);
+  score    + scoring (K1: bf16 tensor-core MMA on bf16 rows, FFMA on f32
+           rows; K2: int8 MMA);
+  compare  + the fold's compare pass against a threshold of +inf (no
+           insertion; K1 flags the rows with a score at least the
+           threshold as it writes the scores, and its fold skips the
+           rest, here every row);
+  full     K1/K2 as they are: + the tau pass, insertions and the merge.
 
 The three deltas attribute the kernel to loads, scoring, the compare pass
 and the insertions. Default: the TPU probe's shape, 4,005,888 x 256 bf16
@@ -113,12 +118,16 @@ def run(emb: torch.Tensor, queries: torch.Tensor, k: int, time_ms: TimeFn,
         scales: Optional[torch.Tensor] = None,
         q_scales: Optional[torch.Tensor] = None) -> dict:
     """The four modes' device ms and their deltas (int8 rows when
-    ``scales`` is given)."""
+    ``scales`` is given), and the ms of K1/K2's tau pass alone (its part
+    of the last delta)."""
     b = queries.shape[0]
     inf = torch.full((b,), float("inf"), device=emb.device)
     calls = _calls(emb, queries, k, scales, q_scales, inf)
     ms = {mode: time_ms(kernel, N_LOOP)
           for mode, (kernel, _) in calls.items()}
+    tau_ms = time_ms(
+        (lambda: A.subsample_tau(emb, queries, k)) if scales is None else
+        (lambda: A.subsample_tau_int8(emb, scales, queries, k)), N_LOOP)
     n, d = emb.shape
     nbytes = emb.numel() * emb.element_size()
     return {
@@ -128,7 +137,9 @@ def run(emb: torch.Tensor, queries: torch.Tensor, k: int, time_ms: TimeFn,
         "scoring_ms": ms["score"] - ms["stage"],
         "compare_ms": ms["compare"] - ms["score"],
         "insert_merge_ms": ms["full"] - ms["compare"],
-        "splits": (A.split_plan(n, b, emb.device)[0] if scales is None else
+        "tau_pass_ms": tau_ms,
+        "splits": (A.split_plan(n, b, d, k, str(emb.dtype)[6:],
+                                emb.device).splits if scales is None else
                    A.split_plan_int8(n, b, d, k, emb.device).splits),
         "stage_gb_s": nbytes / 1e9 / ms["stage"] * 1e3,
         "byte_floor_ms": nbytes / HBM_BYTES_S * 1e3,

@@ -25,6 +25,14 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      2048, a ragged last tile, static and dynamic (trailing-slot) row
      counts, -1 padded tables, k in {1, 16, 128, 256}, B in {1, 8, 256};
      then K4 on phase 2's edge rows (k up to 256), each torch.equal;
+     then the float path's edges (K1 and K3, f32 and bf16 rows) at
+     N_EDGE rows: D in {1, 33, 37, 1024, 2048} (the query block streamed
+     by depth chunk at 2048 where it does not fit), B in {1, 8, 16, 17,
+     64, 65, 256}, k up to 128 (K1) / 256 (K3), rows[1:] and rows at an
+     address that is not 16-byte aligned, exact ties across sub-tiles,
+     tiles and CTAs, masks that leave fewer than k candidates (tau =
+     -inf) and unmasked cases (finite tau), each held through
+     check_top_k at F32_ATOL / BF16_ATOL;
   4. stage A: 2^21 x 256 bf16 dense + CSR BM25 hybrid (bench.py's 2M
      configuration), planted recall and id equality with the torch route;
   5. stage B: the same index with a filter mask over half the docs and
@@ -132,11 +140,14 @@ BF16_ATOL = 1e-4
 BM25_ATOL = 1e-4
 FULL_PROBE_ATOL = 1e-4
 # One H100 SXM (NVIDIA data sheet, dense rates): HBM bytes/s, FFMA f32
-# FLOP/s (the kernels' f32 contract is IEEE, off the tensor cores), int8
-# tensor-core OP/s.
+# FLOP/s (f32 rows score in IEEE f32, off the tensor cores), bf16
+# tensor-core FLOP/s (bf16 rows: three MMAs per product, one for each
+# bf16 piece of the f32 query), int8 tensor-core OP/s.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
+QUERY_PIECES = 3
 
 
 def log(**fields) -> None:
@@ -150,6 +161,10 @@ class Smoke:
     # switch, k, the IVF tile.
     N_EDGE, EDGE_D = 70_001, (1, 33, 37, 1024)
     EDGE_B, EDGE_K, EDGE_TILE = (8, 16, 17, 64, 65, 256), (1, 25, 128), 1024
+    # The float path's edges (K1, K3): depths, batches, k cycled per case.
+    EDGE_FLOAT_D = (1, 33, 37, 1024, 2048)
+    EDGE_FLOAT_B = (1, 8, 16, 17, 64, 65, 256)
+    EDGE_FLOAT_K = (1, 16, 25, 128)
     IVF_TILES = (1024, 2048)
     N_A, D_A, B, T, V, DF = 1 << 21, 256, 256, 16, 1 << 17, 16
     N_C, D_C, CLUSTERS, CHUNKS = 10_485_760, 1024, 4096, 40
@@ -270,9 +285,9 @@ class Smoke:
 
     def int8_plan_line(self) -> None:
         """The int8 kernels' query block, dynamic shared memory (the
-        source's sum, held against int8_plan's) and CTAs per SM at the
+        source's sum, held against topk_plan's) and CTAs per SM at the
         main path's shapes."""
-        plan = self.p.int8_plan
+        plan = self.p.topk_plan
         shapes = []
         for b, d, kk in ((self.B, self.D_C, 25), (self.B_MICRO, self.D_C, 25),
                          (self.B_MICRO, self.D_C, 256)):
@@ -285,6 +300,37 @@ class Smoke:
                            "smem_bytes": smem,
                            "ctas_per_sm": plan.ctas_per_sm(bq, d, kk)})
         log(phase="int8_plan", shapes=shapes)
+        self.float_plan_line()
+
+    def float_plan_line(self) -> None:
+        """The float kernels' (K1, K3) query block, whether it stays
+        resident in shared memory, the source's shared-memory sum held
+        against topk_plan's, CTAs per SM, and the splits of the main and
+        tau passes, at the main path's shapes and the edges' deepest."""
+        plan, sms = self.p.topk_plan, self.p.sm_count(self.dev)
+        shapes = []
+        for b, d, kk, rows in (
+                (self.B, self.D_A, 32, "bfloat16"),
+                (self.B_MICRO, self.D_D, self.K_D, "bfloat16"),
+                (self.B, self.V_COMMON, 32, "float32"),
+                (self.B, self.EDGE_FLOAT_D[-1], 128, "bfloat16"),
+                (self.B_MICRO, self.EDGE_FLOAT_D[-1], 256, "float32")):
+            bq = plan.query_block(b, d, kk, rows)
+            qres = plan.resident(bq, d, kk, rows)
+            smem = self.p.float_smem_bytes(bq, d, kk, rows, qres)
+            want = plan.smem_bytes(bq, d, kk, rows, qres)
+            if smem != want:
+                raise AssertionError(f"float shared memory {smem} != the "
+                                     f"plan's {want}")
+            fused = plan.fused_plan(self.N_A, b, d, kk, sms, rows)
+            shapes.append({
+                "b": b, "d": d, "k": kk, "rows": rows, "bq": bq,
+                "resident": qres, "smem_bytes": smem,
+                "ctas_per_sm": plan.ctas_per_sm(bq, d, kk, rows),
+                "k1_splits_2m": fused.splits,
+                "k1_tau_splits_2m": plan.tau_fused_plan(
+                    self.N_A, b, d, kk, sms, rows)[0]})
+        log(phase="float_plan", shapes=shapes)
 
     def kernel_cases(self, n, d, dtype):
         g = self.seed(101)
@@ -368,11 +414,12 @@ class Smoke:
             raise AssertionError(f"{what}: differs from the plain version")
 
     def odd_address(self, t):
-        """A copy of t whose base is one byte past a 16-byte boundary."""
+        """A copy of t whose base is one element past a 16-byte boundary
+        (one byte for int8 rows)."""
         buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=self.dev)
         view = buf[1:1 + t.numel()].view(t.shape)
         view.copy_(t)
-        assert view.data_ptr() % 16 == 1
+        assert view.data_ptr() % 16 == t.element_size()
         return view
 
     def edge_rows(self, d):
@@ -477,6 +524,80 @@ class Smoke:
             max_abs_err_k3=self.max_err["ivf_dense_top_k"],
             tie_swaps_k3=self.swaps["ivf_dense_top_k"],
             max_abs_err_k4=self.max_err["ivf_dense_top_k_int8"])
+        self.float_edges()
+
+    def float_edge_rows(self, d, dtype):
+        """N_EDGE unit rows of depth d and 256 unit queries: rows 0-31
+        copies of queries 0-7 (each query's best rows), copied again
+        across sub-tiles (64), a tile boundary (100) and far off (n // 2,
+        n - 40: other CTAs), so exact ties sit at the top of the lists; a
+        mask over half the rows and one that keeps every 997th row only
+        (fewer than k candidates in tau's subsample: tau = -inf)."""
+        g = self.seed(191 + d)
+        n = self.N_EDGE
+        emb = self.b.unit(torch.randn((n, d), generator=g, device=self.dev))
+        q = self.b.unit(torch.randn((256, d), generator=g, device=self.dev))
+        emb[:32] = q[torch.arange(32, device=self.dev) % 8]
+        for start in (64, 100, n // 2, n - 40):
+            emb[start:start + 32] = emb[:32]
+        half = torch.rand(n, generator=g, device=self.dev) < 0.5
+        few = torch.zeros(n, dtype=torch.bool, device=self.dev)
+        few[::997] = True
+        return emb.to(dtype), q, half, few
+
+    def float_edges(self) -> None:
+        """K1 and K3 at the float path's edges, f32 and bf16 rows, each
+        through check_top_k (and the tie rule) at F32_ATOL / BF16_ATOL;
+        counts the cases whose tau was finite and -inf."""
+        k = self.p.kernels
+        n, t = self.N_EDGE, self.EDGE_TILE
+        npad = -(-n // t) * t
+        tables = self.ivf_tables(n, t)
+        cases, taus = {"k1": 0, "k3": 0}, {"finite": 0, "neg_inf": 0}
+        for dtype, atol in ((torch.float32, F32_ATOL),
+                            (torch.bfloat16, BF16_ATOL)):
+            for d in self.EDGE_FLOAT_D:
+                emb, q, half, few = self.float_edge_rows(d, dtype)
+                views = ((emb, "as is"), (emb[1:], "rows[1:]"),
+                         (self.odd_address(emb), "unaligned"))
+                for rows, what in views:
+                    m = rows.shape[0]
+                    for i, b in enumerate(self.EDGE_FLOAT_B):
+                        kk = self.EDGE_FLOAT_K[(i + d) % len(
+                            self.EDGE_FLOAT_K)]
+                        mask = (None, half[:m], few[:m])[i % 3]
+                        tau = k.subsample_tau(rows, q[:b], kk, mask)
+                        finite = bool(torch.isfinite(tau).all())
+                        taus["finite" if finite else "neg_inf"] += 1
+                        self.compare(
+                            "fused_dense_top_k",
+                            k.fused_dense_top_k_torch(rows, q[:b], kk, mask),
+                            k.fused_dense_top_k(rows, q[:b], kk, mask), atol)
+                        cases["k1"] += 1
+                padded = torch.cat([emb, emb[: npad - n]])
+                for rows in (padded, self.odd_address(padded)):
+                    for name in ("full", "partial", "dynamic"):
+                        table, n_real = tables[name]
+                        for i, b in enumerate(self.EDGE_FLOAT_B):
+                            kk = (1, 16, 128, 256)[(i + cases["k3"]) % 4]
+                            kw = dict(tile_n=t, n_real=n_real)
+                            self.compare(
+                                "ivf_dense_top_k",
+                                k.ivf_dense_top_k_torch(rows, q[:b], table,
+                                                        kk, **kw),
+                                k.ivf_dense_top_k(rows, q[:b], table, kk,
+                                                  **kw), atol)
+                            cases["k3"] += 1
+                del emb, padded
+        if not (taus["finite"] and taus["neg_inf"]):
+            raise AssertionError(f"the edges missed a tau kind: {taus}")
+        log(phase="float_edges_vs_plain", k1_cases=cases["k1"],
+            k3_cases=cases["k3"], tau_cases=taus,
+            edge_d=list(self.EDGE_FLOAT_D), edge_b=list(self.EDGE_FLOAT_B),
+            ok=True, max_abs_err_k1=self.max_err["fused_dense_top_k"],
+            max_abs_err_k3=self.max_err["ivf_dense_top_k"],
+            tie_swaps_k1=self.swaps["fused_dense_top_k"],
+            tie_swaps_k3=self.swaps["ivf_dense_top_k"])
 
     def k4_edges(self) -> int:
         """K4 on phase 2's edge rows: each depth, aligned and at an odd
@@ -626,7 +747,11 @@ class Smoke:
         )
         (n, d), b = emb.shape, q.shape[0]
         self.bound("fused_dense_top_k", n * d * 2 + b * d * 4 + b * 32 * 8,
-                   2 * b * n * d, F32_FLOP_S)
+                   QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
+        log(timing="fused_dense_top_k_bound", bound_ms=self.bounds[
+            "fused_dense_top_k"][0], ffma_bound_ms=2 * b * n * d / F32_FLOP_S
+            * 1e3, what="bf16 MMA on three query pieces at 989 TFLOP/s; "
+            "the same product on FFMA at 67 TFLOP/s beside it")
         got = k.fused_dense_top_k(emb, q, 32)
         self.compare("fused_dense_top_k",
                      k.fused_dense_top_k_torch(emb, q, 32), got, BF16_ATOL)
@@ -808,7 +933,7 @@ class Smoke:
         r, (b, d) = rows.numel(), q8.shape
         self.bound("ivf_dense_top_k",
                    r * d * 2 + b * d * 4 + table.numel() * 4 + b * kk * 8,
-                   2 * b * r * d, F32_FLOP_S)
+                   QUERY_PIECES * 2 * b * r * d, BF16_FLOP_S)
         self.time_pair(
             "fused_dense_top_k_b8",
             lambda: k.fused_dense_top_k(emb, q8, kk),
@@ -1256,7 +1381,7 @@ class Smoke:
                  f"{line['splits']} splits")
         log(anatomy=label, shape=shape, **{key: line[key] for key in (
             "ms", "loads_ms", "scoring_ms", "compare_ms", "insert_merge_ms",
-            "stage_gb_s", "byte_floor_ms")}, modes_equal_plain=True,
+            "tau_pass_ms", "stage_gb_s", "byte_floor_ms")}, modes_equal_plain=True,
             score_max_abs_err=err, full_mode_launches=counts[full],
             card=self.card, seconds=time.perf_counter() - t0)
         k = self.p.kernels
@@ -1279,8 +1404,8 @@ class Smoke:
             self.time_library(name, lambda: torch.amax(
                 q.float() @ rows.float().T, dim=1),
                 "torch.amax(q @ emb.float().T, dim=1)")
-            self.bound(name, n * d * 2 + b * d * 4 + b * 4, 2 * b * n * d,
-                       F32_FLOP_S)
+            self.bound(name, n * d * 2 + b * d * 4 + b * 4,
+                       QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
 
     @staticmethod
     def int8_row_max(values, qv, scales=None, step=1 << 21):
@@ -1300,8 +1425,9 @@ class Smoke:
         """The counted fold on a stage's matrix with and without tau, its
         values, ids and every counter equal to its plain version's and its
         ids to K1's / K2's (inside the probe), and its timing row. The
-        probe's K1/K2 calls (the reference and tau's subsample) are
-        reported in the counted line, not in the kernels line."""
+        probe's K1/K2 call (the reference) is reported in the counted
+        line, not in the kernels line; tau comes from K1/K2's own tau
+        pass (subsample_tau)."""
         t0 = time.perf_counter()
         int8 = scales is not None
         name = "fused_top_k_counted_int8" if int8 else "fused_top_k_counted"
@@ -1315,11 +1441,11 @@ class Smoke:
         keys = ("insertions_per_row", "insertions_early_per_row",
                 "insertions_late_per_row", "insertions_per_row_split",
                 "fired_windows_per_row", "windows_per_row", "fired_share",
-                "ms")
+                "counters_off_plain", "ms")
         # One list per key: without tau, then with it.
         log(counted=label, shape=shape, ids_equal_kernel=True,
             equal_plain=True, tau=[False, True],
-            reference_and_tau_launches=counts[full],
+            reference_launches=counts[full],
             **{key: [line[key] for line in lines] for key in keys},
             card=self.card, seconds=time.perf_counter() - t0)
         shape += ", no tau"
@@ -1338,7 +1464,7 @@ class Smoke:
                            shape, plain_n=1)
             self.bound(name, n * d * rows.element_size() + b * d * 4
                        + b * lines[0]["splits"] * 16 + b * kk * 8,
-                       2 * b * n * d, F32_FLOP_S)
+                       QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
         self.no_library(name, "no PyTorch call counts a top-k's insertions")
 
     def phase15_keys(self) -> None:
@@ -1542,8 +1668,10 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
-        from a_nice_rag_tpu_torch.ops.kernels import anatomy, int8_plan
+        from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+            _sm_count,
+            float_smem_bytes,
             int8_smem_bytes,
         )
         from a_nice_rag_tpu_torch.probes import (
@@ -1576,7 +1704,8 @@ class _Port:
         self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy
         self.iteration_count, self.bf16_fold = iteration_count, bf16_fold
         self.int4_probe = int4
-        self.int8_plan, self.int8_smem_bytes = int8_plan, int8_smem_bytes
+        self.topk_plan, self.int8_smem_bytes = topk_plan, int8_smem_bytes
+        self.float_smem_bytes, self.sm_count = float_smem_bytes, _sm_count
         self.sm_grid = sm_grid
         self.check_stream_sum = check_stream_sum
         self.check_stream_sum_busy = check_stream_sum_busy

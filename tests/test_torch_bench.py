@@ -172,6 +172,12 @@ def test_bench_refuses_to_run_without_a_gpu(monkeypatch):
             timer(lambda: None)
 
 
+def test_bench_refuses_unknown_stages():
+    with pytest.raises(SystemExit):
+        bench.main(["--stages", "2m,nope"])
+    assert bench.STAGES == ("headline", "2m", "int8", "ivf", "crossover")
+
+
 def test_stage_configs_default_to_bench_widths():
     assert (bench.HeadlineConfig().n_docs, bench.HeadlineConfig().dim,
             bench.HeadlineConfig().batch) == (9728, 2048, 2048)

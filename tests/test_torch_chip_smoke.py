@@ -3,7 +3,7 @@
 The smoke run itself needs a GPU. Here its phases run on CPU tensors,
 where the kernel wrappers take their plain versions, with four fakes:
 each plain-version call through a wrapper counts as a launch (and the
-source's int8 shared-memory sum is int8_plan's), the
+sources' shared-memory sums are topk_plan's), the
 retriever's route to the kernels is forced at the stages' sizes (stage
 F's reference-scale corpus stays below it, as on the card), CUDA
 synchronisation is a no-op, and the CUDA timers are a host clock. The
@@ -23,10 +23,10 @@ import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
 from a_nice_rag_tpu_torch.ops.kernels import int4 as i4
-from a_nice_rag_tpu_torch.ops.kernels import int8_plan
 from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
 from a_nice_rag_tpu_torch.ops.kernels import keys as ks
 from a_nice_rag_tpu_torch.ops.kernels import stream as st
+from a_nice_rag_tpu_torch.ops.kernels import topk_plan
 
 WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8"),
@@ -41,6 +41,7 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
 class TinySmoke(chip_smoke.Smoke):
     N_KERNEL, D_KERNEL = 3000 + 37, 32
     N_EDGE, EDGE_D, EDGE_TILE = 3000 + 37, (1, 33, 37, 64), 256
+    EDGE_FLOAT_D = (1, 33, 37, 64)
     IVF_TILES = (128, 256)
     N_A, D_A, B, T, V, DF = 4096, 32, 16, 16, 1024, 16
     # 512 clusters of 16 rows: nprobe 8 covers 0.12 of them at B = 8.
@@ -88,7 +89,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     port.device_loop_ms = lambda fn, n_loop, trials: _host_ms(fn, n_loop)
     port.chained_ms = lambda fn, n, trials: _host_ms(fn, n)
     port.sm_grid = lambda device, ctas_per_sm=4: 8
-    port.int8_smem_bytes = int8_plan.smem_bytes
+    port.int8_smem_bytes = topk_plan.smem_bytes
+    port.float_smem_bytes = topk_plan.smem_bytes
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
     monkeypatch.setattr(
         port.FusedRetriever, "_route_kernel",
@@ -139,8 +141,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     for c in counted:
         assert c["ids_equal_kernel"] and c["tau"] == [False, True]
         assert c["equal_plain"]
-        # K1/K2 as the reference, and over tau's subsample.
-        assert c["reference_and_tau_launches"] == 2
+        # K1/K2 as the reference; tau comes from their own tau pass,
+        # which counts no launch of its own.
+        assert c["reference_launches"] == 1
         # The warm start can only remove insertions.
         assert c["insertions_per_row"][1] <= c["insertions_per_row"][0]
         assert 0 < c["fired_share"][0] <= 1
@@ -169,6 +172,18 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     # The tiny B is 16: every block is the small one.
     assert [s["bq"] for s in plan[0]["shapes"]] == [16, 16, 16]
     assert all(s["ctas_per_sm"] >= 1 for s in plan[0]["shapes"])
+    fplan = [r for r in records if r.get("phase") == "float_plan"]
+    # B = 16 and B = 8: the small block; every tiny depth stays resident.
+    assert [s["bq"] for s in fplan[0]["shapes"]] == [16] * 5
+    assert all(s["resident"] and s["smem_bytes"] > 0
+               for s in fplan[0]["shapes"])
+    edges = [r for r in records if r.get("phase") == "float_edges_vs_plain"]
+    # 2 row types x 4 depths x (3 views x 7 batches for K1, 2 views x 3
+    # tables x 7 batches for K3); both kinds of tau among K1's cases.
+    assert edges[0]["k1_cases"] == 2 * 4 * 3 * 7
+    assert edges[0]["k3_cases"] == 2 * 4 * 2 * 3 * 7
+    assert edges[0]["tau_cases"]["finite"] > 0
+    assert edges[0]["tau_cases"]["neg_inf"] > 0
     stream = [json.loads(line) for line in lines
               if '"stream_vs_plain"' in line]
     assert stream[0]["cases"] == 27 and stream[0]["int8_exact"]

@@ -1,15 +1,17 @@
-"""The work plan of the int8 kernels K2 and K4 (ops/kernels/int8_plan.py),
-on the CPU: the query block chosen by B, K2's doc splits, and K4's work
-items, which must cover every real row of the tabled tiles exactly once.
-``ivf_items`` mirrors the kernel's walk (csrc/ivf_topk.cu, IvfWalk); the
-kernel itself is held against its plain version on the card
-(test_torch_kernels_cuda.py)."""
+"""The work plan of the top-k kernels K1-K4 (ops/kernels/topk_plan.py),
+on the CPU, for int8 rows (K2, K4) and float rows (K1, K3): the query
+block chosen by B and D, whether a float query block stays resident, the
+doc splits, the tau pass's splits and walkers, and the IVF work items,
+which must cover every real row of the tabled tiles exactly once (and the
+tau pass's every 64th). ``ivf_items`` mirrors the kernels' walk
+(csrc/topk_common.cuh, IvfWalk); the kernels themselves are held against
+their plain versions on the card (test_torch_kernels_cuda.py)."""
 
 import numpy as np
 import pytest
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import int8_plan as P
+from a_nice_rag_tpu_torch.ops.kernels import topk_plan as P
 from a_nice_rag_tpu_torch.ops.kernels.ivf_topk import (
     ivf_dense_top_k_int8_torch,
 )
@@ -178,3 +180,134 @@ def test_ivf_walk_per_walker_lists_merge_to_the_plain_top_k(walkers,
     i = torch.take_along_dim(i, pos, 1)[:, :k]
     assert torch.equal(i.to(torch.int32), want_i)
     assert torch.equal(v[:, :k] * qs[:, None], want_v)
+
+
+# -- float rows (K1, K3) -----------------------------------------------------
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [1, 33, 37, 256, 1024, 2048, 4096])
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 64, 65, 256])
+def test_float_query_block_at_the_switch_and_depths(rows, d, b):
+    # 16 queries up to B = 16, 64 above, at every depth (the block streams
+    # where it does not fit), for every k K1 takes.
+    for k in (1, 32, 128):
+        bq = P.query_block(b, d, k, rows)
+        assert bq == (16 if b <= 16 else 64)
+        qres = P.resident(bq, d, k, rows)
+        smem = P.smem_bytes(bq, d, k, rows, qres)
+        assert smem + 16 * bq <= P.SMEM_PER_CTA
+        if not qres:  # streamed only where resident does not fit
+            assert P.smem_bytes(bq, d, k, rows, True) + 16 * bq \
+                > P.SMEM_PER_CTA
+
+
+def test_float_shared_memory_sums():
+    # bf16 rows: three query planes of 2-byte elements; float rows end
+    # with a hit flag per query.
+    tail = 4 * 64 * 129 + 8 * 64 * 32 + 12 * 64 + 128 + 64
+    assert P.smem_bytes(64, 256, 32, "bfloat16") == (
+        3 * 128 * 128 + 3 * 64 * 512 + tail)
+    assert P.smem_bytes(64, 256, 32, "bfloat16", qres=False) == (
+        3 * (128 * 128 + 3 * 64 * 128) + tail)
+    assert P.smem_bytes(64, 256, 32, "float32") == (
+        3 * 128 * 128 + 64 * 1024 + tail)
+    assert P.depth_pad(37 * 2) == 128 and P.depth_pad(33 * 4) == 256
+    # Stage A's K1 (B = 256, D = 256 bf16): resident, one CTA per SM;
+    # stage D's K3 (B = 8): 16 queries, two CTAs per SM.
+    assert P.resident(64, 256, 32, "bfloat16")
+    assert P.ctas_per_sm(64, 256, 32, "bfloat16") == 1
+    assert P.ctas_per_sm(16, 256, 16, "bfloat16") == 2
+    assert not P.resident(64, 4096, 128, "bfloat16")
+    with pytest.raises(ValueError):
+        P.smem_bytes(16, 8, 1, "float16")
+
+
+@pytest.mark.parametrize("rows", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("n,b,d,k", [
+    (1 << 21, 256, 256, 32), (2_000_000, 8, 256, 16), (300, 17, 33, 128),
+    (1, 1, 1, 1), (70_001, 65, 37, 25),
+])
+def test_tau_plan_covers_every_64th_row_once(rows, n, b, d, k):
+    splits, per = P.tau_fused_plan(n, b, d, k, H100_SMS, rows)
+    assert per % (P.TN * P.TAU_STRIDE) == 0
+    assert (splits - 1) * per < n <= splits * per  # no empty split
+    # Split s walks rows s * per, s * per + 64, ...: together every 64th.
+    got = [r for s in range(splits)
+           for r in range(s * per, min(n, (s + 1) * per), P.TAU_STRIDE)]
+    assert got == list(range(0, n, P.TAU_STRIDE))
+    bq = P.query_block(b, d, k, rows)
+    assert splits <= -(-P.ctas_per_sm(bq, d, k, rows) * H100_SMS
+                       // -(-b // bq))
+
+
+@pytest.mark.parametrize("tile_n", [2048, 1000, 128, 64, 10_000])
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("walkers", [1, 7, 264])
+def test_ivf_tau_items_cover_every_64th_row_of_the_real_tiles(
+        tile_n, dynamic, walkers):
+    rng = np.random.default_rng(tile_n + walkers)
+    tiles = 23
+    rows = (tiles - 1) * tile_n + tile_n // 3 + 1
+    real = np.append(np.sort(rng.choice(tiles - 1, 9, replace=False)),
+                     tiles - 1)
+    table = _table(tiles, real, 16, dynamic, rows)
+    spt = -(-tile_n // (P.TN * P.TAU_STRIDE))
+    items = P.ivf_items(table, 16, tile_n, rows, walkers, spt,
+                        P.TAU_STRIDE)
+    got = sorted(r for w in items for r0, r1 in w
+                 for r in range(r0, r1, P.TAU_STRIDE))
+    want = sorted(r for t in real
+                  for r in range(t * tile_n, min((t + 1) * tile_n, rows),
+                                 P.TAU_STRIDE))
+    assert got == want
+    assert all(r1 - r0 <= P.TN * P.TAU_STRIDE for w in items
+               for r0, r1 in w)
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_float_ivf_plan_at_stage_d(rows):
+    # 2M x 256 IVF, B = 8, nprobe 16: 298 slots of 1024-row tiles; the
+    # float items are the int8 walk's (the same IvfWalk).
+    bq, walkers, spt = P.ivf_plan(298, 1024, 8, 256, 16, H100_SMS, rows)
+    ctas = P.ctas_per_sm(16, 256, 16, rows)
+    assert (bq, spt, ctas) == (16, 8, 2 if rows == "bfloat16" else 3)
+    assert walkers == ctas * H100_SMS
+    table = _table(298, np.arange(298), 298, False, 298 * 1024 - 5)
+    items = P.ivf_items(table, 298, 1024, 298 * 1024 - 5, walkers, spt)
+    got, count = _covered(items)
+    assert count == len(got) == 298 * 1024 - 5
+    assert P.tau_ivf_walkers(298, 1024, 8, 256, 16, H100_SMS, rows) == \
+        min(walkers, 298)  # one 16-row item per tile
+
+
+def test_workspace_bytes():
+    # Main and tau partial lists, tau, the bf16 query planes, each on a
+    # 256-byte boundary.
+    assert P.workspace_bytes(8, 16, 264, 264, 256, True) == (
+        4 * 8 * 264 * 16 * 4 + 256 + 6 * 8 * 256)
+    assert P.workspace_bytes(1, 1, 1, 1, 1, False) == 5 * 256
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dynamic", [False, True])
+@pytest.mark.parametrize("b,d,tile_n", [(8, 256, 1024), (1, 37, 1000),
+                                        (65, 2048, 128)])
+def test_float_ivf_items_cover_every_real_row_once(rows, dynamic, b, d,
+                                                   tile_n):
+    # K3's walkers as its plan deals them: every real row of the tabled
+    # tiles once, with a ragged last tile and -1 padding, for static and
+    # dynamic row counts.
+    rng = np.random.default_rng(b + d)
+    tiles, slots = 40, 30
+    n_rows = (tiles - 1) * tile_n + tile_n // 5 + 3
+    real = np.append(np.sort(rng.choice(tiles - 1, 20, replace=False)),
+                     tiles - 1)
+    table = _table(tiles, real, slots, dynamic, n_rows)
+    bq, walkers, spt = P.ivf_plan(slots, tile_n, b, d, 16, H100_SMS, rows)
+    assert bq == (16 if b <= 16 else 64) and spt == -(-tile_n // P.TN)
+    items = P.ivf_items(table, slots, tile_n, n_rows, walkers, spt)
+    got, count = _covered(items)
+    want = [r for t in real
+            for r in range(t * tile_n, min((t + 1) * tile_n, n_rows))]
+    assert count == len(want) and got == sorted(want)

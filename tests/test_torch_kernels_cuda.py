@@ -53,8 +53,15 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     xpack_keys_torch,
     xpack_values,
 )
-from a_nice_rag_tpu_torch.ops.kernels import int8_plan
-from a_nice_rag_tpu_torch.ops.kernels.fused_topk import int8_smem_bytes
+from a_nice_rag_tpu_torch.ops.kernels import topk_plan
+from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+    float_smem_bytes,
+    int8_smem_bytes,
+    split_query,
+    subsample_tau,
+    subsample_tau_torch,
+    workspace_bytes_of_source,
+)
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
 from a_nice_rag_tpu_torch.probes import kernel_anatomy
 from a_nice_rag_tpu_torch.ops.quantized import (
@@ -209,7 +216,79 @@ def test_cuda_int8_path_edges_k4(cuda_device, d, odd):
 def test_cuda_int8_shared_memory_matches_plan(cuda_device):
     for bq, d, k in ((16, 1, 1), (16, 37, 256), (64, 1024, 25),
                      (64, 1040, 128)):
-        assert int8_smem_bytes(bq, d, k) == int8_plan.smem_bytes(bq, d, k)
+        assert int8_smem_bytes(bq, d, k) == topk_plan.smem_bytes(bq, d, k)
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_float_shared_memory_matches_plan(cuda_device, rows):
+    # The float path's shared-memory sum at the 16/64 switch, across
+    # depths, with the query block resident and streamed; the workspace.
+    for bq in (16, 64):
+        for d in (1, 33, 37, 256, 1024, 2048, 4096):
+            for k in (1, 32, 128):
+                for qres in (False, True):
+                    assert float_smem_bytes(bq, d, k, rows, qres) == \
+                        topk_plan.smem_bytes(bq, d, k, rows, qres)
+    for args in ((256, 32, 33, 32, 256, True), (8, 16, 264, 264, 37, False),
+                 (1, 1, 1, 1, 1, True)):
+        assert workspace_bytes_of_source(*args) == \
+            topk_plan.workspace_bytes(*args)
+
+
+def _float_edge_rows(n, d, dev, dtype):
+    """Unit rows and 256 unit queries: rows 0-31 copies of queries 0-7
+    (each query's best rows), copied again across sub-tiles, a tile
+    boundary and other CTAs, so exact ties sit at the top of the
+    lists."""
+    g = torch.Generator().manual_seed(d + 7)
+    emb = _unit(torch.randn((n, d), generator=g))
+    q = _unit(torch.randn((256, d), generator=g))
+    emb[:32] = q[torch.arange(32) % 8]
+    for start in (64, 100, n // 2, n - 40):
+        emb[start:start + 32] = emb[:32]
+    return emb.to(dtype).to(dev), q.to(dev)
+
+
+@pytest.mark.parametrize("d", [1, 33, 37, 1024, 2048])
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_float_path_edges_k1(cuda_device, d, rows):
+    # K1 on the float path's edges: depths that are no multiple of a
+    # 16-byte segment or that stream the query block, B across the 16/64
+    # switch, views at addresses that are not 16-byte aligned, a mask
+    # that leaves fewer than k candidates (tau = -inf), and ties.
+    emb, q = _float_edge_rows(20_011, d, cuda_device, getattr(torch, rows))
+    tol = 1e-5 if rows == "float32" else 1e-4
+    few = torch.zeros(emb.shape[0], dtype=torch.bool, device=cuda_device)
+    few[::997] = True
+    for view in (emb, emb[1:]):
+        for b, k, mask in ((1, 1, None), (8, 25, None), (16, 128, few),
+                           (17, 32, None), (65, 128, None), (256, 7, few)):
+            m = None if mask is None else mask[:view.shape[0]]
+            kv, ki = fused_dense_top_k(view, q[:b], k, mask=m)
+            pv, pi = fused_dense_top_k_torch(view, q[:b], k, mask=m)
+            torch.cuda.synchronize()
+            check_top_k(pv, pi, kv, ki, tol)
+            assert _ties_kept_by_lower_id(kv, ki), (b, k)
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_subsample_tau_bounds_the_kth_score(cuda_device, rows):
+    g = torch.Generator().manual_seed(3)
+    emb = _unit(torch.randn((50_000, 64), generator=g)).to(
+        getattr(torch, rows)).to(cuda_device)
+    q = _unit(torch.randn((20, 64), generator=g)).to(cuda_device)
+    for k, mask in ((16, None), (100, torch.rand(50_000, generator=g) < 0.5),
+                    (8, torch.arange(50_000) % 64 == 1)):
+        m = None if mask is None else mask.to(cuda_device)
+        tau = subsample_tau(emb, q, k, m)
+        want = subsample_tau_torch(emb, q, k, m)
+        kth = fused_dense_top_k_torch(emb, q, k, mask=m)[0][:, -1]
+        torch.cuda.synchronize()
+        assert bool((tau <= kth).all())
+        assert torch.equal(torch.isneginf(tau), torch.isneginf(want))
+        assert bool(((tau - want).abs() <= 1e-4)[torch.isfinite(want)].all())
+    # The query split on the card: K1's staged words hold its planes.
+    assert split_query(q).shape == (3, 20, 64)
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
@@ -263,6 +342,40 @@ def test_cuda_ivf_matches_plain(cuda_device, rows, tile_n, b, k, dynamic):
     live = ki[ki >= 0].long()
     assert bool((live < n_real).all())
     assert bool(torch.isin(live // tile_n, picked.to(cuda_device)).all())
+
+
+@pytest.mark.parametrize("d", [1, 33, 37, 1024])
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_float_path_edges_k3(cuda_device, d, rows):
+    # K3 on the float path's edges over full, partial and dynamic tables
+    # of a ragged last tile, aligned and at an unaligned base, k up to 256.
+    tile_n, n_real = 1024, 20_011
+    emb, q = _float_edge_rows(n_real, d, cuda_device, getattr(torch, rows))
+    npad = -(-n_real // tile_n) * tile_n
+    emb = torch.cat([emb, emb[:npad - n_real]])
+    tol = 1e-5 if rows == "float32" else 1e-4
+    tiles = npad // tile_n
+    full = torch.arange(tiles, dtype=torch.int32)
+    part = torch.full((tiles,), -1, dtype=torch.int32)
+    part[:5] = torch.tensor([0, 3, 10, 11, tiles - 1], dtype=torch.int32)
+    dynamic = torch.cat([part, torch.tensor([n_real], dtype=torch.int32)])
+    shifted = torch.empty((npad + 1, d), dtype=emb.dtype,
+                          device=cuda_device)
+    shifted[1:] = emb
+    case = 0
+    for view in (emb, shifted[1:]):
+        for table, nr in ((full, n_real), (part, n_real), (dynamic, 0)):
+            table = table.to(cuda_device)
+            for b in (1, 8, 16, 17, 65):
+                k = (1, 16, 128, 256)[case % 4]
+                case += 1
+                kv, ki = ivf_dense_top_k(view, q[:b], table, k,
+                                         tile_n=tile_n, n_real=nr)
+                pv, pi = ivf_dense_top_k_torch(view, q[:b], table, k,
+                                               tile_n=tile_n, n_real=nr)
+                torch.cuda.synchronize()
+                check_top_k(pv, pi, kv, ki, tol)
+                assert _ties_kept_by_lower_id(kv, ki), (b, k, nr)
 
 
 def test_cuda_ivf_wrapper_raises_instead_of_falling_back(cuda_device):
@@ -447,7 +560,8 @@ def test_cuda_counted_fold_matches_plain(cuda_device, kind, n, d, b, k):
         for a, w in zip(got, want):
             assert torch.equal(a, w), use_tau
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-        splits = (anatomy.split_plan(n, b, cuda_device)[0] if scales is None
+        splits = (anatomy.split_plan(n, b, d, k, kind, cuda_device).splits
+                  if scales is None
                   else anatomy.split_plan_int8(n, b, d, k, cuda_device).splits)
         assert got[2].shape == (b, splits, 4)
 

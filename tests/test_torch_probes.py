@@ -37,6 +37,8 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as A
+from a_nice_rag_tpu_torch.ops.kernels import topk_plan as P
+from a_nice_rag_tpu_torch.ops.kernels.fused_topk import split_query
 from a_nice_rag_tpu_torch.ops.kernels import int4 as I
 from a_nice_rag_tpu_torch.ops.kernels import keys as KEYS
 from a_nice_rag_tpu_torch.probes import bf16_fold, iteration_count
@@ -145,22 +147,33 @@ def test_anatomy_modes_against_direct_computation(n, d, b):
     got = A.anatomy_top_k(emb, q, 8, "compare", torch.tensor(thr))
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), (scores >= thr[:, None]).sum(axis=1))
-    # stage: per CTA (query block, doc split) the XOR of the words staged
-    # (each doc's f32 words once, the query block's once per tile).
-    splits, per = A.split_plan(n, b, torch.device("cpu"))
-    ew = np.asarray(emb.float()).view(np.uint32)
-    qw = np.asarray(q).view(np.uint32)
-    want = np.zeros((-(-b // 64), splits), np.uint32)
+    # stage: per CTA (query block, doc split) the XOR of the words staged:
+    # each doc's bf16 words once (zero-padded to whole words), the query
+    # block's three bf16 planes once (resident here).
+    bq, splits, per = A.split_plan(n, b, d, 8, "bfloat16",
+                                   torch.device("cpu"))
+    assert bq == (16 if b <= 16 else 64)
+    assert P.resident(bq, d, 8, "bfloat16")
+    ew = np.pad(emb.view(torch.int16).numpy(),
+                ((0, 0), (0, d % 2))).view(np.uint32)
+    pieces = split_query(q).view(torch.int16).numpy()  # [3, B, D]
+    qw = np.pad(pieces, ((0, 0), (0, 0), (0, d % 2))).view(np.uint32)
+    want = np.zeros((-(-b // bq), splits), np.uint32)
     for qb in range(want.shape[0]):
-        qx = np.bitwise_xor.reduce(qw[64 * qb:64 * qb + 64].ravel())
+        qx = np.bitwise_xor.reduce(qw[:, bq * qb:bq * qb + bq].ravel())
         for sp in range(splits):
             docs = ew[sp * per:min(n, sp * per + per)]
-            tiles = -(-docs.shape[0] // 128)
-            want[qb, sp] = (np.bitwise_xor.reduce(docs.ravel())
-                            ^ (qx if tiles % 2 else np.uint32(0)))
+            want[qb, sp] = np.bitwise_xor.reduce(docs.ravel()) ^ qx
     got = A.anatomy_top_k(emb, q, 8, "stage")
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), want)
+    # f32 rows stage the f32 query itself.
+    got = A.anatomy_top_k(emb.float(), q, 8, "stage").numpy().view(np.uint32)
+    bq, splits, per = A.split_plan(n, b, d, 8, "float32", torch.device("cpu"))
+    ew, qw = np.asarray(emb.float()).view(np.uint32), np.asarray(q).view(
+        np.uint32)
+    assert got[0, 0] == (np.bitwise_xor.reduce(ew[:min(n, per)].ravel())
+                         ^ np.bitwise_xor.reduce(qw[:bq].ravel()))
 
 
 def test_anatomy_int8_modes_against_direct_computation():
@@ -293,7 +306,7 @@ def test_counted_fold_insertions_against_their_definition(use_tau):
     emb = torch.tensor(rng.integers(-2, 3, (n, d)).astype(np.float32))
     q = torch.tensor(rng.integers(-2, 3, (b, d)).astype(np.float32))
     scores = (q @ emb.T).numpy()
-    splits, per = A.split_plan(n, b, torch.device("cpu"))
+    _, splits, per = A.split_plan(n, b, d, k, "float32", torch.device("cpu"))
     assert per == 18 * 128
     tau = A.subsample_tau(emb, q, k) if use_tau else None
     vals, ids, counts = A.fused_top_k_counted(emb, q, k, tau)
@@ -490,13 +503,35 @@ def test_kernel_anatomy_probe_runs_on_the_cpu(kind):
     assert set(line["ms"]) == set(A.MODES)
     assert line["loads_ms"] + line["scoring_ms"] + line["compare_ms"] \
         + line["insert_merge_ms"] == line["ms"]["full"]
+    assert line["tau_pass_ms"] == 1.0
 
 
-def test_iteration_count_probe_runs_on_the_cpu():
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_iteration_count_probe_runs_on_the_cpu(kind):
     rows, q, k, scales, q_scales = kernel_anatomy.make_rows(
-        "int8", 3000, torch.device("cpu"))
+        kind, 3000, torch.device("cpu"))
     lines = iteration_count.run(rows, q[:4], k, lambda fn, n: (fn(), 1.0)[1],
-                                scales, q_scales[:4])
+                                scales, None if scales is None
+                                else q_scales[:4])
     assert [line["tau"] for line in lines] == [False, True]
+    assert [line["counters_off_plain"] for line in lines] == [0, 0]
     assert lines[1]["insertions_per_row"] <= lines[0]["insertions_per_row"]
     assert all(0 < line["fired_share"] <= 1 for line in lines)
+
+
+def test_iteration_count_float_check_takes_near_ties_only():
+    vals = torch.tensor([[3.0, 2.0, 1.0], [5.0, 4.0, float("-inf")]])
+    ids = torch.tensor([[4, 9, 2], [7, 1, -1]], dtype=torch.int32)
+    counts = torch.full((2, 3, 4), 1000, dtype=torch.int32)
+    plain = (vals, ids, counts)
+    near = (vals + 1e-6 * torch.isfinite(vals), ids, counts.clone())
+    near[2][0, 0, 0] += 2  # a near-tie flipped two insertions
+    assert iteration_count._check_plain(near, plain, False, True) == 2
+    with pytest.raises(AssertionError):  # exact rows take no slack
+        iteration_count._check_plain(near, plain, True, True)
+    far = (vals, ids, counts + 1)
+    with pytest.raises(AssertionError, match="counters"):
+        iteration_count._check_plain(far, plain, False, False)
+    with pytest.raises(AssertionError):
+        iteration_count._check_plain((vals + 1e-2, ids, counts), plain,
+                                     False, False)
