@@ -20,25 +20,32 @@
 //     runs the chain, so the work scales with the threads on the card.
 //
 // What bounds it on an H100: bytes. The 2M stage's matrix (2^21 x 256
-// bf16, 1.074 GB) takes 0.32 ms at 3.35 TB/s, the int8 stage's
-// (10,485,760 x 1024, 10.74 GB) 3.2 ms; per element the kernel does one
+// bf16, 1.074 GB) takes 0.321 ms at 3.35 TB/s, the int8 stage's
+// (10,485,760 x 1024, 10.74 GB) 3.21 ms; per element the kernel does one
 // conversion and one add (int8: __dp4a adds four bytes at once), far
 // under the FP32 rate. The chain of the busy kernel is latency work: two
 // dependent operations per step.
 //
 // Design.
-// * A grid-stride loop over 16-byte vectors (4 f32, 8 bf16 or 16 int8),
-//   a few CTAs on each SM (the grid is the caller's: CTAs per SM x SMs).
-//   Each thread issues UNROLL independent 16-byte loads before it adds
-//   any, so UNROLL x 16 bytes per thread are in flight; the loads bypass
-//   L1 (__ldcs: read once, evict first).
-// * Elements before the first 16-byte boundary (a view that starts
+// * stream_sum is one launch: a grid-stride loop over 16-byte vectors (4
+//   f32, 8 bf16 or 16 int8), a few CTAs on each SM; each thread issues
+//   UNROLL independent 16-byte loads before it adds any, so UNROLL x 16
+//   bytes per thread are in flight; the loads bypass L1 (__ldcs: read
+//   once, evict first). (A persistent grid that streams contiguous 8 KB
+//   chunks through a ring of cp.async.bulk copies measured no faster on
+//   an H100: the sign of the difference changed between runs.)
+//   Elements before the first 16-byte boundary (a view that starts
 //   mid-vector) and after the last whole vector take a scalar path.
 // * Each thread keeps its own f32 sum; a warp-shuffle tree and one across
-//   the warps give the CTA's sum, written to partials[blockIdx.x]. A
-//   second kernel of one CTA adds the partials and the bias in a fixed
-//   order. No atomics: the same inputs and launch shape give the same
-//   bits. int8 sums are exact while every partial sum stays below 2^24.
+//   the warps give the CTA's sum, written to partials[blockIdx.x]. Then a
+//   __threadfence and an atomic ticket: the CTA that draws the last
+//   ticket adds the partials and the bias in a fixed order, writes
+//   out[0] and sets the ticket back to 0 for the next call. So the same
+//   inputs and launch shape give the same bits, and the caller keeps the
+//   partials and the ticket in one buffer across calls on one stream.
+//   int8 sums are exact while every partial sum stays below 2^24.
+// * stream_sum_busy keeps two launches: its stream, then a finish
+//   kernel of one CTA that adds the partials in the same fixed order.
 //
 // Plain C interface; each entry point returns the cudaError_t of its
 // launches (0 on success).
@@ -141,7 +148,8 @@ __device__ __forceinline__ float sum_range(const void* base, long long n,
   return acc;
 }
 
-// The CTA's sum, valid in thread 0. Called once per kernel.
+// The CTA's sum, valid in thread 0. Between two calls in one kernel a
+// __syncthreads must separate the first's reads from the second's writes.
 __device__ __forceinline__ float block_sum(float v) {
   __shared__ float warp_sums[kWarps];
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
@@ -159,9 +167,12 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
+// One launch: the CTA's partial, then the last CTA to finish (by an
+// atomic ticket) adds the partials and the bias in a fixed order.
 template <int DT, int UNROLL>
 __global__ void __launch_bounds__(kThreads)
-    stream_sum_kernel(Parts parts, float* partials) {
+    stream_sum_kernel(Parts parts, float* partials, unsigned* ticket,
+                      const float* bias, float* out) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -170,7 +181,24 @@ __global__ void __launch_bounds__(kThreads)
     acc += sum_range<DT, UNROLL>(parts.ptr[p], parts.n[p], tid, stride);
   }
   const float total = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = total;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < gridDim.x; i += blockDim.x) {
+    sum += __ldcg(partials + i);
+  }
+  sum = block_sum(sum);
+  if (threadIdx.x == 0) {
+    out[0] = (bias != nullptr ? bias[0] : 0.f) + sum;
+    *ticket = 0u;
+  }
 }
 
 template <int DT, int UNROLL>
@@ -209,24 +237,44 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) out[0] = (bias != nullptr ? bias[0] : 0.f) + total;
 }
 
+struct SumOut {
+  const float* bias;
+  float* partials;  // [grid] floats, then the ticket (zero between calls)
+  float* out;
+};
+
 template <int DT, int UNROLL>
-cudaError_t launch_sum(const Parts& parts, int grid, float* partials,
+cudaError_t launch_sum(const Parts& parts, int grid, const SumOut& o,
                        cudaStream_t stream) {
-  stream_sum_kernel<DT, UNROLL>
-      <<<grid, kThreads, 0, stream>>>(parts, partials);
+  stream_sum_kernel<DT, UNROLL><<<grid, kThreads, 0, stream>>>(
+      parts, o.partials, reinterpret_cast<unsigned*>(o.partials + grid),
+      o.bias, o.out);
   return cudaGetLastError();
 }
 
 template <int DT>
 cudaError_t sum_dtype(const Parts& parts, int grid, int unroll,
-                      float* partials, cudaStream_t stream) {
+                      const SumOut& o, cudaStream_t stream) {
   switch (unroll) {
-    case 1: return launch_sum<DT, 1>(parts, grid, partials, stream);
-    case 2: return launch_sum<DT, 2>(parts, grid, partials, stream);
-    case 4: return launch_sum<DT, 4>(parts, grid, partials, stream);
-    case 8: return launch_sum<DT, 8>(parts, grid, partials, stream);
+    case 1: return launch_sum<DT, 1>(parts, grid, o, stream);
+    case 2: return launch_sum<DT, 2>(parts, grid, o, stream);
+    case 4: return launch_sum<DT, 4>(parts, grid, o, stream);
+    case 8: return launch_sum<DT, 8>(parts, grid, o, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+int stream_sum_parts(int dtype, const Parts& parts, const SumOut& o,
+                     int grid, int unroll, cudaStream_t s) {
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  switch (dtype) {
+    case kF32: err = sum_dtype<kF32>(parts, grid, unroll, o, s); break;
+    case kBF16: err = sum_dtype<kBF16>(parts, grid, unroll, o, s); break;
+    case kI8: err = sum_dtype<kI8>(parts, grid, unroll, o, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 template <int DT, int UNROLL>
@@ -266,12 +314,13 @@ cudaError_t finish(const float* partials, int grid, const float* bias,
 extern "C" {
 
 // ptrs and counts are host arrays of n_parts entries; partials holds grid
-// floats on the device.
+// floats and then the ticket (zero before the first call) on the device;
+// unroll is 1, 2, 4 or 8.
 int anr_stream_sum(int dtype, int n_parts, const void* const* ptrs,
                    const long long* counts, const float* bias,
                    float* partials, float* out, int grid, int unroll,
                    void* stream) {
-  if (n_parts < 1 || n_parts > kMaxParts || grid < 1) {
+  if (n_parts < 1 || n_parts > kMaxParts) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Parts parts{};
@@ -281,16 +330,21 @@ int anr_stream_sum(int dtype, int n_parts, const void* const* ptrs,
     parts.ptr[p] = ptrs[p];
     parts.n[p] = counts[p];
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dtype) {
-    case kF32: err = sum_dtype<kF32>(parts, grid, unroll, partials, s); break;
-    case kBF16: err = sum_dtype<kBF16>(parts, grid, unroll, partials, s); break;
-    case kI8: err = sum_dtype<kI8>(parts, grid, unroll, partials, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(finish(partials, grid, bias, out, s));
+  return stream_sum_parts(dtype, parts, SumOut{bias, partials, out}, grid,
+                          unroll, static_cast<cudaStream_t>(stream));
+}
+
+// anr_stream_sum of one array, without the host arrays.
+int anr_stream_sum1(int dtype, const void* ptr, long long n,
+                    const float* bias, float* partials, float* out, int grid,
+                    int unroll, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  Parts parts{};
+  parts.count = 1;
+  parts.ptr[0] = ptr;
+  parts.n[0] = n;
+  return stream_sum_parts(dtype, parts, SumOut{bias, partials, out}, grid,
+                          unroll, static_cast<cudaStream_t>(stream));
 }
 
 int anr_stream_sum_busy(int dtype, const void* base, long long n,

@@ -1,6 +1,6 @@
 // Device code shared by the streaming top-k kernels (fused_topk.cu: K1,
 // K2; ivf_topk.cu: K3, K4) and their probes (anatomy.cu; int4.cu takes
-// the tile constants and dp4a_chunk).
+// the chunk constant and the swizzle).
 //
 // A CTA owns a block of queries and scores tiles of TN documents into
 // shared memory: int8_mma.cuh for int8 rows (K2, K4: exact int32 on the
@@ -35,8 +35,6 @@ namespace {
 constexpr int TN = 128;       // documents per tile
 constexpr int THREADS = 256;  // eight warps
 constexpr int WARPS = THREADS / 32;
-constexpr int BQ = 64;        // int4.cu: queries per CTA
-constexpr int DK = 32;        // int4.cu: 32-bit words of depth per chunk
 constexpr int CH = 128;       // bytes of depth per staged chunk
 constexpr int STAGES = 3;     // chunks in the ring
 constexpr int SEGS = CH / 16; // 16-byte segments per chunk row
@@ -289,27 +287,6 @@ __device__ inline void carve_tail(SmemT<BQN>& s, char* base, int k) {
   base += sizeof(int) * BQN;
   s.keep = reinterpret_cast<uint8_t*>(base);
   s.hit = nullptr;
-}
-
-// One staged depth chunk into a thread's 4 x 8 block of exact sums:
-// qs [DK][BQ + 1] and es [DK][TN + 1] hold 32-bit words of four int8
-// each; the thread owns queries ty * 4 + i and documents tx + 16 * j.
-// The stripped folds of int4.cu use it.
-__device__ __forceinline__ void dp4a_chunk(const int* qs, const int* es,
-                                           int ty, int tx,
-                                           int (&acc)[4][8]) {
-#pragma unroll 4
-  for (int w = 0; w < DK; ++w) {
-    int a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[w * (BQ + 1) + ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = es[w * (TN + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-  }
 }
 
 // Empty running lists, and their cached worst entries. With ``seed``

@@ -18,16 +18,24 @@ in its low nibble and column j + D/2 in its high nibble. D % 8 == 0 for
 packed rows, D % 4 == 0 for int8 rows. On CUDA tensors each wrapper
 launches its kernel or raises; it takes its plain PyTorch version only for
 tensors on the CPU. ``.launches`` counts kernel launches.
+
+All three launch one kernel template (``anr_fold``): a CTA per block of 64
+queries, the blocks of a call in one thread-block cluster that reads each
+doc tile from HBM once (TMA multicast) and multiplies on the int8 tensor
+cores; ``fold_plan`` gives its launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels import _build
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+    H100_SMS,
     _I,
     _P,
     _check,
@@ -37,9 +45,20 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
 UNPACKS = ("mask", "shift")
-TILE_DOCS = 128  # TN of csrc/int4.cu
-_BLOCK_Q = 64  # queries per CTA (BQ of csrc/topk_common.cuh)
-_CTAS_PER_SM = 3
+# csrc/int4.cu's constants: documents per tile (FT), queries per CTA (FQ),
+# bytes of depth per ring chunk (CH), ring slots, CTAs per cluster, rows
+# per TMA box, the alignment slack, a CTA's shared memory on an H100.
+TILE_DOCS = 256
+BLOCK_Q = 64
+CHUNK_BYTES = 128
+MAX_STAGES = 6
+MAX_CLUSTER = 4
+_BOX_ROWS = 64
+_ALIGN = 1024
+SMEM_LIMIT = 232_448
+_KIND_INT8 = 0
+_KIND_FOLD = {"mask": 1, "shift": 2}
+_KIND_SCORES = {"mask": 3, "shift": 4}
 _INT32_MIN = -(2**31)
 # Plain versions unpack and multiply at most this many documents at once.
 _PLAIN_CHUNK_ROWS = 1 << 18
@@ -48,11 +67,13 @@ _PLAIN_CHUNK_ROWS = 1 << 18
 def _library() -> ctypes.CDLL:
     lib = _build.load("int4")
     if not hasattr(lib, "_anr_bound"):
-        lib.anr_int4_scores.argtypes = [_P, _P] + [_I] * 6 + [_P, _P]
-        lib.anr_int4_fold_max.argtypes = [_P, _P] + [_I] * 6 + [_P, _P]
-        lib.anr_int8_fold_max.argtypes = [_P, _P] + [_I] * 5 + [_P, _P]
-        for fn in (lib.anr_int4_scores, lib.anr_int4_fold_max,
-                   lib.anr_int8_fold_max):
+        # kind, q, e, B N D stages resident tma cl groups per_group smem
+        # mode, out, stream.
+        lib.anr_fold.argtypes = [_I, _P, _P] + [_I] * 11 + [_P, _P]
+        lib.anr_fold_active_clusters.argtypes = [_I, _I]
+        lib.anr_fold_smem_bytes.argtypes = [_I] * 4
+        for fn in (lib.anr_fold, lib.anr_fold_active_clusters,
+                   lib.anr_fold_smem_bytes):
             fn.restype = _I
         lib._anr_bound = True
     return lib
@@ -152,12 +173,132 @@ def int8_fold_max_torch(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
     return _fold_max_torch(q8, lambda s0, s1: e8[s0:s1], n)
 
 
-def _plan(n: int, b: int, dev: torch.device):
-    """(splits, docs per split): enough doc splits that the grid of 64-query
-    blocks puts three CTAs on each SM; each split a whole number of
-    tiles."""
-    return topk_plan.doc_splits(n, b, _BLOCK_Q, _CTAS_PER_SM,
-                                _sm_count(dev), TILE_DOCS)
+@functools.lru_cache(maxsize=256)
+def _fold_shape(b: int, d: int, packed: bool):
+    """(query blocks per cluster, groups, resident, stages, smem bytes)
+    for B queries of depth D: fold_plan's part that does not depend on N
+    or the card."""
+    blocks = -(-b // BLOCK_Q)
+    groups = -(-blocks // MAX_CLUSTER)
+    cl = -(-blocks // groups)
+    resident = fold_smem_bytes(d, packed, 2, True) <= SMEM_LIMIT
+    fixed = fold_smem_bytes(d, packed, 0, resident)
+    slot = fold_smem_bytes(d, packed, 1, resident) - fixed
+    stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+    if stages < 1:
+        raise ValueError(f"D = {d} leaves no room for a ring slot")
+    return cl, groups, resident, stages, fold_smem_bytes(d, packed, stages,
+                                                         resident)
+
+
+def fold_smem_bytes(d: int, packed: bool, stages: int,
+                    resident: bool) -> int:
+    """Dynamic shared memory of csrc/int4.cu's fold_kernel: alignment
+    slack, ring slots (docs, plus the query chunks when the query block is
+    not resident), the resident query block, packed rows' unpacked tiles
+    (lo and hi of each warpgroup's 128 docs), two barriers per slot."""
+    erow = d // 2 if packed else d
+    halves = 2 if packed else 1
+    nck = -(-erow // CHUNK_BYTES)
+    slot = TILE_DOCS * CHUNK_BYTES + (0 if resident else
+                                      halves * BLOCK_Q * CHUNK_BYTES)
+    qbytes = halves * nck * BLOCK_Q * CHUNK_BYTES if resident else 0
+    unpacked = 2 * TILE_DOCS * CHUNK_BYTES if packed else 0
+    return _ALIGN + stages * (slot + 16) + qbytes + unpacked
+
+
+class FoldPlan(NamedTuple):
+    """The launch of csrc/int4.cu's fold_kernel for one call."""
+    # Query blocks (CTAs) per group; with tma, one thread-block cluster
+    # that shares one doc stream.
+    cluster: int
+    groups: int  # clusters side by side over the query blocks (B > 256)
+    per_group: int  # clusters per group, each walking every per_group-th tile
+    tma: bool  # doc chunks through TMA multicast; else the producer's loads
+    resident: bool  # query block resident; else streamed with each chunk
+    stages: int  # ring slots
+    smem_bytes: int
+    tiles: int  # doc tiles of TILE_DOCS rows
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        return self.per_group * self.cluster, self.groups
+
+
+def fold_plan(n: int, b: int, d: int, packed: bool, sms: int = H100_SMS,
+              aligned: bool = True,
+              active_clusters: Optional[int] = None) -> FoldPlan:
+    """The fold kernels' launch for N rows, B queries of depth D (packed:
+    int4 rows of D / 2 bytes). ``aligned``: the rows' base is 16-byte
+    aligned; with row bytes a multiple of 16 (and at least one chunk) the
+    doc chunks go through TMA, else through the producer's loads.
+    ``active_clusters``: clusters of this shape the card holds at once
+    (cudaOccupancyMaxActiveClusters); None, or without TMA: one CTA per
+    SM, sms // cluster."""
+    cl, groups, resident, stages, smem = _fold_shape(b, d, packed)
+    erow = d // 2 if packed else d
+    tma = (aligned and resident and erow % 16 == 0 and erow >= CHUNK_BYTES
+           and n >= _BOX_ROWS)
+    if not tma or active_clusters is None:
+        active_clusters = sms // cl
+    tiles = -(-n // TILE_DOCS)
+    per_group = max(1, min(tiles, active_clusters // groups))
+    return FoldPlan(cl, groups, per_group, tma, resident, stages, smem,
+                    tiles)
+
+
+def source_smem_bytes(d: int, packed: bool, stages: int,
+                      resident: bool) -> int:
+    """``fold_smem_bytes`` as csrc/int4.cu computes it (builds the
+    library)."""
+    return _library().anr_fold_smem_bytes(d, int(packed), stages,
+                                          int(resident))
+
+
+@functools.lru_cache(maxsize=64)
+def active_clusters(index: int, cl: int, smem: int) -> int:
+    """Clusters of ``cl`` fold CTAs with ``smem`` bytes each that CUDA
+    device ``index`` holds at once (cudaOccupancyMaxActiveClusters)."""
+    with torch.cuda.device(index):
+        n = _library().anr_fold_active_clusters(cl, smem)
+    if n < 1:
+        raise RuntimeError(f"anr_fold_active_clusters({cl}, {smem}) "
+                           f"returned {n}")
+    return n
+
+
+def _fold(kind: int, q8: torch.Tensor, e: torch.Tensor, n: int, d: int,
+          b: int, dev: torch.device, packed: bool, out: torch.Tensor,
+          mode: int = 0) -> torch.Tensor:
+    _aligned(q8, e)
+    sms, aligned = _sm_count(dev), e.data_ptr() % 16 == 0
+    plan = fold_plan(n, b, d, packed, sms, aligned)
+    if plan.tma:
+        index = dev.index if dev.index is not None else \
+            torch.cuda.current_device()
+        plan = fold_plan(n, b, d, packed, sms, aligned, active_clusters(
+            index, plan.cluster, plan.smem_bytes))
+    with torch.cuda.device(dev):
+        _launch(_library().anr_fold, kind, q8.data_ptr(), e.data_ptr(), b, n,
+                d, plan.stages, int(plan.resident), int(plan.tma),
+                plan.cluster, plan.groups, plan.per_group, plan.smem_bytes,
+                mode, out.data_ptr(), device=dev)
+    return out
+
+
+def fold_stream(q8: torch.Tensor, rows: torch.Tensor, packed: bool) -> None:
+    """The fold kernel's stream alone (MODE_STAGE: the same launch and
+    ring, each chunk handed back unread): the probe's anatomy. CUDA
+    only; computes nothing."""
+    if packed:
+        n, d, b, dev = _check_packed(q8, rows)
+    else:
+        n, d, b, dev = _check_int8(q8, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"fold_stream runs on a CUDA device, not {dev}")
+    out = torch.full((b,), _INT32_MIN, dtype=torch.int32, device=dev)
+    _fold(_KIND_FOLD["mask"] if packed else _KIND_INT8, q8, rows, n, d, b,
+          dev, packed, out, mode=1)
 
 
 def int4_scores(q8: torch.Tensor, packed: torch.Tensor,
@@ -169,13 +310,8 @@ def int4_scores(q8: torch.Tensor, packed: torch.Tensor,
         return int4_scores_torch(q8, packed, unpack)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _aligned(q8, packed)
-    splits, per = _plan(n, b, dev)
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(_library().anr_int4_scores, q8.data_ptr(), packed.data_ptr(),
-                b, n, d, int(unpack == "shift"), splits, per, out.data_ptr(),
-                device=dev)
+    _fold(_KIND_SCORES[unpack], q8, packed, n, d, b, dev, True, out)
     int4_scores.launches += 1
     return out
 
@@ -192,13 +328,8 @@ def int4_fold_max(q8: torch.Tensor, packed: torch.Tensor,
         return int4_fold_max_torch(q8, packed, unpack)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _aligned(q8, packed)
-    splits, per = _plan(n, b, dev)
     out = torch.full((b,), _INT32_MIN, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(_library().anr_int4_fold_max, q8.data_ptr(),
-                packed.data_ptr(), b, n, d, int(unpack == "shift"), splits,
-                per, out.data_ptr(), device=dev)
+    _fold(_KIND_FOLD[unpack], q8, packed, n, d, b, dev, True, out)
     int4_fold_max.launches += 1
     return out
 
@@ -213,12 +344,8 @@ def int8_fold_max(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
         return int8_fold_max_torch(q8, e8)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _aligned(q8, e8)
-    splits, per = _plan(n, b, dev)
     out = torch.full((b,), _INT32_MIN, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _launch(_library().anr_int8_fold_max, q8.data_ptr(), e8.data_ptr(),
-                b, n, d, splits, per, out.data_ptr(), device=dev)
+    _fold(_KIND_INT8, q8, e8, n, d, b, dev, False, out)
     int8_fold_max.launches += 1
     return out
 

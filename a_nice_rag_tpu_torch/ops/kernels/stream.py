@@ -6,9 +6,11 @@ sums of ``scripts/probe_hbm_stream.py`` (:57, :108, :154 and :206: one,
 two or m matrices, the last seeded by a scalar operand).
 ``stream_sum_busy`` replaces ``scripts/probe_dma_overlap.py``'s kernel
 (:45): the same stream plus independent ALU work per tile. Both kernels
-are in ``csrc/stream_sum.cu``. On CUDA tensors each wrapper launches its
-kernel or raises; it takes its plain PyTorch version only for tensors
-on the CPU. ``.launches`` on each wrapper counts kernel launches.
+are in ``csrc/stream_sum.cu``; ``stream_sum`` is one launch a call, its
+partials and ticket in a buffer kept per (device, grid, stream). On CUDA
+tensors each wrapper launches its kernel or raises; it takes its plain
+PyTorch version only for tensors on the CPU. ``.launches`` on each
+wrapper counts kernel launches.
 
 Contracts:
 
@@ -30,7 +32,8 @@ Contracts:
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, Optional, Sequence, Tuple, Union
+import functools
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,7 +44,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P, _launch, _ptr
 MAX_PARTS = 8
 UNROLLS = (1, 2, 4, 8)  # 16-byte loads in flight per thread
 CTAS_PER_SM = 4
-UNROLL = 4
+UNROLL = 8
 BUSY_TILE_ROWS = 16
 # A 16-row bf16 tile of 256 columns is 512 vectors: two per thread.
 _BUSY_UNROLL = 2
@@ -63,18 +66,55 @@ def _library() -> ctypes.CDLL:
         lib.anr_stream_sum.argtypes = [
             _I, _I, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(_LL),
             _P, _P, _P, _I, _I, _P]
+        lib.anr_stream_sum1.argtypes = [
+            _I, _P, _LL, _P, _P, _P, _I, _I, _P]
         lib.anr_stream_sum_busy.argtypes = [
             _I, _P, _LL, _LL, _I, _P, _P, _P, _P, _I, _I, _P]
         lib.anr_stream_sum.restype = _I
+        lib.anr_stream_sum1.restype = _I
         lib.anr_stream_sum_busy.restype = _I
         lib._anr_bound = True
     return lib
 
 
+@functools.lru_cache(maxsize=16)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sm_grid(device: torch.device, ctas_per_sm: int = CTAS_PER_SM) -> int:
     """A grid of ``ctas_per_sm`` CTAs on every SM of a CUDA device."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return ctas_per_sm * sms
+    return ctas_per_sm * _sms(device)
+
+
+# (device index, grid, stream) -> [grid] float32 partials and the ticket
+# (one int32, zero between calls: the kernel's last CTA sets it back),
+# kept across calls; calls on one stream run one after another.
+_scratch: Dict[Tuple[int, int, int], torch.Tensor] = {}
+# Device index -> the 0-d outputs still to hand out, views of one buffer
+# allocated OUT_BATCH at a time (each handed out once, so a result stays
+# valid while it is referenced); the wrapper's host time counts in a call.
+OUT_BATCH = 256
+_outs: Dict[int, Iterator[torch.Tensor]] = {}
+
+
+def _scratch_ptr(index: int, grid: int, stream: int) -> int:
+    key = (index, grid, stream)
+    buf = _scratch.get(key)
+    if buf is None:
+        buf = _scratch[key] = torch.zeros((grid + 1,), dtype=torch.float32,
+                                          device=torch.device("cuda", index))
+    return buf.data_ptr()
+
+
+def _next_out(index: int) -> torch.Tensor:
+    out = next(_outs.get(index, iter(())), None)
+    if out is None:
+        batch = torch.empty((OUT_BATCH,), dtype=torch.float32,
+                            device=torch.device("cuda", index))
+        _outs[index] = iter(batch.unbind())
+        out = next(_outs[index])
+    return out
 
 
 def _as_parts(parts: Parts) -> Tuple[list, torch.device]:
@@ -84,7 +124,9 @@ def _as_parts(parts: Parts) -> Tuple[list, torch.device]:
     dtype, dev = parts[0].dtype, parts[0].device
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"dtype {dtype} not in {tuple(_DTYPE_CODES)}")
-    for i, p in enumerate(parts):
+    if not parts[0].is_contiguous():
+        raise ValueError("part 0 must be contiguous")
+    for i, p in enumerate(parts[1:], 1):
         if p.dtype != dtype:
             raise TypeError(f"part {i}: dtype {p.dtype} != {dtype}")
         if p.device != dev:
@@ -143,29 +185,44 @@ def stream_sum(parts: Parts, bias: Optional[torch.Tensor] = None, *,
                unroll: int = UNROLL) -> torch.Tensor:
     """The float32 sum of 1 to 8 contiguous tensors of one dtype (float32,
     bfloat16 or int8), each read once, plus an optional float32 scalar
-    ``bias``. Launch shape on the card: ``ctas_per_sm`` CTAs on every SM,
-    ``unroll`` 16-byte loads in flight per thread."""
+    ``bias``. Launch shape on the card: one launch of ``ctas_per_sm``
+    CTAs on every SM, ``unroll`` 16-byte loads in flight per thread."""
     parts, dev = _as_parts(parts)
     if bias is not None:
         _check_scalar(bias, "bias", dev)
     if unroll not in UNROLLS or ctas_per_sm < 1:
         raise ValueError(f"unroll must be in {UNROLLS} and ctas_per_sm >= 1, "
                          f"got {unroll}, {ctas_per_sm}")
-    if dev.type == "cpu":
-        return stream_sum_torch(parts, bias)
-    if dev.type != "cuda":
+    if not parts[0].is_cuda:
+        if dev.type == "cpu":
+            return stream_sum_torch(parts, bias)
         raise ValueError(f"unsupported device {dev}")
+    # This wrapper's host time counts in a call's time: no Stream object,
+    # no device switch unless needed, outputs handed out from a batch.
     lib = _library()
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
     grid = sm_grid(dev, ctas_per_sm)
-    partials = torch.empty((grid,), dtype=torch.float32, device=dev)
-    out = torch.empty((), dtype=torch.float32, device=dev)
-    m = len(parts)
-    ptrs = (ctypes.c_void_p * m)(*[p.data_ptr() for p in parts])
-    counts = (_LL * m)(*[p.numel() for p in parts])
-    with torch.cuda.device(dev):
-        _launch(lib.anr_stream_sum, _DTYPE_CODES[parts[0].dtype], m, ptrs,
-                counts, _ptr(bias), partials.data_ptr(), out.data_ptr(),
-                grid, unroll, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    out = _next_out(index)
+    code = _DTYPE_CODES[parts[0].dtype]
+    if len(parts) == 1:
+        fn, head = lib.anr_stream_sum1, (code, parts[0].data_ptr(),
+                                         parts[0].numel())
+    else:
+        m = len(parts)
+        fn, head = lib.anr_stream_sum, (
+            code, m, (ctypes.c_void_p * m)(*[p.data_ptr() for p in parts]),
+            (_LL * m)(*[p.numel() for p in parts]))
+    args = (_ptr(bias), _scratch_ptr(index, grid, stream), out.data_ptr(),
+            grid, unroll, stream)
+    if index == current:
+        err = fn(*head, *args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*head, *args)
+    if err != 0:
+        raise RuntimeError(f"anr_stream_sum failed with cudaError_t {err}")
     stream_sum.launches += 1
     return out
 

@@ -9,7 +9,8 @@ drives the port's main path, ``FusedRetriever.retrieve_device``, at the
 corpus sizes the repository was built for at scale, and the paths of the
 port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
 
-  0. device check, card name and power limit, kernel build;
+  0. device check, card name and power limit, kernel build, the launch
+     plans of the int8 and float top-k kernels and of the folds;
   1. K1 (fused_dense_top_k) against its plain version: f32 and bf16 rows,
      with and without a mask, N = 2^20 + 37, k in {1, 32, 128},
      B in {1, 7, 256}, duplicated rows (exact ties across doc splits),
@@ -48,7 +49,8 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      versions: f32, bf16 and int8; 1, 2 and 8 parts; bias set and unset;
      a ragged row count, one row, and views that start mid-vector; an
      int8 case whose partial sums stay below 2^24, which must be exact;
-     the busy kernel's per-CTA chains bit for bit;
+     every launch shape of stream_sum, one launch a call and two calls
+     the same bits; the busy kernel's per-CTA chains bit for bit;
  10. stage F: the bench's headline stage at full width (9,728 x 2048 f32,
      BM25 from tokens, B = 2048) through bench.headline_stage, with its
      recall guards and route parity (both routes are torch there: 9,728
@@ -68,9 +70,14 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
  15. the keys: xpack_keys / xpack_values over the 13 special values of
      the JAX package's key test plus 2^24 normals, bit for bit, and
      bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384];
- 16. int4 (probes.int4): exact at 1024 x 256, B = 128, both unpacks,
-     then stage 2's folds over stage C's int8 matrix and a 5.4 GB packed
-     one.
+ 16. int4 (probes.int4): exact at 1024 x 256, B = 128, both unpacks;
+     the folds' edges (D in {8, 40, 1000, 1024, 2048}, B from 1 to 256
+     across clusters of 1-4 query blocks, N below one tile and ragged,
+     -128/127 and -8/7, all-negative products, rows not 16-byte aligned),
+     each torch.equal; then stage 2's folds over stage C's int8 matrix and
+     a 5.4 GB packed one, all three kernels torch.equal to their plain
+     versions there (both unpacks), and each fold's stream alone beside
+     the whole fold.
 
 Stages A-C also print the retrieve_device time of one call (CUDA
 events, median of 10). Each kernel, its plain version and a one-call
@@ -180,10 +187,14 @@ class Smoke:
     # block), the int8 exact case, the busy kernel's chains and the
     # overlap probe's X.
     STREAM_ROWS, STREAM_D, EXACT_ROWS = 100_003, 64, 1 << 20
+    STREAM_CTAS = (1, 2, 4, 8)
     BUSY_X, OVERLAP_X = (0, 3), (0, 8, 64)
     # Probes: rows of int4 stage 2's packed matrix (stage C's count), the
     # bf16 fold's shapes, the normals of the key map's case.
     INT4_N = 10_485_760
+    # P7's edges (probes.int4.check_edges): row counts, depths, batches.
+    FOLD_EDGE_N, FOLD_EDGE_D = (100, 70_001), (8, 40, 1000, 1024, 2048)
+    FOLD_EDGE_B = (1, 8, 16, 17, 64, 65, 129, 256)
     BF16_SHAPES = ((128, 8192), (256, 16384))
     KEY_NORMALS = 1 << 24
     # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
@@ -282,6 +293,7 @@ class Smoke:
             sources=list(self.p.kernels.SOURCES),
             torch=torch.__version__, cuda=torch.version.cuda)
         self.int8_plan_line()
+        self.fold_plan_line()
 
     def int8_plan_line(self) -> None:
         """The int8 kernels' query block, dynamic shared memory (the
@@ -331,6 +343,33 @@ class Smoke:
                 "k1_tau_splits_2m": plan.tau_fused_plan(
                     self.N_A, b, d, kk, sms, rows)[0]})
         log(phase="float_plan", shapes=shapes)
+
+    def fold_plan_line(self) -> None:
+        """P7's launch (fold_plan: clusters of query blocks, TMA or the
+        producer's loads, ring slots, shared memory held against the
+        source's sum) at the main path's shapes and the edges' deepest."""
+        i4, sms = self.p.int4_kernels, self.p.sm_count(self.dev)
+        index = self.dev.index if self.dev.index is not None else 0
+        shapes = []
+        for n, b, d, packed in (
+                (self.N_C, self.B, self.D_C, False),
+                (self.INT4_N, self.B, self.D_C, True),
+                (1024, 128, 256, True),
+                (self.N_EDGE, 256, 2048, False),
+                (self.N_EDGE, 8, 1000, False)):
+            plan = i4.fold_plan(n, b, d, packed, sms)
+            active = self.p.fold_active_clusters(index, plan.cluster,
+                                                 plan.smem_bytes)
+            plan = i4.fold_plan(n, b, d, packed, sms, True, active)
+            src = self.p.fold_smem_bytes(d, packed, plan.stages,
+                                         plan.resident)
+            if src != plan.smem_bytes:
+                raise AssertionError(f"fold shared memory {src} != the "
+                                     f"plan's {plan.smem_bytes}")
+            shapes.append({"n": n, "b": b, "d": d, "packed": packed,
+                           "active_clusters": active, "grid": plan.grid,
+                           **plan._asdict()})
+        log(phase="fold_plan", shapes=shapes)
 
     def kernel_cases(self, n, d, dtype):
         g = self.seed(101)
@@ -1173,8 +1212,8 @@ class Smoke:
         return [torch.randn((rows, cols), generator=g,
                             device=self.dev).to(dtype) for _ in range(m)]
 
-    def check_stream(self, parts, bias=None) -> None:
-        err = self.p.check_stream_sum(parts, bias)
+    def check_stream(self, parts, bias=None, **launch) -> None:
+        err = self.p.check_stream_sum(parts, bias, **launch)
         self.max_err["stream_sum"] = max(self.max_err["stream_sum"], err)
 
     def phase9_stream_kernels(self) -> None:
@@ -1204,6 +1243,23 @@ class Smoke:
         assert want < 2 ** 24
         if float(k.stream_sum(x)) != float(want):
             raise AssertionError("the int8 exact case is not exact")
+        # One launch a call, its partials and ticket kept across calls:
+        # every launch shape against the plain version, and two calls of
+        # each the same bits.
+        y = self.stream_parts(g, torch.bfloat16, 1, rows, d)[0]
+        shapes = [dict(ctas_per_sm=c, unroll=u)
+                  for c in self.STREAM_CTAS for u in k.stream.UNROLLS]
+        for launch in shapes:
+            self.check_stream([y, y[1:]], **launch)
+            before = k.stream_sum.launches
+            first = k.stream_sum(y, **launch)
+            second = k.stream_sum(y, **launch)
+            if k.stream_sum.launches != before + 2:
+                raise AssertionError("stream_sum counted other than one "
+                                     "launch a call")
+            if not torch.equal(first, second):
+                raise AssertionError(f"stream_sum {launch}: two calls differ")
+        cases += len(shapes)
         grid = self.p.sm_grid(self.dev)
         seed = torch.tensor(0.5, device=self.dev)
         for dtype in (torch.float32, torch.bfloat16, torch.int8):
@@ -1213,6 +1269,7 @@ class Smoke:
                 self.max_err["stream_sum_busy"] = max(
                     self.max_err["stream_sum_busy"], err)
         log(phase="stream_vs_plain", cases=cases, int8_exact=True,
+            launch_shapes=len(shapes), two_calls_bit_equal=True,
             busy_cases=3 * len(self.BUSY_X), busy_chains_bit_equal=True,
             ok=True, max_abs_err=self.max_err["stream_sum"],
             max_abs_err_busy=self.max_err["stream_sum_busy"])
@@ -1549,6 +1606,11 @@ class Smoke:
                    2 * b * n * d, INT8_OP_S)
         log(probe="int4_exact", **line, card=self.card,
             seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        edges = probe.check_edges(self.dev, self.FOLD_EDGE_N,
+                                  self.FOLD_EDGE_D, self.FOLD_EDGE_B)
+        log(probe="int4_edges", **edges, card=self.card,
+            seconds=time.perf_counter() - t0)
 
     def phase16_int4_stage2(self, values) -> None:
         """P7 stage 2: the int8 fold over stage C's resident matrix, the
@@ -1557,19 +1619,38 @@ class Smoke:
         probe, k = self.p.int4_probe, self.p.kernels
         n, d = values.shape
         q8, packed = probe.stage2_inputs(self.dev, self.INT4_N, d, self.B)
-        for got, want in (
-                (k.int8_fold_max(q8, values), k.int8_fold_max_torch(q8,
-                                                                    values)),
-                (k.int4_fold_max(q8, packed), k.int4_fold_max_torch(q8,
-                                                                    packed))):
+        checks = [("int8_fold_max", k.int8_fold_max(q8, values),
+                   k.int8_fold_max_torch(q8, values))]
+        for unpack in ("mask", "shift"):
+            checks.append((f"int4_fold_max ({unpack})",
+                           k.int4_fold_max(q8, packed, unpack),
+                           k.int4_fold_max_torch(q8, packed, unpack)))
+        for what, got, want in checks:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
-                raise AssertionError("a stage-2 fold is not exact")
+                raise AssertionError(f"{what} is not exact at full size")
+        del checks
+        for unpack in ("mask", "shift"):
+            # [256, N] int32 at once; the plain version a slice at a time.
+            got = k.int4_scores(q8, packed, unpack)
+            step = 1 << 21
+            for s0 in range(0, packed.shape[0], step):
+                if not torch.equal(got[:, s0:s0 + step], k.int4_scores_torch(
+                        q8, packed[s0:s0 + step], unpack)):
+                    raise AssertionError(f"int4_scores ({unpack}) is not "
+                                         f"exact at full size")
+            del got
         lines, counts = self.main_path(lambda: probe.run_stage2(
             q8, values, packed, self.probe_ms))
         self.expect("int4 stage 2", counts, at_least=True, int8_fold_max=1,
                     int4_fold_max=1)
+        anatomy, _ = self.main_path(lambda: probe.run_anatomy(
+            q8, values, packed, self.probe_ms))
+        log(probe="int4_anatomy", lines=anatomy, card=self.card)
         log(probe="int4_stage2", lines=lines, exact_full_size=True,
+            exact_full_size_kernels=["int8_fold_max", "int4_fold_max mask",
+                                     "int4_fold_max shift",
+                                     "int4_scores mask", "int4_scores shift"],
             card=self.card, seconds=time.perf_counter() - t0)
         b = q8.shape[0]
         np_ = packed.shape[0]
@@ -1669,6 +1750,7 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
         from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
+        from a_nice_rag_tpu_torch.ops.kernels import int4 as int4_kernels
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
             _sm_count,
             float_smem_bytes,
@@ -1704,6 +1786,9 @@ class _Port:
         self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy
         self.iteration_count, self.bf16_fold = iteration_count, bf16_fold
         self.int4_probe = int4
+        self.int4_kernels = int4_kernels
+        self.fold_smem_bytes = int4_kernels.source_smem_bytes
+        self.fold_active_clusters = int4_kernels.active_clusters
         self.topk_plan, self.int8_smem_bytes = topk_plan, int8_smem_bytes
         self.float_smem_bytes, self.sm_count = float_smem_bytes, _sm_count
         self.sm_grid = sm_grid

@@ -55,6 +55,7 @@ class TinySmoke(chip_smoke.Smoke):
     HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
                     single_iters=2, p50_samples=3, recall_queries=64)
     INT4_N, BF16_SHAPES, KEY_NORMALS = 4096, ((8, 512), (16, 1024)), 4096
+    FOLD_EDGE_N, FOLD_EDGE_D, FOLD_EDGE_B = (100, 301), (8, 40, 1024), (1, 65)
 
 
 def _host_ms(fn, n=3, warmup=1):
@@ -91,6 +92,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     port.sm_grid = lambda device, ctas_per_sm=4: 8
     port.int8_smem_bytes = topk_plan.smem_bytes
     port.float_smem_bytes = topk_plan.smem_bytes
+    port.fold_smem_bytes = i4.fold_smem_bytes
+    port.fold_active_clusters = lambda index, cl, smem: 132 // cl
+    # The folds' stream alone runs only on the card.
+    monkeypatch.setattr(i4, "fold_stream", lambda q8, rows, packed: None)
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
     monkeypatch.setattr(
         port.FusedRetriever, "_route_kernel",
@@ -152,8 +157,20 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert [f["packed_argmax_agreement"] for f in keys[0]["bf16_fold"]] \
         == [1.0, 1.0]
     int4 = [r for r in records if str(r.get("probe")).startswith("int4")]
-    assert [i["probe"] for i in int4] == ["int4_exact", "int4_stage2"]
-    assert int4[0]["exact"] and int4[1]["exact_full_size"]
+    assert [i["probe"] for i in int4] == ["int4_exact", "int4_edges",
+                                          "int4_anatomy", "int4_stage2"]
+    assert int4[0]["exact"] and int4[3]["exact_full_size"]
+    assert [r["rows"] for r in int4[2]["lines"]] == [
+        "int8", "int4 mask", "int4 shift"]
+    # 3 depths x 2 batches x 3 views.
+    assert int4[1]["exact"] and int4[1]["cases"] == 18
+    fold = [r for r in records if r.get("phase") == "fold_plan"]
+    # Stage C's B = 16 is one query block; 4096 rows are 16 tiles.
+    assert [(f["cluster"], f["tma"], f["resident"]) for f in
+            fold[0]["shapes"]] == [(1, True, True), (1, True, True),
+                                   (2, True, True), (4, True, True),
+                                   (1, False, True)]
+    assert all(f["smem_bytes"] <= 232_448 for f in fold[0]["shapes"])
     stage_f = [json.loads(line) for line in lines if '"F_headline"' in line]
     assert len(stage_f) == 1
     assert stage_f[0]["recall@10_planted"] >= 0.90
@@ -186,7 +203,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert edges[0]["tau_cases"]["neg_inf"] > 0
     stream = [json.loads(line) for line in lines
               if '"stream_vs_plain"' in line]
-    assert stream[0]["cases"] == 27 and stream[0]["int8_exact"]
+    # + 4 CTA counts x 4 unrolls, each called twice.
+    assert stream[0]["cases"] == 27 + 16 and stream[0]["int8_exact"]
+    assert stream[0]["two_calls_bit_equal"]
     crossover = [json.loads(line) for line in lines if '"crossover"' in line]
     assert [(c["crossover"], c["B"]) for c in crossover] == [
         ("D_2M_bf16", 8), ("D_2M_bf16", 16), ("D_2M_bf16", 32),

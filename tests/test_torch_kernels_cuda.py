@@ -22,7 +22,10 @@ stay below 2^24; the busy kernel's chains bit for bit. The probes of
 K1/K2: the anatomy's "stage" bit for bit, "score" within 1e-5 of the
 largest |score| (int8 exactly), "compare" exactly; the counted fold's
 ids, values and counters exactly on integer-valued scores. The keys,
-``bf16_row_reduce`` and the int4 kernels bit for bit.
+``bf16_row_reduce`` and the int4 kernels bit for bit (the folds also at
+their edges: depths, batches across clusters of query blocks, ragged row
+counts, extremes, all-negative products, unaligned rows); ``stream_sum``
+the same bits on two calls of every launch shape.
 """
 
 import pytest
@@ -62,7 +65,9 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     subsample_tau_torch,
     workspace_bytes_of_source,
 )
+from a_nice_rag_tpu_torch.ops.kernels import stream
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
+from a_nice_rag_tpu_torch.probes import int4 as int4_probe
 from a_nice_rag_tpu_torch.probes import kernel_anatomy
 from a_nice_rag_tpu_torch.ops.quantized import (
     quantize_embeddings,
@@ -432,7 +437,29 @@ def test_cuda_stream_sum_misaligned_views_and_launch_shapes(cuda_device):
         for unroll in (1, 2, 4, 8):
             got = stream_sum(x, ctas_per_sm=ctas, unroll=unroll)
             assert abs(float(got) - ref) <= tol, (ctas, unroll)
-    assert float(stream_sum(x)) == float(stream_sum(x))  # no atomics
+    assert float(stream_sum(x)) == float(stream_sum(x))  # a fixed order
+
+
+def test_cuda_stream_sum_one_launch_same_bits(cuda_device):
+    # One launch a call, the partials and ticket kept across calls: every
+    # launch shape within 1e-5 of sum |x|, and two calls the same bits.
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((100_003, 64), generator=g).to(torch.bfloat16).to(
+        cuda_device)
+    flat = x.reshape(-1)
+    parts = [x, flat[3:], flat[:77]]  # a view that starts mid-vector
+    tol = 1e-5 * abs_total(parts)
+    ref = float(stream_sum_torch(parts))
+    for ctas in (1, 2, 4, 8):
+        for unroll in stream.UNROLLS:
+            launch = dict(ctas_per_sm=ctas, unroll=unroll)
+            before = stream_sum.launches
+            first = stream_sum(parts, **launch)
+            second = stream_sum(parts, **launch)
+            torch.cuda.synchronize()
+            assert stream_sum.launches == before + 2
+            assert torch.equal(first, second), launch
+            assert abs(float(first) - ref) <= tol, launch
 
 
 def test_cuda_stream_sum_int8_exact(cuda_device):
@@ -627,6 +654,44 @@ def test_cuda_int4_matches_plain(cuda_device, n, d, b):
         if n * b <= 1 << 24:
             assert torch.equal(int4_scores(q8, packed, unpack), want)
     assert torch.equal(int8_fold_max(q8, e8), int8_fold_max_torch(q8, e8))
+
+
+@pytest.mark.parametrize("d", int4_probe.EDGE_D)
+def test_cuda_fold_edges_match_plain(cuda_device, d):
+    # Both unpacks and the int8 fold, torch.equal: B across the query block
+    # and clusters of 1-4 blocks, N below a tile and ragged, -128/127 and
+    # -8/7, all-negative products, rows not 16-byte aligned.
+    out = int4_probe.check_edges(cuda_device, ds=(d,))
+    assert out["cases"] == len(int4_probe.EDGE_B) * len(int4_probe.EDGE_VIEWS)
+
+
+@pytest.mark.parametrize("n,d,b", [
+    (5000, 1024, 300), (300, 4096, 65), (1000, 3000, 1), (64, 128, 257),
+])
+def test_cuda_fold_groups_and_streamed_queries(cuda_device, n, d, b):
+    # B past one cluster of four query blocks (groups), and depths whose
+    # query block streams through the ring instead of staying resident.
+    for negative in (False, True):
+        q8, e8, packed = int4_probe.edge_data(cuda_device, n, d, b, negative,
+                                              n + d + b)
+        assert torch.equal(int8_fold_max(q8, e8), int8_fold_max_torch(q8, e8))
+        for unpack in int4.UNPACKS:
+            assert torch.equal(int4_fold_max(q8, packed, unpack),
+                               int4.int4_fold_max_torch(q8, packed, unpack))
+            assert torch.equal(int4_scores(q8, packed, unpack),
+                               int4.int4_scores_torch(q8, packed, unpack))
+
+
+@pytest.mark.parametrize("b", [1, 8, 64, 256, 300])
+@pytest.mark.parametrize("d", [8, 1024, 2048, 4096])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cuda_fold_plan_shared_memory_matches_source(cuda_device, b, d,
+                                                     packed):
+    plan = int4.fold_plan(10_485_760, b, d, packed)
+    assert int4.source_smem_bytes(d, packed, plan.stages, plan.resident) \
+        == plan.smem_bytes
+    index = torch.cuda.current_device()
+    assert int4.active_clusters(index, plan.cluster, plan.smem_bytes) >= 1
 
 
 def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda_device):
