@@ -19,7 +19,8 @@
 //     below +0.0), and the map is its own inverse, so the same kernel
 //     takes keys back to the exact f32 bits.
 //   anr_bf16_row_reduce: for each row r of x [R, W] (W <= 65536), with
-//     s = bf16(x) (round to nearest even):
+//     s = bf16(x) (round to nearest even), four int32 rows of out [4, R]
+//     (row_max and second as their f32 bits):
 //       row_max[r] = max(s) as f32;
 //       arg[r]     = the lowest column c with s[c] == row_max[r];
 //       second[r]  = max over the row of (s == row_max ? bf16(-3e38) : s);
@@ -32,19 +33,31 @@
 //
 // What bounds them on an H100: bytes. The keys read and write 4 bytes per
 // element (2^24 elements: 0.04 ms at 3.35 TB/s); the row reduction reads
-// each row once from device memory (its second pass hits L1/L2) and
-// writes 16 bytes per row. Design: the keys are a grid-stride loop over
-// 16-byte vectors (a scalar loop when either pointer is not 16-byte
-// aligned); the row reduction gives one CTA to each row, each thread a
-// strided share of its columns, and reduces across the CTA by warp
-// shuffles and shared memory, twice (the second max needs the first).
+// each element once and writes 16 bytes per row ([256, 16384]: 16.8 MB,
+// 0.005 ms), so at the probe's shapes its launch and the host's call
+// around it weigh as much as the stream.
+//
+// Design. The keys are a grid-stride loop over 16-byte vectors (a scalar
+// loop when either pointer is not 16-byte aligned). The row reduction is
+// one pass: each thread keeps a RowPart (the max with its lowest column,
+// the largest value strictly below the max, the lowest column of +0.0),
+// about a dozen instructions a value; the masked max is max(below,
+// bf16(-3e38)): the re-max with every column equal to the max replaced
+// by the mask value, without reading the row again; the packed-key
+// argmax is the max's column but where the max is 0 and +0.0 occurs.
+// A row is one CTA of 256 or 512 threads (ops/kernels/keys.py's
+// row_plan, by W), each issuing 8 16-byte loads (__ldg: a matrix that
+// fits the 50 MB L2 stays there for its next reader) before it uses the
+// first; a row whose base is not 16-byte aligned (W not a multiple of 4,
+// a storage offset) takes a scalar head up to the first aligned column
+// and a scalar tail. The merge is order-free, so ties go to the lowest
+// column whichever thread saw them first.
 //
 // Plain C interface; each entry point returns the cudaError_t of its
 // launch (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -101,79 +114,126 @@ int launch_flip(const void* in, void* out, long long n, int grid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// (value, column) with the higher value, the lower column on a tie.
-__device__ __forceinline__ void keep_best(float& v, int& c, float ov,
-                                          int oc) {
-  if (ov > v || (ov == v && oc < c)) {
-    v = ov;
-    c = oc;
-  }
+// One row's running summary of bf16-rounded values: the max ``top``, the
+// lowest column holding it, ``below`` = the largest value strictly less
+// than ``top`` (-inf if none), and ``pz`` = the lowest column holding
+// +0.0 (W if none). Two summaries of disjoint parts merge into the
+// summary of their union whatever the order (the merge is associative and
+// commutative), so a row's threads and warps combine in any tree. An empty summary is (-inf, W, -inf, W): a tie at -inf takes the
+// other's column.
+//
+// The packed key's argmax follows from it: the key orders as the values
+// do, but for -0.0 < +0.0 (the key is the bf16 bits' order-preserving
+// map), with the lower column first among equal keys. So it is ``col``,
+// unless the max is 0 and some column holds +0.0: then ``pz``.
+struct RowPart {
+  float top;
+  int col;
+  float below;
+  int pz;
+};
+
+// Column c of value x (f32; rounded to bf16 here) into the summary, on
+// the same thread's earlier columns (all lower than c). ``col`` starts at
+// the thread's first column, so a tie never moves it. Branch-free.
+__device__ __forceinline__ void take(RowPart& p, float x, int c) {
+  const float v = __bfloat162float(__float2bfloat16_rn(x));
+  const float t = p.top;
+  const bool gt = v > t;
+  p.below = v == t ? p.below : fmaxf(p.below, fminf(v, t));
+  p.col = gt ? c : p.col;
+  p.top = gt ? v : t;
+  p.pz = __float_as_int(v) == 0 && c < p.pz ? c : p.pz;
 }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+__device__ __forceinline__ void take4(RowPart& p, float4 v, int c) {
+  take(p, v.x, c);
+  take(p, v.y, c + 1);
+  take(p, v.z, c + 2);
+  take(p, v.w, c + 3);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    bf16_row_reduce_kernel(const float* x, int W, float* row_max, int* arg,
-                           float* second, int* packed) {
-  __shared__ float sv[kWarps];
-  __shared__ int sc[kWarps];
-  __shared__ int sp[kWarps];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const float* row = x + static_cast<size_t>(blockIdx.x) * W;
+__device__ __forceinline__ void merge(RowPart& a, const RowPart& b) {
+  const float t = b.top > a.top ? b.top : a.top;
+  float below = fmaxf(a.below, b.below);
+  if (a.top < t) below = fmaxf(below, a.top);
+  if (b.top < t) below = fmaxf(below, b.top);
+  a.col = b.top > a.top ? b.col : (a.top > b.top ? a.col : min(a.col, b.col));
+  a.top = t;
+  a.below = below;
+  a.pz = min(a.pz, b.pz);
+}
 
-  // Pass 1: the max with its lowest column, and the packed key's max.
-  float v = -INFINITY;
-  int c = W;
-  int pm = INT_MIN;
-  for (int col = threadIdx.x; col < W; col += kThreads) {
-    const __nv_bfloat16 b = __float2bfloat16_rn(row[col]);
-    keep_best(v, c, __bfloat162float(b), col);
-    const int u = __bfloat16_as_ushort(b);
-    const int key = (u >= 0x8000 ? 0xffff - u : u + 0x8000) - 0x8000;
-    // key * 65536 is key << 16 on the i32 (no overflow after the bias).
-    pm = max(pm, (key * 65536) | (W - 1 - col));
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    keep_best(v, c, __shfl_xor_sync(kFull, v, off),
-              __shfl_xor_sync(kFull, c, off));
-    pm = max(pm, __shfl_xor_sync(kFull, pm, off));
-  }
-  if (lane == 0) {
-    sv[warp] = v;
-    sc[warp] = c;
-    sp[warp] = pm;
-  }
-  __syncthreads();
-  v = sv[0];
-  c = sc[0];
-  pm = sp[0];
-  for (int w = 1; w < kWarps; ++w) {
-    keep_best(v, c, sv[w], sc[w]);
-    pm = max(pm, sp[w]);
-  }
-  __syncthreads();
+__device__ __forceinline__ RowPart shfl_xor(const RowPart& p, int off) {
+  RowPart o;
+  o.top = __shfl_xor_sync(kFull, p.top, off);
+  o.col = __shfl_xor_sync(kFull, p.col, off);
+  o.below = __shfl_xor_sync(kFull, p.below, off);
+  o.pz = __shfl_xor_sync(kFull, p.pz, off);
+  return o;
+}
 
-  // Pass 2: the max once every column equal to it is masked.
-  const float masked = bf16_round(-3e38f);
-  float s2 = -INFINITY;
-  for (int col = threadIdx.x; col < W; col += kThreads) {
-    const float b = bf16_round(row[col]);
-    s2 = fmaxf(s2, b == v ? masked : b);
+// One pass over each row: row blockIdx.x belongs to the CTA's T threads,
+// thread t taking the row's 16-byte vectors t, t + T, ..., kRowUnroll at
+// a time (all their loads issued before the first is used, the last batch
+// predicated), and column t of the scalar head (columns before the first
+// 16-byte boundary, when the row's base is not aligned) and of the scalar
+// tail. Threads merge by warp shuffles, the warps by one more warp's
+// shuffles.
+constexpr int kRowUnroll = 8;
+
+// At most 64 registers a thread, so that a 512-thread CTA does not hold
+// an SM alone: [256, 16384]'s 256 rows then run in one wave.
+template <int T>
+__global__ void __launch_bounds__(T, 1024 / T)
+    bf16_row_reduce_kernel(const float* __restrict__ x, int R, int W,
+                           int* __restrict__ out) {
+  __shared__ RowPart warp_part[T / 32];
+  const int t = threadIdx.x;
+  const int r = blockIdx.x;
+  const float* row = x + static_cast<size_t>(r) * W;
+  const int head = min(
+      W, static_cast<int>(
+             ((16 - (reinterpret_cast<uintptr_t>(row) & 15)) & 15) / 4));
+  const int n_vec = (W - head) / 4;
+  const int tail0 = head + 4 * n_vec;
+  // This thread's columns, in the order it takes them: the head's, its
+  // vectors' (t, t + T, ...), the tail's. ``col`` starts at the first.
+  const bool has_head = t < head;
+  const bool has_tail = tail0 + t < W;
+  const int first = has_head ? t
+                    : t < n_vec ? head + 4 * t
+                    : has_tail ? tail0 + t
+                               : W;
+  RowPart p{-INFINITY, first, -INFINITY, W};
+  if (has_head) take(p, row[t], t);
+  const float4* vec = reinterpret_cast<const float4*>(row + head);
+  for (int i = t; i < n_vec; i += kRowUnroll * T) {
+    float4 v[kRowUnroll];
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      if (i + u * T < n_vec) v[u] = __ldg(vec + i + u * T);
+    }
+#pragma unroll
+    for (int u = 0; u < kRowUnroll; ++u) {
+      if (i + u * T < n_vec) take4(p, v[u], head + 4 * (i + u * T));
+    }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    s2 = fmaxf(s2, __shfl_xor_sync(kFull, s2, off));
-  }
-  if (lane == 0) sv[warp] = s2;
+  if (has_tail) take(p, row[tail0 + t], tail0 + t);
+
+  for (int off = 16; off > 0; off >>= 1) merge(p, shfl_xor(p, off));
+  const int lane = t % 32;
+  if (lane == 0) warp_part[t / 32] = p;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kWarps; ++w) s2 = fmaxf(s2, sv[w]);
-    row_max[blockIdx.x] = v;
-    arg[blockIdx.x] = c;
-    second[blockIdx.x] = s2;
-    packed[blockIdx.x] = (W - 1) - (pm & 0xffff);
+  if (t >= 32) return;
+  p = warp_part[lane < T / 32 ? lane : 0];
+  for (int off = 16; off > 0; off >>= 1) merge(p, shfl_xor(p, off));
+  if (t == 0) {
+    const float masked = __bfloat162float(__float2bfloat16_rn(-3e38f));
+    out[r] = __float_as_int(p.top);
+    out[R + r] = p.col;
+    out[2 * R + r] = __float_as_int(fmaxf(p.below, masked));
+    out[3 * R + r] = p.top == 0.f && p.pz < W ? p.pz : p.col;
   }
 }
 
@@ -191,14 +251,20 @@ int anr_xpack_values(const int* keys, float* x, long long n, int grid,
   return launch_flip(keys, x, n, grid, static_cast<cudaStream_t>(stream));
 }
 
-int anr_bf16_row_reduce(const float* x, int R, int W, float* row_max,
-                        int* arg, float* second, int* packed, void* stream) {
-  if (R < 1 || W < 1 || W > 65536) {
+// out: [4, R] int32 on the device, rows (max as f32 bits, its lowest
+// column, the masked max as f32 bits, the packed-key argmax); threads:
+// the CTA of each row, 256 or 512.
+int anr_bf16_row_reduce(const float* x, int R, int W, int threads, int* out,
+                        void* stream) {
+  if (R < 1 || W < 1 || W > 65536 || (threads != 256 && threads != 512)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  bf16_row_reduce_kernel<<<R, kThreads, 0, static_cast<cudaStream_t>(
-                                               stream)>>>(
-      x, W, row_max, arg, second, packed);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (threads == 512) {
+    bf16_row_reduce_kernel<512><<<R, 512, 0, s>>>(x, R, W, out);
+  } else {
+    bf16_row_reduce_kernel<256><<<R, 256, 0, s>>>(x, R, W, out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,9 +17,13 @@ bf16(-3e38) f32 [R], the column of the max of the packed int32 key
 ``((key16 - 0x8000) << 16) | (W - 1 - col)`` int32 [R]). W <= 65536.
 
 All in ``csrc/keys.cu``; exact, so the kernels equal their plain versions
-bit for bit. On CUDA tensors each wrapper launches its kernel or raises;
-it takes its plain PyTorch version only for tensors on the CPU.
-``.launches`` counts kernel launches.
+bit for bit. ``bf16_row_reduce`` is one pass over each row, one CTA a
+row (``row_plan``); its wrapper keeps its host work light (one output
+allocation whose rows are the four results, no device switch when the
+device is current), since at the probe's shapes the call's host time
+outweighs the kernel's. On CUDA tensors each wrapper launches its kernel
+or raises; it takes its plain PyTorch version only for tensors on the
+CPU. ``.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P, _launch
 from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
 
 MAX_WIDTH = 1 << 16
+# bf16_row_reduce's 16-byte loads in flight a thread (row_plan).
+ROW_UNROLL = 8
 _FLIP = 0x7FFFFFFF
 _MASKED = -3e38  # bf16-rounded, the probe's mask value
 
@@ -46,7 +52,7 @@ def _library() -> ctypes.CDLL:
         flip = [_P, _P, ctypes.c_longlong, _I, _P]
         lib.anr_xpack_keys.argtypes = flip
         lib.anr_xpack_values.argtypes = flip
-        lib.anr_bf16_row_reduce.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
+        lib.anr_bf16_row_reduce.argtypes = [_P, _I, _I, _I, _P, _P]
         for fn in (lib.anr_xpack_keys, lib.anr_xpack_values,
                    lib.anr_bf16_row_reduce):
             fn.restype = _I
@@ -139,27 +145,42 @@ def bf16_row_reduce_torch(x: torch.Tensor) -> RowReduce:
             second.to(torch.float32), packed_arg.to(torch.int32))
 
 
+def row_plan(width: int) -> int:
+    """Threads of ``bf16_row_reduce``'s CTA for each row of ``width``
+    columns: 256, or 512 where 256 threads would hold more than
+    ``ROW_UNROLL`` of the row's 16-byte vectors each."""
+    return 512 if width // 4 > ROW_UNROLL * 256 else 256
+
+
 def bf16_row_reduce(x: torch.Tensor) -> RowReduce:
     """(max, its lowest column, max after masking it, packed-key argmax)
     of each row of bf16(x), x [R, W] float32 contiguous."""
     _check_rows(x)
-    if x.device.type == "cpu":
-        return bf16_row_reduce_torch(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return bf16_row_reduce_torch(x)
         raise ValueError(f"unsupported device {x.device}")
+    # This wrapper's host time counts in a call's time: one allocation
+    # whose rows are the four outputs, no Stream object, no device switch
+    # unless needed.
     r, w = x.shape
     dev = x.device
-    top = torch.empty((r,), dtype=torch.float32, device=dev)
-    arg = torch.empty((r,), dtype=torch.int32, device=dev)
-    second = torch.empty((r,), dtype=torch.float32, device=dev)
-    packed_arg = torch.empty((r,), dtype=torch.int32, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch(lib.anr_bf16_row_reduce, x.data_ptr(), r, w, top.data_ptr(),
-                arg.data_ptr(), second.data_ptr(), packed_arg.data_ptr(),
-                device=dev)
+    index = dev.index
+    out = torch.empty((4, r), dtype=torch.int32, device=dev)
+    args = (x.data_ptr(), r, w, row_plan(w), out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(index))
+    fn = _library().anr_bf16_row_reduce
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"anr_bf16_row_reduce failed with cudaError_t "
+                           f"{err}")
     bf16_row_reduce.launches += 1
-    return top, arg, second, packed_arg
+    top, arg, second, packed_arg = out.unbind()
+    return top.view(torch.float32), arg, second.view(torch.float32), packed_arg
 
 
 bf16_row_reduce.launches = 0

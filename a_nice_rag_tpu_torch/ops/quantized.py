@@ -21,6 +21,9 @@ from a_nice_rag_tpu_torch.ops.topk import masked_top_k
 # float32 sums of int8 x int8 products are exact while every partial sum
 # stays below 2**24: D * 127**2 < 2**24 holds for D <= 1040.
 _EXACT_F32_DEPTH = 1024
+# Rows x depth of the doc matrix upcast to float32 at a time (1 GiB), so a
+# 10.7 GB int8 matrix is never upcast whole.
+_UPCAST_ELEMS = 1 << 28
 
 
 @dataclasses.dataclass
@@ -53,9 +56,16 @@ def int8_dot(q_values: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
     CUDA has no integer matmul in torch, so the product runs as float32
     matmuls over depth chunks short enough to stay exact, summed in
-    int32.
+    int32, and over row chunks of ``values`` that bound the upcast copy.
     """
-    d = q_values.shape[1]
+    n, d = values.shape
+    rows = max(1, _UPCAST_ELEMS // max(1, min(d, _EXACT_F32_DEPTH)))
+    if n > rows:
+        acc = torch.empty((q_values.shape[0], n), dtype=torch.int32,
+                          device=values.device)
+        for r0 in range(0, n, rows):
+            acc[:, r0:r0 + rows] = int8_dot(q_values, values[r0:r0 + rows])
+        return acc
     acc = None
     for d0 in range(0, d, _EXACT_F32_DEPTH):
         part = (

@@ -1,22 +1,33 @@
-"""Hybrid retrieval over the array index: :class:`FusedRetriever`.
+"""Hybrid retrieval over the array index: :class:`SearchEngine` and
+:class:`FusedRetriever`.
 
-Counterpart of ``FusedRetriever`` in ``a_nice_rag_tpu/retrieval/engine.py``:
-every active ranker (dense models, BM25), WRRF fusion and the final top-n
-in one call, with inputs and outputs on the index's device. At corpus
-scale on a CUDA device the dense lists and the common tier of two-tier
-BM25 stream through the fused top-k kernels (``ops.kernels``) instead of
-materializing [B, N] scores. With ``nprobe`` set, models with an attached
-IVF take the ANN route: a tile table built on the device and K3/K4 over
-its tiles only.
+Counterpart of ``a_nice_rag_tpu/retrieval/engine.py``:
+
+* :class:`SearchEngine` keeps the reference system's per-method API
+  (similarity search, BM25 search, WRRF, rerank, ``retrieve``), batched
+  first, with the JAX package's names and signatures. Like the JAX
+  package's, it scores on the plain routes (materialized [B, N] scores
+  and a stable top-k), never the fused kernels; scores and lists stay
+  on the index's device, and results come back as numpy arrays and
+  Python lists where the JAX package returns those.
+* :class:`FusedRetriever` runs every active ranker (dense models, BM25),
+  WRRF fusion and the final top-n in one call, with inputs and outputs
+  on the index's device. At corpus scale on a CUDA device the dense
+  lists and the common tier of two-tier BM25 stream through the fused
+  top-k kernels (``ops.kernels``) instead of materializing [B, N]
+  scores. With ``nprobe`` set, models with an attached IVF take the ANN
+  route: a tile table built on the device and K3/K4 over its tiles only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import logging
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from a_nice_rag_tpu_torch.config import Config
 from a_nice_rag_tpu_torch.index.array_index import ArrayIndex
 from a_nice_rag_tpu_torch.index.ivf import (
     build_tile_table,
@@ -44,7 +55,15 @@ from a_nice_rag_tpu_torch.ops.quantized import (
     quantized_dense_scores,
 )
 from a_nice_rag_tpu_torch.ops.topk import masked_top_k
+from a_nice_rag_tpu_torch.retrieval.rerank import Reranker, apply_rerank
+from a_nice_rag_tpu_torch.text import preprocess_text
 
+logger = logging.getLogger(__name__)
+
+# Model iteration order mirrors the reference's fixed search order
+# (src/query_rag_retrieval.py:197-301).
+MODEL_ORDER = ("voyage-3-large", "voyage-3.5", "text-embedding-3-large",
+               "Qwen3")
 DENSE_BACKENDS = ("auto", "kernel", "torch")
 IVF_ROUTES = ("auto", "always")
 
@@ -61,6 +80,42 @@ def _ivf_coverage(batch: int, nprobe: int, n_clusters: int) -> float:
 
 def _finite_ids(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
+
+
+def _dense_list(emb, q, mask, k):
+    """Per-model ranked list: (scores, ids) [B, k], -1 where masked out."""
+    vals, idx = masked_top_k(dense_scores(emb, q), k, mask[None, :])
+    return vals, _finite_ids(vals, idx)
+
+
+def _dense_list_q(qd, q, mask, k):
+    """Per-model ranked list over an int8-quantized matrix (queries
+    quantized on the fly; exact int32 sums, selection on
+    acc * s_q * s_d)."""
+    qv, qs = quantize_queries(q)
+    scores = quantized_dense_scores(qd, qv, qs)
+    vals, idx = masked_top_k(scores, k, mask[None, :])
+    return vals, _finite_ids(vals, idx)
+
+
+def _bm25_list(bm25, q_terms, mask, k, budget):
+    """BM25 list from the CSR scatter. Zero scores stay finite, so a short
+    list is filled with zero-score ids under the tie rule, not -1."""
+    vals, idx = masked_top_k(bm25_scores(bm25, q_terms, budget), k,
+                             mask[None, :])
+    return vals, _finite_ids(vals, idx)
+
+
+def _bm25_list_dense(bm25_dense, q_terms, mask, k):
+    """BM25 list from the dense impact matrix: small batches read only the
+    query terms' impact rows; the matmul form once B*T passes V/2."""
+    b, t = q_terms.shape
+    if b * t <= bm25_dense.vocab_size // 2:
+        scores = bm25_scores_dense_gather(bm25_dense, q_terms)
+    else:
+        scores = bm25_scores_dense(bm25_dense, q_terms)
+    vals, idx = masked_top_k(scores, k, mask[None, :])
+    return vals, _finite_ids(vals, idx)
 
 
 class FusedRetriever:
@@ -402,3 +457,327 @@ class FusedRetriever:
             q_embs, q_terms, weights, filename_type_filter, wrrf_k
         )
         return fids.cpu().numpy(), fvals.cpu().numpy(), all_idx.cpu().numpy()
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+class SearchEngine:
+    """Reference-parity search API over one :class:`ArrayIndex`, on the
+    index's device."""
+
+    def __init__(
+        self,
+        index: ArrayIndex,
+        embedder=None,
+        reranker: Optional[Reranker] = None,
+    ):
+        self.index = index
+        self.embedder = embedder
+        self.reranker = reranker
+        self._doc_mask: Optional[Tuple[np.ndarray, torch.Tensor]] = None
+
+    def _queries(self, x) -> torch.Tensor:
+        """[B, D] float32 queries on the index's device (numpy arrays or
+        tensors)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, np.float32)
+        q = torch.as_tensor(x, dtype=torch.float32, device=self.index.device)
+        return q.reshape(1, -1) if q.ndim < 2 else q
+
+    def _bm25_mask(self, filename_type_filter: Optional[str]):
+        """The filter mask & the index's BM25 doc mask (docs with at least
+        one token), the latter copied to the device once."""
+        mask = self.index.filter_mask(filename_type_filter)
+        doc_mask = self.index.bm25_doc_mask
+        if doc_mask is None:
+            return mask
+        if self._doc_mask is None or self._doc_mask[0] is not doc_mask:
+            self._doc_mask = (doc_mask, torch.as_tensor(
+                doc_mask, device=self.index.device))
+        return mask & self._doc_mask[1]
+
+    # ------------------------------------------------------------------
+    # Dense search
+    # ------------------------------------------------------------------
+
+    def similarity_search_batch(
+        self,
+        query_embeddings: np.ndarray,
+        model_name: str = "voyage-3-large",
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched dense search: (scores [B, k], doc rows [B, k], -1 pad)."""
+        emb = self.index.dense_matrix(model_name)
+        mask = self.index.filter_mask(filename_type_filter)
+        q = self._queries(query_embeddings)
+        k = min(similarity_k, self.index.n_docs)
+        if isinstance(emb, QuantizedDense):
+            vals, idx = _dense_list_q(emb, q, mask, k)
+        else:
+            vals, idx = _dense_list(emb, q, mask, k)
+        return _host(vals), _host(idx)
+
+    def similarity_search_with_embedding(
+        self,
+        query_embedding: np.ndarray,
+        model_name: str = "voyage-3-large",
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+    ) -> List[Dict]:
+        """Single-query parity wrapper returning doc dicts with scores
+        (reference src/search_engine.py:57-98)."""
+        vals, idx = self.similarity_search_batch(
+            query_embedding, model_name, similarity_k, filename_type_filter
+        )
+        return self._rows_to_docs(idx[0], vals[0])
+
+    def similarity_search(
+        self,
+        query_text: str,
+        model_name: str = "voyage-3-large",
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+        query_embedding: Optional[np.ndarray] = None,
+    ) -> List[Dict]:
+        """Dense search embedding the query text if needed
+        (reference src/search_engine.py:100-146)."""
+        if query_embedding is None:
+            if self.embedder is None:
+                raise ValueError("No embedder configured for text queries")
+            query_embedding = self.embedder.embed_queries([query_text])[0]
+        return self.similarity_search_with_embedding(
+            query_embedding, model_name, similarity_k, filename_type_filter
+        )
+
+    # ------------------------------------------------------------------
+    # BM25 search
+    # ------------------------------------------------------------------
+
+    def bm25_search_preprocessed_batch(
+        self,
+        query_token_lists: Sequence[Sequence[str]],
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+        t_max: int = 32,
+        budget: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched BM25: (scores [B, k], doc rows [B, k], -1 pad)."""
+        idx_ = self.index
+        if idx_.bm25 is None:
+            raise ValueError("Index has no BM25 component")
+        terms = torch.as_tensor(idx_.pad_term_ids(query_token_lists, t_max),
+                                device=idx_.device)
+        mask = self._bm25_mask(filename_type_filter)
+        k = min(similarity_k, idx_.n_docs)
+        if idx_.bm25_dense is not None:
+            vals, idx = _bm25_list_dense(idx_.bm25_dense, terms, mask, k)
+        else:
+            vals, idx = _bm25_list(idx_.bm25, terms, mask, k,
+                                   budget or Config.bm25_postings_budget)
+        return _host(vals), _host(idx)
+
+    def bm25_search_preprocessed(
+        self,
+        query_tokens: Sequence[str],
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+    ) -> List[str]:
+        """Single-query parity wrapper returning ranked section ids
+        (reference src/search_engine.py:271-293)."""
+        if not query_tokens:
+            return []
+        vals, idx = self.bm25_search_preprocessed_batch(
+            [query_tokens], similarity_k, filename_type_filter
+        )
+        return [self.index.meta.ids[i] for i in idx[0] if i >= 0]
+
+    def bm25_search(
+        self,
+        query_text: str,
+        similarity_k: int = 25,
+        filename_type_filter: Optional[str] = None,
+        use_lemmatized: bool = True,
+    ) -> List[str]:
+        """BM25 with query preprocessing (reference
+        src/search_engine.py:245-269)."""
+        tokens = preprocess_text(query_text, use_lemmatization=use_lemmatized)
+        return self.bm25_search_preprocessed(
+            tokens, similarity_k, filename_type_filter
+        )
+
+    # ------------------------------------------------------------------
+    # Fusion + rerank
+    # ------------------------------------------------------------------
+
+    def weighted_reciprocal_rank_fusion(
+        self,
+        ranked_lists: List[Tuple[List[str], str]],
+        model_weights: Dict[str, float],
+        k: int = 50,
+    ) -> List[Tuple[str, float]]:
+        """Host-side WRRF over section-id lists (API parity with
+        src/search_engine.py:21-34; ``retrieve`` fuses with ops.fusion)."""
+        scores: Dict[str, float] = {}
+        for ranked_list, model_name in ranked_lists:
+            weight = model_weights.get(model_name, 1.0)
+            for rank, doc_id in enumerate(ranked_list, start=1):
+                scores[doc_id] = scores.get(doc_id, 0.0) + weight / (k + rank)
+        return sorted(scores.items(), key=lambda x: x[1], reverse=True)
+
+    def rerank_documents(
+        self,
+        query_text: str,
+        documents: List[Dict],
+        reranker_model: str = "rerank-2",
+        reranker_top_k: Optional[int] = None,
+    ) -> List[Dict]:
+        return apply_rerank(
+            self.reranker, query_text, documents, reranker_model,
+            reranker_top_k
+        )
+
+    # ------------------------------------------------------------------
+    # Full pipeline (retrieve_documents semantics)
+    # ------------------------------------------------------------------
+
+    def retrieve(
+        self,
+        query_embeddings: Dict[str, np.ndarray],
+        query_texts: Optional[Sequence[str]] = None,
+        query_token_lists: Optional[Sequence[Sequence[str]]] = None,
+        similarity_k: int = 25,
+        common_sections_n: int = 15,
+        wrrf_k: float = 60.0,
+        model_weights: Optional[Dict[str, float]] = None,
+        filename_type_filter: Optional[str] = None,
+        use_hybrid_search: bool = False,
+        use_reranker: bool = False,
+        reranker_model: str = "rerank-2-lite",
+        reranker_top_k: Optional[int] = 5,
+        return_docs: bool = False,
+        min_similarity: Optional[float] = None,
+    ) -> List[List]:
+        """Batched equivalent of the reference's ``retrieve_documents``
+        (src/query_rag_retrieval.py:149-407). Returns, per query, a
+        ranked list of section ids (or doc dicts with ``return_docs``).
+
+        ``min_similarity`` drops dense candidates whose cosine score
+        falls below the threshold before fusion.
+        """
+        if model_weights is None:
+            model_weights = Config.DEFAULT_MODEL_WEIGHTS.copy()
+        if not query_embeddings:
+            raise ValueError("Query embeddings dictionary cannot be empty")
+        if similarity_k <= 0 or common_sections_n <= 0:
+            raise ValueError(
+                "similarity_k and common_sections_n must be positive integers"
+            )
+
+        batch = next(iter(query_embeddings.values()))
+        shape = tuple(getattr(batch, "shape", np.shape(batch)))
+        b = shape[0] if len(shape) > 1 else 1
+
+        active = [
+            m
+            for m in MODEL_ORDER
+            if m in self.index.dense_model_names
+            and model_weights.get(m, 0) > 0
+            and m in query_embeddings
+        ]
+
+        ranked: List[Tuple[np.ndarray, str, Optional[np.ndarray]]] = []
+        for m in active:
+            vals, idx = self.similarity_search_batch(
+                query_embeddings[m], m, similarity_k, filename_type_filter
+            )
+            if min_similarity is not None:
+                idx = np.where(vals >= min_similarity, idx, -1)
+            ranked.append((idx, m, vals))
+
+        use_bm25 = (
+            use_hybrid_search
+            and self.index.bm25 is not None
+            and model_weights.get("BM25", 0) > 0
+        )
+        if use_bm25:
+            if query_token_lists is None and query_texts is not None:
+                query_token_lists = [
+                    preprocess_text(t, use_lemmatization=True)
+                    for t in query_texts
+                ]
+            if query_token_lists is not None:
+                _, bidx = self.bm25_search_preprocessed_batch(
+                    query_token_lists, similarity_k, filename_type_filter
+                )
+                ranked.append((bidx, "BM25", None))
+            else:
+                logger.warning(
+                    "BM25 search requested but no query_text or "
+                    "query_tokens provided - skipping BM25"
+                )
+
+        if not ranked:
+            return [[] for _ in range(b)]
+
+        if len(ranked) > 1:
+            dev = self.index.device
+            all_idx = torch.as_tensor(np.stack([r[0] for r in ranked]),
+                                      device=dev)
+            w = torch.tensor(
+                [model_weights.get(r[1], 1.0) for r in ranked],
+                dtype=torch.float32, device=dev,
+            )
+            fvals, fids = wrrf_top_n(
+                all_idx, w, min(common_sections_n, self.index.n_docs),
+                self.index.n_docs_padded, float(wrrf_k),
+            )
+            fused_ids = _host(_finite_ids(fvals, fids))
+        else:
+            fused_ids = ranked[0][0][:, :common_sections_n]
+
+        # Host-side doc assembly: similarity comes from the first ranker
+        # that surfaced the doc (reference first-stage-wins dedup,
+        # src/query_rag_retrieval.py:242-248).
+        out: List[List] = []
+        for qi in range(b):
+            sim_by_row: Dict[int, float] = {}
+            for idx_arr, name, vals_arr in ranked:
+                for j, row in enumerate(idx_arr[qi]):
+                    row = int(row)
+                    if row >= 0 and row not in sim_by_row:
+                        sim_by_row[row] = (
+                            float(vals_arr[qi][j]) if vals_arr is not None
+                            else 0.0
+                        )
+            docs = []
+            for row in fused_ids[qi]:
+                row = int(row)
+                if row < 0:
+                    continue
+                d = self.index.meta.doc(row)
+                d["similarity"] = sim_by_row.get(row, 0.0)
+                docs.append(d)
+            docs = docs[:common_sections_n]
+
+            if use_reranker and len(docs) > 1 and query_texts is not None:
+                docs = self.rerank_documents(
+                    query_texts[qi], docs, reranker_model, reranker_top_k
+                )
+            out.append(docs if return_docs else [d["id"] for d in docs])
+        return out
+
+    # ------------------------------------------------------------------
+
+    def _rows_to_docs(self, rows: np.ndarray,
+                      scores: np.ndarray) -> List[Dict]:
+        docs = []
+        for row, s in zip(rows, scores):
+            if int(row) < 0:
+                continue
+            d = self.index.meta.doc(int(row))
+            d["similarity"] = float(s)
+            docs.append(d)
+        return docs

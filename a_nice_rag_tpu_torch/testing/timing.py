@@ -13,6 +13,9 @@ the device; there is no CPU fallback):
   that end in ``torch.cuda.synchronize()``, divided by ``n``; the best
   of ``trials``. What a caller that issues calls in a row sees, host
   dispatch included.
+- :func:`profiled_kernel_ms`: ``torch.profiler``'s device time of the
+  kernels whose name holds a given string, per launch, over ``n`` calls:
+  the kernel alone, where a call's host work outlasts it.
 
 The JAX package's counterparts (``testing/timing.py``:
 ``chained_dispatch_ms`` and ``true_device_ms``) force value reads and
@@ -85,3 +88,22 @@ def chained_ms(fn: Callable[[], object], n: int = 10, trials: int = 3,
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) / n * 1e3)
     return best
+
+
+def profiled_kernel_ms(fn: Callable[[], object], kernel: str, n: int = 50,
+                       warmup: int = 3) -> float:
+    """Mean device milliseconds per launch of the kernels whose name holds
+    ``kernel``, traced by ``torch.profiler`` over ``n`` calls of ``fn``;
+    raises if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _warm(fn, warmup)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    launches = sum(e.count for e in events)
+    if not launches:
+        raise RuntimeError(f"the profiler traced no kernel named *{kernel}*")
+    return sum(e.device_time_total for e in events) / launches / 1e3

@@ -38,11 +38,20 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      configuration), planted recall and id equality with the torch route;
   5. stage B: the same index with a filter mask over half the docs and
      two-tier BM25 (128 common terms, so K1 runs masked twice per call);
+ 17. SearchEngine, the reference-parity API, on stage A's index (with
+     ids, sources and a vocabulary): hybrid retrieve of B = 256 token
+     queries (similarity_k 32, common_sections_n 15, weights 5:1,
+     return_docs), planted recall@10 >= 0.99, no kernel launched (its
+     routes are plain torch, as the JAX package's are plain XLA), its
+     dense lists held against K1's through check_top_k at BF16_ATOL, and
+     the host-clock ms of one retrieve beside the fused retriever's;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
      the IVF/exact crossover record for B in {8, 16, 32, 64};
-  7. stage C: 10.5M x 1024 int8 dense-only (bench.py's int8 configuration);
+  7. stage C: 10.5M x 1024 int8 dense-only (bench.py's int8 configuration),
+     and SearchEngine.similarity_search_batch there at B = 8 held against
+     K2 through check_top_k at INT8_ATOL;
   8. stage E: stage C's matrix with a cluster-major IVF: micro-batches of
      B = 8 through K4, B = 256 through K2;
   9. the stream kernels (stream_sum, stream_sum_busy) against their plain
@@ -69,7 +78,12 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      equal to its plain version there and its ids to K1's / K2's;
  15. the keys: xpack_keys / xpack_values over the 13 special values of
      the JAX package's key test plus 2^24 normals, bit for bit, and
-     bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384];
+     bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384],
+     then on its edge cases (R 1-4096, W 1-65536, storage offsets, ties
+     across a row's warps, all-equal rows, -inf and values below the mask,
+     +-0.0, values that round to one bf16), torch.equal on all four
+     outputs, one launch a call; its time at both shapes as an event
+     pair around one call and device-only (50 calls between one pair);
  16. int4 (probes.int4): exact at 1024 x 256, B = 128, both unpacks;
      the folds' edges (D in {8, 40, 1000, 1024, 2048}, B from 1 to 256
      across clusters of 1-4 query blocks, N below one tile and ragged,
@@ -94,12 +108,14 @@ except stage F's corpus, which is the bench's numpy synth_corpus.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
@@ -146,6 +162,10 @@ F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
 BM25_ATOL = 1e-4
 FULL_PROBE_ATOL = 1e-4
+# int8 scores across routes: K2 emits (acc * s_d) * s_q, the torch route
+# (acc * s_q) * s_d; two float32 roundings of one exact product, at most
+# a few ulps of scores below 2 in magnitude.
+INT8_ATOL = 1e-6
 # One H100 SXM (NVIDIA data sheet, dense rates): HBM bytes/s, FFMA f32
 # FLOP/s (f32 rows score in IEEE f32, off the tensor cores), bf16
 # tensor-core FLOP/s (bf16 rows: three MMAs per product, one for each
@@ -196,6 +216,10 @@ class Smoke:
     FOLD_EDGE_N, FOLD_EDGE_D = (100, 70_001), (8, 40, 1000, 1024, 2048)
     FOLD_EDGE_B = (1, 8, 16, 17, 64, 65, 129, 256)
     BF16_SHAPES = ((128, 8192), (256, 16384))
+    BF16_EDGE_SHAPES = None  # None: probes.bf16_fold.EDGE_SHAPES
+    # P6's event-pair time at [256, 16384], predicted before its redesign
+    # was first timed on the card (ms, low and high).
+    P6_PREDICTED_MS = (0.010, 0.020)
     KEY_NORMALS = 1 << 24
     # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
     HEADLINE = {}
@@ -718,7 +742,7 @@ class Smoke:
             recall10_bm25=r_b, k1_launches=counts["fused_dense_top_k"],
             retrieve_ms=self.retrieve_ms["A"], **routes)
         del ref, ref_retr, runs
-        return emb, q, bm25, terms
+        return emb, gold, q, bm25, terms
 
     def phase5_stage_b(self, emb, q, bm25, terms):
         p = self.p
@@ -769,6 +793,76 @@ class Smoke:
             retrieve_ms=p.cuda_event_ms(
                 lambda: retr.retrieve_device(qd, terms_b, w, "CG", 40.0)),
             **routes)
+
+    def phase17_search_engine(self, emb, gold, q, bm25, terms) -> None:
+        """SearchEngine (the reference-parity API, plain torch routes, no
+        kernel) on stage A's index with ids, sources and a vocabulary:
+        hybrid retrieve with return_docs, its planted recall, its dense
+        lists against K1's, and its host-clock time beside the fused
+        retriever's on the same queries."""
+        t0 = time.perf_counter()
+        p = self.p
+        n = emb.shape[0]
+        ids = [str(i) for i in range(n)]
+        meta = p.CorpusMeta(ids=ids, sources=["CG"] * n, contents=[""] * n,
+                            urls=[], n_docs=n, n_docs_padded=n)
+        vocab = {f"t{v}": v for v in range(bm25.vocab_size)}
+        index = p.ArrayIndex(
+            meta=meta, dense={MODEL: emb}, bm25=bm25, vocab=vocab,
+            bm25_stats={"max_df": self.DF},
+            bm25_doc_mask=np.ones(n, dtype=bool))
+        tokens = [[f"t{v}" for v in row if v >= 0] for row in terms.tolist()]
+        eng = p.SearchEngine(index)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        kw = dict(query_token_lists=tokens, similarity_k=32,
+                  common_sections_n=15, model_weights=w,
+                  use_hybrid_search=True, return_docs=True)
+
+        def retrieve():
+            return eng.retrieve({MODEL: q}, **kw)
+
+        docs, counts = self.main_path(retrieve)
+        if any(counts.values()):
+            raise AssertionError(f"SearchEngine launched kernels: {counts}")
+        gold_ids = [str(g) for g in gold.tolist()]
+        assert all(len(d) == 15 for d in docs), "15 docs per query"
+        recall = sum(g in [d["id"] for d in ds[:10]]
+                     for g, ds in zip(gold_ids, docs)) / len(gold_ids)
+        assert recall >= 0.99, f"SearchEngine recall@10 {recall} below 0.99"
+        vals, rows = eng.similarity_search_batch(q, MODEL, 32)
+        kv, ki = p.kernels.fused_dense_top_k(emb, q, 32)
+        torch.cuda.synchronize()
+        swaps = p.check_top_k(kv, ki, vals, rows, BF16_ATOL)
+        retr = p.FusedRetriever(index, (MODEL,), use_bm25=True,
+                                similarity_k=32, common_sections_n=15)
+        assert retr.use_kernel
+        term_ids = torch.as_tensor(index.pad_term_ids(tokens, self.T),
+                                   device=self.dev)
+        host_ms = {
+            "search_engine_retrieve": self.host_call_ms(retrieve),
+            "fused_retrieve_device": self.host_call_ms(
+                lambda: retr.retrieve_device({MODEL: q}, term_ids, w, None,
+                                             60.0)),
+        }
+        log(stage="A_search_engine", batch=q.shape[0], similarity_k=32,
+            common_sections_n=15, weights=[5, 1], recall10_planted=recall,
+            kernel_launches=0, dense_lists_vs_k1_swaps=swaps,
+            dense_lists_atol=BF16_ATOL, host_ms=host_ms, card=self.card,
+            method="host clock around one call ending in a synchronize, "
+            "median of 3 after a warm-up", seconds=time.perf_counter() - t0)
+        del eng, index, retr
+
+    @staticmethod
+    def host_call_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return sorted(samples)[1]
 
     def time_k1(self, emb, q) -> None:
         """K1 at stage A's shape: kernel, plain version, yardstick, bound."""
@@ -1017,12 +1111,22 @@ class Smoke:
             raise AssertionError("stage C ids differ from the plain version")
         got8 = p.kernels.fused_dense_top_k_int8(values, scales, qv, qs, 25)
         self.compare("fused_dense_top_k_int8", ref, got8, 0.0)
+        # SearchEngine's plain int8 route at B = 8 ([8, N] f32 scores,
+        # 0.34 GB) against K2 on the same queries.
+        t0 = time.perf_counter()
+        sv, si = p.SearchEngine(index).similarity_search_batch(
+            q[:8], MODEL, 25)
+        se_swaps = p.check_top_k(got8[0], got8[1], sv, si, INT8_ATOL)
+        se_seconds = time.perf_counter() - t0
         self.retrieve_ms["C"] = p.cuda_event_ms(lambda: retr.retrieve_device(
             {MODEL: q}, None, {MODEL: 1.0}, None, 40.0))
         log(stage="C_10.5M_int8", recall10=r10,
             k2_launches=counts["fused_dense_top_k_int8"],
             ids_equal_plain_8_queries=True,
-            retrieve_ms=self.retrieve_ms["C"])
+            retrieve_ms=self.retrieve_ms["C"],
+            search_engine_b8_vs_k2_swaps=se_swaps,
+            search_engine_b8_atol=INT8_ATOL,
+            search_engine_b8_seconds=se_seconds)
         return index, q, cent
 
     def phase8_stage_e(self, index, cent):
@@ -1558,6 +1662,12 @@ class Smoke:
         self.expect("bf16 fold", c6, at_least=True,
                     bf16_row_reduce=len(lines))
         self.max_err["bf16_row_reduce"] = 0.0
+        t1 = time.perf_counter()
+        edges = self.p.bf16_fold.check_edges(
+            self.dev, *(() if self.BF16_EDGE_SHAPES is None
+                        else (self.BF16_EDGE_SHAPES,)))
+        log(probe="bf16_row_reduce_edges", **edges, card=self.card,
+            seconds=time.perf_counter() - t1)
         log(probe="keys", elements=x.numel(), special_values=13,
             bit_equal_plain=True, round_trip_bit_equal=True, monotone=True,
             bf16_fold=[{key: line[key] for key in (
@@ -1575,6 +1685,7 @@ class Smoke:
             self.no_library(name, "no PyTorch call maps floats to "
                             "order-preserving int32 keys")
             self.bound(name, 8 * n, n, F32_FLOP_S)
+        self.time_row_reduce(g)
         r, w = self.BF16_SHAPES[-1]
         xr = torch.randn((r, w), generator=g, device=self.dev)
         self.time_pair("bf16_row_reduce", lambda: k.bf16_row_reduce(xr),
@@ -1584,6 +1695,54 @@ class Smoke:
                         "argmax only, not the masked max or the packed key")
         self.bound("bf16_row_reduce", r * w * 4 + r * 16, 6 * r * w,
                    F32_FLOP_S)
+
+    def time_row_reduce(self, g) -> None:
+        """P6 at both probe shapes, warm (one input, which stays in the 50
+        MB L2) and cold (copies filling twice the L2, taken in turn): the
+        event pair around one call (median of 10; the wrapper's host work
+        falls inside it), 50 calls back to back between one pair of events
+        (the device loop; host-bound where the wrapper outlasts the
+        kernel), the kernel alone (torch.profiler, mean of 50 launches)
+        and the wrapper's host time, beside the HBM bound."""
+        k, p = self.p.kernels, self.p
+        shapes = []
+        for r, w in self.BF16_SHAPES:
+            xs = p.bf16_fold.cold_inputs(r, w, g, self.dev)
+            turn = itertools.cycle(xs)
+
+            def warm(x=xs[0]):
+                return k.bf16_row_reduce(x)
+
+            def cold():
+                return k.bf16_row_reduce(next(turn))
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                warm()
+            host_ms = (time.perf_counter() - t0) / 50 * 1e3
+            shapes.append({
+                "shape": [r, w], "cold_copies": len(xs),
+                "plan": {"threads_per_row": p.row_plan(w)},
+                "event_ms": p.cuda_event_ms(warm),
+                "event_cold_ms": p.cuda_event_ms(cold),
+                "device_ms": p.device_loop_ms(warm, n_loop=50, trials=3),
+                "kernel_ms": p.profiled_kernel_ms(warm, "row_reduce", n=50),
+                "kernel_cold_ms": p.profiled_kernel_ms(cold, "row_reduce",
+                                                       n=50),
+                "host_ms": host_ms,
+                "plain_event_ms": p.cuda_event_ms(
+                    lambda: k.bf16_row_reduce_torch(xs[0])),
+                "bound_ms": (r * w * 4 + r * 16) / HBM_BYTES_S * 1e3,
+            })
+            del xs, turn
+        log(timing="bf16_row_reduce_shapes", shapes=shapes,
+            predicted_event_ms=list(self.P6_PREDICTED_MS), card=self.card,
+            method="event_ms: CUDA events around one call, median of 10 "
+            "after 3 warm-ups; device_ms: 50 calls between one pair of "
+            "events, best of 3; kernel_ms: torch.profiler device time per "
+            "launch over 50 calls; host_ms: host clock over 50 calls "
+            "without a synchronize")
 
     def phase16_int4_exact(self) -> None:
         """P7 stages 1 and 3: exact at the probe's small shape."""
@@ -1701,15 +1860,16 @@ class Smoke:
         torch.cuda.empty_cache()
         self.phase10_stage_f()
         torch.cuda.empty_cache()
-        emb, q, bm25, terms = self.phase4_stage_a()
+        emb, gold, q, bm25, terms = self.phase4_stage_a()
         self.phase5_stage_b(emb, q, bm25, terms)
+        self.phase17_search_engine(emb, gold, q, bm25, terms)
         self.time_k1(emb, q)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
         self.time_stream(emb)
         self.phase13_anatomy("A", emb, q, 32)
         self.phase14_counted("A", emb, q, 32)
-        del emb, q, bm25, terms
+        del emb, gold, q, bm25, terms
         torch.cuda.empty_cache()
         self.phase6_stage_d()
         torch.cuda.empty_cache()
@@ -1748,6 +1908,7 @@ class _Port:
         from a_nice_rag_tpu_torch.ops import kernels
         from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
+        from a_nice_rag_tpu_torch.ops.kernels.keys import row_plan
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
         from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
         from a_nice_rag_tpu_torch.ops.kernels import int4 as int4_kernels
@@ -1768,12 +1929,16 @@ class _Port:
             quantize_embeddings,
             quantize_queries,
         )
-        from a_nice_rag_tpu_torch.retrieval import FusedRetriever
+        from a_nice_rag_tpu_torch.retrieval import (
+            FusedRetriever,
+            SearchEngine,
+        )
         from a_nice_rag_tpu_torch.retrieval.engine import _ivf_coverage
         from a_nice_rag_tpu_torch.testing import (
             chained_ms,
             cuda_event_ms,
             device_loop_ms,
+            profiled_kernel_ms,
         )
         from a_nice_rag_tpu_torch.testing.parity import (
             check_stream_sum,
@@ -1791,10 +1956,12 @@ class _Port:
         self.fold_active_clusters = int4_kernels.active_clusters
         self.topk_plan, self.int8_smem_bytes = topk_plan, int8_smem_bytes
         self.float_smem_bytes, self.sm_count = float_smem_bytes, _sm_count
+        self.row_plan = row_plan
         self.sm_grid = sm_grid
         self.check_stream_sum = check_stream_sum
         self.check_stream_sum_busy = check_stream_sum_busy
         self.device_loop_ms, self.chained_ms = device_loop_ms, chained_ms
+        self.profiled_kernel_ms = profiled_kernel_ms
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf
         self.build_tile_table = build_tile_table
@@ -1806,6 +1973,7 @@ class _Port:
         self.quantize_embeddings = quantize_embeddings
         self.quantize_queries = quantize_queries
         self.FusedRetriever = FusedRetriever
+        self.SearchEngine = SearchEngine
         self.ivf_coverage = _ivf_coverage
         self.cuda_event_ms = cuda_event_ms
         self.check_top_k = check_top_k

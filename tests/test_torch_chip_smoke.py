@@ -27,6 +27,7 @@ from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
 from a_nice_rag_tpu_torch.ops.kernels import keys as ks
 from a_nice_rag_tpu_torch.ops.kernels import stream as st
 from a_nice_rag_tpu_torch.ops.kernels import topk_plan
+from a_nice_rag_tpu_torch.probes import bf16_fold
 
 WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (it, "ivf_dense_top_k"), (it, "ivf_dense_top_k_int8"),
@@ -55,6 +56,7 @@ class TinySmoke(chip_smoke.Smoke):
     HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
                     single_iters=2, p50_samples=3, recall_queries=64)
     INT4_N, BF16_SHAPES, KEY_NORMALS = 4096, ((8, 512), (16, 1024)), 4096
+    BF16_EDGE_SHAPES = ((1, 1), (7, 3), (4, 1025))
     FOLD_EDGE_N, FOLD_EDGE_D, FOLD_EDGE_B = (100, 301), (8, 40, 1024), (1, 65)
 
 
@@ -89,6 +91,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     port.cuda_event_ms = _host_ms
     port.device_loop_ms = lambda fn, n_loop, trials: _host_ms(fn, n_loop)
     port.chained_ms = lambda fn, n, trials: _host_ms(fn, n)
+    port.profiled_kernel_ms = lambda fn, kernel, n: _host_ms(fn, n)
     port.sm_grid = lambda device, ctas_per_sm=4: 8
     port.int8_smem_bytes = topk_plan.smem_bytes
     port.float_smem_bytes = topk_plan.smem_bytes
@@ -156,6 +159,23 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert keys[0]["bit_equal_plain"] and keys[0]["special_values"] == 13
     assert [f["packed_argmax_agreement"] for f in keys[0]["bf16_fold"]] \
         == [1.0, 1.0]
+    p6 = [r for r in records if r.get("probe") == "bf16_row_reduce_edges"]
+    # 3 shapes x 7 kinds x 3 storage offsets.
+    assert p6[0]["outputs_equal_plain"] and p6[0]["cases"] == 3 * 7 * 3
+    p6t = [r for r in records if r.get("timing") == "bf16_row_reduce_shapes"]
+    assert [s["shape"] for s in p6t[0]["shapes"]] == [[8, 512], [16, 1024]]
+    for s in p6t[0]["shapes"]:
+        for key in ("event_ms", "event_cold_ms", "device_ms", "kernel_ms",
+                    "kernel_cold_ms", "host_ms", "plain_event_ms",
+                    "bound_ms"):
+            assert s[key] > 0, key
+        # Copies of the input fill twice the L2 for the cold timings.
+        assert s["cold_copies"] * s["shape"][0] * s["shape"][1] * 4 \
+            > 2 * bf16_fold.L2_BYTES
+    # 512 and 1024 columns: a CTA of 256 threads a row.
+    assert [s["plan"] for s in p6t[0]["shapes"]] == [
+        {"threads_per_row": 256}] * 2
+    assert p6t[0]["predicted_event_ms"] == [0.010, 0.020]
     int4 = [r for r in records if str(r.get("probe")).startswith("int4")]
     assert [i["probe"] for i in int4] == ["int4_exact", "int4_edges",
                                           "int4_anatomy", "int4_stage2"]
@@ -171,6 +191,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
                                    (2, True, True), (4, True, True),
                                    (1, False, True)]
     assert all(f["smem_bytes"] <= 232_448 for f in fold[0]["shapes"])
+    se = [r for r in records if r.get("stage") == "A_search_engine"]
+    assert se[0]["recall10_planted"] >= 0.99 and se[0]["kernel_launches"] == 0
+    assert se[0]["dense_lists_vs_k1_swaps"] >= 0
+    assert set(se[0]["host_ms"]) == {"search_engine_retrieve",
+                                     "fused_retrieve_device"}
+    assert all(v > 0 for v in se[0]["host_ms"].values())
+    stage_c = [r for r in records if r.get("stage") == "C_10.5M_int8"]
+    assert stage_c[0]["search_engine_b8_vs_k2_swaps"] >= 0
+    assert stage_c[0]["search_engine_b8_atol"] == chip_smoke.INT8_ATOL
     stage_f = [json.loads(line) for line in lines if '"F_headline"' in line]
     assert len(stage_f) == 1
     assert stage_f[0]["recall@10_planted"] >= 0.90

@@ -67,6 +67,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
 )
 from a_nice_rag_tpu_torch.ops.kernels import stream
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
+from a_nice_rag_tpu_torch.probes import bf16_fold
 from a_nice_rag_tpu_torch.probes import int4 as int4_probe
 from a_nice_rag_tpu_torch.probes import kernel_anatomy
 from a_nice_rag_tpu_torch.ops.quantized import (
@@ -614,15 +615,21 @@ def test_cuda_keys_bit_exact(cuda_device):
     assert bool((ordered[1:] >= ordered[:-1]).all())
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3])
 @pytest.mark.parametrize("rows,width,integer", [
     (128, 8192, False), (7, 1, False), (3, 65_536, True), (33, 1000, True),
+    (1, 65_536, False), (256, 16_384, True), (4096, 1001, True),
+    (7, 4097, False), (256, 16_383, False),
 ])
 def test_cuda_bf16_row_reduce_matches_plain(cuda_device, rows, width,
-                                            integer):
+                                            integer, offset):
+    # offset: the view starts that many elements into its buffer, so row
+    # bases leave the 16-byte grid (as odd widths do from row 1 on).
     g = torch.Generator().manual_seed(rows + width)
-    x = (torch.randint(-3, 4, (rows, width), generator=g).float()
-         if integer else torch.randn((rows, width), generator=g))
-    x = x.to(cuda_device)
+    buf = torch.empty(offset + rows * width, device=cuda_device)
+    x = buf[offset:].view(rows, width)
+    x.copy_((torch.randint(-3, 4, (rows, width), generator=g).float()
+             if integer else torch.randn((rows, width), generator=g)))
     before = bf16_row_reduce.launches
     got = bf16_row_reduce(x)
     torch.cuda.synchronize()
@@ -631,6 +638,16 @@ def test_cuda_bf16_row_reduce_matches_plain(cuda_device, rows, width,
         assert torch.equal(a, w)
     ref = torch.argmax(x.to(torch.bfloat16).float(), dim=1)
     assert torch.equal(got[1].long(), ref) and torch.equal(got[3].long(), ref)
+
+
+def test_cuda_bf16_row_reduce_edges(cuda_device):
+    # Ties across a row's warps, all-equal rows, -inf and values below the
+    # mask, +-0.0, values that round to one bf16; R 1-4096, W 1-65536,
+    # storage offsets; torch.equal on all four outputs, one launch a call.
+    line = bf16_fold.check_edges(cuda_device)
+    assert line["cases"] == (len(bf16_fold.EDGE_SHAPES)
+                             * len(bf16_fold.EDGE_KINDS)
+                             * len(bf16_fold.EDGE_OFFSETS))
 
 
 @pytest.mark.parametrize("n,d,b", [

@@ -166,6 +166,19 @@ def test_int8_dot_exact_past_f32_depth():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("upcast_elems", [1, 2500, 7000])
+def test_int8_dot_row_chunks_exact(monkeypatch, upcast_elems):
+    # A doc matrix past the upcast budget is taken a few rows at a time
+    # (1, 2 and 6 rows of 1024-deep chunks here): the same exact sums.
+    monkeypatch.setattr(tquant, "_UPCAST_ELEMS", upcast_elems)
+    rng = np.random.default_rng(9)
+    a = rng.integers(-127, 128, size=(3, 2500)).astype(np.int8)
+    b = rng.integers(-127, 128, size=(13, 2500)).astype(np.int8)
+    want = a.astype(np.int64) @ b.astype(np.int64).T
+    got = tquant.int8_dot(_t(a), _t(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def _lists(rng, l=3, b=5, k=12, n=200):
     idx = np.stack([
         np.stack([rng.permutation(n)[:k] for _ in range(b)]) for _ in range(l)
