@@ -8,7 +8,12 @@ from a_nice_rag_tpu_torch.index.array_index import (  # noqa: F401
     build_index,
 )
 from a_nice_rag_tpu_torch.index.convert import from_reference_index  # noqa: F401
-from a_nice_rag_tpu_torch.index.io import load_index, save_index  # noqa: F401
+from a_nice_rag_tpu_torch.index.io import (  # noqa: F401
+    load_index,
+    load_reference_chunk_db,
+    load_reference_query_db,
+    save_index,
+)
 from a_nice_rag_tpu_torch.index.updates import (  # noqa: F401
     append_documents,
     delete_documents,

@@ -7,7 +7,12 @@ from a_nice_rag_tpu_torch.testing.golden import (  # noqa: F401
     golden_wrrf,
 )
 from a_nice_rag_tpu_torch.testing.synth import (  # noqa: F401
+    REFERENCE_QUALITY_NOISE,
     SynthCorpus,
+    add_hard_distractors,
+    calibrated_quality_corpus,
+    calibrated_sample_queries,
+    sample_queries,
     synth_corpus,
 )
 from a_nice_rag_tpu_torch.testing.timing import (  # noqa: F401

@@ -45,6 +45,30 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      routes are plain torch, as the JAX package's are plain XLA), its
      dense lists held against K1's through check_top_k at BF16_ATOL, and
      the host-clock ms of one retrieve beside the fused retriever's;
+ 18. the reference path, each part launching no kernel (plain torch
+     routes, as in the JAX package): (1) the calibrated synthetic corpus
+     of results/retrieval_evaluation_results_synthetic.csv (9,728 docs +
+     4,096 hard distractors, four 256-wide models, 2,048 queries, the
+     seed-42 85% partition of 1,741) indexed on the card and
+     RetrievalEvaluator.run over the 7 configurations without rerank,
+     each CSV row equal to that file's row to its 3 decimals, and the
+     evaluator's dense scores held against a float64 product at 1e-5
+     (no TF32); (2) the corpus written as reference-format artifacts
+     (chunk DBs, BM25 pickle, query DBs, token CSV) and replayed by
+     evals.replay_reference on the card and on the CPU, each card row
+     within 1/n_q of the CPU's per metric, the artifact loaded twice
+     through IndexManager (one object); (3) tune_bm25 with n_calls ==
+     n_initial == 4 on the card, its history equal to the CPU's; (4)
+     the evaluator on stage A's 2^21 x 256 bf16 index (ids, sources, a
+     vocabulary of letter words, CSR BM25) at B = 256: dense-only,
+     BM25-only and hybrid 5:1 (k = 12,000 lists, WRRF), hybrid recall@10
+     >= 0.99, seconds and peak memory each; (5) RAGSystem on the same
+     index: 16 queries streamed through query_rag_stream (hybrid 5:1,
+     FakeLLMClient, per-model query embeddings), the stream tuple
+     contract and the planted gold among each answer's sources_data,
+     the median retrieval span, and one query under
+     utils.trace.device_profile whose Chrome trace must hold CUDA kernel
+     events;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -108,10 +132,14 @@ except stage F's corpus, which is the bench's numpy synth_corpus.
 
 from __future__ import annotations
 
+import csv
 import itertools
 import json
+import logging
 import re
+import statistics
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -181,6 +209,56 @@ def log(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
+def stage_a_word(v: int) -> str:
+    """Stage A's BM25 term ``v`` as a word of query text: "zq" and one
+    letter a-j per decimal digit. preprocess_text keeps such words as
+    they are (no digit, no stopword, no plural suffix), so a query text
+    built from them reaches BM25 with its terms intact."""
+    return "zq" + "".join("abcdefghij"[int(d)] for d in str(v))
+
+
+class _LogTimes(logging.Handler):
+    """(time, message) of every log record while attached: the seconds of
+    the replay's import and of each configuration come from the records
+    the CLIs log at their stage boundaries."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record) -> None:
+        self.records.append((record.created, record.getMessage()))
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self.root_level = root.level
+        root.setLevel(logging.INFO)
+        root.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self.root_level)
+
+    def config_seconds(self):
+        """{configuration: seconds} from each "Evaluating: X" record to
+        the "X: MRR=..." record that ends it."""
+        starts, out = {}, {}
+        for t, msg in self.records:
+            if msg.startswith("Evaluating: "):
+                starts[msg[len("Evaluating: "):]] = t
+            else:
+                for name, t0 in starts.items():
+                    if msg.startswith(name + ": MRR="):
+                        out[name] = t - t0
+        return out
+
+    def seconds_until(self, prefix, t0):
+        return next(t - t0 for t, msg in self.records
+                    if msg.startswith(prefix))
+
+
 class Smoke:
     # Sizes of the phases (bench.py's configurations for stages A-E).
     N_KERNEL, D_KERNEL = (1 << 20) + 37, 256
@@ -223,6 +301,16 @@ class Smoke:
     KEY_NORMALS = 1 << 24
     # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
     HEADLINE = {}
+    # Phase 18: the calibrated corpus of the synthetic sweep and its
+    # distractors (scripts/run_synthetic_eval.py), the file whose rows
+    # 1-7 the sweep must reproduce, the streamed RAG queries, the tuner's
+    # calls, and the trace events counted in the profile (category).
+    SWEEP = dict(n_docs=9728, dim=256, n_queries=2048, vocab_size=20000,
+                 seed=42)
+    SWEEP_DISTRACTORS = dict(n_per_gold=2, emb_cos=0.90, token_overlap=0.65)
+    SWEEP_CSV = REPO / "results" / "retrieval_evaluation_results_synthetic.csv"
+    RAG_QUERIES, TUNE_CALLS = 16, 4
+    TRACE_EVENTS = "kernel"
 
     def __init__(self, port):
         self.p = port
@@ -863,6 +951,285 @@ class Smoke:
             torch.cuda.synchronize()
             samples.append((time.perf_counter() - t0) * 1e3)
         return sorted(samples)[1]
+
+    # -- phase 18: the reference path ---------------------------------------
+
+    def no_kernels(self, what, fn):
+        """``fn`` driven as a path of its own, with the launch counts set
+        to 0 before and read after: the reference path runs plain torch
+        routes, as the JAX package's run plain XLA."""
+        out, counts = self.main_path(fn)
+        if any(counts.values()):
+            raise AssertionError(f"{what} launched kernels: {counts}")
+        return out
+
+    def phase18_reference_path(self, emb, gold, q, bm25, terms) -> None:
+        t0 = time.perf_counter()
+        c, split = self.sweep_corpus()
+        self.reference_sweep(c, split)
+        with tempfile.TemporaryDirectory() as tmp:
+            fix = self.p.write_reference_fixture(str(Path(tmp) / "ref"), c)
+            self.reference_replay(fix, tmp)
+            self.reference_tune(c, split)
+        del c
+        torch.cuda.empty_cache()
+        index, tokens = self.stage_a_reference_index(emb, bm25, terms)
+        self.evaluator_at_scale(index, gold, q, tokens)
+        self.rag_at_scale(index, gold, q, tokens)
+        del index
+        torch.cuda.empty_cache()
+        log(phase="reference_path", seconds=time.perf_counter() - t0,
+            card=self.card)
+
+    def sweep_corpus(self):
+        t0 = time.perf_counter()
+        p = self.p
+        c = p.add_hard_distractors(p.calibrated_quality_corpus(**self.SWEEP),
+                                   **self.SWEEP_DISTRACTORS)
+        split = p.seed42_split(len(c.gold_ids))
+        log(reference="corpus", docs=len(c.ids), queries=len(c.gold_ids),
+            evaluated=len(split[0]), models=list(c.embeddings),
+            dim=self.SWEEP["dim"], seconds=time.perf_counter() - t0)
+        return c, split
+
+    def reference_sweep(self, c, split) -> None:
+        """Step 1: the 7 configurations without rerank on the card, each
+        row equal to the checked-in CSV's."""
+        p = self.p
+        t0 = time.perf_counter()
+        index = p.build_index(ids=c.ids, sources=c.sources,
+                              contents=c.contents, embeddings=c.embeddings,
+                              token_lists=c.tokens, device=self.dev)
+        build_s = time.perf_counter() - t0
+        ev = p.RetrievalEvaluator(index)
+        eval_idx = split[0]
+        q_embs = {m: c.query_embeddings[m][eval_idx] for m in c.embeddings}
+        gold = [c.gold_ids[i] for i in eval_idx]
+        tokens = [c.query_tokens[i] for i in eval_idx]
+        configs = [x for x in p.STANDARD_CONFIGURATIONS if not x.use_reranker]
+        seconds, rows, found = {}, [], {}
+        for cfg in configs:
+            t1 = time.perf_counter()
+            m = self.no_kernels(f"sweep {cfg.name}", lambda: (
+                ev.evaluate_config(cfg, q_embs, gold,
+                                   query_token_lists=tokens,
+                                   filename_type_filter=None)))
+            seconds[cfg.name] = time.perf_counter() - t1
+            rows.append(p.metrics_csv_row(cfg.name, m))
+            found[cfg.name] = m["found"]
+        want = self.SWEEP_CSV.read_text().splitlines()[1:1 + len(configs)]
+        assert len(want) == len(rows), want
+        mean_rank_diffs = {}
+        for got_row, want_row in zip(rows, want):
+            g, w = got_row.split(","), want_row.split(",")
+            # Every column to the file's decimals, but the mean rank over
+            # found queries: BM25 totals of tied documents (a gold and its
+            # distractors share length and terms) round by the summation
+            # order of the product, so one query's rank may move by one
+            # there, which moves the mean by 1/found.
+            diff = abs(float(g[7]) - float(w[7]))
+            if g[:7] + g[8:] != w[:7] + w[8:] or \
+                    diff > 1.0 / found[g[0]] + 5e-4:
+                raise AssertionError(
+                    f"sweep row {got_row!r} != {self.SWEEP_CSV.name}'s "
+                    f"{want_row!r}")
+            if diff:
+                mean_rank_diffs[g[0]] = round(diff, 3)
+        # The evaluator's dense scores: IEEE float32 products, not TF32.
+        model = next(iter(c.embeddings))
+        got = ev._ranker_scores(model, q_embs[model][:256], None)
+        exact = torch.as_tensor(q_embs[model][:256], dtype=torch.float64,
+                                device=self.dev) @ torch.as_tensor(
+            c.embeddings[model], dtype=torch.float64, device=self.dev).T
+        err = float((got[:, :len(c.ids)].double() - exact).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"dense scores off a float64 product by "
+                                 f"{err}: TF32?")
+        log(reference="sweep", rows=rows, csv=str(self.SWEEP_CSV.name),
+            rows_equal_csv=sum(a == b for a, b in zip(rows, want)),
+            mean_rank_diffs=mean_rank_diffs, evaluated=len(gold),
+            build_index_seconds=build_s, config_seconds=seconds,
+            dense_vs_float64_max_err=err, card=self.card)
+        del index, ev
+
+    def replay(self, fix, tmp, device, out_name):
+        argv = ["--workdir", str(Path(tmp) / out_name),
+                "--output", str(Path(tmp) / f"{out_name}.csv"),
+                "--bm25-pickle", fix.bm25_pickle,
+                "--bm25-queries", fix.bm25_queries_csv,
+                "--device", str(device)]
+        for m, path in fix.chunk_dbs.items():
+            argv += ["--chunk-db", f"{m}={path}"]
+        for m, path in fix.query_dbs.items():
+            argv += ["--queries-db", f"{m}={path}"]
+        t0 = time.time()
+        with _LogTimes() as times:
+            self.no_kernels(f"replay on {device}",
+                            lambda: self.p.replay_main(argv))
+        with open(Path(tmp) / f"{out_name}.csv") as f:
+            rows = list(csv.DictReader(f))
+        return rows, times.seconds_until("stage 1:", t0), \
+            times.config_seconds()
+
+    def reference_replay(self, fix, tmp) -> None:
+        """Step 2: the reference artifacts replayed on the card and on the
+        CPU; the card's rows within 1/n_q of the CPU's."""
+        rows, import_s, seconds = self.replay(fix, tmp, self.dev, "card")
+        cpu_rows, cpu_import_s, cpu_seconds = self.replay(
+            fix, tmp, "cpu", "cpu")
+        n_q = len(self.p.seed42_split(self.SWEEP["n_queries"])[0])
+        assert [r["Model"] for r in rows] == [r["Model"] for r in cpu_rows]
+        assert len(rows) == 7, [r["Model"] for r in rows]
+        worst = 0.0
+        for got, want in zip(rows, cpu_rows):
+            for key in ("MRR", "Recall@1", "Recall@5", "Recall@10",
+                        "Recall@15"):
+                diff = abs(float(got[key]) - float(want[key]))
+                worst = max(worst, diff)
+                # One query's rank moves a metric by <= 1/n_q, and each
+                # 3-decimal rounding by half a unit of the last place.
+                if diff > 1.0 / n_q + 1e-3:
+                    raise AssertionError(f"replay {got} vs CPU {want}")
+        artifact = str(Path(tmp) / "card" / "index")
+        mgr = self.p.IndexManager(device=self.dev)
+        t0 = time.perf_counter()
+        first = mgr.load_artifact(artifact)
+        load_s = time.perf_counter() - t0
+        assert mgr.load_artifact(artifact) is first
+        assert first.device.type == self.dev.type
+        line = ",".join
+        log(reference="replay", n_q=n_q, rows=[line(r.values()) for r in rows],
+            rows_equal_cpu=sum(a == b for a, b in zip(rows, cpu_rows)),
+            cpu_rows_differing=[line(b.values()) for a, b in
+                                zip(rows, cpu_rows) if a != b],
+            max_metric_diff_vs_cpu=worst, import_seconds=import_s,
+            config_seconds=seconds, cpu_import_seconds=cpu_import_s,
+            cpu_config_seconds=cpu_seconds, manager_load_seconds=load_s,
+            manager_same_object=True, card=self.card)
+        del first, mgr
+
+    def reference_tune(self, c, split) -> None:
+        """Step 3: tune_bm25's initial calls (no GP) on the card and on the
+        CPU: equal histories."""
+        rows = [{"id": c.ids[i], "tokens_regular": c.tokens[i],
+                 "tokens_lemmatized": c.tokens[i]} for i in range(len(c.ids))]
+        val = split[1]
+        toks = [c.query_tokens[i] for i in val]
+        qt = {"regular": toks, "lemmatized": toks}
+        gold = [c.gold_ids[i] for i in val]
+        kw = dict(n_calls=self.TUNE_CALLS, n_initial=self.TUNE_CALLS)
+        t0 = time.perf_counter()
+        got = self.no_kernels("tune_bm25", lambda: self.p.tune_bm25(
+            rows, qt, gold, device=self.dev, **kw))
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = self.p.tune_bm25(rows, qt, gold, device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        if got.history != want.history:
+            raise AssertionError("tune_bm25 history on the card differs "
+                                 "from the CPU's")
+        log(reference="tune_bm25", calls=len(got.history),
+            val_queries=len(gold), history_equal_cpu=True,
+            best_params=got.best_params, best_recall15=got.best_score,
+            seconds=card_s, cpu_seconds=cpu_s, card=self.card)
+
+    def stage_a_reference_index(self, emb, bm25, terms):
+        """Stage A's arrays with ids, sources and a vocabulary of words
+        (stage_a_word), as a user's index would carry them."""
+        p = self.p
+        n = emb.shape[0]
+        meta = p.CorpusMeta(ids=[str(i) for i in range(n)],
+                            sources=["CG"] * n, contents=[""] * n, urls=[],
+                            n_docs=n, n_docs_padded=n)
+        words = [stage_a_word(v) for v in range(bm25.vocab_size)]
+        index = p.ArrayIndex(
+            meta=meta, dense={MODEL: emb}, bm25=bm25,
+            vocab={w: v for v, w in enumerate(words)},
+            bm25_stats={"max_df": self.DF},
+            bm25_doc_mask=np.ones(n, dtype=bool))
+        tokens = [[words[v] for v in row if v >= 0] for row in terms.tolist()]
+        return index, tokens
+
+    def evaluator_at_scale(self, index, gold, q, tokens) -> None:
+        """Step 4: the evaluator at stage A's 2^21 docs, B = 256."""
+        p = self.p
+        ev = p.RetrievalEvaluator(index)
+        gold_ids = [str(g) for g in gold.tolist()]
+        names = ("Voyage-3-Large", "BM25", "Voyage-3-Large + BM25")
+        out = {}
+        for cfg in p.STANDARD_CONFIGURATIONS:
+            if cfg.name not in names:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = self.no_kernels(f"evaluator {cfg.name}", lambda: (
+                ev.evaluate_config(cfg, {MODEL: q}, gold_ids,
+                                   query_token_lists=tokens,
+                                   filename_type_filter=None)))
+            torch.cuda.synchronize()
+            out[cfg.name] = dict(
+                seconds=time.perf_counter() - t0,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                mrr=m["mrr"], recall10=m["recall@10"],
+                similarity_k=cfg.similarity_k)
+        hybrid = out["Voyage-3-Large + BM25"]["recall10"]
+        assert hybrid >= 0.99, f"evaluator hybrid recall@10 {hybrid} < 0.99"
+        assert min(v["recall10"] for v in out.values()) >= 0.95, out
+        log(reference="evaluator_stage_A", n=index.n_docs, batch=len(gold_ids),
+            configs=out, card=self.card)
+
+    def rag_at_scale(self, index, gold, q, tokens) -> None:
+        """Step 5: RAGSystem over stage A's index, the answers streamed."""
+        p = self.p
+        system = p.RAGSystem(indexes={p.InfoSource.NICE: index},
+                             llm_clients={"fake": p.FakeLLMClient()},
+                             device=self.dev)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        q_host = q.cpu().numpy()
+        gold_ids = [str(g) for g in gold.tolist()]
+
+        def ask(i):
+            text = " ".join(tokens[i])
+            if p.preprocess_text(text, use_lemmatization=True) != tokens[i]:
+                raise AssertionError(f"query text {text!r} loses terms")
+            return list(system.query_rag_stream(
+                text, "fake-llm", model_weights=w, use_hybrid_search=True,
+                use_reranker=False, filename_type_filter=None,
+                query_embedding={MODEL: q_host[i]}))
+
+        spans = []
+        for i in range(self.RAG_QUERIES):
+            out = self.no_kernels("query_rag_stream", lambda: ask(i))
+            if len(out) < 2 or not all(
+                    len(t) == 4 and isinstance(t[0], str)
+                    and isinstance(t[1], str) and isinstance(t[2], str)
+                    and isinstance(t[3], list) for t in out):
+                raise AssertionError(f"stream tuples {out[:2]}")
+            answer = "".join(t[0] for t in out)
+            if not answer.startswith("[fake:fake-llm]"):
+                raise AssertionError(f"answer {answer[:80]!r}")
+            sections = [d["section_id"] for d in out[-1][3]]
+            if gold_ids[i] not in sections:
+                raise AssertionError(f"query {i}: gold {gold_ids[i]} not "
+                                     f"among its sources {sections}")
+            spans.append(system.last_trace.durations["retrieval"])
+        with tempfile.TemporaryDirectory() as tmp:
+            with p.device_profile(tmp) as prof:
+                out = ask(self.RAG_QUERIES)
+            with open(prof.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+        n_events = sum(e.get("cat") == self.TRACE_EVENTS for e in events)
+        if not n_events:
+            raise AssertionError(f"no {self.TRACE_EVENTS!r} events in the "
+                                 "profile of one query")
+        log(reference="rag_stage_A", n=index.n_docs, queries=len(spans),
+            gold_in_sources=len(spans), weights=[5, 1],
+            retrieval_span_median_ms=statistics.median(spans) * 1e3,
+            retrieval_span_ms=[s * 1e3 for s in spans],
+            profiled_query_trace_events=len(events),
+            profiled_query_kernel_events=n_events, card=self.card)
+        del system
 
     def time_k1(self, emb, q) -> None:
         """K1 at stage A's shape: kernel, plain version, yardstick, bound."""
@@ -1863,6 +2230,7 @@ class Smoke:
         emb, gold, q, bm25, terms = self.phase4_stage_a()
         self.phase5_stage_b(emb, q, bm25, terms)
         self.phase17_search_engine(emb, gold, q, bm25, terms)
+        self.phase18_reference_path(emb, gold, q, bm25, terms)
         self.time_k1(emb, q)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
@@ -1895,6 +2263,29 @@ class _Port:
 
     def __init__(self):
         from a_nice_rag_tpu_torch import bench, require_cuda
+        from a_nice_rag_tpu_torch.config import InfoSource
+        from a_nice_rag_tpu_torch.evals import (
+            STANDARD_CONFIGURATIONS,
+            RetrievalEvaluator,
+        )
+        from a_nice_rag_tpu_torch.evals.metrics import metrics_csv_row
+        from a_nice_rag_tpu_torch.evals.replay_reference import (
+            main as replay_main,
+        )
+        from a_nice_rag_tpu_torch.evals.retrieval_eval import seed42_split
+        from a_nice_rag_tpu_torch.index import build_index
+        from a_nice_rag_tpu_torch.index.manager import IndexManager
+        from a_nice_rag_tpu_torch.ingest.bm25_tune import tune_bm25
+        from a_nice_rag_tpu_torch.rag import FakeLLMClient, RAGSystem
+        from a_nice_rag_tpu_torch.testing import (
+            add_hard_distractors,
+            calibrated_quality_corpus,
+        )
+        from a_nice_rag_tpu_torch.testing.reference_fixture import (
+            write_reference_fixture,
+        )
+        from a_nice_rag_tpu_torch.text import preprocess_text
+        from a_nice_rag_tpu_torch.utils.trace import device_profile
         from a_nice_rag_tpu_torch.index.array_index import (
             ArrayIndex,
             CorpusMeta,
@@ -1977,6 +2368,17 @@ class _Port:
         self.ivf_coverage = _ivf_coverage
         self.cuda_event_ms = cuda_event_ms
         self.check_top_k = check_top_k
+        self.InfoSource, self.RAGSystem = InfoSource, RAGSystem
+        self.FakeLLMClient, self.device_profile = FakeLLMClient, device_profile
+        self.RetrievalEvaluator = RetrievalEvaluator
+        self.STANDARD_CONFIGURATIONS = STANDARD_CONFIGURATIONS
+        self.metrics_csv_row, self.seed42_split = metrics_csv_row, seed42_split
+        self.replay_main, self.IndexManager = replay_main, IndexManager
+        self.tune_bm25, self.build_index = tune_bm25, build_index
+        self.add_hard_distractors = add_hard_distractors
+        self.calibrated_quality_corpus = calibrated_quality_corpus
+        self.write_reference_fixture = write_reference_fixture
+        self.preprocess_text = preprocess_text
 
 
 def main() -> int:

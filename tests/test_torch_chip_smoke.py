@@ -58,6 +58,39 @@ class TinySmoke(chip_smoke.Smoke):
     INT4_N, BF16_SHAPES, KEY_NORMALS = 4096, ((8, 512), (16, 1024)), 4096
     BF16_EDGE_SHAPES = ((1, 1), (7, 3), (4, 1025))
     FOLD_EDGE_N, FOLD_EDGE_D, FOLD_EDGE_B = (100, 301), (8, 40, 1024), (1, 65)
+    # Phase 18: the calibrated corpus at a tiny size (its expected rows
+    # come from the JAX package's evaluator, see _sweep_csv); the CPU
+    # profile holds operator events, no CUDA kernels.
+    SWEEP = dict(n_docs=300, dim=16, n_queries=64, vocab_size=500, seed=42)
+    RAG_QUERIES, TUNE_CALLS, TRACE_EVENTS = 4, 2, "cpu_op"
+
+
+def _sweep_csv(path):
+    """The JAX package's sweep of TinySmoke's corpus: rows 1-7 of the
+    file phase 18 holds its rows against."""
+    from a_nice_rag_tpu.evals.retrieval_eval import (
+        STANDARD_CONFIGURATIONS,
+        RetrievalEvaluator,
+        seed42_split,
+    )
+    from a_nice_rag_tpu.index import build_index
+    from a_nice_rag_tpu.testing import (
+        add_hard_distractors,
+        calibrated_quality_corpus,
+    )
+
+    c = add_hard_distractors(calibrated_quality_corpus(**TinySmoke.SWEEP),
+                             **TinySmoke.SWEEP_DISTRACTORS)
+    idx = build_index(ids=c.ids, sources=c.sources, contents=c.contents,
+                      embeddings=c.embeddings, token_lists=c.tokens)
+    ev, _ = seed42_split(len(c.gold_ids))
+    RetrievalEvaluator(idx).run(
+        [x for x in STANDARD_CONFIGURATIONS if not x.use_reranker],
+        {m: v[ev] for m, v in c.query_embeddings.items()},
+        [c.gold_ids[i] for i in ev],
+        query_token_lists=[c.query_tokens[i] for i in ev],
+        filename_type_filter=None, output_csv=str(path))
+    return path
 
 
 def _host_ms(fn, n=3, warmup=1):
@@ -71,8 +104,13 @@ def _host_ms(fn, n=3, warmup=1):
     return statistics.median(samples)
 
 
-def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
+def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(TinySmoke, "SWEEP_CSV",
+                        _sweep_csv(tmp_path / "sweep.csv"))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 1)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for mod, name in WRAPPED:
@@ -197,6 +235,35 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys):
     assert set(se[0]["host_ms"]) == {"search_engine_retrieve",
                                      "fused_retrieve_device"}
     assert all(v > 0 for v in se[0]["host_ms"].values())
+    ref = {r["reference"]: r for r in records if "reference" in r}
+    assert list(ref) == ["corpus", "sweep", "replay", "tune_bm25",
+                         "evaluator_stage_A", "rag_stage_A"]
+    # 300 docs + 2 distractors for each evaluated gold with tokens.
+    assert ref["corpus"]["docs"] > 300 and ref["corpus"]["evaluated"] == 54
+    sweep = ref["sweep"]
+    assert len(sweep["rows"]) == 7 and sweep["rows_equal_csv"] == 7
+    assert sweep["rows"] == (tmp_path / "sweep.csv").read_text(
+        ).splitlines()[1:]
+    assert set(sweep["config_seconds"]) == {
+        row.split(",")[0] for row in sweep["rows"]}
+    assert sweep["dense_vs_float64_max_err"] <= 1e-5
+    replay = ref["replay"]
+    assert replay["n_q"] == 54 and len(replay["rows"]) == 7
+    assert replay["rows_equal_cpu"] == 7 and replay["manager_same_object"]
+    assert replay["import_seconds"] > 0
+    assert len(replay["config_seconds"]) == 7
+    assert ref["tune_bm25"]["calls"] == 2
+    assert ref["tune_bm25"]["history_equal_cpu"]
+    ev = ref["evaluator_stage_A"]["configs"]
+    assert list(ev) == ["Voyage-3-Large", "BM25", "Voyage-3-Large + BM25"]
+    assert ev["Voyage-3-Large + BM25"]["recall10"] >= 0.99
+    assert all(c["seconds"] > 0 and c["peak_gib"] > 0 for c in ev.values())
+    rag = ref["rag_stage_A"]
+    assert rag["queries"] == rag["gold_in_sources"] == 4
+    assert rag["retrieval_span_median_ms"] > 0
+    assert rag["profiled_query_kernel_events"] > 0
+    phase18 = [r for r in records if r.get("phase") == "reference_path"]
+    assert phase18[0]["seconds"] > 0
     stage_c = [r for r in records if r.get("stage") == "C_10.5M_int8"]
     assert stage_c[0]["search_engine_b8_vs_k2_swaps"] >= 0
     assert stage_c[0]["search_engine_b8_atol"] == chip_smoke.INT8_ATOL
