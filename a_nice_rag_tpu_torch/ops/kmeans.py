@@ -20,7 +20,7 @@ seeded with ``seed``; it cannot reproduce ``jax.random.choice``, so
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -147,3 +147,57 @@ def assign_clusters(
     Returns (cluster ids [N, top], scores [N, top])."""
     chunk = _chunk_for(x.shape[0], chunk)
     return _assign_top(x, cent, min(top, cent.shape[0]), chunk)
+
+
+def spherical_kmeans_batched(
+    xs: Sequence[torch.Tensor],
+    n_valids: Sequence[int],
+    n_clusters: int,
+    n_iters: int = 10,
+    seed: int = 0,
+    chunk: int = 8192,
+    init: Optional[torch.Tensor] = None,
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """S independent k-means, one per row set: the per-shard IVF build's
+    clustering (counterpart of the JAX package's vmapped
+    ``spherical_kmeans_batched``).
+
+    ``xs``: S tensors [Np_s, D] (or one [S, Np, D] tensor), each on its
+    shard's device; rows at or past ``n_valids[s]`` are padding. Each
+    Lloyd iteration is launched for every shard in turn, so shards on
+    distinct devices cluster at the same time. Shard s seeds with
+    ``seed + s`` (its rows drawn by :func:`kmeans_init_rows`); ``init``
+    ([S, C, D], unit rows) replaces those draws. Shards with
+    ``n_valids[s] == 0`` keep zero centroids, and their assignments are
+    zeros. Returns (centroids, assignments): S tensors [C, D] f32 and
+    [Np_s] int32, each on its shard's device.
+    """
+    c = int(n_clusters)
+    cents, chunks = [], []
+    for s, x in enumerate(xs):
+        real = int(n_valids[s])
+        chunks.append(_chunk_for(max(real, 1), chunk))
+        if init is not None:
+            cents.append(torch.as_tensor(init[s], dtype=torch.float32)
+                         .to(x.device))
+        elif real <= 0:
+            cents.append(torch.zeros((c, x.shape[1]), dtype=torch.float32,
+                                     device=x.device))
+        else:
+            assert real >= c, (real, c)
+            rows = kmeans_init_rows(real, c, seed + s).to(x.device)
+            cent = x.index_select(0, rows).to(torch.float32)
+            cents.append(cent / torch.clamp_min(
+                torch.sqrt((cent * cent).sum(dim=1, keepdim=True)), 1e-12))
+    for _ in range(n_iters):
+        cents = [
+            _lloyd_iter(x, cent, int(n_valids[s]), chunks[s])[0]
+            if int(n_valids[s]) > 0 else cent
+            for s, (x, cent) in enumerate(zip(xs, cents))
+        ]
+    assigns = [
+        _assign(x, cent, chunks[s]) if int(n_valids[s]) > 0
+        else torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
+        for s, (x, cent) in enumerate(zip(xs, cents))
+    ]
+    return cents, assigns

@@ -19,5 +19,6 @@ from a_nice_rag_tpu_torch.testing.timing import (  # noqa: F401
     chained_ms,
     cuda_event_ms,
     device_loop_ms,
+    profiled_device_ms,
     profiled_kernel_ms,
 )

@@ -16,6 +16,12 @@ the device; there is no CPU fallback):
 - :func:`profiled_kernel_ms`: ``torch.profiler``'s device time of the
   kernels whose name holds a given string, per launch, over ``n`` calls:
   the kernel alone, where a call's host work outlasts it.
+- :func:`profiled_device_ms`: the device time and the launches of every
+  kernel of a call, per call, from the same trace.
+
+A trace that holds no kernel at all is taken again, up to
+``TRACE_ATTEMPTS`` times: ``torch.profiler`` has returned one without
+the device's activity right after another session on the card.
 
 The JAX package's counterparts (``testing/timing.py``:
 ``chained_dispatch_ms`` and ``true_device_ms``) force value reads and
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import statistics
 import time
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
@@ -90,20 +96,48 @@ def chained_ms(fn: Callable[[], object], n: int = 10, trials: int = 3,
     return best
 
 
+TRACE_ATTEMPTS = 3
+
+
+def _traced_kernels(fn: Callable[[], object], n: int, warmup: int,
+                    keep: Callable, what: str) -> list:
+    """``key_averages`` entries that ``keep`` selects, from a CUDA trace
+    of ``n`` calls of ``fn``; a trace without a CUDA kernel is taken
+    again (see the module's docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _warm(fn, warmup)
+    for _ in range(TRACE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        entries = prof.key_averages()
+        if any(e.device_type.name == "CUDA" for e in entries):
+            break
+    events = [e for e in entries if keep(e)]
+    if not sum(e.count for e in events):
+        raise RuntimeError(f"the profiler traced no kernel named {what}")
+    return events
+
+
 def profiled_kernel_ms(fn: Callable[[], object], kernel: str, n: int = 50,
                        warmup: int = 3) -> float:
     """Mean device milliseconds per launch of the kernels whose name holds
     ``kernel``, traced by ``torch.profiler`` over ``n`` calls of ``fn``;
     raises if the trace holds none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    _warm(fn, warmup)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
+    events = _traced_kernels(fn, n, warmup, lambda e: kernel in e.key,
+                             f"*{kernel}*")
     launches = sum(e.count for e in events)
-    if not launches:
-        raise RuntimeError(f"the profiler traced no kernel named *{kernel}*")
     return sum(e.device_time_total for e in events) / launches / 1e3
+
+
+def profiled_device_ms(fn: Callable[[], object], n: int = 5,
+                       warmup: int = 1) -> Tuple[float, float]:
+    """(device milliseconds, kernel launches) per call of ``fn``: every
+    CUDA kernel of ``n`` calls in one ``torch.profiler`` trace; raises if
+    the trace holds none."""
+    events = _traced_kernels(fn, n, warmup,
+                             lambda e: e.device_type.name == "CUDA", "at all")
+    return (sum(e.self_device_time_total for e in events) / n / 1e3,
+            sum(e.count for e in events) / n)

@@ -69,6 +69,29 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      the median retrieval span, and one query under
      utils.trace.device_profile whose Chrome trace must hold CUDA kernel
      events;
+ 19. the sharded path (parallel/) on a virtual mesh of 4 corpus slots on
+     the card, each part driven with the launch counts zeroed and read:
+     (a) stage A's index through sharded_dense_top_k (ids equal to
+     unsharded K1's, K1 once a shard) and ShardedRetriever (hybrid,
+     recall@10 >= 0.99, its lists against FusedRetriever's through the
+     exact rescoring, the torch route at B = 8, each shard's K1 list
+     against its plain version), with the sharded, unsharded, K1 and
+     merge times and a profile of the call (device ms, launches, idle
+     share, host enqueue ms); (b) stage B's filter and two-tier streaming
+     BM25 (K1 masked and on the common tier of each shard) against the
+     unsharded two-tier route; (e) recovery: DeviceHealthMonitor with
+     slot 2 dead, reshard_surviving over 3 slots, lists against the full
+     mesh's, and a dp = 2 x corpus = 2 mesh serving an odd batch through
+     ShardedSearchEngine with the dp = 1 mesh's ids; (f) 16 answers of
+     RAGSystem over ShardedSearchEngine, the gold among each one's
+     sources; (d) stage D's corpus with shard_ivf (per-shard k-means):
+     64 calls at B = 8 through K3 per shard (recall@10 >= 0.90), a full
+     probe equal to the exact route, save_shard_ivf / load_shard_ivf, the
+     clustering loaded into the int8 copy of the corpus (K4 per shard),
+     each shard's K3 / K4 list against its plain version; (c) stage C's
+     int8 matrix as 4 views through K2 per shard against unsharded K2
+     (recall@10 >= 0.95), each shard's list torch.equal to its plain
+     version, and the sharded and unsharded times;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -299,6 +322,10 @@ class Smoke:
     # was first timed on the card (ms, low and high).
     P6_PREDICTED_MS = (0.010, 0.020)
     KEY_NORMALS = 1 << 24
+    # Phase 19: corpus slots of the virtual mesh on the card, each shard's
+    # probed clusters (of ~sqrt(n_local) per shard), the odd batch served
+    # over dp = 2.
+    N_SLOTS, NPROBE_SHARDED, DP_ODD_B = 4, 16, 7
     # Stage F: bench.HeadlineConfig fields; empty = the bench's widths.
     HEADLINE = {}
     # Phase 18: the calibrated corpus of the synthetic sweep and its
@@ -325,6 +352,7 @@ class Smoke:
         self.library = {}
         self.bounds = {}
         self.retrieve_ms = {}
+        self.shard_seconds, self.sharded_parts = {}, {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -881,6 +909,7 @@ class Smoke:
             retrieve_ms=p.cuda_event_ms(
                 lambda: retr.retrieve_device(qd, terms_b, w, "CG", 40.0)),
             **routes)
+        return terms_b
 
     def phase17_search_engine(self, emb, gold, q, bm25, terms) -> None:
         """SearchEngine (the reference-parity API, plain torch routes, no
@@ -1348,7 +1377,7 @@ class Smoke:
         self.crossover("D_2M_bf16", index, kw, self.NPROBE_D, q, terms, w,
                        self.CROSS_B)
         self.time_ivf_d(emb, q[:bm], iv)
-        return index
+        return index, q, gold
 
     def crossover(self, label, index, kw, nprobe, q, terms, w,
                   batches) -> None:
@@ -1494,7 +1523,7 @@ class Smoke:
             search_engine_b8_vs_k2_swaps=se_swaps,
             search_engine_b8_atol=INT8_ATOL,
             search_engine_b8_seconds=se_seconds)
-        return index, q, cent
+        return index, q, cent, gold
 
     def phase8_stage_e(self, index, cent):
         """bench.py's 10.5M int8 IVF: the corpus is already cluster-major,
@@ -2198,6 +2227,490 @@ class Smoke:
         self.bound("int4_fold_max", np_ * d // 2 + b * d + b * 4,
                    2 * b * np_ * d, INT8_OP_S)
 
+    # -- phase 19: the sharded path --------------------------------------
+
+    def slot_mesh(self, n, dp=1):
+        """dp x n/dp slots, every one on this card: a virtual mesh."""
+        return self.p.make_mesh(shape=(dp, n // dp), devices=[self.dev] * n)
+
+    def shard_timed(self, fn):
+        """(fn(), seconds, bytes it left allocated on the card)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.memory_allocated() - before)
+
+    def shard_lists_vs_plain(self, sidx, q, k) -> None:
+        """Each shard's K1 list against its plain version."""
+        kern = self.p.kernels
+        for sh in sidx.shards:
+            mat = sh.dense[MODEL]
+            self.compare("fused_dense_top_k",
+                         kern.fused_dense_top_k_torch(mat, q, k),
+                         kern.fused_dense_top_k(mat, q, k), BF16_ATOL)
+
+    def device_profile(self, fn, n=5) -> dict:
+        """One call of ``fn``: its kernels' device time and launches
+        (``torch.profiler`` over n calls), its CUDA-event time without the
+        profiler, the idle share of that time, and the host's median time
+        to enqueue it (no synchronize inside)."""
+        device_ms, launches = self.p.profiled_device_ms(fn, n)
+        enqueue = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        event_ms = self.p.cuda_event_ms(fn)
+        return {"device_ms": device_ms, "kernel_launches": launches,
+                "event_ms": event_ms,
+                "idle_share": max(0.0, 1.0 - device_ms / event_ms),
+                "enqueue_ms": statistics.median(enqueue)}
+
+    def phase19a_sharded(self, emb, gold, q, bm25, terms):
+        """Stage A's index over N_SLOTS corpus slots: K1 per shard, the
+        exact merge against unsharded K1 and the fused retriever, the
+        torch route at B = 8, and the times beside the unsharded ones."""
+        p, b = self.p, self.b
+        n = emb.shape[0]
+        index = self.make_index(emb, bm25, n)
+        sidx, secs, alloc = self.shard_timed(
+            lambda: p.shard_index(index, self.slot_mesh(self.N_SLOTS)))
+        self.shard_seconds["A"] = secs
+        (sv, si), c_dense = self.main_path(
+            lambda: p.sharded_dense_top_k(sidx, MODEL, q, 32))
+        self.expect("sharded A, dense", c_dense,
+                    fused_dense_top_k=self.N_SLOTS)
+        kv, ki = p.kernels.fused_dense_top_k(emb, q, 32)
+        torch.cuda.synchronize()
+        if not torch.equal(si, ki):
+            raise AssertionError("sharded dense ids differ from K1's")
+        dense_err = float((sv - kv).abs().max())
+        assert dense_err <= F32_ATOL, dense_err
+
+        kw = dict(similarity_k=32, common_sections_n=15, budget=1024)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        qd = {MODEL: q}
+        retr = p.ShardedRetriever(sidx, (MODEL,), use_bm25=True, **kw)
+        assert retr.use_kernel, "stage A's shards must route to the kernels"
+        got, counts = self.main_path(
+            lambda: retr.retrieve_lists(qd, terms, w, None, 40.0))
+        self.expect("sharded A", counts, fused_dense_top_k=self.N_SLOTS)
+        recall = b.recall_at_10(got[0], gold)
+        assert recall >= 0.99, f"sharded hybrid recall@10 {recall} < 0.99"
+        flat = p.FusedRetriever(index, (MODEL,), use_bm25=True, **kw)
+        rescore = [lambda ids: b.exact_dense(emb, q, ids),
+                   lambda ids: b.exact_bm25_uniform(bm25, terms, self.DF,
+                                                    ids)]
+        vs_flat = b.assert_route_parity(
+            got, flat.retrieve_device(qd, terms, w, None, 40.0), rescore,
+            [F32_ATOL, BM25_ATOL])
+
+        # B = 8: the torch route per shard, and each shard's K1 list
+        # against its plain version.
+        q8, t8 = q[:8], terms[:8]
+        torch_retr = p.ShardedRetriever(sidx, (MODEL,), use_bm25=True,
+                                        dense_backend="torch", **kw)
+        assert not torch_retr.use_kernel
+        got8, c8 = self.main_path(
+            lambda: retr.retrieve_lists({MODEL: q8}, t8, w, None, 40.0))
+        self.expect("sharded A, B=8", c8, fused_dense_top_k=self.N_SLOTS)
+        ref8 = self.no_kernels("sharded A, torch route", lambda: (
+            torch_retr.retrieve_lists({MODEL: q8}, t8, w, None, 40.0)))
+        vs_torch = b.assert_route_parity(
+            got8, ref8, [lambda ids: b.exact_dense(emb, q8, ids),
+                         lambda ids: b.exact_bm25_uniform(bm25, t8, self.DF,
+                                                          ids)],
+            [F32_ATOL, BM25_ATOL])
+        self.shard_lists_vs_plain(sidx, q8, 32)
+
+        self.retrieve_ms["A_sharded"] = p.cuda_event_ms(
+            lambda: retr.retrieve_device(qd, terms, w, None, 40.0))
+        self.retrieve_ms["A_unsharded"] = p.cuda_event_ms(
+            lambda: flat.retrieve_device(qd, terms, w, None, 40.0))
+        lists = [p.kernels.fused_dense_top_k(sh.dense[MODEL], q, 32)
+                 for sh in sidx.shards]
+        vals = [v for v, _ in lists]
+        gids = [i + sh.offset for (_, i), sh in zip(lists, sidx.shards)]
+        merge_ms = p.cuda_event_ms(
+            lambda: p.gather_merge(vals, gids, 32, self.dev))
+        kern, w1 = p.kernels, {MODEL: 1.0}
+        dense_kw = dict(use_bm25=False, **kw)
+        sharded_dense = p.ShardedRetriever(sidx, (MODEL,), **dense_kw)
+        flat_dense = p.FusedRetriever(index, (MODEL,), **dense_kw)
+        parts_ms = {
+            "k1_whole": p.cuda_event_ms(
+                lambda: kern.fused_dense_top_k(emb, q, 32)),
+            "k1_each_shard": p.cuda_event_ms(lambda: [
+                kern.fused_dense_top_k(sh.dense[MODEL], q, 32)
+                for sh in sidx.shards]),
+            "dense_only_sharded": p.cuda_event_ms(
+                lambda: sharded_dense.retrieve_device(qd, None, w1, None,
+                                                      40.0)),
+            "dense_only_unsharded": p.cuda_event_ms(
+                lambda: flat_dense.retrieve_device(qd, None, w1, None,
+                                                   40.0)),
+        }
+        profile = {
+            "sharded": self.device_profile(
+                lambda: retr.retrieve_device(qd, terms, w, None, 40.0)),
+            "unsharded": self.device_profile(
+                lambda: flat.retrieve_device(qd, terms, w, None, 40.0)),
+        }
+        log(sharded="A", slots=self.N_SLOTS, n_local=sidx.n_local,
+            shard_index_s=secs, shard_index_bytes=alloc,
+            dense_ids_equal_k1=True, dense_max_abs_err=dense_err,
+            k1_launches_per_call=counts["fused_dense_top_k"],
+            recall10_hybrid=recall, vs_unsharded=vs_flat,
+            b8_vs_torch_route=vs_torch,
+            retrieve_ms=self.retrieve_ms["A_sharded"],
+            unsharded_retrieve_ms=self.retrieve_ms["A_unsharded"],
+            merge_ms=merge_ms, merge_shape=[q.shape[0], self.N_SLOTS, 32],
+            parts_ms=parts_ms, profile=profile, card=self.card)
+        return sidx, got, kw, w
+
+    def phase19b_sharded(self, emb, q, bm25, terms_b) -> None:
+        """Stage B's settings over N_SLOTS slots: a filter over half the
+        docs and two-tier streaming BM25 per shard (K1 masked on every
+        shard, and K1 on every shard's common tier)."""
+        p, b = self.p, self.b
+        n = emb.shape[0]
+        sources = [("CG" if i % 2 == 0 else "NG") + str(i // 2)
+                   for i in range(n)]
+        index = self.make_index(emb, bm25, n, sources)
+        sidx, secs, _ = self.shard_timed(lambda: p.shard_index(
+            index, self.slot_mesh(self.N_SLOTS),
+            two_tier_common=self.V_COMMON, two_tier_dtype="float32"))
+        self.shard_seconds["B"] = secs
+        assert all(m is not None for m in sidx.filter_mask("CG")[0])
+        kw = dict(similarity_k=32, common_sections_n=32, budget=1024)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        qd = {MODEL: q}
+        retr = p.ShardedRetriever(sidx, (MODEL,), use_bm25=True,
+                                  bm25_backend="two_tier_streaming", **kw)
+        got, counts = self.main_path(
+            lambda: retr.retrieve_lists(qd, terms_b, w, "CG", 40.0))
+        self.expect("sharded B", counts,
+                    fused_dense_top_k=2 * self.N_SLOTS)
+        mask = index.filter_mask("CG")
+        for ids in (got[0], got[2].reshape(-1, got[2].shape[-1])):
+            live = ids[ids >= 0].long()
+            assert bool(mask[live].all()), "an id outside the filter mask"
+        flat = p.FusedRetriever(index, (MODEL,), use_bm25=True,
+                                two_tier_common=self.V_COMMON,
+                                two_tier_dtype="float32", **kw)
+        assert flat._two_tier is not None
+        routes = b.assert_route_parity(
+            got, flat.retrieve_device(qd, terms_b, w, "CG", 40.0),
+            [lambda ids: b.exact_dense(emb, q, ids),
+             lambda ids: b.exact_bm25_uniform(bm25, terms_b, self.DF, ids)],
+            [F32_ATOL, BM25_ATOL])
+        log(sharded="B", slots=self.N_SLOTS, shard_index_s=secs,
+            v_common_per_shard=self.V_COMMON,
+            k1_launches_per_call=counts["fused_dense_top_k"],
+            vs_unsharded_two_tier=routes,
+            retrieve_ms=p.cuda_event_ms(
+                lambda: retr.retrieve_device(qd, terms_b, w, "CG", 40.0)),
+            card=self.card)
+
+    def phase19e_recovery(self, sidx, got4, kw, w, emb, q, bm25, terms):
+        """A dead slot: DeviceHealthMonitor reshards stage A over the
+        survivors, whose fused ids stay those of the full mesh; then a
+        dp = 2 x corpus = 2 mesh serving an odd batch through
+        ShardedSearchEngine, ids equal to the dp = 1 mesh's."""
+        p, b = self.p, self.b
+        qd = {MODEL: q}
+        state = {}
+        dead = sidx.mesh.slots[2]
+        mon = p.DeviceHealthMonitor(
+            sidx, rebuild=lambda s: state.update(sidx=s),
+            probe_fn=lambda slot, t: (slot is not dead
+                                      and p.default_probe(slot, t)))
+        t0 = time.perf_counter()
+        assert mon.check_and_recover(), "no recovery ran"
+        secs = time.perf_counter() - t0
+        new = state["sidx"]
+        assert new.n_shards == self.N_SLOTS - 1 and dead not in new.mesh.slots
+        retr = p.ShardedRetriever(new, (MODEL,), use_bm25=True, **kw)
+        got, counts = self.main_path(
+            lambda: retr.retrieve_lists(qd, terms, w, None, 40.0))
+        self.expect("recovered", counts, fused_dense_top_k=self.N_SLOTS - 1)
+        routes = b.assert_route_parity(
+            got, got4, [lambda ids: b.exact_dense(emb, q, ids),
+                        lambda ids: b.exact_bm25_uniform(bm25, terms,
+                                                         self.DF, ids)],
+            [F32_ATOL, BM25_ATOL])
+        events = [{k: v for k, v in e.items() if k != "ts"}
+                  for e in mon.events]
+        del state, new, retr, mon
+
+        index, tokens = self.stage_a_reference_index(emb, bm25, terms)
+        odd = self.DP_ODD_B
+        kw_e = dict(query_token_lists=tokens[:odd], similarity_k=32,
+                    common_sections_n=15, model_weights=w,
+                    use_hybrid_search=True)
+        out, q_odd = {}, q[:odd].cpu().numpy()
+        for dp in (1, 2):
+            # Two corpus slots in each dp group: the same shards, so the
+            # same ids; the odd batch is padded to the dp axis.
+            eng = p.ShardedSearchEngine(p.shard_index(
+                index, self.slot_mesh(2 * dp, dp=dp)))
+            out[dp], c_dp = self.main_path(
+                lambda: eng.retrieve({MODEL: q_odd}, **kw_e))
+            self.expect(f"engine dp={dp}", c_dp, fused_dense_top_k=2 * dp)
+            assert len(out[dp]) == odd
+        if out[1] != out[2]:
+            raise AssertionError("dp = 2 ids differ from dp = 1's")
+        log(sharded="E_recovery", dead_slot=dead.index,
+            survivors=self.N_SLOTS - 1, recovery_s=secs, events=events,
+            k1_launches_per_call=counts["fused_dense_top_k"],
+            vs_full_mesh=routes, dp2_odd_batch=odd, dp2_ids_equal_dp1=True,
+            card=self.card)
+        return index, tokens
+
+    def phase19f_rag(self, index, tokens, gold, q) -> None:
+        """ShardedSearchEngine under RAGSystem on stage A's index: the
+        answers streamed, the planted gold among each one's sources."""
+        p = self.p
+        sse = p.ShardedSearchEngine(
+            p.shard_index(index, self.slot_mesh(self.N_SLOTS)))
+        system = p.RAGSystem(indexes={},
+                             llm_clients={"fake": p.FakeLLMClient()},
+                             device=self.dev)
+        system.attach_index(p.InfoSource.NICE, index, engine=sse)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        q_host = q.cpu().numpy()
+        gold_ids = [str(g) for g in gold.tolist()]
+
+        def answers():
+            out = []
+            for i in range(self.RAG_QUERIES):
+                out.append(list(system.query_rag_stream(
+                    " ".join(tokens[i]), "fake-llm", model_weights=w,
+                    use_hybrid_search=True, use_reranker=False,
+                    filename_type_filter=None,
+                    query_embedding={MODEL: q_host[i]})))
+                out[-1].append(system.last_trace.durations["retrieval"])
+            return out
+
+        runs, counts = self.main_path(answers)
+        self.expect("sharded RAG", counts,
+                    fused_dense_top_k=self.RAG_QUERIES * self.N_SLOTS)
+        spans = []
+        for i, out in enumerate(runs):
+            spans.append(out.pop())
+            answer = "".join(t[0] for t in out)
+            if not answer.startswith("[fake:fake-llm]"):
+                raise AssertionError(f"answer {answer[:80]!r}")
+            sections = [d["section_id"] for d in out[-1][3]]
+            if gold_ids[i] not in sections:
+                raise AssertionError(f"sharded RAG query {i}: gold "
+                                     f"{gold_ids[i]} not in {sections}")
+        log(sharded="F_rag", slots=self.N_SLOTS, queries=len(runs),
+            gold_in_sources=len(runs),
+            k1_launches=counts["fused_dense_top_k"],
+            retrieval_span_median_ms=statistics.median(spans) * 1e3,
+            card=self.card)
+
+    def phase19c_sharded(self, index, q, gold) -> None:
+        """Stage C's int8 matrix over N_SLOTS slots (views, no copy): K2
+        per shard against unsharded K2, each shard's list equal to its
+        plain version, and the times beside the unsharded ones."""
+        p, b = self.p, self.b
+        qd = index.dense_q[MODEL]
+        sidx, secs, alloc = self.shard_timed(
+            lambda: p.shard_index(index, self.slot_mesh(self.N_SLOTS)))
+        self.shard_seconds["C"] = secs
+        views = all(sh.dense[MODEL].values.data_ptr()
+                    == qd.values[sh.offset:].data_ptr()
+                    for sh in sidx.shards)
+        assert views, "stage C's shards must be views of its matrix"
+        retr = p.ShardedRetriever(sidx, (MODEL,), use_bm25=False,
+                                  similarity_k=25, common_sections_n=25)
+        assert retr.use_kernel
+        w = {MODEL: 1.0}
+        (fids, _, _), counts = self.main_path(
+            lambda: retr.retrieve_device({MODEL: q}, None, w, None, 40.0))
+        self.expect("sharded C", counts,
+                    fused_dense_top_k_int8=self.N_SLOTS)
+        recall = b.recall_at_10(fids, gold)
+        assert recall >= 0.95, f"sharded int8 recall@10 {recall} < 0.95"
+        (sv, si), c_dense = self.main_path(
+            lambda: p.sharded_dense_top_k(sidx, MODEL, q, 25))
+        self.expect("sharded C, dense", c_dense,
+                    fused_dense_top_k_int8=self.N_SLOTS)
+        qv, qs = p.quantize_queries(q)
+        kv, ki = p.kernels.fused_dense_top_k_int8(qd.values, qd.scales, qv,
+                                                  qs, 25)
+        torch.cuda.synchronize()
+        swaps = p.check_top_k(kv, ki, sv, si, INT8_ATOL)
+        if not torch.equal(fids, si):
+            raise AssertionError("retriever ids differ from the merge's")
+        qv8, qs8 = p.quantize_queries(q[:8])
+        kern = p.kernels
+        for sh in sidx.shards:
+            m = sh.dense[MODEL]
+            args = (m.values, m.scales, qv8, qs8, 25)
+            self.equal_int8(kern.fused_dense_top_k_int8(*args),
+                            kern.fused_dense_top_k_int8_torch(*args),
+                            f"shard at {sh.offset}")
+        flat = p.FusedRetriever(index, (MODEL,), use_bm25=False,
+                                similarity_k=25, common_sections_n=25)
+        self.retrieve_ms["C_sharded"] = p.cuda_event_ms(
+            lambda: retr.retrieve_device({MODEL: q}, None, w, None, 40.0))
+        self.retrieve_ms["C_unsharded"] = p.cuda_event_ms(
+            lambda: flat.retrieve_device({MODEL: q}, None, w, None, 40.0))
+        parts_ms = {
+            "k2_whole": p.cuda_event_ms(lambda: kern.fused_dense_top_k_int8(
+                qd.values, qd.scales, qv, qs, 25)),
+            "k2_each_shard": p.cuda_event_ms(lambda: [
+                kern.fused_dense_top_k_int8(sh.dense[MODEL].values,
+                                            sh.dense[MODEL].scales, qv, qs,
+                                            25) for sh in sidx.shards]),
+        }
+        log(sharded="C", slots=self.N_SLOTS, n_local=sidx.n_local,
+            shard_index_s=secs, shard_index_bytes=alloc, shards_are_views=True,
+            k2_launches_per_call=counts["fused_dense_top_k_int8"],
+            recall10=recall, vs_unsharded_k2_swaps=swaps,
+            vs_unsharded_atol=INT8_ATOL, shard_lists_equal_plain_b8=True,
+            retrieve_ms=self.retrieve_ms["C_sharded"],
+            unsharded_retrieve_ms=self.retrieve_ms["C_unsharded"],
+            parts_ms=parts_ms, card=self.card)
+
+    def shard_ivf_vs_plain(self, sidx, q8) -> None:
+        """Each shard's K3 (or K4) over its own tile table against the
+        plain version."""
+        p, kern = self.p, self.p.kernels
+        for sh in sidx.shards:
+            iv = sh.ivf
+            table, _ = p.build_tile_table(
+                iv.centroids, iv.cluster_start, q8,
+                nprobe=self.NPROBE_SHARDED,
+                max_tiles=p.default_max_tiles(iv, q8.shape[0],
+                                              self.NPROBE_SHARDED),
+                tile_n=iv.tile_n, mct=iv.max_cluster_tiles)
+            table = torch.cat([table, sh.ivf_real_slot])
+            kw = dict(tile_n=iv.tile_n, n_real=0)
+            if iv.emb is not None:
+                self.compare(
+                    "ivf_dense_top_k",
+                    kern.ivf_dense_top_k_torch(iv.emb, q8, table, self.K_D,
+                                               **kw),
+                    kern.ivf_dense_top_k(iv.emb, q8, table, self.K_D, **kw),
+                    BF16_ATOL)
+            else:
+                qv, qs = p.quantize_queries(q8)
+                args = (iv.values, iv.scales, qv, qs, table, self.K_D)
+                self.equal_int8(kern.ivf_dense_top_k_int8(*args, **kw),
+                                kern.ivf_dense_top_k_int8_torch(*args, **kw),
+                                f"K4 on the shard at {sh.offset}")
+
+    def ivf_batches(self, retr, q):
+        """retrieve_device over BATCHES_D micro-batches of B_MICRO."""
+        bm, w = self.B_MICRO, {MODEL: 1.0}
+        return torch.cat([
+            retr.retrieve_device({MODEL: q[i * bm:(i + 1) * bm]}, None, w,
+                                 None, 40.0)[0]
+            for i in range(self.BATCHES_D)])
+
+    def phase19d_sharded_ivf(self, index, q, gold) -> None:
+        """Stage D's corpus with a per-shard IVF: per-shard k-means, K3 per
+        shard at B = 8, a full probe against the exact route, the saved
+        clustering loaded again and into the int8 copy of the corpus (K4
+        per shard)."""
+        p, b = self.p, self.b
+        emb = index.dense[MODEL]
+        n = emb.shape[0]
+        mesh = self.slot_mesh(self.N_SLOTS)
+        sidx = p.shard_index(index, mesh)
+        sidx, secs, alloc = self.shard_timed(lambda: p.shard_ivf(
+            sidx, MODEL, tile_n=self.TILE_D, n_iters=10, seed=0))
+        self.shard_seconds["D_ivf"] = secs
+        c = sidx.ivf_n_clusters
+        kw = dict(use_bm25=False, similarity_k=self.K_D,
+                  common_sections_n=self.K_D)
+        retr = p.ShardedRetriever(sidx, (MODEL,), nprobe=self.NPROBE_SHARDED,
+                                  **kw)
+        assert retr._route_ivf(self.B_MICRO, False, False)
+        ids, counts = self.main_path(lambda: self.ivf_batches(retr, q))
+        self.expect("sharded D", counts, fused_dense_top_k=0,
+                    ivf_dense_top_k=self.BATCHES_D * self.N_SLOTS)
+        recall = b.recall_at_10(ids, gold)
+        assert recall >= 0.90, f"sharded IVF recall@10 {recall} < 0.90"
+        q8, w = q[:self.B_MICRO], {MODEL: 1.0}
+        self.shard_ivf_vs_plain(sidx, q8)
+
+        full = p.ShardedRetriever(sidx, (MODEL,), nprobe=c,
+                                  ivf_route="always", **kw)
+        exact = p.ShardedRetriever(sidx, (MODEL,), **kw)
+        got, c_full = self.main_path(
+            lambda: full.retrieve_device({MODEL: q8}, None, w, None, 40.0))
+        self.expect("sharded D, full probe", c_full, fused_dense_top_k=0,
+                    ivf_dense_top_k=self.N_SLOTS)
+        ref = exact.retrieve_device({MODEL: q8}, None, w, None, 40.0)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError("full probe ids differ from the exact "
+                                 "sharded route's")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "shard_ivf.npz")
+            p.save_shard_ivf(sidx, path)
+            back = p.load_shard_ivf(p.shard_index(index, mesh), path)
+            again = p.ShardedRetriever(back, (MODEL,),
+                                       nprobe=self.NPROBE_SHARDED, **kw)
+            if not torch.equal(self.ivf_batches(again, q), ids):
+                raise AssertionError("the loaded IVF's ids differ")
+            del back, again
+            qindex = self.b.array_index(n, dense_q={
+                MODEL: p.quantize_embeddings(emb)})
+            qsidx = p.load_shard_ivf(p.shard_index(qindex, mesh), path)
+        qretr = p.ShardedRetriever(qsidx, (MODEL,),
+                                   nprobe=self.NPROBE_SHARDED, **kw)
+        q_ids, q_counts = self.main_path(lambda: self.ivf_batches(qretr, q))
+        self.expect("sharded D, int8", q_counts,
+                    ivf_dense_top_k_int8=self.BATCHES_D * self.N_SLOTS)
+        q_recall = b.recall_at_10(q_ids, gold)
+        assert q_recall >= 0.90, f"sharded int8 IVF recall {q_recall}"
+        self.shard_ivf_vs_plain(qsidx, q8)
+        log(sharded="D_ivf", slots=self.N_SLOTS, n_local=sidx.n_local,
+            clusters_per_shard=c, tile_n=self.TILE_D,
+            nprobe=self.NPROBE_SHARDED, shard_ivf_s=secs,
+            shard_ivf_bytes=alloc, calls_b8=self.BATCHES_D,
+            k3_launches=counts["ivf_dense_top_k"], recall10_b8=recall,
+            full_probe_ids_equal_exact=True, saved_loaded_ids_equal=True,
+            k4_launches=q_counts["ivf_dense_top_k_int8"],
+            recall10_int8_b8=q_recall,
+            retrieve_ms_b8=p.cuda_event_ms(lambda: retr.retrieve_device(
+                {MODEL: q8}, None, w, None, 40.0)),
+            card=self.card)
+
+    def sharded_part(self, name, fn, *args):
+        """Run one part of phase 19, keeping its seconds and the card's
+        peak allocation during it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.sharded_parts[name] = {
+            "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        return out
+
+    def phase19_summary(self) -> None:
+        log(phase="sharded", slots=self.N_SLOTS, parts=self.sharded_parts,
+            seconds=sum(v["seconds"] for v in self.sharded_parts.values()),
+            shard_seconds=self.shard_seconds, retrieve_ms={
+                k: v for k, v in self.retrieve_ms.items() if "sharded" in k},
+            card=self.card,
+            method="retrieve_ms: CUDA events around one call, median of 10 "
+            "after 3 warm-up calls")
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -2228,9 +2741,19 @@ class Smoke:
         self.phase10_stage_f()
         torch.cuda.empty_cache()
         emb, gold, q, bm25, terms = self.phase4_stage_a()
-        self.phase5_stage_b(emb, q, bm25, terms)
+        terms_b = self.phase5_stage_b(emb, q, bm25, terms)
         self.phase17_search_engine(emb, gold, q, bm25, terms)
         self.phase18_reference_path(emb, gold, q, bm25, terms)
+        sidx, got4, kw, w = self.sharded_part(
+            "A", self.phase19a_sharded, emb, gold, q, bm25, terms)
+        self.sharded_part("B", self.phase19b_sharded, emb, q, bm25, terms_b)
+        ref_index, tokens = self.sharded_part(
+            "E", self.phase19e_recovery, sidx, got4, kw, w, emb, q, bm25,
+            terms)
+        del sidx, got4
+        self.sharded_part("F", self.phase19f_rag, ref_index, tokens, gold, q)
+        del ref_index, tokens, terms_b
+        torch.cuda.empty_cache()
         self.time_k1(emb, q)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
@@ -2239,9 +2762,13 @@ class Smoke:
         self.phase14_counted("A", emb, q, 32)
         del emb, gold, q, bm25, terms
         torch.cuda.empty_cache()
-        self.phase6_stage_d()
+        index, q, gold = self.phase6_stage_d()
+        self.sharded_part("D", self.phase19d_sharded_ivf, index, q, gold)
+        del index, q, gold
         torch.cuda.empty_cache()
-        index, q, cent = self.phase7_stage_c()
+        index, q, cent, gold = self.phase7_stage_c()
+        self.sharded_part("C", self.phase19c_sharded, index, q, gold)
+        del gold
         qd = index.dense_q[MODEL]
         self.phase11_floor("C", qd.values)
         torch.cuda.empty_cache()
@@ -2251,6 +2778,7 @@ class Smoke:
         self.phase13_anatomy("C", qd.values, qv, 25, qd.scales, qs)
         self.phase14_counted("C", qd.values, qv, 25, qd.scales, qs)
         self.phase16_int4_stage2(qd.values)
+        self.phase19_summary()
         log(phase="done", seconds=time.perf_counter() - self.t0)
         self.kernels_line()
         print(json.dumps({"ok": True, "device": {
@@ -2308,6 +2836,19 @@ class _Port:
             float_smem_bytes,
             int8_smem_bytes,
         )
+        from a_nice_rag_tpu_torch.parallel import (
+            DeviceHealthMonitor,
+            ShardedRetriever,
+            ShardedSearchEngine,
+            default_probe,
+            load_shard_ivf,
+            make_mesh,
+            save_shard_ivf,
+            shard_index,
+            shard_ivf,
+            sharded_dense_top_k,
+        )
+        from a_nice_rag_tpu_torch.parallel.sharded import _gather_merge
         from a_nice_rag_tpu_torch.probes import (
             bf16_fold,
             dma_overlap,
@@ -2329,6 +2870,7 @@ class _Port:
             chained_ms,
             cuda_event_ms,
             device_loop_ms,
+            profiled_device_ms,
             profiled_kernel_ms,
         )
         from a_nice_rag_tpu_torch.testing.parity import (
@@ -2353,6 +2895,7 @@ class _Port:
         self.check_stream_sum_busy = check_stream_sum_busy
         self.device_loop_ms, self.chained_ms = device_loop_ms, chained_ms
         self.profiled_kernel_ms = profiled_kernel_ms
+        self.profiled_device_ms = profiled_device_ms
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf
         self.build_tile_table = build_tile_table
@@ -2379,6 +2922,15 @@ class _Port:
         self.calibrated_quality_corpus = calibrated_quality_corpus
         self.write_reference_fixture = write_reference_fixture
         self.preprocess_text = preprocess_text
+        self.make_mesh, self.shard_index = make_mesh, shard_index
+        self.shard_ivf, self.ShardedRetriever = shard_ivf, ShardedRetriever
+        self.save_shard_ivf, self.load_shard_ivf = (save_shard_ivf,
+                                                    load_shard_ivf)
+        self.sharded_dense_top_k, self.gather_merge = (sharded_dense_top_k,
+                                                       _gather_merge)
+        self.ShardedSearchEngine = ShardedSearchEngine
+        self.DeviceHealthMonitor = DeviceHealthMonitor
+        self.default_probe = default_probe
 
 
 def main() -> int:

@@ -17,6 +17,7 @@ import json
 import statistics
 import time
 
+import pytest
 import torch
 
 import chip_smoke
@@ -51,6 +52,9 @@ class TinySmoke(chip_smoke.Smoke):
     N_D, D_D, CENTRES_D, TILE_D, NPROBE_D, K_D, V_D = (
         16384, 32, 128, 128, 4, 16, 8192)
     BATCHES_D = 64
+    # Phase 19: 64 k-means clusters in each of 4 shards of 4096 rows,
+    # nprobe 2: coverage 0.22 at B = 8.
+    NPROBE_SHARDED = 2
     TILE_E, NPROBE_E, K_E, BATCHES_E = 16, 8, 25, 32
     STREAM_ROWS, STREAM_D, EXACT_ROWS = 1003, 16, 4096
     HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
@@ -111,6 +115,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
                         lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 1)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     for mod, name in WRAPPED:
@@ -130,6 +135,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     port.device_loop_ms = lambda fn, n_loop, trials: _host_ms(fn, n_loop)
     port.chained_ms = lambda fn, n, trials: _host_ms(fn, n)
     port.profiled_kernel_ms = lambda fn, kernel, n: _host_ms(fn, n)
+    # No CUDA kernel to trace on the CPU.
+    port.profiled_device_ms = lambda fn, n: (0.0, 0.0)
     port.sm_grid = lambda device, ctas_per_sm=4: 8
     port.int8_smem_bytes = topk_plan.smem_bytes
     port.float_smem_bytes = topk_plan.smem_bytes
@@ -141,7 +148,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(
         port.FusedRetriever, "_route_kernel",
         classmethod(lambda cls, backend, n_pad, k, device:
-                    backend != "torch" and n_pad >= 4096),
+                    backend != "torch" and n_pad >= 1024),
     )
 
     TinySmoke(port).run()
@@ -153,11 +160,15 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     kernels = json.loads(lines[-2])["kernels"]
     assert [k["name"] for k in kernels] == [name for _, name in WRAPPED]
     # K1: stage A 3 calls x 1 dense list, stage B dense + common tier,
-    # stage D B = 256 and filtered. K2: stages C and E at B = 256. K3: 64
-    # micro-batches + the full probe. K4: 32 micro-batches. Stage F: none.
-    # The probes' calls of K1/K2 stay out of these counts. The stream
-    # kernels and the probes' own: counts of the host timer's calls.
-    assert [k["launches"] for k in kernels][:4] == [7, 2, 65, 32]
+    # stage D B = 256 and filtered; phase 19 on 4 slots: (a) the merge, B =
+    # 256 and B = 8 (4 each), (b) dense + common tier (8), (e) 3 survivors,
+    # dp = 1 and dp = 2 over 2 slots a group (3 + 2 + 4), (f) 4 RAG queries
+    # (16). K2: stages C and E at B = 256, phase 19 (c) retriever and merge
+    # (8). K3: 64 micro-batches + the full probe, phase 19 (d) 64 x 4 + 4.
+    # K4: 32 micro-batches, phase 19 (d) 64 x 4. Stage F: none. The probes'
+    # calls of K1/K2 stay out of these counts. The stream kernels and the
+    # probes' own: counts of the host timer's calls.
+    assert [k["launches"] for k in kernels][:4] == [52, 10, 325, 288]
     assert all(k["launches"] >= 1 for k in kernels[4:])
     no_library = {"stream_sum_busy", "fused_top_k_counted",
                   "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
@@ -306,4 +317,94 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert [(c["crossover"], c["B"]) for c in crossover] == [
         ("D_2M_bf16", 8), ("D_2M_bf16", 16), ("D_2M_bf16", 32),
         ("D_2M_bf16", 64), ("E_10.5M_int8", 8)]
+    sharded = {r["sharded"]: r for r in records if "sharded" in r}
+    assert list(sharded) == ["A", "B", "E_recovery", "F_rag", "D_ivf", "C"]
+    a = sharded["A"]
+    assert a["n_local"] == 1024 and a["k1_launches_per_call"] == 4
+    assert a["dense_ids_equal_k1"] and a["recall10_hybrid"] >= 0.99
+    assert a["dense_max_abs_err"] <= chip_smoke.F32_ATOL
+    for key in ("vs_unsharded", "b8_vs_torch_route"):
+        assert a[key]["list_swaps"] >= 0
+    assert a["merge_shape"] == [16, 4, 32]
+    assert set(a["parts_ms"]) == {"k1_whole", "k1_each_shard",
+                                  "dense_only_sharded",
+                                  "dense_only_unsharded"}
+    assert set(sharded["C"]["parts_ms"]) == {"k2_whole", "k2_each_shard"}
+    for prof in a["profile"].values():  # no CUDA kernels on the CPU
+        assert prof["device_ms"] == 0 and prof["kernel_launches"] == 0
+        assert prof["idle_share"] == 1.0
+        assert prof["enqueue_ms"] > 0 and prof["event_ms"] > 0
+    for key in ("retrieve_ms", "unsharded_retrieve_ms", "merge_ms",
+                "shard_index_s"):
+        assert a[key] > 0, key
+    assert sharded["B"]["k1_launches_per_call"] == 8
+    e = sharded["E_recovery"]
+    assert e["dead_slot"] == 2 and e["survivors"] == 3
+    assert e["events"][-1]["recovered"] and e["events"][-1]["n_shards"] == 3
+    assert e["k1_launches_per_call"] == 3 and e["dp2_ids_equal_dp1"]
+    f = sharded["F_rag"]
+    assert f["queries"] == f["gold_in_sources"] == 4
+    assert f["k1_launches"] == 16
+    d = sharded["D_ivf"]
+    assert d["clusters_per_shard"] == 64 and d["nprobe"] == 2
+    assert d["k3_launches"] == d["k4_launches"] == 64 * 4
+    assert d["recall10_b8"] >= 0.90 and d["recall10_int8_b8"] >= 0.90
+    assert d["full_probe_ids_equal_exact"] and d["saved_loaded_ids_equal"]
+    cc = sharded["C"]
+    assert cc["shards_are_views"] and cc["k2_launches_per_call"] == 4
+    assert cc["recall10"] >= 0.95 and cc["shard_lists_equal_plain_b8"]
+    summary = [r for r in records if r.get("phase") == "sharded"][0]
+    assert list(summary["parts"]) == ["A", "B", "E", "F", "D", "C"]
+    assert all(v["seconds"] > 0 for v in summary["parts"].values())
+    assert set(summary["shard_seconds"]) == {"A", "B", "C", "D_ivf"}
+    assert set(summary["retrieve_ms"]) == {"A_sharded", "A_unsharded",
+                                           "C_sharded", "C_unsharded"}
     assert lines[0] == "cpu, n/a"
+
+
+def test_profiled_timers_trace_again_when_a_trace_holds_no_kernel(
+        monkeypatch):
+    """A torch.profiler trace without device activity (seen right after
+    another session on the card) is taken again; the timers still raise
+    when no trace holds the kernel asked for."""
+    from types import SimpleNamespace
+
+    from a_nice_rag_tpu_torch.testing import timing
+
+    def event(key, ms, count, device="CUDA"):
+        return SimpleNamespace(key=key, count=count,
+                               device_type=SimpleNamespace(name=device),
+                               device_time_total=ms * 1e3,
+                               self_device_time_total=ms * 1e3)
+
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.entries = traces.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.entries
+
+    monkeypatch.setattr(timing, "_warm", lambda fn, warmup: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    launch = [event("cudaLaunchKernel", 0.0, 4, device="CPU")]
+    kernels = [event("row_reduce_kernel", 2.0, 4),  # ms over 4 launches
+               event("merge_kernel", 0.25, 2)]
+    traces[:] = [launch, launch, kernels]
+    assert timing.profiled_kernel_ms(lambda: None, "row_reduce", n=4) == 0.5
+    traces[:] = [launch, kernels]
+    assert timing.profiled_device_ms(lambda: None, n=2) == (1.125, 3.0)
+    traces[:] = [launch] * timing.TRACE_ATTEMPTS
+    with pytest.raises(RuntimeError, match="no kernel"):
+        timing.profiled_kernel_ms(lambda: None, "row_reduce", n=4)
+    traces[:] = [kernels]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        timing.profiled_kernel_ms(lambda: None, "fold", n=4)

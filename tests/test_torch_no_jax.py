@@ -28,8 +28,8 @@ assert not leaked, leaked
 missing = sorted(set(sys.argv[1:]) - set(names))
 assert not missing, missing
 """
-# The SearchEngine slice's and the reference-path slice's modules,
-# beside the earlier slices'.
+# The SearchEngine slice's, the reference-path slice's and the sharding
+# slice's modules, beside the earlier slices'.
 SLICE_MODULES = [
     "a_nice_rag_tpu_torch." + m for m in (
         "config", "text", "text.preprocess", "text.stopwords_en",
@@ -40,7 +40,9 @@ SLICE_MODULES = [
         "ingest.import_reference", "ingest.bm25_tune", "ingest.query_prep",
         "evals", "evals.metrics", "evals.retrieval_eval",
         "evals.run_retrieval_eval", "evals.replay_reference", "utils",
-        "utils.trace", "rag", "rag.prompts", "rag.providers", "rag.system")
+        "utils.trace", "rag", "rag.prompts", "rag.providers", "rag.system",
+        "parallel", "parallel.mesh", "parallel.sharded", "parallel.health",
+        "parallel.engine")
 ]
 
 
