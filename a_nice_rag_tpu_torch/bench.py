@@ -4,7 +4,7 @@ CUDA GPU.
     python -m a_nice_rag_tpu_torch.bench [--repeats R]
 
 Counterpart of ``bench.py`` (the JAX package on one TPU chip), at its
-widths. Five stages, each a function of (device, repeats, timer, config):
+widths. Six stages, each a function of (device, repeats, timer, config):
 
   headline   reference scale: ``synth_corpus`` 9,728 x 2048 f32 with BM25
              built from its tokens, B = 2048, similarity_k 25, top 15
@@ -18,7 +18,12 @@ widths. Five stages, each a function of (device, repeats, timer, config):
              B = 8, nprobe 16, k = 16: K3 against K1 (``ivf_scale_metrics``,
              :585-718);
   crossover  the ivf stage's corpus at B in {1, 2, ..., 256}: the IVF and
-             exact routes in turns (``scripts/sweep_ivf_batch_crossover.py``).
+             exact routes in turns (``scripts/sweep_ivf_batch_crossover.py``);
+  served     the headline corpus through the serving fronts: HTTP (b64
+             RPC, SchedulerPool) and the native C++ front on its f32, bf16
+             and int8 wires, 8 clients of 512-row frames, QPS min / median
+             / max over 200 requests a front (``served_qps_metrics``,
+             :816-1118).
 
 Every stage asserts its recall floors and, on the device, that its
 kernel-route ids equal its torch-route ids up to ties within the
@@ -44,8 +49,8 @@ and ``xpack_ids_equal_iterate`` (:242-308) time TPU folds that the port
 does not have; the CPU fallback, platform probe and re-exec (:1121-1165)
 and the round-trip de-bias and stream clamp (:199-237) work around a
 remote TPU backend; its TPU-calibrated IVF speed-up floors are reported,
-not asserted. ``gen_serving_metrics`` (:721) and ``served_qps_metrics``
-(:816-1118) wait for the port's generation and serving.
+not asserted. ``gen_serving_metrics`` (:721) waits for the port's
+generation server.
 
 Prints ONE JSON line. Raises without a GPU: there is no CPU fallback.
 """
@@ -53,12 +58,14 @@ Prints ONE JSON line. Raises without a GPU: there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import gc
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -819,7 +826,250 @@ def crossover_stage(device, repeats: int, timer: Timer,
 # -- main -------------------------------------------------------------------
 
 
-STAGES = ("headline", "2m", "int8", "ivf", "crossover")
+# -- served: the serving fronts on the headline corpus ---------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServedConfig:
+    n_docs: int = 9728  # the headline corpus
+    dim: int = 2048
+    vocab: int = 20000
+    t_max: int = 16
+    seed: int = 7
+    batch: int = 512  # rows a client frame carries
+    clients: int = 8
+    rounds: int = 5  # QPS min / median / max over the rounds
+    per: int = 5  # requests a client sends in a round
+    max_batch: int = 512
+    max_wait_ms: float = 2.0
+    max_inflight: int = 6
+    qps_floor: float = 1500.0  # bench.py's served floors
+    overlap_floor: float = 0.97  # int8 wire against the f32 wire
+
+
+def drive_front(connect: Callable[[], object], clients: int, rounds: int,
+                per: int, rows: int, timeout_s: float = 600.0) -> dict:
+    """``rounds`` rounds of ``clients`` threads, each sending ``per``
+    requests of ``rows`` rows through its own connection (``connect()``: a
+    context manager giving a callable that sends one request and returns
+    its result rows). Per round the QPS (rows over the round's wall
+    time); over every request its latency. Raises on any client error,
+    on a short reply, and on a thread still running after ``timeout_s``."""
+    qps, lat = [], []
+    for _ in range(rounds):
+        errs, done = [], []
+
+        def worker():
+            try:
+                with connect() as send:
+                    for _ in range(per):
+                        t0 = time.perf_counter()
+                        got = send()
+                        lat.append((time.perf_counter() - t0) * 1e3)
+                        if got.shape[0] != rows:
+                            raise AssertionError(
+                                f"reply of {got.shape[0]} rows, sent {rows}")
+                        done.append(1)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout_s)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads):
+            raise TimeoutError(f"a client ran past {timeout_s} s")
+        if errs:
+            raise errs[0]
+        qps.append(len(done) * rows / wall)
+    return {"qps_min": min(qps), "qps_median": statistics.median(qps),
+            "qps_max": max(qps), "qps_rounds": qps,
+            "p50_batch_ms": float(np.percentile(lat, 50)),
+            "p99_batch_ms": float(np.percentile(lat, 99)),
+            "requests": len(lat), "rows": rows}
+
+
+class HttpSender:
+    """One HTTP connection to a serve_cli front; each call posts one
+    prepared /v1/search body and returns the reply's rows."""
+
+    def __init__(self, port: int, body: str, timeout_s: float = 120.0):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=timeout_s)
+        self.body = body
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        self.conn.close()
+
+    def post(self) -> dict:
+        self.conn.request("POST", "/v1/search", self.body,
+                          {"Content-Type": "application/json"})
+        r = self.conn.getresponse()
+        data = r.read()
+        if r.status != 200:
+            raise RuntimeError(f"HTTP {r.status}: {data[:200]!r}")
+        return json.loads(data)
+
+    def __call__(self) -> np.ndarray:
+        out = self.post()
+        return np.frombuffer(base64.b64decode(out["rows_b64"]),
+                             np.int32).reshape(out["out_shape"])
+
+
+def b64_body(q: np.ndarray, terms: Optional[np.ndarray], weights: dict,
+             dtype: str = "f32") -> str:
+    """The batched /v1/search RPC body: f32 rows, or (``"bf16"``) their
+    bf16 bits, and the i32 term ids when given."""
+    from a_nice_rag_tpu_torch.serving.native_front import bf16_bits
+
+    rows = bf16_bits(q) if dtype == "bf16" else np.ascontiguousarray(
+        q, np.float32)
+    body = {"query_embeddings_b64": base64.b64encode(rows.tobytes()).decode(),
+            "shape": list(rows.shape), "dtype": dtype,
+            "model_weights": weights}
+    if terms is not None:
+        t = np.ascontiguousarray(terms, np.int32)
+        body.update(terms_b64=base64.b64encode(t.tobytes()).decode(),
+                    terms_shape=list(t.shape))
+    return json.dumps(body)
+
+
+def overlap_at(a: np.ndarray, b: np.ndarray, k: int = 10) -> float:
+    """Mean share of each row's first k ids found in the other's."""
+    return float(np.mean([len(set(x[:k]) & set(y[:k])) / k
+                          for x, y in zip(a, b)]))
+
+
+def served_stage(device, repeats: int, timer: Timer,
+                 cfg: ServedConfig = ServedConfig()) -> dict:
+    """bench.py's ``served_qps_metrics`` (:816-1118): the headline corpus
+    served through the HTTP front (serve_cli: b64 RPC -> SchedulerPool ->
+    FusedRetriever) and then the native C++ front on its f32, bf16 and
+    int8 wires, ``clients`` clients sending ``batch``-row frames. Per
+    front: QPS min / median / max over ``rounds`` rounds (``clients`` x
+    ``per`` requests each) and the p50 / p99 request ms; the int8 wire's
+    overlap@10 against the f32 wire. Floors: QPS median >= ``qps_floor``
+    on every front, int8 overlap@10 >= ``overlap_floor``. A front that
+    fails or does not start raises. This corpus is below the kernel
+    threshold, so no kernel launches here; ``repeats`` and ``timer`` are
+    unused (the rounds are the repeats, the clock is the clients')."""
+    from a_nice_rag_tpu_torch.serving.native_front import (
+        NativeFrontClient,
+        NativeRetrievalFront,
+        bf16_bits,
+    )
+    from a_nice_rag_tpu_torch.serving.serve_cli import (
+        build_state,
+        serve_state,
+    )
+
+    c = synth_corpus(
+        n_docs=cfg.n_docs, dim=cfg.dim, n_queries=cfg.batch,
+        vocab_size=cfg.vocab, seed=cfg.seed, model_noise={MODEL: 0.22},
+        query_token_noise=0.15,
+    )
+    index = build_index(ids=c.ids, sources=c.sources, contents=c.contents,
+                        embeddings=c.embeddings, token_lists=c.tokens,
+                        device=device)
+    state = build_state(index, (MODEL,), use_bm25=True, scheduler_kwargs={
+        "max_batch": cfg.max_batch, "max_wait_ms": cfg.max_wait_ms,
+        "max_inflight": cfg.max_inflight})
+    weights = {MODEL: 5.0, "BM25": 1.0}
+    q = np.asarray(c.query_embeddings[MODEL][:cfg.batch], np.float32)
+    terms = np.asarray(index.pad_term_ids(c.query_tokens[:cfg.batch],
+                                          cfg.t_max), np.int32)
+    run = dict(clients=cfg.clients, rounds=cfg.rounds, per=cfg.per,
+               rows=cfg.batch)
+    out = {"served_batch": cfg.batch, "served_clients": cfg.clients,
+           "served_kernel_route": state.retriever.use_kernel}
+    server = serve_state(state, weights, port=0, background=True)
+    try:
+        port = server.server_address[1]
+        body = b64_body(q, terms, weights)
+        drive_front(lambda: HttpSender(port, body), 1, 1, 2, cfg.batch)
+        scheds = list(state.pool._pool.values())
+        b0 = sum(s.batches_run for s in scheds)
+        n0 = sum(s.queries_served for s in scheds)
+        http = drive_front(lambda: HttpSender(port, body), **run)
+        batches = sum(s.batches_run for s in scheds) - b0
+        http["mean_device_batch"] = (
+            (sum(s.queries_served for s in scheds) - n0) / max(batches, 1))
+    finally:
+        server.shutdown()
+    out["served_http"] = http
+    wires = {}
+    for wire in ("f32", "bf16", "int8"):
+        front = NativeRetrievalFront(
+            state.retriever, weights, port=0, t_max=cfg.t_max,
+            max_batch=cfg.max_batch, wait_ms=cfg.max_wait_ms,
+            wire_dtype=wire)
+        # bf16 frames carry their bits, rounded once: the clients' own
+        # rounding is not the front's work.
+        rows = bf16_bits(q) if wire == "bf16" else q
+        try:
+            def connect():
+                cl = NativeFrontClient("127.0.0.1", front.port,
+                                       wire_dtype=wire)
+                return Sending(cl, lambda: cl.search(rows, terms)[0])
+
+            with NativeFrontClient("127.0.0.1", front.port,
+                                   wire_dtype=wire) as cl:
+                first = cl.search(q, terms)[0]
+            r = drive_front(connect, **run)
+            r["mean_device_batch"] = front.rows_served / max(
+                front.batches_run, 1)
+        finally:
+            front.stop()
+        wires[wire] = (r, first)
+        out[f"served_native_{wire}"] = r
+    overlap = overlap_at(wires["int8"][1], wires["f32"][1])
+    out["served_native_int8_overlap10_vs_f32"] = overlap
+    if overlap < cfg.overlap_floor:
+        raise AssertionError(f"int8-wire overlap@10 {overlap} against the "
+                             f"f32 wire below {cfg.overlap_floor}")
+    for name in ("served_http", "served_native_f32", "served_native_bf16",
+                 "served_native_int8"):
+        if out[name]["qps_median"] < cfg.qps_floor:
+            raise AssertionError(f"{name} QPS median "
+                                 f"{out[name]['qps_median']:.0f} below "
+                                 f"{cfg.qps_floor}")
+    return out
+
+
+class Sending:
+    """A connection for ``drive_front``: ``client`` (closed on exit) and
+    its send call, whose reply ``check`` (when given) holds first."""
+
+    def __init__(self, client, send, check=None):
+        self.client, self.send, self.check = client, send, check
+
+    def __enter__(self):
+        if self.check is None:
+            return self.send
+
+        def call():
+            got = self.send()
+            self.check(got)
+            return got
+        return call
+
+    def __exit__(self, *exc):
+        self.client.close()
+
+
+STAGES = ("headline", "2m", "int8", "ivf", "crossover", "served")
 
 
 def run_stages(device, repeats: int, timer: Timer,
@@ -841,6 +1091,7 @@ def run_stages(device, repeats: int, timer: Timer,
                                  corpus=ivf_corpus_once()),
         "crossover": lambda: crossover_stage(device, repeats, timer,
                                              corpus=ivf_corpus_once()),
+        "served": lambda: served_stage(device, repeats, timer),
     }
     out: dict = {}
     for name in names:

@@ -267,11 +267,12 @@ class ArrayIndex:
             return self.filter_mask(filename_type_filter)
         key = ("trivial", self._version)
         if key not in self._filter_cache:
+            # A snapshot of the keys: serving threads may insert meanwhile.
             for stale in [
-                k for k in self._filter_cache
+                k for k in list(self._filter_cache)
                 if isinstance(k, tuple) and k[0] == "trivial" and k != key
             ]:
-                del self._filter_cache[stale]
+                self._filter_cache.pop(stale, None)
             self._filter_cache[key] = bool(
                 self.n_docs == self.n_docs_padded
                 and not self.meta.deleted.any()

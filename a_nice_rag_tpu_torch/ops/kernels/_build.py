@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -36,6 +37,9 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Serving fronts launch from several threads: one of them builds and loads
+# a library while the others wait for it.
+_load_lock = threading.Lock()
 build_log: Dict[str, Tuple[float, str]] = {}  # name -> (seconds, ptxas report)
 
 
@@ -90,9 +94,13 @@ def build(name: str) -> Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it first."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
-    return _loaded[name]
+    lib = _loaded.get(name)
+    if lib is None:
+        with _load_lock:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(build(name)))
+            lib = _loaded[name]
+    return lib
 
 
 def load_all(names: Sequence[str]) -> None:

@@ -121,11 +121,26 @@ def _sm_count(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def _fused_plans(n: int, b: int, d: int, k: int, sms: int, rows: str):
-    """(plan, resident query block, (tau splits, tau rows per split))."""
-    plan = topk_plan.fused_plan(n, b, d, k, sms, rows)
+def _fused_plans(n: int, b: int, d: int, k: int, sms: int, rows: str,
+                 override: Optional[Tuple[Optional[int], Optional[int]]]
+                 = None):
+    """(plan, resident query block, (tau splits, tau rows per split));
+    ``override`` (bq, splits), either None for the plan's own, is checked
+    by ``topk_plan.override_plan``."""
+    if override is None:
+        plan = topk_plan.fused_plan(n, b, d, k, sms, rows)
+    else:
+        plan = topk_plan.override_plan(n, b, d, k, sms, rows, *override)
     return (plan, topk_plan.resident(plan.bq, d, k, rows),
-            topk_plan.tau_fused_plan(n, b, d, k, sms, rows))
+            topk_plan.tau_fused_plan(n, b, d, k, sms, rows, plan.bq))
+
+
+def _override(plan) -> Optional[Tuple[Optional[int], Optional[int]]]:
+    """A caller's ``plan=`` as a hashable (bq, splits), None for none."""
+    if plan is None:
+        return None
+    bq, splits = plan[0], plan[1]
+    return None if bq is None and splits is None else (bq, splits)
 
 
 def _check_k(k: int) -> None:
@@ -323,7 +338,7 @@ def _check_float_call(emb, queries, k, mask):
     return n, d, b, dev
 
 
-def _float_call(emb, queries, k, mask, tau_only: bool):
+def _float_call(emb, queries, k, mask, tau_only: bool, override=None):
     """Launch K1 (or, ``tau_only``, its tau pass alone) on CUDA tensors."""
     n, d = emb.shape
     b, dev = queries.shape[0], emb.device
@@ -331,7 +346,7 @@ def _float_call(emb, queries, k, mask, tau_only: bool):
     lib = _library()
     q = queries.to(torch.float32).contiguous()
     plan, qres, (tau_splits, tau_per) = _fused_plans(
-        n, b, d, k, _sm_count(dev), rows)
+        n, b, d, k, _sm_count(dev), rows, override)
     splits = 1 if tau_only else plan.splits
     ws = _workspace(b, k, splits, tau_splits, d, rows == "bfloat16", dev)
     if tau_only:
@@ -354,14 +369,25 @@ def fused_dense_top_k(
     queries: torch.Tensor,
     k: int,
     mask: Optional[torch.Tensor] = None,
+    plan: Optional[Tuple[Optional[int], Optional[int]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: streaming scoring + top-k over emb [N, D] (f32 or bf16) for
     queries [B, D] (f32, or bf16 as the two-tier BM25 tier passes;
-    upcast to f32). mask: optional [N] bool, True = candidate."""
-    _, _, _, dev = _check_float_call(emb, queries, k, mask)
+    upcast to f32). mask: optional [N] bool, True = candidate.
+
+    ``plan``: (bq, splits, ...) in place of ``topk_plan.fused_plan``'s
+    (the tuner's ``KernelConfig``; None in either keeps the plan's own). A
+    query block that does not fit raises. It spreads the work only: the
+    values and ids are the default plan's. On CPU tensors the override is
+    checked against an H100's plan and the plain version runs."""
+    n, d, b, dev = _check_float_call(emb, queries, k, mask)
+    override = _override(plan)
     if dev.type == "cpu":
+        if override is not None:
+            _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override)
         return fused_dense_top_k_torch(emb, queries, k, mask)
-    out = _float_call(emb, queries, k, mask, tau_only=False)
+    out = _float_call(emb, queries, k, mask, tau_only=False,
+                      override=override)
     fused_dense_top_k.launches += 1
     return out
 

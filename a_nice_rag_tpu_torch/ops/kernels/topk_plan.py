@@ -12,7 +12,8 @@ words):
 - the shared memory of a CTA (``smem_bytes``, the same sums as
   ``smem_bytes_int8`` and ``smem_bytes_float`` in the sources) and the CTAs
   an SM holds;
-- K1/K2's doc splits (``fused_plan``) and K3/K4's walkers and work items
+- K1/K2's doc splits (``fused_plan``; ``override_plan`` checks a caller's
+  query block and splits, the tuner's) and K3/K4's walkers and work items
   (``ivf_plan``, ``ivf_items``);
 - the tau pass's: the same kernels over every ``TAU_STRIDE``-th row
   (``tau_fused_plan``, ``tau_ivf_walkers``).
@@ -26,7 +27,7 @@ the kernels' top-k values and ids do not depend on it.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 TN = 128  # documents per tile
 CHUNK = 128  # bytes of depth per staged chunk
@@ -140,12 +141,43 @@ def fused_plan(n: int, b: int, d: int, k: int, sms: int,
                                   sms, TN))
 
 
+def override_plan(n: int, b: int, d: int, k: int, sms: int, rows: str,
+                  bq: Optional[int] = None,
+                  splits: Optional[int] = None) -> FusedPlan:
+    """K1's plan with a caller's query block and doc splits (the tuner's
+    candidates; None keeps the plan's own): ``bq`` 16 or 64 where its block
+    fits a CTA's shared memory, resident or streamed by depth chunk;
+    ``splits`` at least 1, cut to whole tiles with no split empty. Raises
+    on a block that does not fit."""
+    _check_rows(rows)
+    if bq is None:
+        bq = query_block(b, d, k, rows)
+    elif bq not in (SMALL_BQ, LARGE_BQ):
+        raise ValueError(f"bq must be {SMALL_BQ} or {LARGE_BQ}, got {bq!r}")
+    elif not (_fits(bq, d, k, rows, True)
+              or (rows != "int8" and _fits(bq, d, k, rows, False))):
+        raise ValueError(
+            f"a {bq}-query block of {rows} rows at D={d}, k={k} does not fit "
+            f"in a CTA's shared memory ({SMEM_PER_CTA} bytes)")
+    if splits is None:
+        return FusedPlan(bq, *doc_splits(
+            n, b, bq, ctas_per_sm(bq, d, k, rows), sms, TN))
+    if not isinstance(splits, int) or splits < 1:
+        raise ValueError(f"splits must be an int >= 1, got {splits!r}")
+    spans = -(-n // TN)
+    per = -(-spans // min(splits, spans)) * TN
+    return FusedPlan(bq, -(-n // per), per)
+
+
 def tau_fused_plan(n: int, b: int, d: int, k: int, sms: int,
-                   rows: str = "int8") -> Tuple[int, int]:
+                   rows: str = "int8",
+                   bq: Optional[int] = None) -> Tuple[int, int]:
     """K1/K2's tau pass: (splits, rows per split) over the rows 0, 64,
     128, ...; each split a whole number of tiles of TN subsample rows,
-    so every split starts on a multiple of TAU_STRIDE."""
-    bq = query_block(b, d, k, rows)
+    so every split starts on a multiple of TAU_STRIDE. ``bq``: the main
+    pass's query block (default: the plan's own)."""
+    if bq is None:
+        bq = query_block(b, d, k, rows)
     return doc_splits(n, b, bq, ctas_per_sm(bq, d, k, rows), sms,
                    TN * TAU_STRIDE)
 

@@ -71,6 +71,7 @@ from a_nice_rag_tpu_torch.retrieval.engine import (
     IVF_ROUTES,
     FusedRetriever,
     _ivf_coverage,
+    plan_for,
 )
 
 BM25_BACKENDS = ("auto", "sparse", "two_tier", "two_tier_streaming")
@@ -180,8 +181,9 @@ class ShardedIndex:
         return self.shards[0].ivf.n_clusters
 
     def _evict_stale(self, version: int) -> None:
-        for k in [k for k in self._mask_cache if k[-1] != version]:
-            del self._mask_cache[k]
+        # A snapshot of the keys: serving threads may insert meanwhile.
+        for k in [k for k in list(self._mask_cache) if k[-1] != version]:
+            self._mask_cache.pop(k, None)
 
     def _masks(self, key: tuple, host_mask) -> List[List[Optional[torch.Tensor]]]:
         """Per replica, per shard: the shard's slice of a [N_pad] host
@@ -189,7 +191,8 @@ class ShardedIndex:
         row, no filtered or tombstoned doc in the shard)."""
         version = getattr(self.base_index, "_version", 0)
         key = key + (version,)
-        if key not in self._mask_cache:
+        out = self._mask_cache.get(key)
+        if out is None:
             self._evict_stale(version)
             m = host_mask()
             m = np.pad(m, (0, self.n_docs_padded - m.shape[0]))
@@ -205,7 +208,7 @@ class ShardedIndex:
                     row.append(made[id(sh)])
                 out.append(row)
             self._mask_cache[key] = out
-        return self._mask_cache[key]
+        return out
 
     def filter_mask(self, filename_type_filter: Optional[str]):
         """Candidate masks per replica and shard (tombstones excluded)."""
@@ -604,9 +607,10 @@ def _local_to_global_topk(scores: torch.Tensor, k: int, offset: int,
 
 def _dense_shard(sh: IndexShard, mat: Matrix, q: torch.Tensor,
                  mask: Optional[torch.Tensor], k_local: int,
-                 use_kernel: bool):
-    """One shard's dense list: K1 (float rows) or K2 (int8) on the kernel
-    route, materialized [B, n_local] scores otherwise."""
+                 use_kernel: bool, plan=None):
+    """One shard's dense list: K1 (float rows, ``plan`` its query block
+    and splits) or K2 (int8) on the kernel route, materialized
+    [B, n_local] scores otherwise."""
     if isinstance(mat, QuantizedDense):
         qv, qs = quantize_queries(q)
         if use_kernel:
@@ -615,7 +619,8 @@ def _dense_shard(sh: IndexShard, mat: Matrix, q: torch.Tensor,
             return vals, _local_to_global(vals, lidx, sh.offset)
         scores = quantized_dense_scores(mat, qv, qs)
     elif use_kernel:
-        vals, lidx = fused_dense_top_k(mat, q, k_local, mask=mask)
+        vals, lidx = fused_dense_top_k(mat, q, k_local, mask=mask,
+                                       plan=plan)
         return vals, _local_to_global(vals, lidx, sh.offset)
     else:
         scores = dense_scores(mat, q)
@@ -655,6 +660,7 @@ class ShardedRetriever:
         ivf_max_tiles: Optional[int] = None,
         ivf_route: str = "auto",
         ivf_max_coverage: float = 0.25,
+        kernel_config=None,
     ):
         """``dense_backend``: "auto" streams each shard through K1/K2 on
         CUDA when the shard holds at least
@@ -676,6 +682,10 @@ class ShardedRetriever:
         the exact route. ``ivf_route``/``ivf_max_coverage``: as
         FusedRetriever's, with the coverage
         ``1 - (1 - p/C_shard)^(B/dp)`` of one dp group's batch.
+
+        ``kernel_config``: K1's query block and splits on every shard, at
+        the dp group's batch it was tuned at (FusedRetriever's); int8
+        shards keep K2's plan.
         """
         if dense_backend not in DENSE_BACKENDS:
             raise ValueError(f"dense_backend must be one of "
@@ -720,6 +730,7 @@ class ShardedRetriever:
         self.ivf_max_tiles = ivf_max_tiles
         self.ivf_route = ivf_route
         self.ivf_max_coverage = float(ivf_max_coverage)
+        self.kernel_config = kernel_config
         self.use_ivf = bool(nprobe and sidx.ivf_model is not None
                             and sidx.ivf_model in self.model_names)
         self._weights: Dict[tuple, torch.Tensor] = {}
@@ -828,7 +839,9 @@ class ShardedRetriever:
                         v, i = self._ivf_shard(sh, qd)
                     else:
                         v, i = _dense_shard(sh, sh.dense[name], qd, masks[s],
-                                            self.k_local, self.use_kernel)
+                                            self.k_local, self.use_kernel,
+                                            plan_for(self.kernel_config,
+                                                     qd.shape[0]))
                 vals.append(v)
                 gidx.append(i)
             lists.append(_merge_over(self.sidx, vals, gidx, k, lead)[1])

@@ -22,6 +22,7 @@ Counterpart of ``a_nice_rag_tpu/retrieval/engine.py``:
 from __future__ import annotations
 
 import logging
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -76,6 +77,12 @@ def _ivf_coverage(batch: int, nprobe: int, n_clusters: int) -> float:
         return 1.0
     p = min(nprobe, n_clusters) / n_clusters
     return 1.0 - (1.0 - p) ** max(1, batch)
+
+
+def plan_for(kernel_config, b: int):
+    """K1's plan override for a call of ``b`` queries: the retriever's
+    ``KernelConfig`` where it applies (``for_batch``), else None."""
+    return None if kernel_config is None else kernel_config.for_batch(b)
 
 
 def _finite_ids(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -160,6 +167,7 @@ class FusedRetriever:
         two_tier_common="auto",
         two_tier_dtype: str = "bfloat16",
         t_max_hint: int = 16,
+        kernel_config=None,
     ):
         """``dense_backend``: "auto" (the kernels on CUDA at scale),
         "kernel" (always the kernels; on CPU tensors their plain
@@ -182,6 +190,13 @@ class FusedRetriever:
         ``ivf_max_coverage`` (wider batches stream the whole corpus,
         whose cost is shared by the batch); "always" probes at every
         batch size. The 0.25 default is the JAX package's.
+
+        ``kernel_config``: K1's query block and doc splits
+        (``ops.kernels.autotune.KernelConfig``, as ``tune_fused_blocks``
+        picks them) for the float dense lists, at the batch it was tuned
+        at (``KernelConfig.for_batch``); None keeps the plan's own. int8
+        matrices keep K2's plan. It spreads the work only: the lists are
+        the default plan's.
 
         On the kernel route a CSR-only BM25 list reports -1 for
         zero-score slots, while the torch scatter route fills them with
@@ -251,6 +266,7 @@ class FusedRetriever:
         # Exposed so callers can assert which route the configuration
         # took.
         self.use_kernel = use_kernel
+        self.kernel_config = kernel_config
         self.nprobe = nprobe
         self.ivf_max_tiles = ivf_max_tiles
         self.ivf_route = ivf_route
@@ -259,7 +275,11 @@ class FusedRetriever:
             (index.ivf or {}).get(m) if nprobe else None
             for m in self.model_names
         )
+        # The serving fronts call retrieve_device from several dispatch
+        # threads at once: the lock guards the cache's reads, inserts and
+        # evictions.
         self._const_cache: Dict[tuple, torch.Tensor] = {}
+        self._cache_lock = threading.Lock()
 
     def run(self, dense_mats, bm25_arrays, q_embs, q_terms, mask, bm25_mask,
             weights, wrrf_k) -> Tuple[torch.Tensor, torch.Tensor,
@@ -282,7 +302,9 @@ class FusedRetriever:
                 lists.append(idx)
                 continue
             if self.use_kernel:
-                _, idx = fused_dense_top_k(mat, q, k, mask=mask)
+                _, idx = fused_dense_top_k(mat, q, k, mask=mask,
+                                           plan=plan_for(self.kernel_config,
+                                                         q.shape[0]))
                 lists.append(idx)
                 continue
             if quantized:
@@ -382,14 +404,40 @@ class FusedRetriever:
             [weights.get(m, 1.0) for m in self.model_names]
             + ([weights.get("BM25", 1.0)] if self.use_bm25 else [])
         )
-        if key not in self._const_cache:
-            self._const_cache[key] = torch.tensor(
-                key, dtype=torch.float32, device=self.device
-            )
-        return self._const_cache[key]
+        with self._cache_lock:
+            if key not in self._const_cache:
+                self._const_cache[key] = torch.tensor(
+                    key, dtype=torch.float32, device=self.device
+                )
+            return self._const_cache[key]
 
     def _as_device(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+    def _bm25_mask(self, mask, filename_type_filter):
+        """The filter mask & the index's BM25 doc mask, cached per filter
+        and index version (None when all-true)."""
+        idx = self.index
+        version = getattr(idx, "_version", 0)
+        key = ("bm25_mask", filename_type_filter or None, version)
+        with self._cache_lock:
+            if key not in self._const_cache:
+                # Evict masks of older index versions so repeated
+                # tombstone mutations cannot leak device tensors.
+                for stale in [
+                    c for c in self._const_cache
+                    if c[0] == "bm25_mask" and c[-1] != version
+                ]:
+                    del self._const_cache[stale]
+                doc_mask = idx.bm25_doc_mask_or_none()
+                if doc_mask is None:
+                    bm = mask
+                elif mask is None:
+                    bm = self._as_device(doc_mask)
+                else:
+                    bm = mask & self._as_device(doc_mask)
+                self._const_cache[key] = bm
+            return self._const_cache[key]
 
     def retrieve_device(
         self,
@@ -408,25 +456,7 @@ class FusedRetriever:
         # None when all-true: the kernels then run without a mask operand.
         mask = idx.filter_mask_or_none(filename_type_filter)
         if self.use_bm25:
-            version = getattr(idx, "_version", 0)
-            key = ("bm25_mask", filename_type_filter or None, version)
-            if key not in self._const_cache:
-                # Evict masks of older index versions so repeated
-                # tombstone mutations cannot leak device tensors.
-                for stale in [
-                    c for c in self._const_cache
-                    if c[0] == "bm25_mask" and c[-1] != version
-                ]:
-                    del self._const_cache[stale]
-                doc_mask = idx.bm25_doc_mask_or_none()
-                if doc_mask is None:
-                    bm = mask
-                elif mask is None:
-                    bm = self._as_device(doc_mask)
-                else:
-                    bm = mask & self._as_device(doc_mask)
-                self._const_cache[key] = bm
-            bm25_mask = self._const_cache[key]
+            bm25_mask = self._bm25_mask(mask, filename_type_filter)
             terms = self._as_device(q_terms, torch.int32)
             if self._two_tier is not None:
                 bm25_arrays = self._two_tier

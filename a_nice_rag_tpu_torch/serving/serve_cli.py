@@ -1,0 +1,640 @@
+"""One-command serving: index -> scheduler -> HTTP (and the native front).
+
+Counterpart of ``a_nice_rag_tpu/serving/serve_cli.py``. Wires the serving
+stack end to end:
+
+* an index artifact (or a synthetic demo corpus) loaded once, on the card
+  unless ``--device cpu``;
+* a single-device ``FusedRetriever``, its K1 plan optionally tuned on the
+  card (``--autotune``), or with ``--shards N`` a ``ShardedRetriever`` over
+  an N-slot corpus mesh guarded by a ``DeviceHealthMonitor`` that reshards
+  over survivors and swaps the retriever and its pool live;
+* a ``SchedulerPool`` micro-batching every configuration;
+* the stdlib HTTP surface: ``/v1/search`` (scheduler-batched; a single
+  JSON query or a base64 batch in f32 or bf16), ``/v1/stats``
+  (scheduler counters + health events), ``/v1/health``;
+* with ``--native-port``, the binary C++ front beside it.
+
+Vectors come in: the flags of modules the port does not have yet exit
+with the ROADMAP item they wait for (``--embedder``: item 6; ``--llm``
+and the generation group: item 8). The JAX CLI's ``-rounded`` flag, which
+selects the packed bf16-key fold, exits too: that fold was not ported.
+
+Usage:
+    python -m a_nice_rag_tpu_torch.serving.serve_cli --index artifacts/nice \
+        [--port 8800] [--autotune] [--shards 4] [--device cuda]
+    python -m a_nice_rag_tpu_torch.serving.serve_cli --demo
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import base64
+import json
+import logging
+import os
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from a_nice_rag_tpu_torch.device import require_cuda
+from a_nice_rag_tpu_torch.serving.scheduler import (
+    DEFAULT_MAX_BATCH,
+    SchedulerPool,
+)
+
+logger = logging.getLogger(__name__)
+
+# Flags of the JAX CLI whose modules the port does not have yet, with the
+# ROADMAP item each waits for.
+UNPORTED_FLAGS = {
+    "embedder": "item 6 (the on-device embedder)",
+    "embedder_ckpt": "item 6 (the on-device embedder)",
+    "llm": "item 8 (the local decoder and its generation server)",
+    "llm_ckpt": "item 8", "gen_slots": "item 8", "gen_chunk": "item 8",
+    "gen_max_len": "item 8", "draft_ckpt": "item 8", "gamma": "item 8",
+    "prefill_chunk": "item 8", "max_pending": "item 8",
+    "retain_prefixes": "item 8", "logprob_topk": "item 8",
+    "json_mode": "item 8", "json_depth": "item 8", "lm_tp": "item 8",
+    "chat_template": "item 8",
+}
+ROUNDED_FOLD = ("selects the packed bf16-key fold, which is not ported "
+                "(ROADMAP queue 2: only if an H100 measurement asks for it)")
+
+
+class ServeState:
+    """Mutable serving state; the health monitor swaps retrievers."""
+
+    def __init__(self, index, retriever, pool, monitor=None, t_max=16,
+                 embedder=None):
+        self.index = index
+        self.retriever = retriever
+        self.pool = pool
+        self.monitor = monitor
+        self.t_max = t_max
+        # Optional query embedder (``embed_queries``): lets /v1/search
+        # take raw text.
+        self.embedder = embedder
+        self.loop: Optional[asyncio.AbstractEventLoop] = None
+
+    def encode_text_query(self, text: str):
+        """Raw text -> (query embedding [D] f32, padded term ids [t_max]
+        i32) via the embedder + the index's BM25 vocabulary (the corpus
+        side's preprocessing)."""
+        if self.embedder is None:
+            raise ValueError(
+                "server has no embedder; pass 'query_embedding'"
+            )
+        from a_nice_rag_tpu_torch.text.preprocess import preprocess_text
+
+        q_vec = np.asarray(
+            self.embedder.embed_queries([text]), np.float32
+        )[0]
+        toks = preprocess_text(text, use_lemmatization=True)
+        terms = self.index.pad_term_ids([toks], self.t_max)[0]
+        return q_vec, terms
+
+    def submit_sync(self, q_emb: Dict[str, np.ndarray], q_terms, weights,
+                    filt, wrrf_k, timeout_s: float = 30.0):
+        fut = asyncio.run_coroutine_threadsafe(
+            self.pool.submit(q_emb, q_terms, weights=weights,
+                             filename_type_filter=filt, wrrf_k=wrrf_k),
+            self.loop,
+        )
+        return fut.result(timeout=timeout_s)
+
+    def submit_batch_sync(self, model: str, q_mat: np.ndarray, terms,
+                          weights, filt, wrrf_k,
+                          timeout_s: float = 60.0):
+        """Submit a CLIENT-SIDE batch: the row block rides one scheduler
+        entry + one future (BatchScheduler.submit_many) and still
+        coalesces with other pending traffic up to max_batch rows.
+        ``q_mat``: f32 rows, or bf16 bits as uint16, which the scheduler
+        uploads at half width. Returns (rows [B, n], scores [B, n])."""
+        q_arr = np.asarray(q_mat)
+        if q_arr.dtype != np.uint16:
+            q_arr = q_arr.astype(np.float32, copy=False)
+        fut = asyncio.run_coroutine_threadsafe(
+            self.pool.submit_many(
+                {model: q_arr},
+                None if terms is None else np.asarray(terms, np.int32),
+                weights=weights, filename_type_filter=filt,
+                wrrf_k=wrrf_k,
+            ),
+            self.loop,
+        )
+        rows, scores = fut.result(timeout=timeout_s)
+        return np.asarray(rows), np.asarray(scores)
+
+
+def _load_kernels(retriever, ivf: bool) -> None:
+    """Build and bind the kernel libraries of the retriever's route now,
+    so no served request pays for a compile and no two dispatch threads
+    build one at once."""
+    from a_nice_rag_tpu_torch.ops.kernels import _build, fused_topk, ivf_topk
+
+    names = ["fused_topk"] + (["ivf_topk"] if ivf else [])
+    _build.load_all(names)
+    fused_topk._library()
+    if ivf:
+        ivf_topk._library()
+
+
+def build_state(
+    index,
+    model_names,
+    use_bm25: bool = True,
+    autotune: bool = False,
+    shards: int = 0,
+    two_tier_common: int = 0,
+    scheduler_kwargs: Optional[Dict] = None,
+    nprobe: int = 0,
+    ivf_clusters: Optional[int] = None,
+    ivf_cache: Optional[str] = None,
+    ivf_spill: bool = False,
+    embedder=None,
+    ivf_max_coverage: float = 0.25,
+    devices: Optional[Sequence] = None,
+    similarity_k: int = 25,
+    common_sections_n: int = 15,
+    budget: int = 16384,
+) -> ServeState:
+    """Serve ``index`` on its device. ``nprobe > 0`` serves the flagship
+    model through the IVF ANN route (building the IVF layout at startup
+    if the index does not carry one); filtered queries take the exact
+    scan. ``ivf_spill`` stores boundary documents in their two nearest
+    clusters on both routes. ``ivf_max_coverage``: the auto routing
+    threshold (batches whose expected cluster coverage 1-(1-p/C)^B
+    exceeds it take the exact stream).
+
+    ``shards > 1`` lays a corpus mesh over ``devices`` (slots; repeat a
+    device for a virtual mesh: ``["cpu"] * 4``, ``[cuda:0] * 4``); with no
+    devices it takes the first ``shards`` cards and raises without a GPU.
+    ``autotune`` tunes K1's plan on the card for a float flagship matrix
+    (``ops.kernels.autotune``) at the scheduler's widest batch; int8
+    matrices keep K2's plan. On CUDA the route's kernel libraries are
+    built before this returns."""
+    monitor = None
+    retr_kw = dict(use_bm25=use_bm25, similarity_k=similarity_k,
+                   common_sections_n=common_sections_n, budget=budget,
+                   nprobe=nprobe or None, ivf_max_coverage=ivf_max_coverage)
+    if shards > 1:
+        from a_nice_rag_tpu_torch.parallel import (
+            DeviceHealthMonitor,
+            ShardedRetriever,
+            load_shard_ivf,
+            make_mesh,
+            save_shard_ivf,
+            shard_index,
+            shard_ivf,
+        )
+
+        if devices is None:
+            require_cuda()
+            devices = [f"cuda:{i}" for i in
+                       range(min(shards, torch.cuda.device_count()))]
+        mesh = make_mesh(shape=(1, len(devices)),
+                         axis_names=("dp", "corpus"), devices=devices)
+        sidx = shard_index(index, mesh, two_tier_common=two_tier_common)
+        if nprobe > 0:
+            sidx2 = None
+            if ivf_cache and os.path.exists(ivf_cache):
+                try:
+                    sidx2 = load_shard_ivf(sidx, ivf_cache)
+                    logger.info("serve: IVF layout loaded from %s",
+                                ivf_cache)
+                except ValueError as e:
+                    logger.warning("serve: IVF cache unusable (%s); "
+                                   "rebuilding", e)
+            if sidx2 is None:
+                sidx2 = shard_ivf(sidx, model_names[0],
+                                  n_clusters=ivf_clusters, spill=ivf_spill)
+                logger.info("serve: per-shard IVF built (%d clusters a "
+                            "shard)", sidx2.ivf_n_clusters)
+                if ivf_cache:
+                    save_shard_ivf(sidx2, ivf_cache)
+            sidx = sidx2
+
+        def make_retriever(s):
+            return ShardedRetriever(s, model_names, **retr_kw)
+
+        retriever = make_retriever(sidx)
+        state = ServeState(index, retriever, None)
+
+        def rebuild(new_sidx):
+            state.retriever = make_retriever(new_sidx)
+            old_pool = state.pool
+            state.pool = SchedulerPool(state.retriever,
+                                       **(scheduler_kwargs or {}))
+            # Stop the replaced pool's scheduler loops: abandoning them
+            # leaks pending asyncio tasks on the serving loop.
+            if old_pool is not None and state.loop is not None:
+                try:
+                    asyncio.run_coroutine_threadsafe(
+                        old_pool.stop(), state.loop
+                    ).result(timeout=10)
+                except Exception:  # noqa: BLE001 — best-effort cleanup
+                    logger.exception("serve: stopping the old pool failed")
+            logger.warning("serve: retriever rebuilt over %d shards",
+                           new_sidx.n_shards)
+
+        monitor = DeviceHealthMonitor(sidx, rebuild=rebuild)
+        state.monitor = monitor
+        on_cuda = sidx.lead.type == "cuda"
+    else:
+        from a_nice_rag_tpu_torch.index.ivf import attach_ivf
+        from a_nice_rag_tpu_torch.retrieval import FusedRetriever
+
+        if nprobe > 0 and (index.ivf or {}).get(model_names[0]) is None:
+            attach_ivf(index, model_names[0], n_clusters=ivf_clusters,
+                       spill=ivf_spill)
+            logger.info("serve: IVF built for %s (%d clusters)",
+                        model_names[0],
+                        index.ivf[model_names[0]].n_clusters)
+        kernel_config = None
+        m0 = index.dense.get(model_names[0]) if model_names else None
+        if autotune and m0 is not None and m0.device.type == "cuda":
+            from a_nice_rag_tpu_torch.ops.kernels.autotune import (
+                tune_fused_blocks,
+            )
+
+            # Random probe queries: an all-zero probe makes every score
+            # tie, and the tuner's id-parity guard would then reject
+            # every candidate for tie-order differences. Tuned at the
+            # scheduler's widest batch, the saturated traffic's.
+            probe_b = (scheduler_kwargs or {}).get("max_batch",
+                                                   DEFAULT_MAX_BATCH)
+            g = torch.Generator(device=m0.device).manual_seed(0)
+            q_probe = torch.randn((probe_b, m0.shape[1]), generator=g,
+                                  device=m0.device)
+            kernel_config = tune_fused_blocks(
+                m0, q_probe, min(similarity_k, index.n_docs))
+            logger.info("serve: autotuned K1 plan %s", kernel_config)
+        retriever = FusedRetriever(index, model_names,
+                                   kernel_config=kernel_config, **retr_kw)
+        state = ServeState(index, retriever, None)
+        on_cuda = index.device.type == "cuda"
+    if on_cuda and state.retriever.use_kernel:
+        _load_kernels(state.retriever, ivf=nprobe > 0)
+    state.pool = SchedulerPool(state.retriever, **(scheduler_kwargs or {}))
+    state.embedder = embedder
+    return state
+
+
+def decode_b64_batch(payload: dict):
+    """The batched RPC form of /v1/search: (rows, terms or None). Rows
+    are f32, or (``"dtype": "bf16"``) bf16 bits as uint16; raises
+    ValueError on another dtype."""
+    dtype_s = payload.get("dtype", "f32")
+    if dtype_s not in ("f32", "bf16"):
+        raise ValueError(f"dtype must be 'f32' or 'bf16', got {dtype_s!r}")
+    q_mat = np.frombuffer(
+        base64.b64decode(payload["query_embeddings_b64"]),
+        np.uint16 if dtype_s == "bf16" else np.float32,
+    ).reshape(payload["shape"])
+    terms = None
+    if payload.get("terms_b64"):
+        terms = np.frombuffer(base64.b64decode(payload["terms_b64"]),
+                              np.int32).reshape(payload["terms_shape"])
+    return q_mat, terms
+
+
+def _make_handler(state: ServeState, default_weights: Dict[str, float],
+                  api=None):
+    """``api`` (serving.http_api.ServingAPI) adds the RAG surface: every
+    endpoint the scheduler path does not own (/v1/rag, /v1/feedback,
+    /v1/embeddings, the browser UI) delegates to the RAG handler by
+    inheritance, so one port serves both."""
+    if api is not None:
+        from a_nice_rag_tpu_torch.serving.http_api import (
+            _make_handler as _rag_handler,
+        )
+
+        base = _rag_handler(api)
+    else:
+        base = BaseHTTPRequestHandler
+
+    class Handler(base):
+        def log_message(self, fmt, *args):
+            logger.debug(fmt, *args)
+
+        def _reply(self, code, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/v1/health":
+                self._reply(200, {
+                    "status": "ok",
+                    "n_docs": state.index.n_docs,
+                    "models": list(state.retriever.model_names),
+                })
+            elif self.path == "/v1/stats":
+                self._reply(200, {
+                    "schedulers": state.pool.stats,
+                    "health_events": (
+                        state.monitor.events[-20:] if state.monitor else []
+                    ),
+                })
+            elif api is not None:
+                super().do_GET()  # browser UI etc.
+            else:
+                self._reply(404, {"error": "unknown endpoint"})
+
+        def do_POST(self):
+            if self.path != "/v1/search":
+                if api is not None:
+                    # RAG / feedback surface (reads rfile itself).
+                    super().do_POST()
+                else:
+                    self._reply(404, {"error": "unknown endpoint"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                payload = json.loads(self.rfile.read(length) or b"{}")
+            except (ValueError, json.JSONDecodeError) as e:
+                self._reply(400, {"error": f"bad JSON: {e}"})
+                return
+            try:
+                model = payload.get("model", state.retriever.model_names[0])
+                weights = payload.get("model_weights") or default_weights
+                if "query_embeddings_b64" in payload:
+                    # Batched RPC form: raw little-endian f32 (or bf16
+                    # bits) [B, D] and optionally i32 term ids [B, T] as
+                    # base64; JSON arrays of a wide batch would bench the
+                    # JSON parser, not the serving stack. bf16 halves the
+                    # request bytes and the host->device upload; ranking
+                    # is the exact f32 ordering of the bf16-rounded
+                    # query, the native front's bf16 wire contract.
+                    q_mat, terms_b = decode_b64_batch(payload)
+                    rows, scores = state.submit_batch_sync(
+                        model, q_mat, terms_b, weights,
+                        payload.get("filename_type_filter"),
+                        float(payload.get("wrrf_k", 40.0)),
+                    )
+                    # Binary reply in the same b64 form: JSON text of a
+                    # [512, n] float matrix costs more host time than
+                    # the request.
+                    rows = np.ascontiguousarray(rows, np.int32)
+                    scores = np.ascontiguousarray(scores, np.float32)
+                    self._reply(200, {
+                        "rows_b64":
+                            base64.b64encode(rows.tobytes()).decode(),
+                        "scores_b64":
+                            base64.b64encode(scores.tobytes()).decode(),
+                        "out_shape": list(rows.shape),
+                    })
+                    return
+                emb = payload.get("query_embedding")
+                text = payload.get("query")
+                text_terms = None
+                if emb is not None:
+                    q_vec = np.asarray(emb, np.float32)
+                elif text is not None:
+                    q_vec, text_terms = state.encode_text_query(str(text))
+                else:
+                    raise ValueError(
+                        "'query_embedding' or 'query' is required"
+                    )
+                terms = None
+                if payload.get("terms") is not None:
+                    terms = np.asarray(payload["terms"], np.int32)
+                elif text_terms is not None:
+                    terms = text_terms
+                rows, scores = state.submit_sync(
+                    {model: q_vec}, terms, weights,
+                    payload.get("filename_type_filter"),
+                    float(payload.get("wrrf_k", 40.0)),
+                )
+                meta = state.index.meta
+                out = []
+                for r, s in zip(rows.tolist(), scores.tolist()):
+                    if r < 0 or r >= meta.n_docs:
+                        continue
+                    out.append({
+                        "id": meta.ids[r],
+                        "source": meta.sources[r],
+                        "score": s,
+                        "document": meta.contents[r],
+                    })
+                self._reply(200, {"results": out})
+            except ValueError as e:
+                self._reply(400, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 — serving boundary
+                logger.exception("search failed")
+                self._reply(500, {"error": str(e)})
+
+    return Handler
+
+
+def serve_state(
+    state: ServeState,
+    default_weights: Dict[str, float],
+    host: str = "127.0.0.1",
+    port: int = 8800,
+    background: bool = False,
+    api=None,
+):
+    """Start the asyncio scheduler loop thread + HTTP server. With
+    ``background``, returns the server; its ``shutdown()`` also stops the
+    monitor, the scheduler pool and the loop."""
+    loop = asyncio.new_event_loop()
+    state.loop = loop
+    threading.Thread(target=loop.run_forever, daemon=True,
+                     name="scheduler-loop").start()
+    if state.monitor is not None:
+        state.monitor.start()
+    server = ThreadingHTTPServer(
+        (host, port), _make_handler(state, default_weights, api=api)
+    )
+
+    def _teardown():
+        """Stop everything the serve started: the monitor, the scheduler
+        pool's loop tasks (so no asyncio task is left pending when the
+        loop thread dies), then the loop."""
+        if state.monitor is not None:
+            state.monitor.stop()
+        try:
+            fut = asyncio.run_coroutine_threadsafe(state.pool.stop(), loop)
+            fut.result(timeout=10)
+        except Exception:  # noqa: BLE001 — best-effort teardown
+            logger.exception("serve: stopping the scheduler pool failed")
+        loop.call_soon_threadsafe(loop.stop)
+
+    if background:
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        orig_shutdown = server.shutdown
+
+        def _shutdown():
+            orig_shutdown()
+            server.server_close()
+            _teardown()
+
+        server.shutdown = _shutdown
+        return server
+    logger.info("serving on http://%s:%d", host, port)
+    try:
+        server.serve_forever()
+    finally:
+        _teardown()
+    return None
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--index", default=None, help="index artifact path")
+    p.add_argument("--demo", action="store_true",
+                   help="serve a synthetic demo corpus")
+    p.add_argument("--device", default="cuda",
+                   help="device the index is served on (default cuda)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8800)
+    p.add_argument("--models", default=None,
+                   help="comma-separated dense models (default: all)")
+    p.add_argument("--no-bm25", action="store_true")
+    p.add_argument("--autotune", action="store_true",
+                   help="tune K1's query block and splits on the card")
+    p.add_argument("--shards", type=int, default=0)
+    p.add_argument("--two-tier-common", type=int, default=0)
+    # The retriever fixes these at startup and a /v1/search request cannot
+    # change them: the depth of each ranker's list, the fused results a
+    # query gets back, and the postings a BM25 query may gather (those past
+    # it are dropped, so a corpus with longer posting lists needs more).
+    p.add_argument("--similarity-k", type=int, default=25,
+                   help="candidates per ranker before the fusion")
+    p.add_argument("--common-sections-n", type=int, default=15,
+                   help="fused results returned per query")
+    p.add_argument("--bm25-budget", type=int, default=16384,
+                   help="BM25 postings gathered per query")
+    p.add_argument("--nprobe", type=int, default=0,
+                   help="serve the flagship model via IVF ANN, probing "
+                        "this many clusters per query (0 = exact)")
+    p.add_argument("--ivf-clusters", type=int, default=None,
+                   help="IVF cluster count (default ~sqrt(N))")
+    p.add_argument("--ivf-spill", action="store_true",
+                   help="store boundary docs in their two nearest "
+                        "clusters (better low-nprobe recall, up to 2x "
+                        "IVF memory)")
+    p.add_argument("--ivf-max-coverage", type=float, default=0.25,
+                   help="auto IVF routing threshold: batches whose "
+                        "expected cluster coverage 1-(1-p/C)^B exceeds "
+                        "this take the exact stream")
+    p.add_argument("--ivf-cache", default=None,
+                   help="path to persist/reuse the sharded IVF "
+                        "clustering layout (skips startup k-means)")
+    p.add_argument("--native-port", type=int, default=None,
+                   help="also serve the binary native (C++) front on this "
+                        "port: length-prefixed binary frames, "
+                        "socket-layer batching, no Python per request. "
+                        "Single-dense-model configs only; 0 picks a free "
+                        "port")
+    p.add_argument("--native-t-max", type=int, default=32,
+                   help="term-id columns per row on the native front")
+    p.add_argument("--native-wire-dtype", default="f32",
+                   choices=["f32", "bf16", "int8"],
+                   help="embedding element width on the native wire: bf16 "
+                        "halves the bytes per row on the socket and the "
+                        "host->device upload; int8 quarters them (per-row "
+                        "scale, dequantized on the device); ranking is "
+                        "the exact f32 ordering of the quantized query's "
+                        "scores")
+    # The JAX CLI's flags for modules not yet ported: accepted so that
+    # they can exit with the ROADMAP item they wait for.
+    for flag in ("--embedder", "--embedder-ckpt", "--llm", "--llm-ckpt",
+                 "--draft-ckpt", "--chat-template"):
+        p.add_argument(flag, default=None, help="not ported yet")
+    for flag in ("--gen-slots", "--gen-chunk", "--gen-max-len", "--gamma",
+                 "--prefill-chunk", "--max-pending", "--retain-prefixes",
+                 "--logprob-topk", "--json-depth", "--lm-tp"):
+        p.add_argument(flag, type=int, default=None, help="not ported yet")
+    p.add_argument("--json-mode", action="store_true",
+                   help="not ported yet")
+    return p
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO)
+    parser = _parser()
+    args, rest = parser.parse_known_args(argv)
+    for arg in rest:
+        # The JAX CLI's packed-fold flag (its name ends in "-rounded").
+        if arg.startswith("--") and arg.split("=")[0].endswith("-rounded"):
+            raise SystemExit(f"{arg} {ROUNDED_FOLD}")
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    for name, item in UNPORTED_FLAGS.items():
+        value = getattr(args, name)
+        if value is not None and value is not False:
+            raise SystemExit(
+                f"--{name.replace('_', '-')} is not ported to "
+                f"a_nice_rag_tpu_torch yet: ROADMAP queue 1, {item}")
+
+    if args.demo:
+        from a_nice_rag_tpu_torch.index import build_index
+        from a_nice_rag_tpu_torch.testing import synth_corpus
+
+        c = synth_corpus(n_docs=2048, dim=128, n_queries=4, seed=11)
+        index = build_index(ids=c.ids, sources=c.sources,
+                            contents=c.contents, embeddings=c.embeddings,
+                            token_lists=c.tokens, device=args.device)
+    elif args.index:
+        from a_nice_rag_tpu_torch.index import load_index
+
+        index = load_index(args.index, device=args.device)
+    else:
+        raise SystemExit("--index or --demo is required")
+
+    model_names = (
+        args.models.split(",") if args.models
+        else list(index.dense_model_names)
+    )
+    use_bm25 = not args.no_bm25 and index.bm25 is not None
+    state = build_state(
+        index, tuple(model_names), use_bm25=use_bm25,
+        autotune=args.autotune, shards=args.shards,
+        two_tier_common=args.two_tier_common,
+        similarity_k=args.similarity_k,
+        common_sections_n=args.common_sections_n, budget=args.bm25_budget,
+        nprobe=args.nprobe, ivf_clusters=args.ivf_clusters,
+        ivf_cache=args.ivf_cache, ivf_spill=args.ivf_spill,
+        ivf_max_coverage=args.ivf_max_coverage,
+        devices=None if args.device.startswith("cuda") else
+        [args.device] * max(args.shards, 1),
+    )
+    weights = {m: (5.0 if m == model_names[0] else 1.0)
+               for m in model_names}
+    if use_bm25:
+        weights["BM25"] = 1.0
+    native = None
+    if args.native_port is not None:
+        from a_nice_rag_tpu_torch.serving.native_front import (
+            NativeRetrievalFront,
+        )
+
+        native = NativeRetrievalFront(
+            state.retriever, weights, host=args.host,
+            port=args.native_port, t_max=args.native_t_max,
+            wire_dtype=args.native_wire_dtype,
+        )
+        logger.info(
+            "native binary front on %s:%d (dim=%d, t_max=%d, wire=%s)",
+            args.host, native.port, native.dim, native.t_max,
+            native.wire_dtype,
+        )
+    try:
+        serve_state(state, weights, host=args.host, port=args.port)
+    finally:
+        if native is not None:
+            native.stop()
+
+
+if __name__ == "__main__":
+    main()

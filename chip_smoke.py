@@ -92,6 +92,38 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      int8 matrix as 4 views through K2 per shard against unsharded K2
      (recall@10 >= 0.95), each shard's list torch.equal to its plain
      version, and the sharded and unsharded times;
+ 20. the served path (serving/), each part driven with the launch counts
+     zeroed and read, no part falling back: (a) stage A's index (ids,
+     sources, a vocabulary; hybrid 5:1, k = 32, top 15) behind
+     serve_cli.build_state with autotune (K1's plan tuned at the
+     scheduler's widest batch, 512 rows, and held torch.equal to the
+     default plan at B = 1, 8, 256 and 512, its ms beside the default's)
+     and serve_state: the HTTP b64 RPC in f32 and bf16 and the native C++
+     front's f32, bf16 and int8 wires, each 8 clients x 5 rounds x 5
+     requests of 256-row frames, every f32 / bf16 reply's ids equal to a
+     direct retrieve_device on its rows (bf16: on the bf16-rounded rows),
+     every int8 reply's planted recall@10 >= 0.99 and its overlap@10 with
+     the f32 wire; per front QPS min / median / max over the rounds, p50 /
+     p99 request ms, the mean device batch and K1 at least once a device
+     batch; one client in turn: 200 single-query JSON requests (B = 1) and
+     200 8-row frames, their p50 / p99 and ids, each held to the served
+     latency limit (p50 <= 10 ms, p99 <= 20 ms; PERF.md section 2), and
+     the same rows through the scheduler pool and a direct
+     retrieve_device, the layers below HTTP; (c)
+     the same index over 4
+     slots of the card (build_state(shards=4, devices=[cuda:0] * 4)),
+     slot 3 killed through the monitor's probe, check_and_recover swapping
+     the retriever and the pool live, the served fused ids before and
+     after equal to the unsharded served ids, K1 4 then 3 a batch; (d)
+     http_api.serve over RAGSystem on that index (FakeLLMClient,
+     PrecomputedEmbedder): /v1/search, /v1/rag as JSON and as SSE with the
+     planted gold among the sources for 16 queries, /v1/feedback, the UI
+     page and /v1/embeddings; (b) stage D's corpus served dense-only in
+     64 8-row frames, no coalescing (max_batch 8, max_wait_ms 0): the IVF
+     route (nprobe 16, K3 once a frame, recall@10 >= 0.90) and the exact
+     route (nprobe 0, K1), each list held against a direct call's by
+     exact rescoring, the p50 / p99 of each; then the ``served`` line
+     (each part's seconds and peak memory, the fronts, the latencies);
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -282,6 +314,19 @@ class _LogTimes(logging.Handler):
                     if msg.startswith(prefix))
 
 
+def over_limits(latency, limits):
+    """The (run, percentile, ms) of ``latency`` ({run: {"p50_ms": ...}})
+    that exceed ``limits`` ({"p50_ms": ms, ...})."""
+    return [(run, key, ms[key]) for run, ms in latency.items()
+            for key, limit in limits.items() if ms[key] > limit]
+
+
+def _equal_ids(got, want, what) -> None:
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: a reply's ids differ from a direct "
+                             "retrieve_device on its rows")
+
+
 class Smoke:
     # Sizes of the phases (bench.py's configurations for stages A-E).
     N_KERNEL, D_KERNEL = (1 << 20) + 37, 256
@@ -338,6 +383,14 @@ class Smoke:
     SWEEP_CSV = REPO / "results" / "retrieval_evaluation_results_synthetic.csv"
     RAG_QUERIES, TUNE_CALLS = 16, 4
     TRACE_EVENTS = "kernel"
+    # Phase 20: clients of each front, rounds (QPS min / median / max over
+    # them) and requests a client sends a round (8 x 5 x 5 = 200 requests
+    # of B rows a front); requests of the one-client latency runs.
+    SERVED_CLIENTS, SERVED_ROUNDS, SERVED_PER = 8, 5, 5
+    SERVED_LATENCY = 200
+    # The served latency limit of the one-client runs (B = 1 and B = 8 on
+    # the 2m index, host clock; PERF.md section 2 says how it was set).
+    SERVED_LIMITS_MS = {"p50_ms": 10.0, "p99_ms": 20.0}
 
     def __init__(self, port):
         self.p = port
@@ -353,6 +406,8 @@ class Smoke:
         self.bounds = {}
         self.retrieve_ms = {}
         self.shard_seconds, self.sharded_parts = {}, {}
+        self.served_parts, self.served_fronts = {}, {}
+        self.served_latency_ms, self.served_layers_ms = {}, {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -2692,14 +2747,21 @@ class Smoke:
     def sharded_part(self, name, fn, *args):
         """Run one part of phase 19, keeping its seconds and the card's
         peak allocation during it."""
+        return self.part(self.sharded_parts, name, fn, *args)
+
+    def served_part(self, name, fn, *args):
+        """The same for a part of phase 20."""
+        return self.part(self.served_parts, name, fn, *args)
+
+    @staticmethod
+    def part(parts, name, fn, *args):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args)
         torch.cuda.synchronize()
-        self.sharded_parts[name] = {
-            "seconds": time.perf_counter() - t0,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        parts[name] = {"seconds": time.perf_counter() - t0,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         return out
 
     def phase19_summary(self) -> None:
@@ -2710,6 +2772,467 @@ class Smoke:
             card=self.card,
             method="retrieve_ms: CUDA events around one call, median of 10 "
             "after 3 warm-up calls")
+
+    # -- phase 20: the served path ------------------------------------------
+
+    def served_front(self, name, connect, counters, per=None):
+        """Drive one front (``connect`` for bench.drive_front) as a path of
+        its own: SERVED_CLIENTS clients, SERVED_ROUNDS rounds of ``per``
+        requests; its K1 / K3 launches against its device batches
+        (``counters()``: (batches, rows) served so far)."""
+        b0, r0 = counters()
+        stats, counts = self.main_path(lambda: self.b.drive_front(
+            connect, self.SERVED_CLIENTS, self.SERVED_ROUNDS,
+            per or self.SERVED_PER, self.B))
+        b1, r1 = counters()
+        batches = b1 - b0
+        k1 = counts["fused_dense_top_k"]
+        if k1 < batches or not batches:
+            raise AssertionError(f"{name}: K1 {k1} launches for {batches} "
+                                 "device batches")
+        stats.update(device_batches=batches, mean_device_batch=(
+            (r1 - r0) / batches), k1_launches=k1)
+        self.served_fronts[name] = stats
+        return stats
+
+    @staticmethod
+    def pool_counters(state):
+        def read():
+            scheds = list(state.pool._pool.values())
+            return (sum(x.batches_run for x in scheds),
+                    sum(x.queries_served for x in scheds))
+        return read
+
+    def frames(self, q_host, t_host, ids):
+        """Per client a rotation of the batch's rows: (queries, terms, the
+        direct call's ids) of client r."""
+        counter = itertools.count()
+
+        def next_frame():
+            r = next(counter) % self.SERVED_CLIENTS
+            shift = r * max(1, self.B // self.SERVED_CLIENTS)
+            return (np.roll(q_host, shift, 0), np.roll(t_host, shift, 0),
+                    np.roll(ids, shift, 0), shift)
+        return next_frame
+
+    def phase20a_served(self, emb, gold, q, bm25, terms):
+        """Stage A's index behind build_state / serve_state with the tuned
+        K1 plan: the HTTP b64 RPC in f32 and bf16 and the native front's
+        three wires at 256-row frames, every f32 / bf16 reply equal to a
+        direct retrieve_device on its rows, the int8 wire's planted
+        recall; then single-query JSON and 8-row frames for latency."""
+        p, b = self.p, self.b
+        index, tokens = self.stage_a_reference_index(emb, bm25, terms)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        t0 = time.perf_counter()
+        state = p.build_state(
+            index, (MODEL,), use_bm25=True, autotune=True, similarity_k=32,
+            common_sections_n=15, budget=1024, scheduler_kwargs={
+                "max_batch": 2 * self.B, "max_wait_ms": 2.0,
+                "max_inflight": 4})
+        build_s = time.perf_counter() - t0
+        retr = state.retriever
+        assert retr.use_kernel, "the 2M index must serve through K1"
+        cfg = retr.kernel_config
+        # The tuned plan spreads the work only: K1's output at the served
+        # shapes equals the default plan's.
+        k = p.kernels
+        q2 = torch.cat([q, q.flip(1)])  # the tuned batch, 2B rows
+        batches = [1, self.B_MICRO, self.B, 2 * self.B]
+        for bb in batches:
+            ref = k.fused_dense_top_k(emb, q2[:bb], 32)
+            got = k.fused_dense_top_k(emb, q2[:bb], 32, plan=cfg)
+            torch.cuda.synchronize()
+            if not (torch.equal(ref[0], got[0])
+                    and torch.equal(ref[1], got[1])):
+                raise AssertionError(f"tuned plan {cfg} changed K1's output "
+                                     f"at B={bb}")
+        plan_ms = {f"{label}_b{bb}": p.cuda_event_ms(
+            lambda: k.fused_dense_top_k(emb, q2[:bb], 32, plan=plan))
+            for bb in (self.B, 2 * self.B)
+            for label, plan in (("tuned", cfg), ("default", None))}
+        q_host, t_host = q.cpu().numpy(), terms.cpu().numpy()
+        gold_h = gold.cpu().numpy()
+        qd = {MODEL: q}
+        want = retr.retrieve_device(qd, terms, w, None, 40.0)[0].cpu().numpy()
+        q_bf = p.bf16_values(p.bf16_bits(q_host))
+        want_bf = retr.retrieve_device({MODEL: torch.as_tensor(
+            q_bf, device=self.dev)}, terms, w, None, 40.0)[0].cpu().numpy()
+        log(served="A_plan", kernel_config=cfg and cfg._asdict(),
+            build_state_s=build_s, k1_ms=plan_ms,
+            k1_equal_default_plan_at_b=batches, card=self.card,
+            method="CUDA events, median of 10 after 3 warm-ups; the tuned "
+            "plan applies at its batch only")
+
+        server = p.serve_state(state, w, port=0, background=True)
+        try:
+            port = server.server_address[1]
+            self.served_http(state, port, q_host, t_host, want, w, "f32")
+            self.served_http(state, port, q_bf, t_host, want_bf, w, "bf16")
+            self.served_latency(state, port, q_host, t_host, want, index)
+        finally:
+            server.shutdown()
+        recall, rows = self.served_native(state, w, q_host, t_host, want,
+                                          want_bf, gold_h)
+        overlap = b.overlap_at(rows["int8"], rows["f32"])
+        log(served="A_native_int8", recall10_min=recall,
+            overlap10_vs_f32=overlap, card=self.card)
+        del state, retr
+        return want, index, tokens
+
+    def served_http(self, state, port, q_host, t_host, want, w, dtype):
+        b = self.b
+        next_frame = self.frames(q_host, t_host, want)
+
+        def connect():
+            qf, tf, wf, _ = next_frame()
+            conn = b.HttpSender(port, b.b64_body(qf, tf, w, dtype))
+            return b.Sending(conn, conn, lambda got: _equal_ids(
+                got, wf, f"HTTP b64 {dtype}"))
+
+        self.served_front(f"http_b64_{dtype}", connect,
+                          self.pool_counters(state))
+
+    def served_native(self, state, w, q_host, t_host, want, want_bf, gold):
+        """The native front's f32, bf16 and int8 wires; per wire its
+        first reply of each rotation kept for the overlap."""
+        p = self.p
+        rows, recall = {}, [1.0]
+        for wire in ("f32", "bf16", "int8"):
+            front = p.NativeRetrievalFront(
+                state.retriever, w, port=0, t_max=self.T,
+                max_batch=2 * self.B, wait_ms=2.0, wire_dtype=wire)
+            try:
+                ref = want_bf if wire == "bf16" else want
+                next_frame = self.frames(q_host, t_host, ref)
+
+                def connect(wire=wire, port=front.port):
+                    qf, tf, wf, shift = next_frame()
+                    if wire == "bf16":  # rounded once, sent as bits
+                        qf = p.bf16_bits(qf)
+                    cl = p.NativeFrontClient("127.0.0.1", port,
+                                             wire_dtype=wire)
+
+                    def check(got):
+                        if wire == "int8":
+                            g = np.roll(gold, shift, 0)
+                            r = float((got[:, :10] == g[:, None]).any(
+                                1).mean())
+                            recall.append(r)
+                            if r < 0.99:
+                                raise AssertionError(
+                                    f"int8 wire recall@10 {r} below 0.99")
+                            rows.setdefault(wire, np.roll(got, -shift, 0))
+                        else:
+                            _equal_ids(got, wf, f"native {wire}")
+                            rows.setdefault(wire, np.roll(got, -shift, 0))
+                    return self.b.Sending(cl, lambda: cl.search(qf, tf)[0],
+                                          check)
+
+                with connect() as send:  # warm the front's threads
+                    send()
+                self.served_front(
+                    f"native_{wire}", connect,
+                    lambda: (front.batches_run, front.rows_served))
+            finally:
+                front.stop()
+        return min(recall), rows
+
+    def served_latency(self, state, port, q_host, t_host, want, index):
+        """One client in turn: single-query JSON /v1/search (B = 1) and
+        8-row b64 frames, each reply's ids equal to the direct call's,
+        held to SERVED_LIMITS_MS. Beside them, the same rows through the
+        layers below HTTP: the scheduler pool (submit_sync /
+        submit_batch_sync, from this thread) and a direct retrieve_device
+        with its upload and download, as the scheduler makes them."""
+        b, bm = self.b, self.B_MICRO
+        w = {MODEL: 5.0, "BM25": 1.0}
+        ids_of = index.meta.ids
+        counters = self.pool_counters(state)
+        retr = state.retriever
+
+        def start(i, bb):
+            return (i * bb) % (self.B - bb + 1)
+
+        def single(sender, i):
+            r = i % self.B
+            sender.body = json.dumps({"query_embedding": q_host[r].tolist(),
+                                      "terms": t_host[r].tolist()})
+            got = [x["id"] for x in sender.post()["results"]]
+            if got != [ids_of[j] for j in want[r] if j >= 0]:
+                raise AssertionError(f"single query {r}: {got[:3]}")
+
+        def frame8(sender, i):
+            r0 = start(i, bm)
+            sender.body = b.b64_body(q_host[r0:r0 + bm], t_host[r0:r0 + bm],
+                                     w)
+            _equal_ids(sender(), want[r0:r0 + bm], "8-row frame")
+
+        def pool(bb):
+            def one(_, i):
+                r0 = start(i, bb)
+                if bb == 1:
+                    got = state.submit_sync({MODEL: q_host[r0]}, t_host[r0],
+                                            w, None, 40.0)[0][None]
+                else:
+                    got = state.submit_batch_sync(
+                        MODEL, q_host[r0:r0 + bb], t_host[r0:r0 + bb], w,
+                        None, 40.0)[0]
+                _equal_ids(got, want[r0:r0 + bb], f"pool B={bb}")
+            return one
+
+        def direct(bb):
+            def one(_, i):
+                r0 = start(i, bb)
+                ids, vals, _ = retr.retrieve_device(
+                    {MODEL: q_host[r0:r0 + bb]}, t_host[r0:r0 + bb], w,
+                    None, 40.0)
+                got = ids.cpu().numpy()
+                vals.cpu()
+                _equal_ids(got, want[r0:r0 + bb], f"direct B={bb}")
+            return one
+
+        def timed(name, one, sender, pooled):
+            lat = []
+
+            def run():
+                for i in range(self.SERVED_LATENCY):
+                    t0 = time.perf_counter()
+                    one(sender, i)
+                    lat.append((time.perf_counter() - t0) * 1e3)
+
+            b0, n0 = counters()
+            _, counts = self.main_path(run)
+            b1, n1 = counters()
+            k1 = counts["fused_dense_top_k"]
+            batches = b1 - b0 if pooled else self.SERVED_LATENCY
+            if k1 < batches or not batches:
+                raise AssertionError(f"{name}: K1 {counts} for {batches} "
+                                     "batches")
+            out = {"p50_ms": float(np.percentile(lat, 50)),
+                   "p99_ms": float(np.percentile(lat, 99)),
+                   "requests": len(lat), "k1_launches": k1}
+            if pooled:
+                out["mean_device_batch"] = (n1 - n0) / batches
+            return out
+
+        layers = {}
+        for bb in (1, bm):
+            layers[f"direct_b{bb}"] = timed(f"direct B={bb}", direct(bb),
+                                            None, False)
+            layers[f"pool_b{bb}"] = timed(f"pool B={bb}", pool(bb), None,
+                                          True)
+        with b.HttpSender(port, "") as sender:
+            for name, one in (("json_b1", single), ("b64_b8", frame8)):
+                self.served_latency_ms[name] = timed(name, one, sender, True)
+        self.served_layers_ms = layers
+        log(served="A_latency", **self.served_latency_ms, layers=layers,
+            card=self.card, limits_ms=self.SERVED_LIMITS_MS,
+            method="host clock around one request and its reply, one "
+            "client in turn; layers: the same rows through the scheduler "
+            "pool and through a direct retrieve_device with its upload and "
+            "download")
+        over = over_limits(self.served_latency_ms, self.SERVED_LIMITS_MS)
+        if over:
+            raise AssertionError(f"served latency over its limit: {over}")
+
+    def phase20b_served_ivf(self, index, q, gold) -> None:
+        """Stage D's corpus served in 8-row frames with no coalescing
+        (max_batch 8, max_wait_ms 0), dense only, k 16: the IVF route
+        (nprobe 16, K3) and the exact route (nprobe 0, K1), one client in
+        turn; recall@10 of the IVF replies, their lists held against the
+        direct call's by exact rescoring, and the p50 / p99 of each."""
+        p, b = self.p, self.b
+        bm, nb = self.B_MICRO, self.BATCHES_D
+        emb = index.dense[MODEL]
+        q_host = q.cpu().numpy()
+        w = {MODEL: 1.0}
+        out = {}
+        for route, nprobe in (("ivf", self.NPROBE_D), ("exact", 0)):
+            state = p.build_state(
+                index, (MODEL,), use_bm25=False, nprobe=nprobe,
+                similarity_k=self.K_D, common_sections_n=self.K_D,
+                scheduler_kwargs={"max_batch": bm, "max_wait_ms": 0.0,
+                                  "max_inflight": 1})
+            server = p.serve_state(state, w, port=0, background=True)
+            got, lat = [], []
+            try:
+                with b.HttpSender(server.server_address[1], "") as sender:
+                    def run():
+                        for i in range(nb):
+                            sender.body = b.b64_body(
+                                q_host[i * bm:(i + 1) * bm], None, w)
+                            t0 = time.perf_counter()
+                            got.append(sender())
+                            lat.append((time.perf_counter() - t0) * 1e3)
+
+                    b0 = self.pool_counters(state)()[0]
+                    _, counts = self.main_path(run)
+                    batches = self.pool_counters(state)()[0] - b0
+            finally:
+                server.shutdown()
+            ids = torch.as_tensor(np.concatenate(got), device=self.dev)
+            direct = torch.cat([state.retriever.retrieve_device(
+                {MODEL: q[i * bm:(i + 1) * bm]}, None, w, None, 40.0)[0]
+                for i in range(nb)])
+            swaps = p.check_top_k(b.exact_dense(emb, q, direct), direct,
+                                  b.exact_dense(emb, q, ids), ids,
+                                  FULL_PROBE_ATOL)
+            kernel = "ivf_dense_top_k" if nprobe else "fused_dense_top_k"
+            if counts[kernel] < batches or batches != nb:
+                raise AssertionError(f"served {route}: {counts} for "
+                                     f"{batches} batches")
+            out[route] = {
+                "recall10": b.recall_at_10(ids, gold),
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "batches": batches, "launches": counts[kernel],
+                "kernel": kernel, "swaps_vs_direct": swaps}
+            del state
+        if out["ivf"]["recall10"] < 0.90:
+            raise AssertionError(f"served IVF recall@10 "
+                                 f"{out['ivf']['recall10']} below 0.90")
+        if out["ivf"]["launches"] < 1:
+            raise AssertionError("the served IVF route launched no K3")
+        self.served_latency_ms["ivf_b8"] = out["ivf"]
+        self.served_latency_ms["exact_b8"] = out["exact"]
+        log(served="B_ivf_b8", nprobe=self.NPROBE_D, batch=bm, frames=nb,
+            **out, card=self.card)
+
+    def phase20c_served_sharded(self, index, q, terms, want):
+        """Stage A's index over 4 slots of the card behind build_state:
+        slot 3 killed through the monitor's probe, check_and_recover swaps
+        the retriever and the pool live; the served fused ids before and
+        after equal the unsharded served ids."""
+        p, b = self.p, self.b
+        w = {MODEL: 5.0, "BM25": 1.0}
+        state = p.build_state(
+            index, (MODEL,), use_bm25=True, shards=self.N_SLOTS,
+            devices=[self.dev] * self.N_SLOTS, similarity_k=32,
+            common_sections_n=15, budget=1024,
+            scheduler_kwargs={"max_batch": 2 * self.B, "max_wait_ms": 2.0})
+        dead = set()
+        state.monitor.probe_fn = lambda slot, t: (
+            slot not in dead and p.default_probe(slot, t))
+        body = b.b64_body(q.cpu().numpy(), terms.cpu().numpy(), w)
+        server = p.serve_state(state, w, port=0, background=True)
+        launches = []
+        try:
+            with b.HttpSender(server.server_address[1], body) as send:
+                for when in ("before", "after"):
+                    if when == "after":
+                        old_pool = state.pool
+                        dead.add(state.retriever.sidx.mesh.slots[3])
+                        if not state.monitor.check_and_recover():
+                            raise AssertionError("no recovery ran")
+                        if state.pool is old_pool:
+                            raise AssertionError("the pool was not swapped")
+                    got, counts = self.main_path(send)
+                    _equal_ids(got, want, f"sharded served {when}")
+                    launches.append(counts["fused_dense_top_k"])
+        finally:
+            server.shutdown()
+        shards = state.retriever.sidx.n_shards
+        if launches != [self.N_SLOTS, self.N_SLOTS - 1] or \
+                shards != self.N_SLOTS - 1:
+            raise AssertionError(f"K1 launches {launches}, {shards} shards")
+        events = [{k: v for k, v in e.items() if k != "ts"}
+                  for e in state.monitor.events]
+        log(served="C_sharded_swap", slots=self.N_SLOTS, dead_slot=3,
+            shards_after=shards, k1_launches_per_batch=launches,
+            ids_equal_unsharded=True, events=events, card=self.card)
+
+    def phase20d_served_rag(self, index, tokens, gold, q) -> None:
+        """http_api.serve over RAGSystem on stage A's index: /v1/search and
+        /v1/rag (JSON and SSE) with the planted gold among the sources,
+        /v1/feedback, the UI and /v1/embeddings (PrecomputedEmbedder)."""
+        p = self.p
+        import urllib.request
+        n_q = self.RAG_QUERIES
+        texts = [" ".join(tokens[i]) for i in range(n_q)]
+        q_host = q.cpu().numpy()
+        table = {t: q_host[i] for i, t in enumerate(texts)}
+        gold_ids = [str(g) for g in gold.tolist()]
+        w = {MODEL: 5.0, "BM25": 1.0}
+        system = p.RAGSystem(indexes={p.InfoSource.NICE: index},
+                             embedder=p.PrecomputedEmbedder(table),
+                             llm_clients={"fake": p.FakeLLMClient()},
+                             device=self.dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            fb = p.FeedbackLog(str(Path(tmp) / "feedback.json"))
+            server = p.http_serve(system, port=0, background=True,
+                                  feedback_log=fb)
+            port = server.server_address[1]
+
+            def post(path, payload, raw=False):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}{path}",
+                    data=json.dumps(payload).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    data = resp.read()
+                return data.decode() if raw else json.loads(data)
+
+            def run():
+                out = {"search": 0, "rag": 0, "rag_sse": 0}
+                for i, text in enumerate(texts):
+                    kw = {"query": text, "model_weights": w,
+                          "use_hybrid_search": True, "similarity_k": 32,
+                          "common_sections_n": 15, "llm_model": "fake-llm",
+                          "use_reranker": False}
+                    found = post("/v1/search", kw)["results"]
+                    out["search"] += gold_ids[i] in [d["id"] for d in found]
+                    rag = post("/v1/rag", kw)
+                    if not rag["answer"].startswith("[fake:fake-llm]"):
+                        raise AssertionError(rag["answer"][:80])
+                    out["rag"] += gold_ids[i] in [
+                        s["section_id"] for s in rag["sources"]]
+                    sse = post("/v1/rag", dict(kw, stream=True), raw=True)
+                    events = [ln[6:] for ln in sse.splitlines()
+                              if ln.startswith("data: ")]
+                    if events[-1] != "[DONE]" or len(events) < 3:
+                        raise AssertionError(f"SSE events {events[:3]}")
+                    srcs = json.loads(events[0])["sources"]
+                    out["rag_sse"] += gold_ids[i] in [
+                        s["section_id"] for s in srcs]
+                return out
+
+            try:
+                found = self.no_kernels("served RAG", run)
+                rec = post("/v1/feedback", {"query": texts[0],
+                                            "rating": "up",
+                                            "response": "r"})
+                emb = post("/v1/embeddings", {"input": texts[:2]})
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/",
+                                            timeout=60) as resp:
+                    html = resp.read().decode()
+            finally:
+                server.shutdown()
+            if any(v != n_q for v in found.values()):
+                raise AssertionError(f"gold among the sources: {found}")
+            if rec["status"] != "recorded" or len(fb.entries()) != 1:
+                raise AssertionError(f"feedback {rec}")
+            vecs = np.asarray([d["embedding"] for d in emb["data"]],
+                              np.float32)
+            if not np.array_equal(vecs, q_host[:2]):
+                raise AssertionError("/v1/embeddings rows differ")
+            if "NICE Guidelines RAG" not in html or "v1/rag/stream" \
+                    not in html:
+                raise AssertionError("the UI page is not the chat page")
+        log(served="D_rag_surface", n=index.n_docs, queries=n_q,
+            gold_in_search=found["search"], gold_in_rag=found["rag"],
+            gold_in_rag_sse=found["rag_sse"], feedback_recorded=True,
+            embeddings_equal_table=True, ui_page=True, card=self.card)
+        del system
+
+    def served_summary(self) -> None:
+        log(phase="served", parts=self.served_parts,
+            seconds=sum(v["seconds"] for v in self.served_parts.values()),
+            fronts=self.served_fronts, latency=self.served_latency_ms,
+            latency_layers=self.served_layers_ms, card=self.card,
+            method="QPS: rows over each round's wall time (clients x "
+            "requests of one frame), min / median / max over the rounds; "
+            "ms: host clock around each request and its reply")
 
     def kernels_line(self) -> None:
         rows = []
@@ -2754,6 +3277,14 @@ class Smoke:
         self.sharded_part("F", self.phase19f_rag, ref_index, tokens, gold, q)
         del ref_index, tokens, terms_b
         torch.cuda.empty_cache()
+        want, ref_index, tokens = self.served_part(
+            "A", self.phase20a_served, emb, gold, q, bm25, terms)
+        self.served_part("C", self.phase20c_served_sharded, ref_index, q,
+                         terms, want)
+        self.served_part("D", self.phase20d_served_rag, ref_index, tokens,
+                         gold, q)
+        del want, ref_index, tokens
+        torch.cuda.empty_cache()
         self.time_k1(emb, q)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
@@ -2764,6 +3295,7 @@ class Smoke:
         torch.cuda.empty_cache()
         index, q, gold = self.phase6_stage_d()
         self.sharded_part("D", self.phase19d_sharded_ivf, index, q, gold)
+        self.served_part("B", self.phase20b_served_ivf, index, q, gold)
         del index, q, gold
         torch.cuda.empty_cache()
         index, q, cent, gold = self.phase7_stage_c()
@@ -2779,6 +3311,7 @@ class Smoke:
         self.phase14_counted("C", qd.values, qv, 25, qd.scales, qs)
         self.phase16_int4_stage2(qd.values)
         self.phase19_summary()
+        self.served_summary()
         log(phase="done", seconds=time.perf_counter() - self.t0)
         self.kernels_line()
         print(json.dumps({"ok": True, "device": {
@@ -2879,6 +3412,28 @@ class _Port:
             check_top_k,
         )
 
+        from a_nice_rag_tpu_torch.retrieval.embed import PrecomputedEmbedder
+        from a_nice_rag_tpu_torch.serving import (
+            FeedbackLog,
+            NativeFrontClient,
+            NativeRetrievalFront,
+        )
+        from a_nice_rag_tpu_torch.serving.http_api import serve as http_serve
+        from a_nice_rag_tpu_torch.serving.native_front import (
+            bf16_bits,
+            bf16_values,
+        )
+        from a_nice_rag_tpu_torch.serving.serve_cli import (
+            build_state,
+            serve_state,
+        )
+
+        self.build_state, self.serve_state = build_state, serve_state
+        self.http_serve, self.FeedbackLog = http_serve, FeedbackLog
+        self.NativeRetrievalFront = NativeRetrievalFront
+        self.NativeFrontClient = NativeFrontClient
+        self.bf16_bits, self.bf16_values = bf16_bits, bf16_values
+        self.PrecomputedEmbedder = PrecomputedEmbedder
         self.require_cuda = require_cuda
         self.bench, self.dma_overlap = bench, dma_overlap
         self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy

@@ -161,6 +161,42 @@ def test_ivf_and_crossover_stages_on_cpu(kernel_route):
     assert cross["ivf_max_coverage"] == 0.25
 
 
+def test_served_stage_on_cpu():
+    """The served stage end to end on CPU tensors at a tiny size: every
+    front answers every request in full and the int8 wire's overlap
+    holds. Its QPS floor is the card's, so the rehearsal sets its own;
+    a floor the run misses raises."""
+    cfg = bench.ServedConfig(n_docs=600, batch=32, clients=2, rounds=2,
+                             per=2, max_batch=64, qps_floor=1.0)
+    out = bench.served_stage(CPU, 1, TIMER, cfg)
+    assert out["served_kernel_route"] is False
+    for name in ("served_http", "served_native_f32", "served_native_bf16",
+                 "served_native_int8"):
+        r = out[name]
+        assert r["requests"] == 2 * 2 * 2 and r["rows"] == 32
+        assert r["qps_min"] <= r["qps_median"] <= r["qps_max"]
+        assert 0 < r["p50_batch_ms"] <= r["p99_batch_ms"]
+        assert 1 <= r["mean_device_batch"] <= 64
+    assert out["served_native_int8_overlap10_vs_f32"] >= 0.97
+    with pytest.raises(AssertionError, match="QPS median"):
+        bench.served_stage(CPU, 1, TIMER, dataclasses.replace(
+            cfg, rounds=1, qps_floor=1e12))
+
+
+def test_drive_front_raises_on_a_failed_client():
+    class Broken:
+        def __enter__(self):
+            def send():
+                raise ConnectionError("front gone")
+            return send
+
+        def __exit__(self, *exc):
+            pass
+
+    with pytest.raises(ConnectionError, match="front gone"):
+        bench.drive_front(Broken, clients=2, rounds=1, per=1, rows=4)
+
+
 def test_bench_refuses_to_run_without_a_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA GPU"):
@@ -175,7 +211,8 @@ def test_bench_refuses_to_run_without_a_gpu(monkeypatch):
 def test_bench_refuses_unknown_stages():
     with pytest.raises(SystemExit):
         bench.main(["--stages", "2m,nope"])
-    assert bench.STAGES == ("headline", "2m", "int8", "ivf", "crossover")
+    assert bench.STAGES == ("headline", "2m", "int8", "ivf", "crossover",
+                            "served")
 
 
 def test_stage_configs_default_to_bench_widths():
@@ -189,3 +226,9 @@ def test_stage_configs_default_to_bench_widths():
         1 << 21, 256, 2048, 1024, 16, 16)
     assert bench.IvfConfig().crossover_batches == (1, 2, 4, 8, 16, 32, 64,
                                                    128, 256)
+    # bench.py:840-868: the headline corpus, 8 clients of 512-row frames,
+    # floors 1500 QPS; 8 x 5 x 5 = 200 requests a front.
+    served = bench.ServedConfig()
+    assert (served.n_docs, served.dim, served.batch, served.clients,
+            served.qps_floor) == (9728, 2048, 512, 8, 1500.0)
+    assert served.clients * served.rounds * served.per >= 200

@@ -67,6 +67,11 @@ class TinySmoke(chip_smoke.Smoke):
     # profile holds operator events, no CUDA kernels.
     SWEEP = dict(n_docs=300, dim=16, n_queries=64, vocab_size=500, seed=42)
     RAG_QUERIES, TUNE_CALLS, TRACE_EVENTS = 4, 2, "cpu_op"
+    # Phase 20: 2 clients x 2 rounds x 2 frames of B = 16 rows a front.
+    SERVED_CLIENTS, SERVED_ROUNDS, SERVED_PER, SERVED_LATENCY = 2, 2, 2, 4
+    # The limit is the card host's; here the workers share the CPU, so the
+    # rehearsal checks the record and test_served_latency_limit the check.
+    SERVED_LIMITS_MS = {"p50_ms": float("inf"), "p99_ms": float("inf")}
 
 
 def _sweep_csv(path):
@@ -168,7 +173,22 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # K4: 32 micro-batches, phase 19 (d) 64 x 4. Stage F: none. The probes'
     # calls of K1/K2 stay out of these counts. The stream kernels and the
     # probes' own: counts of the host timer's calls.
-    assert [k["launches"] for k in kernels][:4] == [52, 10, 325, 288]
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    served = {r["served"]: r for r in records if "served" in r}
+    summary20 = [r for r in records if r.get("phase") == "served"][0]
+    # Phase 20's K1 launches: its fronts' (a batch a launch; how frames
+    # coalesce varies from run to run), its latency runs' and their
+    # layers' (a call a launch), the exact route
+    # at B = 8 (64 frames), and the sharded part's 4 + 3; its K3: the 64
+    # frames of the IVF route.
+    k1_served = (sum(f["k1_launches"] for f in summary20["fronts"].values())
+                 + sum(summary20["latency"][x]["k1_launches"]
+                       for x in ("json_b1", "b64_b8"))
+                 + sum(x["k1_launches"]
+                       for x in summary20["latency_layers"].values())
+                 + summary20["latency"]["exact_b8"]["launches"] + 4 + 3)
+    assert [k["launches"] for k in kernels][:4] == [
+        52 + k1_served, 10, 325 + 64, 288]
     assert all(k["launches"] >= 1 for k in kernels[4:])
     no_library = {"stream_sum_busy", "fused_top_k_counted",
                   "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
@@ -183,7 +203,6 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert k["max_abs_err"] >= 0.0
     assert kernels[4]["replaces"] == "bench.py:226"
     assert kernels[6]["replaces"] == "scripts/profile_kernel_anatomy.py:138"
-    records = [json.loads(line) for line in lines if line.startswith("{")]
     probes = [r for r in records if r.get("phase") == "probes_vs_plain"]
     assert probes[0]["counted_equal_plain_and_kernel"]
     anatomy = [r for r in records if "anatomy" in r]
@@ -360,6 +379,66 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert set(summary["retrieve_ms"]) == {"A_sharded", "A_unsharded",
                                            "C_sharded", "C_unsharded"}
     assert lines[0] == "cpu, n/a"
+    assert list(served) == ["A_plan", "A_latency", "A_native_int8",
+                            "C_sharded_swap", "D_rag_surface", "B_ivf_b8"]
+    assert served["A_plan"]["k1_equal_default_plan_at_b"] == [1, 8, 16, 32]
+    assert set(served["A_plan"]["k1_ms"]) == {
+        "tuned_b16", "default_b16", "tuned_b32", "default_b32"}
+    assert all(v > 0 for v in served["A_plan"]["k1_ms"].values())
+    assert served["A_native_int8"]["recall10_min"] >= 0.99
+    assert 0 < served["A_native_int8"]["overlap10_vs_f32"] <= 1
+    fronts = summary20["fronts"]
+    assert list(fronts) == ["http_b64_f32", "http_b64_bf16", "native_f32",
+                            "native_bf16", "native_int8"]
+    for f in fronts.values():
+        # 2 clients x 2 rounds x 2 frames of 16 rows.
+        assert f["requests"] == 8 and f["rows"] == 16
+        assert f["qps_min"] <= f["qps_median"] <= f["qps_max"]
+        assert f["k1_launches"] >= f["device_batches"] >= 1
+        assert 1 <= f["mean_device_batch"] <= 32
+        assert 0 < f["p50_batch_ms"] <= f["p99_batch_ms"]
+    lat = summary20["latency"]
+    for name in ("json_b1", "b64_b8"):
+        assert lat[name]["requests"] == 4 and lat[name]["p50_ms"] > 0
+    assert served["A_latency"]["limits_ms"] == TinySmoke.SERVED_LIMITS_MS
+    assert lat["json_b1"]["mean_device_batch"] == 1
+    layers = summary20["latency_layers"]
+    assert list(layers) == ["direct_b1", "pool_b1", "direct_b8", "pool_b8"]
+    for name, x in layers.items():
+        assert x["requests"] == 4 and x["k1_launches"] >= 4
+        assert 0 < x["p50_ms"] <= x["p99_ms"]
+    assert layers["pool_b1"]["mean_device_batch"] == 1
+    assert layers["pool_b8"]["mean_device_batch"] == 8
+    assert served["A_latency"]["layers"] == layers
+    assert lat["b64_b8"]["mean_device_batch"] == 8
+    b8 = served["B_ivf_b8"]
+    assert b8["ivf"]["kernel"] == "ivf_dense_top_k" and \
+        b8["ivf"]["launches"] == b8["ivf"]["batches"] == 64
+    assert b8["exact"]["kernel"] == "fused_dense_top_k"
+    assert b8["ivf"]["recall10"] >= 0.90 and b8["exact"]["recall10"] >= 0.90
+    assert lat["ivf_b8"] == b8["ivf"] and lat["exact_b8"] == b8["exact"]
+    c = served["C_sharded_swap"]
+    assert c["k1_launches_per_batch"] == [4, 3] and c["shards_after"] == 3
+    assert c["ids_equal_unsharded"] and c["events"][-1]["recovered"]
+    d = served["D_rag_surface"]
+    assert d["gold_in_search"] == d["gold_in_rag"] == \
+        d["gold_in_rag_sse"] == 4
+    assert d["feedback_recorded"] and d["embeddings_equal_table"]
+    assert list(summary20["parts"]) == ["A", "C", "D", "B"]
+    assert all(v["seconds"] > 0 for v in summary20["parts"].values())
+
+
+def test_served_latency_limit():
+    """Phase 20 fails on a one-client p50 or p99 over the limit."""
+    limits = chip_smoke.Smoke.SERVED_LIMITS_MS
+    assert limits == {"p50_ms": 10.0, "p99_ms": 20.0}
+    ok = {"json_b1": {"p50_ms": 7.03, "p99_ms": 12.6},
+          "b64_b8": {"p50_ms": 10.0, "p99_ms": 20.0}}
+    assert chip_smoke.over_limits(ok, limits) == []
+    slow = {"json_b1": {"p50_ms": 10.5, "p99_ms": 12.6},
+            "b64_b8": {"p50_ms": 8.08, "p99_ms": 20.1}}
+    assert chip_smoke.over_limits(slow, limits) == [
+        ("json_b1", "p50_ms", 10.5), ("b64_b8", "p99_ms", 20.1)]
 
 
 def test_profiled_timers_trace_again_when_a_trace_holds_no_kernel(

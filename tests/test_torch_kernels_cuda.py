@@ -25,7 +25,9 @@ ids, values and counters exactly on integer-valued scores. The keys,
 ``bf16_row_reduce`` and the int4 kernels bit for bit (the folds also at
 their edges: depths, batches across clusters of query blocks, ragged row
 counts, extremes, all-negative products, unaligned rows); ``stream_sum``
-the same bits on two calls of every launch shape.
+the same bits on two calls of every launch shape. K1 under a caller's
+plan (the tuner's query block and splits) torch.equal to its default
+plan.
 """
 
 import pytest
@@ -275,6 +277,24 @@ def test_cuda_float_path_edges_k1(cuda_device, d, rows):
             torch.cuda.synchronize()
             check_top_k(pv, pi, kv, ki, tol)
             assert _ties_kept_by_lower_id(kv, ki), (b, k)
+
+
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_k1_plan_override_equals_the_default_plan(cuda_device, rows):
+    # The tuner's overrides (query block 16 or 64, splits from 1 to past
+    # the tiles) spread the work only: values and ids torch.equal to the
+    # default plan's, masked or not, at B across the block switch.
+    emb, q = _float_edge_rows(70_001, 96, cuda_device, getattr(torch, rows))
+    mask = torch.rand(emb.shape[0], device=cuda_device) < 0.7
+    for b, k in ((1, 16), (8, 32), (17, 25), (256, 128)):
+        for m in (None, mask):
+            want = fused_dense_top_k(emb, q[:b], k, mask=m)
+            for plan in ((16, 1), (64, 7), (16, 600), (64, None),
+                         (None, 3)):
+                got = fused_dense_top_k(emb, q[:b], k, mask=m, plan=plan)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], want[0]) and \
+                    torch.equal(got[1], want[1]), (b, k, plan)
 
 
 @pytest.mark.parametrize("rows", ["bfloat16", "float32"])

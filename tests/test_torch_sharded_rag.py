@@ -2,8 +2,8 @@
 ``ShardedSearchEngine`` against the single-device ``SearchEngine`` and
 the JAX package's ``ShardedSearchEngine``.
 
-Mirrors tests/test_sharded_rag.py but for its HTTP case (the port has no
-serving front yet), on an 8-slot virtual mesh of "cpu" and the JAX
+Mirrors tests/test_sharded_rag.py, its HTTP case through the port's
+serving.http_api, on an 8-slot virtual mesh of "cpu" and the JAX
 package's 8 virtual CPU devices. Tolerance: per query, equal id sets
 (order may differ among exact RRF ties); the stream's contract and the
 planted gold among its sources.
@@ -124,6 +124,46 @@ def test_rag_stream_over_sharded_ivf(setup):
         hits += c.gold_ids[i] in [d["id"] for d in docs]
     assert hits >= 7, hits
     assert next(iter(sse._retrievers.values())).use_ivf
+
+
+def test_http_rag_over_sharded_mesh(setup):
+    """The serving stack over the mesh: HTTP /v1/search and /v1/rag
+    through ShardedSearchEngine with no http_api change."""
+    import json
+    import urllib.request
+
+    from a_nice_rag_tpu_torch.serving.http_api import serve
+
+    c, idx, sidx, _ = setup
+    queries = [f"question {i}" for i in range(8)]
+    embedder = PrecomputedEmbedder(
+        {q: c.query_embeddings[MODEL][i] for i, q in enumerate(queries)})
+    system = RAGSystem(indexes={}, embedder=embedder,
+                       llm_clients={"fake": FakeLLMClient()}, device="cpu")
+    system.attach_index(InfoSource.NICE, idx,
+                        engine=ShardedSearchEngine(sidx, embedder=embedder))
+    srv = serve(system, port=0, background=True)
+    try:
+        port = srv.server_address[1]
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return json.loads(resp.read())
+
+        out = post("/v1/search", {"query": queries[0],
+                                  "use_hybrid_search": True})
+        assert c.gold_ids[0] in [d["id"] for d in out["results"]]
+        rag_out = post("/v1/rag", {"query": queries[1],
+                                   "llm_model": "fake-llm",
+                                   "use_hybrid_search": True})
+        assert rag_out["answer"].startswith("[fake:fake-llm]")
+        assert c.gold_ids[1] in (d["section_id"] for d in rag_out["sources"])
+    finally:
+        srv.shutdown()
 
 
 def test_bm25_only_placeholder_contract(setup):
