@@ -1,0 +1,100 @@
+"""The JAX package's model weights as this package's state dicts.
+
+Each function takes a flax params tree (nested dicts of numpy arrays,
+with or without the outer ``"params"`` key; ``jax.device_get`` of the
+JAX package's params) and returns the ``state_dict`` of the port's
+module. Flax names come from creation order inside each ``nn.compact``
+call; a flax ``kernel`` is [in, out] and ``nn.Linear.weight`` [out, in].
+The tensors stay float32, as flax keeps them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+# Block_i's submodules in creation order: attention_sublayer's RMSNorm,
+# qkv and output projections, then the MLP's norm, gate, up and down.
+_BLOCK = {"RMSNorm_0": "attn_norm", "Dense_0": "qkv", "Dense_1": "proj",
+          "RMSNorm_1": "mlp_norm", "Dense_2": "gate", "Dense_3": "up",
+          "Dense_4": "down"}
+_QWEN3_LAYER = {
+    "input_norm": "input_layernorm", "q_proj": "self_attn.q_proj",
+    "k_proj": "self_attn.k_proj", "v_proj": "self_attn.v_proj",
+    "q_norm": "self_attn.q_norm", "k_norm": "self_attn.k_norm",
+    "o_proj": "self_attn.o_proj", "post_attn_norm": "post_attention_layernorm",
+    "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+    "down_proj": "mlp.down_proj",
+}
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _module(p: Mapping, name: str, norm_key: str = "scale") -> StateDict:
+    """One flax module's leaves under the port's parameter names."""
+    out = {}
+    if "kernel" in p:
+        out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    if "bias" in p:
+        out[f"{name}.bias"] = _t(p["bias"])
+    if "scale" in p:
+        out[f"{name}.{norm_key}"] = _t(p["scale"])
+    if "embedding" in p:
+        out[f"{name}.weight"] = _t(p["embedding"])
+    return out
+
+
+def _tree(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def _trunk(p: Mapping) -> StateDict:
+    """Embed_0, Block_i and the final RMSNorm_0 (encoder and reranker)."""
+    sd = _module(p["Embed_0"], "embed")
+    i = 0
+    while f"Block_{i}" in p:
+        for flax_name, name in _BLOCK.items():
+            sd.update(_module(p[f"Block_{i}"][flax_name], f"blocks.{i}.{name}"))
+        i += 1
+    sd.update(_module(p["RMSNorm_0"], "norm"))
+    return sd
+
+
+def encoder_state_from_flax(params: Mapping) -> StateDict:
+    """``TransformerEncoder`` params -> ``models.encoder.TransformerEncoder``
+    state dict (``Dense_0`` is the output projection)."""
+    p = _tree(params)
+    sd = _trunk(p)
+    sd.update(_module(p["Dense_0"], "out"))
+    return sd
+
+
+def reranker_state_from_flax(params: Mapping) -> StateDict:
+    """``CrossEncoderReranker`` params -> the port's: the trunk, the head
+    (``Dense_0``, with a bias) and, with match features, ``match_proj``."""
+    p = _tree(params)
+    sd = _trunk(p)
+    sd.update(_module(p["Dense_0"], "head"))
+    if "match_proj" in p:
+        sd.update(_module(p["match_proj"], "match_proj"))
+    return sd
+
+
+def qwen3_state_from_flax(params: Mapping) -> StateDict:
+    """``Qwen3Encoder`` params -> ``models.qwen3.Qwen3Encoder`` state dict
+    (HuggingFace's names)."""
+    p = _tree(params)
+    sd = _module(p["embed"], "embed_tokens")
+    sd.update(_module(p["final_norm"], "norm", "weight"))
+    i = 0
+    while f"layer_{i}" in p:
+        for flax_name, name in _QWEN3_LAYER.items():
+            sd.update(_module(p[f"layer_{i}"][flax_name],
+                              f"layers.{i}.{name}", "weight"))
+        i += 1
+    return sd

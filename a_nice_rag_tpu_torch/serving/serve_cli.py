@@ -15,14 +15,19 @@ stack end to end:
   (scheduler counters + health events), ``/v1/health``;
 * with ``--native-port``, the binary C++ front beside it.
 
-Vectors come in: the flags of modules the port does not have yet exit
-with the ROADMAP item they wait for (``--embedder``: item 6; ``--llm``
-and the generation group: item 8). The JAX CLI's ``-rounded`` flag, which
-selects the packed bf16-key fold, exits too: that fold was not ported.
+With ``--embedder hashing``, ``/v1/search`` also takes raw text: the
+hashing encoder (``models.OnDeviceEmbedder``) embeds each text request on
+the index's device and the index's BM25 vocabulary gives its terms. The
+flags of modules the port does not have yet exit with the ROADMAP item
+they wait for (``--embedder-ckpt``, an orbax checkpoint: item 9;
+``--llm`` and the generation group: item 8). The JAX CLI's ``-rounded``
+flag, which selects the packed bf16-key fold, exits too: that fold was
+not ported.
 
 Usage:
     python -m a_nice_rag_tpu_torch.serving.serve_cli --index artifacts/nice \
-        [--port 8800] [--autotune] [--shards 4] [--device cuda]
+        [--port 8800] [--autotune] [--shards 4] [--device cuda] \
+        [--embedder hashing]
     python -m a_nice_rag_tpu_torch.serving.serve_cli --demo
 """
 
@@ -52,8 +57,7 @@ logger = logging.getLogger(__name__)
 # Flags of the JAX CLI whose modules the port does not have yet, with the
 # ROADMAP item each waits for.
 UNPORTED_FLAGS = {
-    "embedder": "item 6 (the on-device embedder)",
-    "embedder_ckpt": "item 6 (the on-device embedder)",
+    "embedder_ckpt": "item 9 (training and its orbax checkpoints)",
     "llm": "item 8 (the local decoder and its generation server)",
     "llm_ckpt": "item 8", "gen_slots": "item 8", "gen_chunk": "item 8",
     "gen_max_len": "item 8", "draft_ckpt": "item 8", "gamma": "item 8",
@@ -76,8 +80,8 @@ class ServeState:
         self.pool = pool
         self.monitor = monitor
         self.t_max = t_max
-        # Optional query embedder (``embed_queries``): lets /v1/search
-        # take raw text.
+        # Optional query embedder (``embed_queries``; models.embedder's
+        # on-device one with --embedder): lets /v1/search take raw text.
         self.embedder = embedder
         self.loop: Optional[asyncio.AbstractEventLoop] = None
 
@@ -87,7 +91,8 @@ class ServeState:
         side's preprocessing)."""
         if self.embedder is None:
             raise ValueError(
-                "server has no embedder; pass 'query_embedding'"
+                "server has no embedder; pass 'query_embedding' or "
+                "start with --embedder"
             )
         from a_nice_rag_tpu_torch.text.preprocess import preprocess_text
 
@@ -548,7 +553,11 @@ def _parser() -> argparse.ArgumentParser:
                         "scores")
     # The JAX CLI's flags for modules not yet ported: accepted so that
     # they can exit with the ROADMAP item they wait for.
-    for flag in ("--embedder", "--embedder-ckpt", "--llm", "--llm-ckpt",
+    p.add_argument("--embedder", default=None,
+                   help="on-device query embedder so /v1/search takes raw "
+                        "text: 'hashing' = the hashing tokenizer + the "
+                        "transformer encoder (seeded random weights)")
+    for flag in ("--embedder-ckpt", "--llm", "--llm-ckpt",
                  "--draft-ckpt", "--chat-template"):
         p.add_argument(flag, default=None, help="not ported yet")
     for flag in ("--gen-slots", "--gen-chunk", "--gen-max-len", "--gamma",
@@ -597,6 +606,19 @@ def main(argv=None) -> None:
         else list(index.dense_model_names)
     )
     use_bm25 = not args.no_bm25 and index.bm25 is not None
+    embedder = None
+    if args.embedder == "hashing":
+        from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
+        from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
+
+        mat = index.dense_matrix(model_names[0])
+        if isinstance(mat, QuantizedDense):
+            mat = mat.values
+        out_dim = int(mat.shape[1])
+        embedder = OnDeviceEmbedder(EncoderConfig(out_dim=out_dim),
+                                    device=index.device)
+    elif args.embedder:
+        raise SystemExit(f"unknown --embedder {args.embedder!r}")
     state = build_state(
         index, tuple(model_names), use_bm25=use_bm25,
         autotune=args.autotune, shards=args.shards,
@@ -605,7 +627,7 @@ def main(argv=None) -> None:
         common_sections_n=args.common_sections_n, budget=args.bm25_budget,
         nprobe=args.nprobe, ivf_clusters=args.ivf_clusters,
         ivf_cache=args.ivf_cache, ivf_spill=args.ivf_spill,
-        ivf_max_coverage=args.ivf_max_coverage,
+        ivf_max_coverage=args.ivf_max_coverage, embedder=embedder,
         devices=None if args.device.startswith("cuda") else
         [args.device] * max(args.shards, 1),
     )

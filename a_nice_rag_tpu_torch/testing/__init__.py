@@ -21,4 +21,5 @@ from a_nice_rag_tpu_torch.testing.timing import (  # noqa: F401
     device_loop_ms,
     profiled_device_ms,
     profiled_kernel_ms,
+    profiled_top_kernels,
 )

@@ -18,6 +18,8 @@ the device; there is no CPU fallback):
   the kernel alone, where a call's host work outlasts it.
 - :func:`profiled_device_ms`: the device time and the launches of every
   kernel of a call, per call, from the same trace.
+- :func:`profiled_top_kernels`: the same trace's kernels grouped by
+  name, the costliest first: where a call's device time goes.
 
 A trace that holds no kernel at all is taken again, up to
 ``TRACE_ATTEMPTS`` times: ``torch.profiler`` has returned one without
@@ -141,3 +143,17 @@ def profiled_device_ms(fn: Callable[[], object], n: int = 5,
                              lambda e: e.device_type.name == "CUDA", "at all")
     return (sum(e.self_device_time_total for e in events) / n / 1e3,
             sum(e.count for e in events) / n)
+
+
+def profiled_top_kernels(fn: Callable[[], object], n: int = 3,
+                         top: int = 6, warmup: int = 1) -> list:
+    """The ``top`` kernels of ``fn`` by device time, per call: ``[{"kernel":
+    name (its first 80 characters), "ms", "launches"}]``, costliest
+    first, from one ``torch.profiler`` trace of ``n`` calls; raises if the
+    trace holds none."""
+    events = _traced_kernels(fn, n, warmup,
+                             lambda e: e.device_type.name == "CUDA", "at all")
+    events = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return [{"kernel": e.key[:80],
+             "ms": e.self_device_time_total / n / 1e3,
+             "launches": e.count / n} for e in events]

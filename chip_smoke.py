@@ -124,6 +124,33 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      route (nprobe 0, K1), each list held against a direct call's by
      exact rescoring, the p50 / p99 of each; then the ``served`` line
      (each part's seconds and peak memory, the fronts, the latencies);
+ 21. the models (models/), each part driven with the launch counts zeroed
+     and read: (a) Qwen3 at Qwen3-Embedding-0.6B's published widths
+     (vocab 151,669, hidden 1024, 28 layers, 16 query / 8 kv heads of
+     128, MLP 3072, rope_theta 1e6; seeded random weights in bf16, no TF32)
+     embedding 64 rows of 128 ids with mixed lengths, left and right
+     padding, last-token pooling: the forward's CUDA-event ms beside its
+     bound (2 x non-embedding params x tokens at the bf16 peak), every
+     row finite and of unit norm within 1e-3, 4 rows against the CPU's
+     float32 forward of the same weights (cosine >= 0.99 each), a 2-layer
+     cut float32 on the card against float32 on the CPU (max abs <=
+     1e-4); then the 64 vectors through FusedRetriever.retrieve_device
+     over a 2^20 x 1024 bf16 index with BM25 (K1 once, its plan at D =
+     1024 printed; the dense list held against K1's plain version through
+     check_top_k); (b) the served text path on stage A's index:
+     build_state with OnDeviceEmbedder(EncoderConfig(out_dim=256)), as
+     serve_cli --embedder hashing builds it, and serve_state; text
+     /v1/search replies equal to a direct retrieve_device on the vector
+     and terms encode_text_query gives, one client (text p50 / p99) and
+     8 clients x 200 requests (served_qps_text min / median / max), the
+     request's layers (embed, preprocess_text, the scheduler pool, HTTP),
+     K1 at least once a device batch, and /v1/embeddings through
+     http_api equal to embed_queries; (c) OnDeviceReranker with match
+     features and NliScorer over 256 (query, document) pairs of
+     synth_corpus: scores finite and within 2e-2 of the CPU's float32
+     forward of the same weights, the rerank order equal wherever the
+     CPU's gaps exceed it, ms a call and the forward's device ms; then the
+     ``models`` line (each part's seconds, peak memory and K1 launches);
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -188,6 +215,7 @@ except stage F's corpus, which is the bench's numpy synth_corpus.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import itertools
 import json
 import logging
@@ -391,6 +419,21 @@ class Smoke:
     # The served latency limit of the one-client runs (B = 1 and B = 8 on
     # the 2m index, host clock; PERF.md section 2 says how it was set).
     SERVED_LIMITS_MS = {"p50_ms": 10.0, "p99_ms": 20.0}
+    # Phase 21: Qwen3-Embedding-0.6B's widths (its published config.json;
+    # random weights), the embedded batch (B sequences of S token ids),
+    # the rows held against the CPU's float32 forward, the layers of the
+    # float32 cut, the rows of the index its vectors query (K1's route),
+    # and the (query, document) pairs of the reranker and the NLI scorer.
+    QWEN3 = dict(vocab_size=151_669, hidden_size=1024, num_layers=28,
+                 num_heads=16, num_kv_heads=8, head_dim=128,
+                 intermediate_size=3072, rope_theta=1_000_000.0,
+                 rms_eps=1e-6)
+    QWEN3_B, QWEN3_S, QWEN3_CPU_ROWS, QWEN3_CUT = 64, 128, 4, 2
+    N_MODELS, MODEL_PAIRS = 1 << 20, 256
+    # Card against the CPU's float32 forward of the same weights: each
+    # bf16 embedding's cosine, its norm, the float32 cut (max abs), and
+    # the reranker's and the NLI scorer's scores (max abs).
+    QWEN3_COS, UNIT_TOL, CUT_ATOL, PAIR_ATOL = 0.99, 1e-3, 1e-4, 2e-2
 
     def __init__(self, port):
         self.p = port
@@ -408,6 +451,7 @@ class Smoke:
         self.shard_seconds, self.sharded_parts = {}, {}
         self.served_parts, self.served_fronts = {}, {}
         self.served_latency_ms, self.served_layers_ms = {}, {}
+        self.models_parts, self.models_k1 = {}, 0
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -3234,6 +3278,367 @@ class Smoke:
             "requests of one frame), min / median / max over the rounds; "
             "ms: host clock around each request and its reply")
 
+    # -- phase 21: the models ----------------------------------------------
+
+    def models_part(self, name, fn, *args):
+        """Run one part of phase 21, its K1 launches counted in the summary
+        line through the main path's totals."""
+        k1 = self.main_launches["fused_dense_top_k"]
+        out = self.part(self.models_parts, name, fn, *args)
+        self.models_parts[name]["k1_launches"] = (
+            self.main_launches["fused_dense_top_k"] - k1)
+        self.models_k1 += self.models_parts[name]["k1_launches"]
+        return out
+
+    def qwen3_batch(self, vocab):
+        """QWEN3_B rows of QWEN3_S ids: mixed lengths (row 0 whole, row 1
+        one token), even rows right-padded and odd rows left-padded; -1 is
+        padding (Qwen3Encoder's mask is ids >= 0)."""
+        b, s, dev = self.QWEN3_B, self.QWEN3_S, self.dev
+        g = self.seed(2101)
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=dev)
+        lengths[0], lengths[1] = s, 1
+        ids = torch.randint(0, vocab, (b, s), generator=g, device=dev)
+        pos = torch.arange(s, device=dev)[None]
+        mask = torch.where((torch.arange(b, device=dev) % 2 == 0)[:, None],
+                           pos < lengths[:, None],
+                           pos >= s - lengths[:, None])
+        return torch.where(mask, ids, -1), mask
+
+    @staticmethod
+    def cpu_state(module):
+        return {k: v.detach().float().cpu()
+                for k, v in module.state_dict().items()}
+
+    def phase21a_qwen3(self) -> None:
+        """Qwen3 at Qwen3-Embedding-0.6B's widths, bf16 weights on the
+        card: B x S ids embedded (last-token pool, unit norm), timed, held
+        against the CPU's float32 forward of the same weights on
+        QWEN3_CPU_ROWS rows (cosine) and, at QWEN3_CUT layers, float32 on
+        the card against float32 on the CPU (max abs); then the vectors
+        through FusedRetriever.retrieve_device over an N_MODELS x hidden
+        bf16 index with BM25 (K1), its dense list held against K1's plain
+        version."""
+        p, k = self.p, self.p.kernels
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: float32 products would not "
+                                 "be float32")
+        cfg = p.Qwen3Config(dtype=torch.bfloat16, **self.QWEN3)
+        d, r = cfg.hidden_size, self.QWEN3_CPU_ROWS
+        t0 = time.perf_counter()
+        enc = p.init_qwen3(cfg, seed=21, device=self.dev,
+                           param_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in enc.parameters())
+        weight_gib = sum(x.numel() * x.element_size()
+                         for x in enc.parameters()) / 2**30
+        non_emb = n_params - cfg.vocab_size * d
+        ids, mask = self.qwen3_batch(cfg.vocab_size)
+
+        def forward(m=enc, x=ids):
+            with torch.inference_mode():
+                return m(x)
+
+        out = forward()
+        torch.cuda.synchronize()
+        forward_ms = p.cuda_event_ms(forward)
+        profile = self.device_profile(forward)
+        profile["top_kernels"] = p.profiled_top_kernels(forward)
+        tokens = ids.numel()
+        flop = 2 * non_emb * tokens
+        attn_flop = (4 * self.QWEN3_B * self.QWEN3_S ** 2 * cfg.num_heads
+                     * cfg.head_dim * cfg.num_layers)
+        if tuple(out.shape) != (self.QWEN3_B, d) or out.dtype != \
+                torch.float32 or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"Qwen3 output {tuple(out.shape)} "
+                                 f"{out.dtype}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        unit_err = float((out.norm(dim=-1) - 1).abs().max())
+        if unit_err > self.UNIT_TOL:
+            raise AssertionError(f"Qwen3 embedding norms off by {unit_err}")
+
+        t0 = time.perf_counter()
+        sd = self.cpu_state(enc)
+        del enc
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ids_h = ids[:r].cpu()
+        want = forward(p.load_qwen3_state(cfg32, sd, device="cpu"), ids_h)
+        cpu_s = time.perf_counter() - t0
+        got = out[:r].cpu()
+        cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+        if float(cos.min()) < self.QWEN3_COS:
+            raise AssertionError(f"Qwen3 bf16 on the card against the CPU's "
+                                 f"float32: cosine {cos.tolist()}")
+        cut = dataclasses.replace(cfg32, num_layers=self.QWEN3_CUT)
+        cut_cpu = forward(p.load_qwen3_state(cut, sd, device="cpu"), ids_h)
+        cut_card = forward(p.load_qwen3_state(cut, sd, device=self.dev),
+                           ids[:r]).cpu()
+        cut_err = float((cut_card - cut_cpu).abs().max())
+        if cut_err > self.CUT_ATOL:
+            raise AssertionError(f"Qwen3 float32 cut: card against CPU "
+                                 f"{cut_err} > {self.CUT_ATOL}")
+        del sd, want, cut_cpu, cut_card
+
+        # K1 on the vectors: its plan must take the model's depth.
+        plan = p.topk_plan
+        bq = plan.query_block(self.QWEN3_B, d, 32, "bfloat16")
+        qres = plan.resident(bq, d, 32, "bfloat16")
+        emb, _, _, bm25, terms = self.b.scale_2m_data(self.b.Scale2MConfig(
+            n=self.N_MODELS, dim=d, batch=self.QWEN3_B, t=self.T,
+            vocab=self.V, df=self.DF), self.dev)
+        index = self.make_index(emb, bm25, self.N_MODELS)
+        retr = p.FusedRetriever(index, (MODEL,), use_bm25=True,
+                                similarity_k=32, common_sections_n=15,
+                                budget=1024)
+        assert retr.use_kernel, "the models' index must route to K1"
+        w = {MODEL: 5.0, "BM25": 1.0}
+        (fids, _, lists), counts = self.main_path(
+            lambda: retr.retrieve_device({MODEL: out}, terms, w, None, 40.0))
+        self.expect("models (a)", counts, fused_dense_top_k=1)
+        plain = k.fused_dense_top_k_torch(emb, out, 32)
+        swaps = p.check_top_k(plain[0], plain[1],
+                              self.b.exact_dense(emb, out, lists[0]),
+                              lists[0], BF16_ATOL)
+        self.compare("fused_dense_top_k", plain,
+                     k.fused_dense_top_k(emb, out, 32), BF16_ATOL)
+        if not bool((fids[:, 0] >= 0).all()):
+            raise AssertionError("a fused list came back empty")
+        log(inference="A_qwen3", widths=self.QWEN3, params=n_params,
+            non_embedding_params=non_emb, weight_gib=weight_gib,
+            batch=list(ids.shape),
+            valid_tokens=int(mask.sum()), init_s=init_s,
+            forward_ms=forward_ms, profile=profile,
+            bound_ms=flop / BF16_FLOP_S * 1e3,
+            bound_flop=flop, attention_flop=attn_flop,
+            cpu_rows=r, cos_min=float(cos.min()), unit_err=unit_err,
+            cpu_reference_s=cpu_s, cut_layers=self.QWEN3_CUT,
+            cut_max_abs_err=cut_err,
+            k1_plan={"bq": bq, "resident": qres}, index=[self.N_MODELS, d],
+            k1_launches=counts["fused_dense_top_k"],
+            dense_list_swaps=swaps, card=self.card,
+            method="forward_ms: CUDA events, median of 10 after 3 warm-ups; "
+            "bound: 2 x non-embedding params x tokens at the bf16 peak; "
+            "profile: the forward's kernels (torch.profiler; top_kernels by "
+            "device ms a call), idle share and host enqueue ms")
+        del index, retr, emb, bm25, out
+
+    def phase21b_served_text(self, index, tokens) -> None:
+        """The served text path on stage A's index: build_state with the
+        hashing encoder (as serve_cli --embedder hashing builds it) and
+        serve_state; text /v1/search replies equal to a direct
+        retrieve_device on encode_text_query's vector and terms, one client
+        (p50 / p99) and SERVED_CLIENTS clients (QPS), the text request's
+        layers, and /v1/embeddings through http_api equal to
+        embed_queries."""
+        p, b = self.p, self.b
+        import urllib.request
+        emb = p.OnDeviceEmbedder(p.EncoderConfig(out_dim=self.D_A),
+                                 device=self.dev)
+        w = {MODEL: 5.0, "BM25": 1.0}
+        state = p.build_state(
+            index, (MODEL,), use_bm25=True, similarity_k=32,
+            common_sections_n=15, budget=1024, embedder=emb,
+            scheduler_kwargs={"max_batch": 2 * self.B, "max_wait_ms": 2.0,
+                              "max_inflight": 4})
+        retr, ids_of = state.retriever, index.meta.ids
+        texts = [" ".join(t) for t in tokens]
+        encoded = [state.encode_text_query(t) for t in texts]
+        want = []
+        for q_vec, terms in encoded:
+            rows = retr.retrieve_device({MODEL: q_vec[None]}, terms[None], w,
+                                        None, 40.0)[0][0].tolist()
+            want.append([ids_of[j] for j in rows if j >= 0])
+        n, counters = len(texts), self.pool_counters(state)
+
+        def check(i, reply):
+            got = [x["id"] for x in reply["results"]]
+            if got != want[i] or not got:
+                raise AssertionError(f"text query {i}: {got[:3]} against "
+                                     f"a direct call's {want[i][:3]}")
+            return np.asarray([got], dtype=object)
+
+        def timed(one):
+            lat = []
+            for i in range(self.SERVED_LATENCY):
+                t0 = time.perf_counter()
+                one(i % n)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            return {"p50_ms": float(np.percentile(lat, 50)),
+                    "p99_ms": float(np.percentile(lat, 99)),
+                    "requests": len(lat)}
+
+        def pooled(i):
+            q_vec, terms = encoded[i]
+            rows = state.submit_sync({MODEL: q_vec}, terms, w, None, 40.0)[0]
+            if [ids_of[j] for j in rows.tolist() if j >= 0] != want[i]:
+                raise AssertionError(f"pool text query {i}")
+
+        one_ids = torch.as_tensor(emb.tokenizer.encode_batch(texts[:1]),
+                                  device=self.dev)
+
+        def embed_forward():
+            with torch.inference_mode():
+                return emb.model(one_ids)
+
+        embed_profile = self.device_profile(embed_forward)
+        embed_profile["top_kernels"] = p.profiled_top_kernels(embed_forward)
+        layers = {
+            "embed": timed(lambda i: emb.embed_queries([texts[i]])),
+            "preprocess_text": timed(lambda i: index.pad_term_ids(
+                [p.preprocess_text(texts[i], use_lemmatization=True)],
+                state.t_max)),
+        }
+        server = p.serve_state(state, w, port=0, background=True)
+        try:
+            port = server.server_address[1]
+            clients = itertools.count()
+
+            def connect():
+                seq = itertools.count(next(clients) * 7)
+                sender = b.HttpSender(port, "")
+
+                def send():
+                    i = next(seq) % n
+                    sender.body = json.dumps({"query": texts[i]})
+                    return check(i, sender.post())
+                return b.Sending(sender, send)
+
+            def one_client():
+                with connect() as send:
+                    return timed(lambda i: send())
+
+            b0, _ = counters()
+            (layers["pool"], single, fronts), counts = self.main_path(
+                lambda: (timed(pooled), one_client(), b.drive_front(
+                    connect, self.SERVED_CLIENTS, self.SERVED_ROUNDS,
+                    self.SERVED_PER, 1)))
+            batches = counters()[0] - b0
+        finally:
+            server.shutdown()
+        k1 = counts["fused_dense_top_k"]
+        if k1 < batches or not batches:
+            raise AssertionError(f"served text: K1 {k1} launches for "
+                                 f"{batches} device batches")
+        layers["http"] = single
+        system = p.RAGSystem(indexes={p.InfoSource.NICE: index},
+                             embedder=emb,
+                             llm_clients={"fake": p.FakeLLMClient()},
+                             device=self.dev)
+        server = p.http_serve(system, port=0, background=True)
+        try:
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/v1/embeddings",
+                data=json.dumps({"input": texts[:8]}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                rows = json.loads(resp.read())["data"]
+        finally:
+            server.shutdown()
+        vecs = np.asarray([x["embedding"] for x in rows], np.float32)
+        if not np.array_equal(vecs, emb.embed_queries(texts[:8])):
+            raise AssertionError("/v1/embeddings rows differ from "
+                                 "embed_queries")
+        below = sum(layers[x]["p50_ms"] for x in ("embed", "preprocess_text",
+                                                  "pool"))
+        log(inference="B_served_text", n=index.n_docs, texts=n,
+            encoder={"dim": emb.cfg.dim, "layers": emb.cfg.n_layers,
+                     "out_dim": emb.cfg.out_dim},
+            text_p50_ms=single["p50_ms"], text_p99_ms=single["p99_ms"],
+            served_qps_text={x: fronts[x] for x in ("qps_min", "qps_median",
+                                                    "qps_max")},
+            clients=fronts, layers=layers, embed_profile=embed_profile,
+            http_over_layers_ms=(
+                single["p50_ms"] - below),
+            device_batches=batches, k1_launches=k1,
+            ids_equal_direct=True, embeddings_equal=True, card=self.card,
+            method="host clock around each request and its reply; layers: "
+            "each alone over the same texts (embed_queries, preprocess_text "
+            "with the index's term ids, the scheduler pool from this "
+            "thread); embed_profile: the encoder's forward on one text; "
+            "QPS: requests over each round's wall time")
+        del state, system, emb
+
+    def phase21c_pairs(self) -> None:
+        """OnDeviceReranker (match features) and NliScorer (the cross-
+        encoder with match features, EncoderConfig(n_layers=2)) over
+        MODEL_PAIRS (query, document) pairs of the synthetic corpus: scores
+        finite and within PAIR_ATOL of the CPU's float32 forward of the
+        same weights, the rerank order equal wherever the CPU's gaps exceed
+        it; ms a call."""
+        p = self.p
+        n_q = 16
+        per = self.MODEL_PAIRS // n_q
+        c = p.synth_corpus(n_docs=4 * self.MODEL_PAIRS, dim=16,
+                           n_queries=n_q, seed=21)
+        rng = np.random.default_rng(21)
+        queries, groups = [], []
+        row_of = {x: j for j, x in enumerate(c.ids)}
+        for i in range(n_q):
+            others = [x for x in c.ids if x != c.gold_ids[i]]
+            docs = [c.gold_ids[i]] + [others[j] for j in rng.choice(
+                len(others), per - 1, replace=False)]
+            groups.append([{"id": x, "document": c.contents[row_of[x]]}
+                           for x in docs])
+            queries.append(" ".join(c.query_tokens[i]))
+        qs = [q for q, g in zip(queries, groups) for _ in g]
+        ds = [x["document"] for g in groups for x in g]
+        rr = p.OnDeviceReranker(use_match_features=True, seed=21,
+                                device=self.dev)
+        cfg32 = dataclasses.replace(rr.cfg, dtype=torch.float32)
+        rr_cpu = p.OnDeviceReranker(cfg32, state_dict=self.cpu_state(
+            rr.model), use_match_features=True, device="cpu")
+        nli = p.init_reranker(rr.cfg, seed=22, device=self.dev,
+                              use_match_features=True)
+        nli_cpu = p.init_reranker(cfg32, device="cpu",
+                                  use_match_features=True)
+        nli_cpu.load_state_dict(self.cpu_state(nli))
+        tok = p.HashingTokenizer(vocab_size=rr.cfg.vocab_size)
+        scorer, scorer_cpu = p.NliScorer(nli, tok), p.NliScorer(nli_cpu, tok)
+        out = {}
+        for name, card, cpu in (
+                ("rerank", lambda: rr.score(qs, ds), lambda: rr_cpu.score(
+                    qs, ds)),
+                ("nli", lambda: scorer.score_batch(ds, qs),
+                 lambda: scorer_cpu.score_batch(ds, qs))):
+            got, ref = card(), cpu()
+            if got.shape != (len(qs),) or not np.isfinite(got).all():
+                raise AssertionError(f"{name} scores {got.shape}")
+            err = float(np.abs(got - ref).max())
+            if err > self.PAIR_ATOL:
+                raise AssertionError(f"{name}: card against CPU {err}")
+            out[name] = {"max_abs_err": err, "ms": self.host_call_ms(card),
+                         "score_range": [float(ref.min()), float(ref.max())]}
+        pairs_checked = 0
+        for q, g in zip(queries, groups):
+            got = rr.rerank(q, g)
+            ref = {x["id"]: x["rerank_score"] for x in rr_cpu.rerank(q, g)}
+            pos = {x["id"]: i for i, x in enumerate(got)}
+            for a, bb in itertools.combinations(ref, 2):
+                if ref[a] - ref[bb] > self.PAIR_ATOL:
+                    pairs_checked += 1
+                    if pos[a] > pos[bb]:
+                        raise AssertionError(f"rerank order of {a}, {bb}")
+        ids = torch.as_tensor(tok.encode_pairs(qs, ds), device=self.dev)
+
+        def model_only():
+            with torch.inference_mode():
+                return rr.model(ids)
+        out["rerank"]["device_ms"] = self.p.cuda_event_ms(model_only)
+        log(inference="C_pairs", pairs=len(qs), queries=n_q, **out,
+            order_pairs_checked=pairs_checked, atol=self.PAIR_ATOL,
+            encoder={"dim": rr.cfg.dim, "layers": rr.cfg.n_layers},
+            card=self.card,
+            method="ms: host clock around one call over all pairs "
+            "(tokenize, upload, forward, download), median of 3 after a "
+            "warm-up; device_ms: CUDA events around the forward alone, "
+            "median of 10 after 3 warm-ups")
+
+    def models_summary(self) -> None:
+        log(phase="models", parts=self.models_parts,
+            seconds=sum(v["seconds"] for v in self.models_parts.values()),
+            k1_launches=self.models_k1, card=self.card)
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -3283,7 +3688,13 @@ class Smoke:
                          terms, want)
         self.served_part("D", self.phase20d_served_rag, ref_index, tokens,
                          gold, q)
-        del want, ref_index, tokens
+        del want
+        torch.cuda.empty_cache()
+        self.models_part("A", self.phase21a_qwen3)
+        self.models_part("B", self.phase21b_served_text, ref_index, tokens)
+        self.models_part("C", self.phase21c_pairs)
+        self.models_summary()
+        del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
         self.phase11_floor("A", emb)
@@ -3405,6 +3816,7 @@ class _Port:
             device_loop_ms,
             profiled_device_ms,
             profiled_kernel_ms,
+            profiled_top_kernels,
         )
         from a_nice_rag_tpu_torch.testing.parity import (
             check_stream_sum,
@@ -3412,7 +3824,19 @@ class _Port:
             check_top_k,
         )
 
+        from a_nice_rag_tpu_torch.models import (
+            EncoderConfig,
+            HashingTokenizer,
+            NliScorer,
+            OnDeviceEmbedder,
+            OnDeviceReranker,
+            Qwen3Config,
+            init_qwen3,
+            init_reranker,
+            load_qwen3_state,
+        )
         from a_nice_rag_tpu_torch.retrieval.embed import PrecomputedEmbedder
+        from a_nice_rag_tpu_torch.testing import synth_corpus
         from a_nice_rag_tpu_torch.serving import (
             FeedbackLog,
             NativeFrontClient,
@@ -3434,6 +3858,14 @@ class _Port:
         self.NativeFrontClient = NativeFrontClient
         self.bf16_bits, self.bf16_values = bf16_bits, bf16_values
         self.PrecomputedEmbedder = PrecomputedEmbedder
+        self.Qwen3Config, self.init_qwen3 = Qwen3Config, init_qwen3
+        self.load_qwen3_state, self.EncoderConfig = (load_qwen3_state,
+                                                     EncoderConfig)
+        self.OnDeviceEmbedder, self.OnDeviceReranker = (OnDeviceEmbedder,
+                                                        OnDeviceReranker)
+        self.init_reranker, self.NliScorer = init_reranker, NliScorer
+        self.HashingTokenizer, self.synth_corpus = (HashingTokenizer,
+                                                    synth_corpus)
         self.require_cuda = require_cuda
         self.bench, self.dma_overlap = bench, dma_overlap
         self.anatomy, self.kernel_anatomy = anatomy, kernel_anatomy
@@ -3451,6 +3883,7 @@ class _Port:
         self.device_loop_ms, self.chained_ms = device_loop_ms, chained_ms
         self.profiled_kernel_ms = profiled_kernel_ms
         self.profiled_device_ms = profiled_device_ms
+        self.profiled_top_kernels = profiled_top_kernels
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf
         self.build_tile_table = build_tile_table

@@ -72,6 +72,13 @@ class TinySmoke(chip_smoke.Smoke):
     # The limit is the card host's; here the workers share the CPU, so the
     # rehearsal checks the record and test_served_latency_limit the check.
     SERVED_LIMITS_MS = {"p50_ms": float("inf"), "p99_ms": float("inf")}
+    # Phase 21: a Qwen3 of the same shape rules (GQA 4:2, head_dim 16
+    # decoupled from 64 / 4), 8 rows of 16 ids, an index past the forced
+    # kernel route's 1024 rows, 32 pairs.
+    QWEN3 = dict(vocab_size=512, hidden_size=64, num_layers=3, num_heads=4,
+                 num_kv_heads=2, head_dim=16, intermediate_size=128,
+                 rope_theta=1_000_000.0, rms_eps=1e-6)
+    QWEN3_B, QWEN3_S, N_MODELS, MODEL_PAIRS = 8, 16, 4096, 32
 
 
 def _sweep_csv(path):
@@ -142,6 +149,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     port.profiled_kernel_ms = lambda fn, kernel, n: _host_ms(fn, n)
     # No CUDA kernel to trace on the CPU.
     port.profiled_device_ms = lambda fn, n: (0.0, 0.0)
+    port.profiled_top_kernels = lambda fn: []
     port.sm_grid = lambda device, ctas_per_sm=4: 8
     port.int8_smem_bytes = topk_plan.smem_bytes
     port.float_smem_bytes = topk_plan.smem_bytes
@@ -187,8 +195,14 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                  + sum(x["k1_launches"]
                        for x in summary20["latency_layers"].values())
                  + summary20["latency"]["exact_b8"]["launches"] + 4 + 3)
+    # Phase 21's: (a) one hybrid call on the Qwen3 vectors, (b) the
+    # served text requests' device batches (a batch a launch).
+    summary21 = [r for r in records if r.get("phase") == "models"][0]
+    models = {r["inference"]: r for r in records if "inference" in r}
+    k1_models = summary21["k1_launches"]
+    assert k1_models == 1 + models["B_served_text"]["k1_launches"]
     assert [k["launches"] for k in kernels][:4] == [
-        52 + k1_served, 10, 325 + 64, 288]
+        52 + k1_served + k1_models, 10, 325 + 64, 288]
     assert all(k["launches"] >= 1 for k in kernels[4:])
     no_library = {"stream_sum_busy", "fused_top_k_counted",
                   "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
@@ -426,6 +440,62 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert d["feedback_recorded"] and d["embeddings_equal_table"]
     assert list(summary20["parts"]) == ["A", "C", "D", "B"]
     assert all(v["seconds"] > 0 for v in summary20["parts"].values())
+    # Phase 21: the models.
+    assert list(models) == ["A_qwen3", "B_served_text", "C_pairs"]
+    assert list(summary21["parts"]) == ["A", "B", "C"]
+    assert [v["k1_launches"] for v in summary21["parts"].values()] == [
+        1, models["B_served_text"]["k1_launches"], 0]
+    a = models["A_qwen3"]
+    assert a["batch"] == [8, 16] and a["widths"] == TinySmoke.QWEN3
+    # Embedding 512 x 64 + 3 layers (q 64x64, k/v 64x32, o 64x64, three
+    # MLP projections 64x128, four norms) + the final norm.
+    per_layer = 64 * 64 * 2 + 64 * 32 * 2 + 64 * 128 * 3 + 64 * 2 + 16 * 2
+    assert a["params"] == 512 * 64 + 3 * per_layer + 64
+    assert a["non_embedding_params"] == 3 * per_layer + 64
+    assert a["bound_flop"] == 2 * a["non_embedding_params"] * 8 * 16
+    assert 8 <= a["valid_tokens"] < 8 * 16
+    assert a["cos_min"] >= 0.99 and a["unit_err"] <= 1e-3
+    assert a["cut_layers"] == 2 and a["cut_max_abs_err"] <= 1e-4
+    assert a["k1_plan"]["bq"] == 16 and a["k1_launches"] == 1
+    assert a["forward_ms"] > 0 and a["bound_ms"] > 0
+    # No CUDA kernel to trace on the CPU.
+    for prof in (a["profile"], models["B_served_text"]["embed_profile"]):
+        assert prof["device_ms"] == 0 and prof["idle_share"] == 1.0
+        assert prof["enqueue_ms"] > 0 and prof["event_ms"] > 0
+        assert prof["top_kernels"] == []
+    t = models["B_served_text"]
+    assert t["ids_equal_direct"] and t["embeddings_equal"]
+    assert t["texts"] == 16 and t["text_p50_ms"] > 0
+    qps = t["served_qps_text"]
+    assert 0 < qps["qps_min"] <= qps["qps_median"] <= qps["qps_max"]
+    assert t["clients"]["requests"] == 8 and t["clients"]["rows"] == 1
+    assert list(t["layers"]) == ["embed", "preprocess_text", "pool",
+                                 "http"]
+    assert all(x["requests"] == 4 and x["p50_ms"] > 0
+               for x in t["layers"].values())
+    assert t["k1_launches"] >= t["device_batches"] >= 1
+    assert t["encoder"] == {"dim": 256, "layers": 4, "out_dim": 32}
+    c = models["C_pairs"]
+    assert c["pairs"] == 32 and c["atol"] == 2e-2
+    for name in ("rerank", "nli"):
+        assert c[name]["max_abs_err"] <= 2e-2 and c[name]["ms"] > 0
+    assert c["rerank"]["device_ms"] > 0 and c["order_pairs_checked"] >= 0
+
+
+def test_smoke_needs_the_card(monkeypatch, capsys):
+    """Without a GPU the smoke exits non-zero and prints no result, and
+    no phase falls back to the CPU: the smoke's device check and phase
+    21's models (Qwen3, the embedder, the reranker) raise instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main() == 3
+    assert capsys.readouterr().out == ""
+    port = chip_smoke._Port()
+    for make in (lambda: chip_smoke.Smoke(port),
+                 lambda: port.init_qwen3(port.Qwen3Config(**TinySmoke.QWEN3)),
+                 lambda: port.OnDeviceEmbedder(),
+                 lambda: port.OnDeviceReranker()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_served_latency_limit():
@@ -487,3 +557,6 @@ def test_profiled_timers_trace_again_when_a_trace_holds_no_kernel(
     traces[:] = [kernels]
     with pytest.raises(RuntimeError, match="no kernel"):
         timing.profiled_kernel_ms(lambda: None, "fold", n=4)
+    traces[:] = [launch, kernels]
+    assert timing.profiled_top_kernels(lambda: None, n=2, top=1) == [
+        {"kernel": "row_reduce_kernel", "ms": 1.0, "launches": 2.0}]

@@ -325,6 +325,32 @@ def test_embeddings_endpoint():
         srv2.shutdown()
 
 
+def test_embeddings_endpoint_on_device_embedder():
+    """/v1/embeddings over the hashing encoder (models.OnDeviceEmbedder):
+    each row equal to embed_queries on the same texts, unit norm; a text
+    /v1/search ranks the embedder's vector."""
+    from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
+
+    c = synth_corpus(n_docs=64, dim=16, n_queries=2, seed=78)
+    emb = OnDeviceEmbedder(EncoderConfig(dim=64, n_layers=2, n_heads=2,
+                                         out_dim=16), device="cpu")
+    texts = ["blood pressure in adults", "asthma", "statins and liver"]
+    srv = serve(_rag(c, embedder=emb), port=0, background=True)
+    try:
+        port = srv.server_address[1]
+        out = _post(port, "/v1/embeddings", {"input": texts})
+        got = np.asarray([d["embedding"] for d in out["data"]], np.float32)
+        np.testing.assert_array_equal(got, emb.embed_queries(texts))
+        np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0,
+                                   rtol=1e-5)
+        found = _post(port, "/v1/search", {"query": texts[0],
+                                            "similarity_k": 5,
+                                            "common_sections_n": 5})
+        assert len(found["results"]) == 5
+    finally:
+        srv.shutdown()
+
+
 def test_search_and_rag_parity_with_jax():
     """One corpus behind both packages' servers: /v1/search (dense and
     hybrid) and /v1/rag give the same ids and sources."""

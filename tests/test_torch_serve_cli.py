@@ -267,8 +267,8 @@ def test_serve_cli_batched_b64_search_bf16(corpus_index):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--embedder", "hashing"], "item 6"),
-    (["--embedder-ckpt", "ckpt"], "item 6"),
+    (["--embedder", "hashing", "--embedder-ckpt", "ckpt"], "item 9"),
+    (["--embedder-ckpt", "ckpt"], "item 9"),
     (["--llm", "local"], "item 8"),
     (["--draft-ckpt", "d"], "item 8"),
     (["--json-mode"], "item 8"),
@@ -286,6 +286,8 @@ def test_unported_flags_exit_with_their_item(argv, item):
 def test_main_needs_an_index_and_known_flags():
     with pytest.raises(SystemExit, match="--index or --demo"):
         main(["--device", "cpu"])
+    with pytest.raises(SystemExit, match="unknown --embedder 'voyage'"):
+        main(["--demo", "--device", "cpu", "--embedder", "voyage"])
     with pytest.raises(SystemExit) as e:
         main(["--demo", "--device", "cpu", "--no-such-flag"])
     assert e.value.code == 2
@@ -305,6 +307,40 @@ def test_main_sets_the_retrievers_depths(monkeypatch):
     got = [(s.retriever.similarity_k, s.retriever.common_sections_n,
             s.retriever.budget) for s in served]
     assert got == [(32, 7, 1024), (25, 15, 16384)]
+
+
+def test_main_embedder_hashing_serves_text(monkeypatch):
+    """--embedder hashing: main builds the on-device embedder (the hashing
+    encoder at the index's width, on the index's device) and a text
+    /v1/search returns the ids of a direct retrieve_device on the vector
+    and terms that encode_text_query gives for the same text."""
+    from a_nice_rag_tpu_torch.models import OnDeviceEmbedder
+    from a_nice_rag_tpu_torch.serving import serve_cli
+
+    served = []
+    monkeypatch.setattr(serve_cli, "serve_state",
+                        lambda state, w, **kw: served.append((state, w)))
+    main(["--demo", "--device", "cpu", "--embedder", "hashing"])
+    (state, w), = served
+    emb = state.embedder
+    assert isinstance(emb, OnDeviceEmbedder)
+    assert emb.cfg.out_dim == 128 and emb.device.type == "cpu"
+    model = state.retriever.model_names[0]
+    texts = ["hypertension in adults", "asthma action plan",
+             state.index.meta.contents[3][:200]]
+    with _Served(state, lambda st, _, **kw: serve_state(st, w, **kw)) as s:
+        for text in texts:
+            got = [r["id"] for r in _search(s.port, {"query": text})[
+                "results"]]
+            q_vec, terms = state.encode_text_query(text)
+            assert q_vec.shape == (128,)
+            np.testing.assert_allclose(np.linalg.norm(q_vec), 1.0,
+                                       rtol=1e-5)
+            rows = state.retriever.retrieve_device(
+                {model: q_vec[None]}, terms[None], w, None, 40.0)[0]
+            want = [state.index.meta.ids[r] for r in rows[0].tolist()
+                    if r >= 0]
+            assert got == want and got
 
 
 def test_search_parity_with_jax(corpus_index):
