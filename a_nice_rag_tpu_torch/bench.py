@@ -4,7 +4,7 @@ CUDA GPU.
     python -m a_nice_rag_tpu_torch.bench [--repeats R]
 
 Counterpart of ``bench.py`` (the JAX package on one TPU chip), at its
-widths. Six stages, each a function of (device, repeats, timer, config):
+widths. Seven stages, each a function of (device, repeats, timer, config):
 
   headline   reference scale: ``synth_corpus`` 9,728 x 2048 f32 with BM25
              built from its tokens, B = 2048, similarity_k 25, top 15
@@ -23,7 +23,13 @@ widths. Six stages, each a function of (device, repeats, timer, config):
              RPC, SchedulerPool) and the native C++ front on its f32, bf16
              and int8 wires, 8 clients of 512-row frames, QPS min / median
              / max over 200 requests a front (``served_qps_metrics``,
-             :816-1118).
+             :816-1118);
+  gen        Qwen3-0.6B's architecture in bf16 (random weights): one
+             stream's tok/s against 64 requests x 160 tokens over 64
+             GenerationServer slots, their ratio held >= 2.5, with TTFT,
+             a steady tick's host / event / busy ms and launches, and the
+             admission wave's peak memory (``gen_serving_metrics``,
+             :721-813).
 
 Every stage asserts its recall floors and, on the device, that its
 kernel-route ids equal its torch-route ids up to ties within the
@@ -49,8 +55,7 @@ and ``xpack_ids_equal_iterate`` (:242-308) time TPU folds that the port
 does not have; the CPU fallback, platform probe and re-exec (:1121-1165)
 and the round-trip de-bias and stream clamp (:199-237) work around a
 remote TPU backend; its TPU-calibrated IVF speed-up floors are reported,
-not asserted. ``gen_serving_metrics`` (:721) waits for the port's
-generation server.
+not asserted.
 
 Prints ONE JSON line. Raises without a GPU: there is no CPU fallback.
 """
@@ -97,7 +102,11 @@ from a_nice_rag_tpu_torch.testing.parity import (
     check_top_k,
 )
 from a_nice_rag_tpu_torch.testing.synth import synth_corpus
-from a_nice_rag_tpu_torch.testing.timing import chained_ms, device_loop_ms
+from a_nice_rag_tpu_torch.testing.timing import (
+    chained_ms,
+    device_loop_ms,
+    profiled_top_kernels,
+)
 
 MODEL = "voyage-3-large"
 # Tolerances of the route comparisons: f32 dense scores of unit-norm
@@ -107,6 +116,9 @@ F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
 BM25_ATOL = 1e-4
 FUSED_ATOL = 1e-6
+# One H100 SXM's HBM bytes/s (NVIDIA data sheet), for the gen stage's
+# bound per decode step.
+HBM_BYTES_S = 3.35e12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1069,7 +1081,199 @@ class Sending:
         self.client.close()
 
 
-STAGES = ("headline", "2m", "int8", "ivf", "crossover", "served")
+@dataclasses.dataclass(frozen=True)
+class GenConfig:
+    """bench.py's ``gen_serving_metrics`` (:721-813): Qwen3-0.6B's
+    architecture in bf16 (random seeded weights), one stream of ``n_new``
+    tokens at ``stream_chunk``, then ``requests`` requests over ``slots``
+    slots at ``chunk``; prompt ``prompt`` ids, ``max_len`` cache rows."""
+
+    vocab: int = 151_936
+    hidden: int = 1024
+    layers: int = 28
+    heads: int = 16
+    kv_heads: int = 8
+    head_dim: int = 128
+    mlp: int = 3072
+    dtype: torch.dtype = torch.bfloat16
+    max_len: int = 256
+    n_new: int = 160
+    prompt: int = 64
+    stream_chunk: int = 32
+    slots: int = 64
+    chunk: int = 16
+    requests: int = 64
+    ttft_requests: int = 4
+    ticks: int = 2  # steady-state decode ticks timed on the host clock
+    floor: float = 2.5  # gen_batched_vs_stream, bench.py:791
+
+
+def gen_model(cfg: GenConfig, device):
+    from a_nice_rag_tpu_torch.models.decoder import init_decoder
+    from a_nice_rag_tpu_torch.models.qwen3 import Qwen3Config
+
+    qcfg = Qwen3Config(
+        vocab_size=cfg.vocab, hidden_size=cfg.hidden, num_layers=cfg.layers,
+        num_heads=cfg.heads, num_kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim, intermediate_size=cfg.mlp, dtype=cfg.dtype)
+    return init_decoder(qcfg, seed=0, device=device, param_dtype=cfg.dtype)
+
+
+def gen_tick_bound_ms(model, slots: int, max_len: int) -> float:
+    """The least time one decode step can take at ``slots`` full slots:
+    every weight and the whole KV cache read once (the step attends over
+    the whole cache row) at the HBM rate."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = (2 * cfg.num_layers * slots * max_len * cfg.num_kv_heads
+          * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8)
+    return (weights + kv) / HBM_BYTES_S * 1e3
+
+
+def gen_profile(fn) -> list:
+    """Every kernel of one call of ``fn`` (a decode tick), costliest
+    first, from one ``torch.profiler`` trace of 2 calls."""
+    return profiled_top_kernels(fn, n=2, top=1 << 30)
+
+
+def _drain_queues(reqs) -> None:
+    for r in reqs:
+        while not r.out.empty():
+            r.out.get_nowait()
+
+
+def gen_stage(device, repeats: int, timer: Timer,
+              cfg: GenConfig = GenConfig(), profile=None) -> dict:
+    """bench.py's ``gen_serving_metrics``: one stream's tok/s (chunk
+    ``stream_chunk``, the best of ``repeats`` after a warm-up) and the
+    aggregate tok/s of ``requests`` requests continuously batched over
+    ``slots`` slots (``chunk``), asserting their ratio >= ``floor`` (the
+    weight stream amortized over the slots). Beside bench.py's keys: the
+    time to first token (p50 over ``ttft_requests`` requests, each alone
+    on the started server), a steady-state tick at full slots on the host
+    clock and between CUDA events, with ``profile(fn) -> [{"kernel",
+    "ms", "launches"}]`` (every kernel of a tick, costliest first:
+    ``gen_profile`` on the card) its busy time, launches, idle share and
+    costliest kernels, the tick's bound, and the peak memory of the
+    ``slots``-wide admission wave. The warm-ups are short: eager torch
+    compiles nothing. ``timer`` is unused (a tick changes the server's
+    state, so each is timed once)."""
+    from a_nice_rag_tpu_torch.models.decoder import generate_stream
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+
+    on_card = torch.device(device).type == "cuda"
+    model = gen_model(cfg, device)
+    prompt = list(range(2, 2 + cfg.prompt))
+
+    def stream_once(n_new):
+        return sum(1 for _ in generate_stream(
+            model, prompt, max_new_tokens=n_new, chunk=cfg.stream_chunk,
+            eos_id=-1, max_len=cfg.max_len))
+
+    stream_once(cfg.stream_chunk)  # warm-up: prefill and one chunk
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        n = stream_once(cfg.n_new)
+        runs.append(n / (time.perf_counter() - t0))
+    stream_tok_s = max(runs)
+
+    srv = GenerationServer(model, slots=cfg.slots, max_len=cfg.max_len,
+                           chunk=cfg.chunk, eos_id=-1)
+    reqs = [srv.submit(prompt, cfg.chunk) for _ in range(cfg.slots)]
+    srv.drain()  # warm-up: a full admission wave and one tick
+    _drain_queues(reqs)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device) if on_card else 0
+    t0 = time.perf_counter()
+    reqs = [srv.submit(prompt, cfg.n_new) for _ in range(cfg.requests)]
+    srv.tick()  # the admission wave and the first chunk
+    wave_peak = (torch.cuda.max_memory_allocated(device) - base
+                 if on_card else None)
+    srv.drain()
+    agg_tok_s = cfg.requests * cfg.n_new / (time.perf_counter() - t0)
+    _drain_queues(reqs)
+    ratio = agg_tok_s / max(stream_tok_s, 1e-9)
+
+    # A steady tick: every slot decoding, no admission; the longest
+    # budget the rows hold, so the timed and traced ticks all decode.
+    budget = (cfg.max_len - cfg.prompt) // cfg.chunk * cfg.chunk
+    reqs = [srv.submit(prompt, budget) for _ in range(cfg.slots)]
+    srv.tick()
+    host, event = [], []
+    for _ in range(cfg.ticks):
+        if on_card:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        srv.tick()
+        host.append((time.perf_counter() - t0) * 1e3)
+        if on_card:
+            end.record()
+            end.synchronize()
+            event.append(start.elapsed_time(end))
+    busy_ms = launches = top = None
+    if profile is not None:
+        kernels = profile(srv.tick)
+        busy_ms = sum(k["ms"] for k in kernels)
+        launches = sum(k["launches"] for k in kernels)
+        top = kernels[:6]
+    for r in reqs:  # the measured ticks are done: free the slots
+        srv.cancel(r)
+
+    srv.start()
+    ttft = []
+    try:
+        for _ in range(cfg.ttft_requests):
+            t0 = time.perf_counter()
+            req = srv.submit(prompt, cfg.n_new)
+            req.out.get()
+            ttft.append((time.perf_counter() - t0) * 1e3)
+            srv.cancel(req)
+    finally:
+        srv.stop()
+    event_ms = statistics.median(event) if event else None
+    out = {
+        "gen_stream_tok_s": stream_tok_s,
+        "gen_stream_tok_s_runs": runs,
+        "gen_batched_tok_s": agg_tok_s,
+        "gen_batched_vs_stream": ratio,
+        "gen_model": (f"qwen3-0.6B-arch-{cfg.layers}L-{cfg.hidden}h-"
+                      f"{str(cfg.dtype).split('.')[-1]}"),
+        "gen_slots": cfg.slots,
+        "gen_chunk": cfg.chunk,
+        "gen_requests": cfg.requests,
+        "gen_new_tokens": cfg.n_new,
+        "gen_prompt": cfg.prompt,
+        "gen_max_len": cfg.max_len,
+        "gen_params": sum(p.numel() for p in model.parameters()),
+        "gen_ttft_p50_ms": statistics.median(ttft),
+        "gen_tick_host_ms": statistics.median(host),
+        "gen_tick_event_ms": event_ms,
+        "gen_tick_device_busy_ms": busy_ms,
+        "gen_tick_launches": launches,
+        "gen_tick_idle_share": (max(0.0, 1.0 - busy_ms / event_ms)
+                                if busy_ms is not None and event_ms
+                                else None),
+        "gen_tick_top_kernels": top,
+        "gen_step_bound_ms": gen_tick_bound_ms(model, cfg.slots,
+                                               cfg.max_len),
+        "gen_tick_bound_ms": cfg.chunk * gen_tick_bound_ms(
+            model, cfg.slots, cfg.max_len),
+        "gen_wave_peak_gib": (None if wave_peak is None
+                              else wave_peak / 2**30),
+    }
+    assert ratio >= cfg.floor, (
+        f"continuous batching must amortize the weight stream: batched "
+        f"{agg_tok_s:.0f} tok/s is only {ratio:.2f}x the single stream "
+        f"{stream_tok_s:.0f} tok/s (floor {cfg.floor}x)")
+    return out
+
+
+STAGES = ("headline", "2m", "int8", "ivf", "crossover", "served", "gen")
 
 
 def run_stages(device, repeats: int, timer: Timer,
@@ -1092,6 +1296,8 @@ def run_stages(device, repeats: int, timer: Timer,
         "crossover": lambda: crossover_stage(device, repeats, timer,
                                              corpus=ivf_corpus_once()),
         "served": lambda: served_stage(device, repeats, timer),
+        "gen": lambda: gen_stage(device, repeats, timer,
+                                 profile=gen_profile),
     }
     out: dict = {}
     for name in names:

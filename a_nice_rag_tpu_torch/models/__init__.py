@@ -1,12 +1,15 @@
 """On-device models (the port of the JAX package's ``models/``, the
 inference half): the embedding encoder, the cross-encoder reranker, the
 NLI scorer, the hashing tokenizer, the Qwen3 encoder with its
-HuggingFace weight import, and ``convert`` for the JAX package's weights.
+HuggingFace weight import, ``convert`` for the JAX package's weights,
+and generation: ``decoder`` (the KV-cached Qwen3 decoder LM),
+``speculative``, ``constrain`` (guided-decoding automata) and
+``hf_tokenizer``.
 
-The reference delegates embedding and reranking to SaaS APIs (VoyageAI,
-OpenAI; src/search_engine.py:148-203); these modules are the fully local
-alternative. Training, generation and checkpoints are not ported yet
-(ROADMAP items 8 and 9).
+The reference delegates embedding, reranking and generation to SaaS APIs
+(VoyageAI, OpenAI; src/search_engine.py:148-203, src/query_rag.py:434-513);
+these modules are the fully local alternative. Training and checkpoints
+are not ported yet (ROADMAP item 9).
 """
 
 from a_nice_rag_tpu_torch.models.embedder import OnDeviceEmbedder  # noqa: F401

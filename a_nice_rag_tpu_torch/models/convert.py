@@ -10,10 +10,12 @@ The tensors stay float32, as flax keeps them.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from a_nice_rag_tpu_torch.device import DeviceLike, resolve_device
 
 StateDict = Dict[str, torch.Tensor]
 # Block_i's submodules in creation order: attention_sublayer's RMSNorm,
@@ -98,3 +100,49 @@ def qwen3_state_from_flax(params: Mapping) -> StateDict:
                               f"layers.{i}.{name}", "weight"))
         i += 1
     return sd
+
+
+def decoder_state_dict(params: Mapping) -> StateDict:
+    """The JAX package's ``DecoderLM`` params -> ``models.decoder.DecoderLM``
+    state dict. Its tree (``embed``, ``layer_i/{input_norm, q_proj, ...,
+    down_proj}``, ``final_norm``) is the Qwen3 encoder's, and so are the
+    port's names (HuggingFace's); the tied head has no weight of its
+    own."""
+    return qwen3_state_from_flax(params)
+
+
+def load_decoder_state(cfg, state_dict: Mapping, device: DeviceLike = "cuda",
+                       param_dtype: torch.dtype = torch.float32):
+    """A ``DecoderLM`` on ``device`` holding ``state_dict`` (the port's
+    names, or a HuggingFace ``Qwen3ForCausalLM``'s: ``lm_head`` is dropped,
+    the head is tied to the embedding) stored as ``param_dtype``."""
+    from a_nice_rag_tpu_torch.models.decoder import DecoderLM
+    from a_nice_rag_tpu_torch.models.qwen3 import convert_hf_qwen3
+
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = DecoderLM(cfg)
+    model.load_state_dict({k: v.to(dev, param_dtype) for k, v in
+                           convert_hf_qwen3(state_dict, cfg).items()},
+                          assign=True)
+    return model.eval()
+
+
+def load_decoder_checkpoint_dir(
+    path: str, dtype: torch.dtype = torch.bfloat16,
+    device: DeviceLike = "cuda", param_dtype: Optional[torch.dtype] = None,
+) -> Tuple[object, object]:
+    """A ``Qwen3ForCausalLM`` checkpoint directory (``config.json`` plus
+    ``*.safetensors``) as (cfg with compute dtype ``dtype``, the
+    ``DecoderLM`` on ``device`` with the head tied to the embedding),
+    without transformers. Weights are stored as ``param_dtype``
+    (``dtype`` unless given)."""
+    from a_nice_rag_tpu_torch.models.qwen3 import (
+        Qwen3Config,
+        read_checkpoint_dir,
+    )
+
+    hf_cfg, state_dict = read_checkpoint_dir(path)
+    cfg = Qwen3Config.from_hf(hf_cfg, dtype=dtype)
+    return cfg, load_decoder_state(cfg, state_dict, device,
+                                   param_dtype or dtype)

@@ -252,6 +252,14 @@ def load_qwen3_checkpoint_dir(
     read). Returns (cfg with compute dtype ``dtype``, the encoder on
     ``device`` with the checkpoint's weights as float32).
     """
+    hf_cfg, state_dict = read_checkpoint_dir(path)
+    cfg = Qwen3Config.from_hf(hf_cfg, dtype=dtype)
+    return cfg, load_qwen3_state(cfg, state_dict, device, pool)
+
+
+def read_checkpoint_dir(path: str):
+    """A HF-format directory's ``config.json`` (as a namespace) and the
+    tensors of all its ``*.safetensors`` shards, on the CPU."""
     import glob
     import json
     import os
@@ -261,14 +269,13 @@ def load_qwen3_checkpoint_dir(
 
     with open(os.path.join(path, "config.json"), "r", encoding="utf-8") as f:
         hf_cfg = SimpleNamespace(**json.load(f))
-    cfg = Qwen3Config.from_hf(hf_cfg, dtype=dtype)
     shards = sorted(glob.glob(os.path.join(path, "*.safetensors")))
     if not shards:
         raise FileNotFoundError(f"no *.safetensors under {path}")
     state_dict: Dict[str, torch.Tensor] = {}
     for shard in shards:
         state_dict.update(load_file(shard))
-    return cfg, load_qwen3_state(cfg, state_dict, device, pool)
+    return hf_cfg, state_dict
 
 
 def load_hf_qwen3_encoder(

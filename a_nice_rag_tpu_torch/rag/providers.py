@@ -8,10 +8,10 @@ surface with a dependency-free OpenAI-compatible SSE streaming client,
 plus a deterministic offline ``FakeLLMClient`` so the whole RAG stack
 runs and tests hermetically.
 
-Counterpart of ``a_nice_rag_tpu/rag/providers.py``. The JAX package's
-on-device generation client (``LocalTpuLLMClient``) waits for the port
-of its decoder; ``route_model`` keeps the ``"local"`` route for a client
-registered under that name.
+Counterpart of ``a_nice_rag_tpu/rag/providers.py``, with its on-device
+generation client ``LocalTpuLLMClient`` (the JAX package's name, kept so
+a reader finds it; here the decoder runs on the card), which
+``route_model`` reaches through its ``"local"`` route.
 """
 
 from __future__ import annotations
@@ -97,6 +97,86 @@ class FakeLLMClient:
             text = f"[fake:{model}] {user[:160]}"
         for i in range(0, len(text), self.chunk_size):
             yield text[i : i + self.chunk_size]
+
+
+class LocalTpuLLMClient:
+    """On-device generation client: streams deltas from the KV-cached
+    decoder LM (models/decoder.py) instead of a SaaS chat API — the last
+    network hop of the reference's serve path (src/query_rag.py:434-513)
+    made local. Pass a trained or converted ``DecoderLM``; quality is
+    whatever its weights carry.
+
+    ``chunk`` enqueues that many decode steps per host read
+    (token-for-token identical; see models/decoder). ``server`` routes
+    generation through a shared serving.genserver.GenerationServer
+    instead, so concurrent RAG requests continuously batch onto one
+    decode — the server's sampling knobs are fixed at its construction
+    (per-request temperature/top_k/top_p are ignored on that path).
+    """
+
+    def __init__(self, model, tokenizer=None, max_new_tokens: int = 256,
+                 max_prompt_tokens: int = 1024, chunk: int = 8,
+                 server=None):
+        from a_nice_rag_tpu_torch.models.decoder import ByteTokenizer
+
+        self.model = model
+        self.tokenizer = tokenizer or ByteTokenizer()
+        self.max_new_tokens = max_new_tokens
+        self.max_prompt_tokens = max_prompt_tokens
+        self.chunk = chunk
+        self.server = server
+
+    def stream_chat(self, model, messages, **params):
+        from a_nice_rag_tpu_torch.models.decoder import (
+            ByteDecoder,
+            generate_stream,
+        )
+        from a_nice_rag_tpu_torch.models.hf_tokenizer import (
+            render_chatml,
+            supports_chatml,
+        )
+
+        if supports_chatml(self.tokenizer):
+            # Real instruct checkpoints: turn markers encode onto their
+            # special ids (models/hf_tokenizer.render_chatml).
+            prompt = render_chatml(messages)
+        else:
+            prompt = "\n\n".join(
+                f"{m.get('role', 'user')}: {m.get('content', '')}"
+                for m in messages
+            ) + "\n\nassistant: "
+        ids = self.tokenizer.encode(prompt)
+        if len(ids) > self.max_prompt_tokens:
+            # Keep the tail: the question and the nearest context. (A real
+            # BPE tokenizer in this family has no BOS.)
+            bos = getattr(self.tokenizer, "bos_id", None)
+            ids = ([bos] if bos is not None else []) + ids[
+                -self.max_prompt_tokens:]
+        # Feed ids DIRECTLY — a decode/re-encode round-trip here would
+        # strip the ChatML special ids (HFStreamDecoder renders specials
+        # as ""), destroying the turn structure of truncated prompts.
+        max_new = int(params.get("max_tokens", self.max_new_tokens))
+        if self.server is not None:
+            gen = self.server.stream(ids, max_new_tokens=max_new)
+        else:
+            gen = generate_stream(
+                self.model, ids,
+                max_new_tokens=max_new,
+                temperature=float(params.get("temperature", 0.0)),
+                top_k=int(params.get("top_k", 0)),
+                top_p=float(params.get("top_p", 0.0)),
+                chunk=self.chunk,
+            )
+        dec = (self.tokenizer.stream_decoder()
+               if hasattr(self.tokenizer, "stream_decoder")
+               else ByteDecoder())
+        for t in gen:
+            piece = dec.feed(t)
+            if piece:
+                yield piece
+        tail = dec.flush()
+        if tail:
+            yield tail
 
 
 def build_default_clients(env: Optional[Dict[str, str]] = None) -> Dict[str, ChatClient]:

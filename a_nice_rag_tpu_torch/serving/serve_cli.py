@@ -17,17 +17,21 @@ stack end to end:
 
 With ``--embedder hashing``, ``/v1/search`` also takes raw text: the
 hashing encoder (``models.OnDeviceEmbedder``) embeds each text request on
-the index's device and the index's BM25 vocabulary gives its terms. The
-flags of modules the port does not have yet exit with the ROADMAP item
-they wait for (``--embedder-ckpt``, an orbax checkpoint: item 9;
-``--llm`` and the generation group: item 8). The JAX CLI's ``-rounded``
-flag, which selects the packed bf16-key fold, exits too: that fold was
-not ported.
+the index's device and the index's BM25 vocabulary gives its terms. With
+``--llm local`` the on-device decoder LM is attached on the index's
+device (``build_local_llm_api``): ``/v1/rag`` (+SSE) answers from it
+through a continuous-batching ``GenerationServer``, and ``/v1/generate``
+and ``/v1/chat/completions`` serve it, with JSON guided decoding under
+``--json-mode``. The flags of modules the port does not have yet exit
+with the ROADMAP item they wait for (``--embedder-ckpt``, an orbax
+checkpoint: item 9; ``--lm-tp``, tensor parallelism: item 8). The JAX
+CLI's ``-rounded`` flag, which selects the packed bf16-key fold, exits
+too: that fold was not ported.
 
 Usage:
     python -m a_nice_rag_tpu_torch.serving.serve_cli --index artifacts/nice \
         [--port 8800] [--autotune] [--shards 4] [--device cuda] \
-        [--embedder hashing]
+        [--embedder hashing] [--llm local [--llm-ckpt DIR] [--json-mode]]
     python -m a_nice_rag_tpu_torch.serving.serve_cli --demo
 """
 
@@ -58,13 +62,7 @@ logger = logging.getLogger(__name__)
 # ROADMAP item each waits for.
 UNPORTED_FLAGS = {
     "embedder_ckpt": "item 9 (training and its orbax checkpoints)",
-    "llm": "item 8 (the local decoder and its generation server)",
-    "llm_ckpt": "item 8", "gen_slots": "item 8", "gen_chunk": "item 8",
-    "gen_max_len": "item 8", "draft_ckpt": "item 8", "gamma": "item 8",
-    "prefill_chunk": "item 8", "max_pending": "item 8",
-    "retain_prefixes": "item 8", "logprob_topk": "item 8",
-    "json_mode": "item 8", "json_depth": "item 8", "lm_tp": "item 8",
-    "chat_template": "item 8",
+    "lm_tp": "item 8 (tensor-parallel generation, parallel/lm.py)",
 }
 ROUNDED_FOLD = ("selects the packed bf16-key fold, which is not ported "
                 "(ROADMAP queue 2: only if an H100 measurement asks for it)")
@@ -343,12 +341,15 @@ def _make_handler(state: ServeState, default_weights: Dict[str, float],
                     "models": list(state.retriever.model_names),
                 })
             elif self.path == "/v1/stats":
-                self._reply(200, {
+                out = {
                     "schedulers": state.pool.stats,
                     "health_events": (
                         state.monitor.events[-20:] if state.monitor else []
                     ),
-                })
+                }
+                if getattr(api, "gen_server", None) is not None:
+                    out["generation"] = api.gen_server.stats()
+                self._reply(200, out)
             elif api is not None:
                 super().do_GET()  # browser UI etc.
             else:
@@ -457,16 +458,22 @@ def serve_state(
                      name="scheduler-loop").start()
     if state.monitor is not None:
         state.monitor.start()
+    gen_server = getattr(api, "gen_server", None)
+    if gen_server is not None:
+        gen_server.start()
     server = ThreadingHTTPServer(
         (host, port), _make_handler(state, default_weights, api=api)
     )
 
     def _teardown():
-        """Stop everything the serve started: the monitor, the scheduler
-        pool's loop tasks (so no asyncio task is left pending when the
-        loop thread dies), then the loop."""
+        """Stop everything the serve started: the monitor, the
+        generation server, the scheduler pool's loop tasks (so no asyncio
+        task is left pending when the loop thread dies), then the
+        loop."""
         if state.monitor is not None:
             state.monitor.stop()
+        if gen_server is not None:
+            gen_server.stop()
         try:
             fut = asyncio.run_coroutine_threadsafe(state.pool.stop(), loop)
             fut.result(timeout=10)
@@ -551,21 +558,62 @@ def _parser() -> argparse.ArgumentParser:
                         "scale, dequantized on the device); ranking is "
                         "the exact f32 ordering of the quantized query's "
                         "scores")
-    # The JAX CLI's flags for modules not yet ported: accepted so that
-    # they can exit with the ROADMAP item they wait for.
     p.add_argument("--embedder", default=None,
                    help="on-device query embedder so /v1/search takes raw "
                         "text: 'hashing' = the hashing tokenizer + the "
                         "transformer encoder (seeded random weights)")
-    for flag in ("--embedder-ckpt", "--llm", "--llm-ckpt",
-                 "--draft-ckpt", "--chat-template"):
-        p.add_argument(flag, default=None, help="not ported yet")
-    for flag in ("--gen-slots", "--gen-chunk", "--gen-max-len", "--gamma",
-                 "--prefill-chunk", "--max-pending", "--retain-prefixes",
-                 "--logprob-topk", "--json-depth", "--lm-tp"):
-        p.add_argument(flag, type=int, default=None, help="not ported yet")
+    p.add_argument("--llm", default=None, choices=["local"],
+                   help="'local' attaches the on-device decoder LM: adds "
+                        "/v1/rag (+SSE), /v1/generate, "
+                        "/v1/chat/completions, /v1/feedback and the "
+                        "browser UI to this port. Seeded random demo "
+                        "weights unless --llm-ckpt")
+    p.add_argument("--llm-ckpt", default=None,
+                   help="HF-format Qwen3 checkpoint dir (config.json + "
+                        "*.safetensors) for the local LM")
+    p.add_argument("--gen-slots", type=int, default=4,
+                   help="continuous-batching decode slots")
+    p.add_argument("--gen-chunk", type=int, default=8,
+                   help="decode steps per host read")
+    p.add_argument("--gen-max-len", type=int, default=1024,
+                   help="KV-cache length per slot")
+    p.add_argument("--draft-ckpt", default=None,
+                   help="smaller HF-format Qwen3 checkpoint dir used as "
+                        "the speculative-decoding draft (greedy streams "
+                        "stay the target's)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="draft proposals per speculation round")
+    p.add_argument("--prefill-chunk", type=int, default=None,
+                   help="incremental prefill: admit long prompts N tokens "
+                        "per decode tick so active streams never stall "
+                        "longer than one chunk's forward")
+    p.add_argument("--max-pending", type=int, default=None,
+                   help="backpressure: reject /v1/generate submissions "
+                        "(HTTP 429) beyond this many queued requests")
+    p.add_argument("--retain-prefixes", type=int, default=0,
+                   help="keep up to N retired requests' KV rows as cached "
+                        "prefixes (multi-turn chat prefills only the new "
+                        "tail)")
+    p.add_argument("--logprob-topk", type=int, default=0,
+                   help="emit the top-K raw-distribution alternatives per "
+                        "generated token (/v1/generate 'top_logprobs'); "
+                        "0 = off")
     p.add_argument("--json-mode", action="store_true",
-                   help="not ported yet")
+                   help="register guided-decoding JSON constraints on the "
+                        "local LM: /v1/generate and /v1/chat/completions "
+                        "then take 'constraint' or response_format "
+                        "{'type': 'json_object'} and the output parses")
+    p.add_argument("--json-depth", type=int, default=4,
+                   help="max JSON nesting depth for --json-mode")
+    p.add_argument("--chat-template", default="auto",
+                   choices=["auto", "chatml", "plain"],
+                   help="chat prompt format for /v1/chat/completions: "
+                        "auto = the checkpoint's declared chat_template "
+                        "with a marker-in-vocab fallback")
+    # The JAX CLI's flags for modules not yet ported: accepted so that
+    # they can exit with the ROADMAP item they wait for.
+    p.add_argument("--embedder-ckpt", default=None, help="not ported yet")
+    p.add_argument("--lm-tp", type=int, default=None, help="not ported yet")
     return p
 
 
@@ -607,6 +655,8 @@ def main(argv=None) -> None:
     )
     use_bm25 = not args.no_bm25 and index.bm25 is not None
     embedder = None
+    if args.llm and not args.embedder:
+        args.embedder = "hashing"  # RAG needs a query embedder
     if args.embedder == "hashing":
         from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
         from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
@@ -635,6 +685,19 @@ def main(argv=None) -> None:
                for m in model_names}
     if use_bm25:
         weights["BM25"] = 1.0
+    api = None
+    if args.llm == "local":
+        api = build_local_llm_api(
+            index, state, embedder, model_names,
+            llm_ckpt=args.llm_ckpt, gen_slots=args.gen_slots,
+            gen_chunk=args.gen_chunk, gen_max_len=args.gen_max_len,
+            draft_ckpt=args.draft_ckpt, gamma=args.gamma,
+            prefill_chunk=args.prefill_chunk, max_pending=args.max_pending,
+            json_mode=args.json_mode, json_depth=args.json_depth,
+            logprob_topk=args.logprob_topk,
+            retain_prefixes=args.retain_prefixes,
+            chat_template=args.chat_template,
+        )
     native = None
     if args.native_port is not None:
         from a_nice_rag_tpu_torch.serving.native_front import (
@@ -652,10 +715,174 @@ def main(argv=None) -> None:
             native.wire_dtype,
         )
     try:
-        serve_state(state, weights, host=args.host, port=args.port)
+        serve_state(state, weights, host=args.host, port=args.port, api=api)
     finally:
         if native is not None:
             native.stop()
+
+
+def _checkpoint_eos(llm_ckpt: str, default: int) -> int:
+    """The checkpoint config's ``eos_token_id`` (the first of a list), or
+    ``default``: a real checkpoint decodes until its own EOS."""
+    with open(os.path.join(llm_ckpt, "config.json")) as f:
+        eos = json.load(f).get("eos_token_id")
+    if isinstance(eos, list):
+        eos = eos[0] if eos else None
+    return default if eos is None else int(eos)
+
+
+def _checkpoint_tokenizer(llm_ckpt: str, chat_template: str):
+    """The checkpoint's own tokenizer (exact BPE encode + streaming
+    byte-map decode), or None when it has no ``tokenizer.json`` or the
+    ``tokenizers`` runtime cannot read it (then prompts use the byte
+    tokenizer and constraints still lower onto the file's byte map)."""
+    if not os.path.exists(os.path.join(llm_ckpt, "tokenizer.json")):
+        return None
+    from a_nice_rag_tpu_torch.models.hf_tokenizer import HFTokenizer
+
+    try:
+        tok = HFTokenizer(llm_ckpt)
+    except Exception as e:  # noqa: BLE001 — degrade, don't die
+        logger.warning("serve: tokenizers runtime rejected tokenizer.json "
+                       "(%s); prompts use the demo byte tokenizer", e)
+        return None
+    if chat_template != "auto":
+        tok.force_chatml = chat_template == "chatml"
+    logger.info("serve: generation endpoints use the checkpoint's "
+                "tokenizer (%d pieces, %d specials)",
+                len(tok.token_bytes), len(tok.specials))
+    return tok
+
+
+def _json_constraints(vocab: int, eos_id: int, depth: int, llm_ckpt,
+                      hf_tok):
+    """The JSON guided-decoding registry of --json-mode, lowered onto the
+    checkpoint's tokenizer (multi-byte BPE pieces) when there is one and
+    onto the byte tokenizer otherwise."""
+    from a_nice_rag_tpu_torch.models.constrain import (
+        compile_constraint,
+        json_dfa,
+    )
+
+    token_bytes = None
+    if hf_tok is not None:
+        token_bytes = hf_tok.token_bytes
+    elif llm_ckpt and os.path.exists(os.path.join(llm_ckpt,
+                                                  "tokenizer.json")):
+        from a_nice_rag_tpu_torch.models.hf_tokenizer import (
+            load_token_bytes,
+        )
+
+        token_bytes, _ = load_token_bytes(llm_ckpt)
+    dfas = {
+        "json": json_dfa(max_depth=depth),
+        "json_object": json_dfa(max_depth=depth, top_level="object"),
+        "json_array": json_dfa(max_depth=depth, top_level="array"),
+    }
+    return {name: compile_constraint(dfa, vocab, eos_id,
+                                     token_bytes=token_bytes, name=name)
+            for name, dfa in dfas.items()}
+
+
+def build_local_llm_api(index, state, embedder, model_names,
+                        llm_ckpt=None, gen_slots: int = 4,
+                        gen_chunk: int = 8, gen_max_len: int = 1024,
+                        max_pending=None, draft_ckpt=None, gamma: int = 4,
+                        prefill_chunk=None, json_mode: bool = False,
+                        json_depth: int = 4, logprob_topk: int = 0,
+                        retain_prefixes: int = 0,
+                        chat_template: str = "auto"):
+    """Attach the on-device decoder LM to this deployment, on the index's
+    device: a continuous-batching GenerationServer shared by
+    /v1/generate, /v1/chat/completions and the RAG LLM hop, a RAGSystem
+    over this serve state's engine (sharded or single-device), and a
+    ServingAPI exposing /v1/rag (+SSE) and the browser UI. No SaaS
+    anywhere (the reference's generation hop is SaaS-only,
+    src/query_rag.py:434-513)."""
+    from a_nice_rag_tpu_torch.config import InfoSource
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.models.decoder import (
+        EOS,
+        init_decoder,
+        small_lm_config,
+    )
+    from a_nice_rag_tpu_torch.rag.providers import LocalTpuLLMClient
+    from a_nice_rag_tpu_torch.rag.system import RAGSystem
+    from a_nice_rag_tpu_torch.retrieval.rerank import IdentityReranker
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    dev = index.device
+    if llm_ckpt:
+        lm_cfg, lm = convert.load_decoder_checkpoint_dir(llm_ckpt,
+                                                         device=dev)
+        logger.info("serve: local LM loaded from %s (%d layers)",
+                    llm_ckpt, lm_cfg.num_layers)
+    else:
+        lm = init_decoder(small_lm_config(), device=dev)
+        logger.warning("serve: local LM is RANDOM-INIT demo weights "
+                       "(pass --llm-ckpt for real generation)")
+    draft = None
+    if draft_ckpt:
+        d_cfg, draft = convert.load_decoder_checkpoint_dir(draft_ckpt,
+                                                           device=dev)
+        if lm.cfg.vocab_size != d_cfg.vocab_size:
+            raise SystemExit(
+                f"--draft-ckpt vocab ({d_cfg.vocab_size}) must match "
+                f"the target's ({lm.cfg.vocab_size})"
+            )
+        logger.info("serve: speculative draft loaded from %s "
+                    "(%d layers, gamma=%d)", draft_ckpt, d_cfg.num_layers,
+                    gamma)
+    eos_id, hf_tok = EOS, None
+    if llm_ckpt:
+        eos_id = _checkpoint_eos(llm_ckpt, EOS)
+        hf_tok = _checkpoint_tokenizer(llm_ckpt, chat_template)
+    constraints = None
+    if json_mode:
+        if draft is not None:
+            raise SystemExit(
+                "--json-mode does not compose with --draft-ckpt "
+                "(constrained decoding is rejected in speculative mode)"
+            )
+        constraints = _json_constraints(lm.cfg.vocab_size, eos_id,
+                                        json_depth, llm_ckpt, hf_tok)
+        logger.info("serve: JSON guided decoding registered (depth=%d)",
+                    json_depth)
+    gen = GenerationServer(lm, slots=gen_slots, eos_id=eos_id,
+                           max_len=gen_max_len, chunk=gen_chunk,
+                           draft_model=draft, gamma=gamma,
+                           prefill_chunk=prefill_chunk,
+                           max_pending=max_pending, constraints=constraints,
+                           logprob_topk=logprob_topk,
+                           retain_prefixes=retain_prefixes)
+    # The client's prompt window leaves the cache room for its 256-token
+    # answer rounded up to whole chunks, and for the BOS it prepends to a
+    # cut prompt (the JAX package's gen_max_len - 256 overflows the row by
+    # one on a cut prompt, and the RAG answer becomes the submit error).
+    answer = 256  # the client's answer budget, as the JAX package's
+    client = LocalTpuLLMClient(
+        lm, server=gen, tokenizer=hf_tok, max_new_tokens=answer,
+        max_prompt_tokens=max(64, gen_max_len - 1 - gen_chunk * -(
+            -answer // gen_chunk)))
+    rag = RAGSystem(
+        indexes={InfoSource.NICE: index},
+        embedder=embedder,
+        reranker=IdentityReranker(),
+        llm_clients={"local": client},
+        device=dev,
+    )
+    sidx = getattr(state.retriever, "sidx", None)
+    if sidx is not None:
+        from a_nice_rag_tpu_torch.parallel.engine import ShardedSearchEngine
+
+        rag.attach_index(
+            InfoSource.NICE, index,
+            engine=ShardedSearchEngine(sidx, embedder=embedder,
+                                       reranker=IdentityReranker()),
+        )
+    return ServingAPI(rag, gen_server=gen, llm_options=["local-tpu"],
+                      tokenizer=hf_tok)
 
 
 if __name__ == "__main__":

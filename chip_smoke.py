@@ -151,6 +151,32 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      forward of the same weights, the rerank order equal wherever the
      CPU's gaps exceed it, ms a call and the forward's device ms; then the
      ``models`` line (each part's seconds, peak memory and K1 launches);
+ 22. generation (models/decoder.py, speculative.py, serving/genserver.py;
+     no kernel is on this path: each part is driven with the launch
+     counts zeroed and must launch none): (a) DecoderLM at Qwen3-0.6B's
+     widths (vocab 151,936, 28 layers of 1024, 16 / 8 heads of 128, MLP
+     3072, tied embeddings; seeded random bf16 weights), the prefill
+     logits of 4 prompts of 64 ids against the CPU's float32 forward of
+     the same weights, cosine >= 0.99 a row; (b) a 2-layer float32 cut
+     of those weights, greedy streams on the card equal to the CPU's
+     token for token: generate_stream at chunk 1 and 8, generate_batch,
+     GenerationServer with wave, per-slot and chunked prefill and a
+     retained prefix, the speculative stream (a 1-layer draft; equal to
+     the target's stream too) and a json_object-constrained stream (its
+     bytes a live JSON prefix), then sampled constrained requests on the
+     card until one stops, which must json.loads; (c) the bench's gen
+     stage at full width (bench.gen_stage: one stream at chunk 32 against
+     64 requests x 160 tokens over 64 slots at chunk 16, ratio >= 2.5;
+     TTFT p50; a steady tick's host ms, CUDA-event ms, busy ms, launches
+     and idle share beside its bound; the 64-wide admission wave's peak
+     memory); (d) serve_cli's local-LLM surface (build_local_llm_api,
+     demo small_lm_config weights, JSON mode) on stage A's index through
+     serve_state: /v1/generate as JSON and SSE (both equal to
+     generate_text_stream on the server's model), /v1/chat/completions
+     with response_format json_object (sampled requests until one stops,
+     which must json.loads), a /v1/rag SSE answer from the local LLM, and
+     the generate stream's TTFT and tokens/s; then the ``generation``
+     line;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -434,6 +460,15 @@ class Smoke:
     # bf16 embedding's cosine, its norm, the float32 cut (max abs), and
     # the reranker's and the NLI scorer's scores (max abs).
     QWEN3_COS, UNIT_TOL, CUT_ATOL, PAIR_ATOL = 0.99, 1e-3, 1e-4, 2e-2
+    # Phase 22: bench.GenConfig fields (empty = Qwen3-0.6B's widths, the
+    # JAX bench's gen configuration), the parity prompts (count x ids), the
+    # float32 cut's layers, its EOS id (Qwen's <|endoftext|>), the JSON
+    # depth of its constrained stream (96 states x the vocab), the sampled
+    # constrained requests tried for a parsing stop, and the cosine bound
+    # of the bf16 logits against the CPU's float32 (phase 21's for Qwen3).
+    GEN = {}
+    GEN_PROMPTS, GEN_PROMPT_LEN, GEN_CUT, GEN_EOS = 4, 64, 2, 151_643
+    GEN_JSON_DEPTH, GEN_JSON_TRIES, GEN_COS = 2, 16, 0.99
 
     def __init__(self, port):
         self.p = port
@@ -452,6 +487,7 @@ class Smoke:
         self.served_parts, self.served_fronts = {}, {}
         self.served_latency_ms, self.served_layers_ms = {}, {}
         self.models_parts, self.models_k1 = {}, 0
+        self.gen_parts = {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -3639,6 +3675,264 @@ class Smoke:
             seconds=sum(v["seconds"] for v in self.models_parts.values()),
             k1_launches=self.models_k1, card=self.card)
 
+    # -- phase 22: generation ---------------------------------------------
+
+    def gen_part(self, name, fn, *args):
+        """Run one part of phase 22 as a path of its own: no kernel of the
+        port is on it, so it must launch none."""
+        return self.part(self.gen_parts, name, lambda: self.no_kernels(
+            f"generation ({name})", lambda: fn(*args)))
+
+    def gen_cfg(self):
+        return self.b.GenConfig(**self.GEN)
+
+    def phase22a_parity(self):
+        """DecoderLM at the gen configuration's widths in bf16 on the card:
+        the prefill logits of GEN_PROMPTS prompts against the CPU's float32
+        forward of the same weights, cosine per (prompt, position) row.
+        Returns the weights as a CPU float32 state dict."""
+        p = self.p
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on: float32 products would not "
+                                 "be float32")
+        cfg = self.gen_cfg()
+        model = self.b.gen_model(cfg, self.dev)
+        ids = torch.randint(0, cfg.vocab, (self.GEN_PROMPTS,
+                                           self.GEN_PROMPT_LEN),
+                            generator=self.seed(2201), device=self.dev)
+        got = p.lm_logits(model, ids).cpu()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError("DecoderLM bf16 logits are not finite")
+        sd = self.cpu_state(model)
+        cfg32 = dataclasses.replace(model.cfg, dtype=torch.float32)
+        del model
+        t0 = time.perf_counter()
+        want = p.lm_logits(p.load_decoder_state(cfg32, sd, device="cpu"),
+                           ids.cpu())
+        cpu_s = time.perf_counter() - t0
+        got, want = got.flatten(0, 1), want.flatten(0, 1)
+        cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+        if float(cos.min()) < self.GEN_COS:
+            raise AssertionError(f"DecoderLM bf16 logits against the CPU's "
+                                 f"float32: cosine {float(cos.min())}")
+        log(generation="A_parity", widths=dataclasses.asdict(cfg32) | {
+            "dtype": "bfloat16"}, prompts=list(ids.shape),
+            logits_rows=got.shape[0], cos_min=float(cos.min()),
+            cos_median=float(cos.median()), cpu_reference_s=cpu_s,
+            top1_agreement=float((got.argmax(-1) == want.argmax(-1))
+                                 .float().mean()), card=self.card)
+        return sd, cfg32
+
+    def gen_streams(self, model, draft, prompts):
+        """Every greedy stream of part (b) for one device's models."""
+        p, eos = self.p, self.GEN_EOS
+        out = {
+            "stream_chunk1": list(p.generate_stream(
+                model, prompts[0], max_new_tokens=24, eos_id=eos)),
+            "stream_chunk8": list(p.generate_stream(
+                model, prompts[0], max_new_tokens=24, eos_id=eos, chunk=8)),
+            "batch": p.generate_batch(model, prompts[:3], max_new_tokens=16,
+                                      eos_id=eos, chunk=8),
+            "speculative": list(p.speculative_generate_stream(
+                model, draft, prompts[0], max_new_tokens=24, gamma=4,
+                eos_id=eos)),
+        }
+
+        def served(**kw):
+            srv = p.GenerationServer(model, slots=4, max_len=128, chunk=4,
+                                     eos_id=eos, **kw)
+            reqs = [srv.submit(x, 12) for x in prompts]
+            srv.drain()
+            return srv, [self.gen_tokens(r) for r in reqs]
+
+        out["server_wave"] = served()[1]
+        out["server_per_slot"] = served(wave_prefill=False)[1]
+        out["server_chunked"] = served(prefill_chunk=16)[1]
+        srv, first = served(retain_prefixes=4)
+        follow = prompts[0] + first[0] + [5, 6, 7]
+        req = srv.submit(follow, 12)
+        srv.drain()
+        out["server_retained"] = [first[0], self.gen_tokens(req),
+                                  srv.prefix_hits]
+        con = p.compile_constraint(
+            p.json_dfa(max_depth=self.GEN_JSON_DEPTH, top_level="object"),
+            model.cfg.vocab_size, eos, name="json_object")
+        srv = p.GenerationServer(model, slots=2, max_len=128, chunk=4,
+                                 eos_id=eos,
+                                 constraints={"json_object": con})
+        out["json_object"] = self.gen_tokens(srv.submit(
+            prompts[1], 48, constraint="json_object"), drain=srv)
+        return out, srv
+
+    @staticmethod
+    def gen_tokens(req, drain=None):
+        if drain is not None:
+            drain.drain()
+        toks = []
+        while not req.out.empty():
+            item = req.out.get_nowait()
+            if isinstance(item, int):
+                toks.append(item)
+        return toks
+
+    def phase22b_cut(self, sd, cfg32) -> None:
+        """The float32 cut: greedy streams on the card equal to the CPU's,
+        then sampled json_object requests on the card until one stops."""
+        p = self.p
+        cut = dataclasses.replace(cfg32, num_layers=self.GEN_CUT)
+        one = dataclasses.replace(cfg32, num_layers=1)
+        g = np.random.default_rng(2202)
+        prompts = [g.integers(0, 256, n).tolist() for n in (20, 9, 33, 14)]
+        runs = {}
+        for dev in (self.dev, "cpu"):
+            runs[str(dev)] = self.gen_streams(
+                p.load_decoder_state(cut, sd, device=dev),
+                p.load_decoder_state(one, sd, device=dev), prompts)
+        (card, srv), (cpu, _) = runs[str(self.dev)], runs["cpu"]
+        for name, want in cpu.items():
+            if card[name] != want:
+                raise AssertionError(f"generation cut, {name}: card "
+                                     f"{card[name]} against CPU {want}")
+        if card["speculative"] != card["stream_chunk1"]:
+            raise AssertionError("the speculative stream is not the "
+                                 "target's greedy stream")
+        dfa = p.json_dfa(max_depth=self.GEN_JSON_DEPTH, top_level="object")
+        state = 0
+        for b in bytes(t for t in card["json_object"] if t < 256):
+            state = int(dfa.next[state, b])
+            if state < 0:
+                raise AssertionError("the json_object stream left the "
+                                     "grammar")
+        parsed = tried = 0
+        while not parsed and tried < self.GEN_JSON_TRIES:
+            tried += 1
+            out = srv.complete(prompts[tried % 4] + [tried], 64,
+                               constraint="json_object", temperature=1.0)
+            if out["finish_reason"] == "stop":
+                json.loads(bytes(out["tokens"]).decode())
+                parsed = tried
+        srv.stop()
+        if not parsed:
+            raise AssertionError(f"no json_object request of {tried} "
+                                 "stopped within its budget")
+        log(generation="B_cut", layers=self.GEN_CUT, eos=self.GEN_EOS,
+            streams={k: len(v) for k, v in card.items()},
+            streams_equal_cpu=sorted(card),
+            retained_prefix_hits=card["server_retained"][2],
+            json_greedy_tokens=len(card["json_object"]),
+            json_sampled_parsed_after=parsed, card=self.card)
+
+    def phase22c_gen(self) -> None:
+        """The bench's gen stage at the gen configuration's widths."""
+        out = self.b.gen_stage(self.dev, 1, self.timer, self.gen_cfg(),
+                               profile=self.b.gen_profile)
+        log(generation="C_gen", **out, card=self.card,
+            method="tok/s: host clock (stream: generate_stream at chunk 32 "
+            "after a one-chunk warm-up; batched: 64 requests submitted, "
+            "then drain); ttft: host clock from submit to the first token on "
+            "the started server, each request alone; tick: one decode "
+            "tick at full slots, host clock and a CUDA event pair, busy ms, "
+            "launches and top kernels from one torch.profiler trace of 2 "
+            "ticks; bound: weights "
+            "+ the whole KV cache read once a step at 3.35 TB/s; wave peak: "
+            "max_memory_allocated over the 64-wide admission tick")
+
+    def phase22d_served(self, index, tokens) -> None:
+        """serve_cli's local-LLM surface on stage A's index (demo weights,
+        JSON mode): /v1/generate JSON and SSE, json_object chat, /v1/rag
+        SSE from the local LLM."""
+        p = self.p
+        import urllib.request
+        emb = p.OnDeviceEmbedder(p.EncoderConfig(out_dim=self.D_A),
+                                 device=self.dev)
+        state = p.build_state(index, (MODEL,), use_bm25=True,
+                              similarity_k=32, common_sections_n=15,
+                              budget=1024, embedder=emb)
+        api = p.build_local_llm_api(index, state, emb, (MODEL,),
+                                    gen_slots=4, gen_chunk=8,
+                                    gen_max_len=1024, json_mode=True)
+        prompt = "NICE guidance on " + " ".join(tokens[0][:6])
+        want = "".join(p.generate_text_stream(api.gen_server.model, prompt,
+                                              max_new_tokens=48))
+        server = p.serve_state(state, {MODEL: 5.0, "BM25": 1.0}, port=0,
+                               background=True, api=api)
+        port = server.server_address[1]
+
+        def post(path, payload):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}{path}",
+                data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            return urllib.request.urlopen(req, timeout=120)
+
+        def sse(path, payload):
+            t0, first, events = time.perf_counter(), None, []
+            with post(path, payload) as resp:
+                for raw in resp:
+                    line = raw.decode().strip()
+                    if line.startswith("data: "):
+                        first = first or time.perf_counter() - t0
+                        events.append(line[6:])
+            if events[-1] != "[DONE]":
+                raise AssertionError(f"{path} SSE ended {events[-1:]}")
+            return events[:-1], first * 1e3, time.perf_counter() - t0
+
+        try:
+            with post("/v1/generate", {"prompt": prompt,
+                                       "max_tokens": 48}) as resp:
+                text = json.loads(resp.read())["text"]
+            emitted = api.gen_server.stats()["tokens_emitted"]
+            events, ttft_ms, seconds = sse("/v1/generate", {
+                "prompt": prompt, "max_tokens": 48, "stream": True})
+            tokens_out = api.gen_server.stats()["tokens_emitted"] - emitted
+            streamed = "".join(json.loads(e)["delta"] for e in events)
+            if text != want or streamed != want:
+                raise AssertionError(f"/v1/generate {text!r} / {streamed!r} "
+                                     f"against {want!r}")
+            parsed = tried = 0
+            while not parsed and tried < self.GEN_JSON_TRIES:
+                tried += 1
+                with post("/v1/chat/completions", {
+                        "messages": [{"role": "user",
+                                      "content": f"emit {tried}"}],
+                        "max_tokens": 64, "temperature": 1.0,
+                        "response_format": {"type": "json_object"}}) as r:
+                    choice = json.loads(r.read())["choices"][0]
+                if choice["finish_reason"] == "stop":
+                    json.loads(choice["message"]["content"])
+                    parsed = tried
+            if not parsed:
+                raise AssertionError(f"no json_object chat of {tried} "
+                                     "stopped within its budget")
+            emitted = api.gen_server.stats()["tokens_emitted"]
+            rag, rag_ttft_ms, _ = sse("/v1/rag", {
+                "query": " ".join(tokens[1]), "llm_model": "local-tpu",
+                "use_hybrid_search": True, "use_reranker": False,
+                "stream": True})
+            sources = json.loads(rag[0])["sources"]
+            answer = "".join(json.loads(e)["delta"] for e in rag[1:])
+            stats = api.gen_server.stats()
+            if not sources or not answer or answer.startswith("Error") \
+                    or stats["tokens_emitted"] == emitted:
+                raise AssertionError(f"/v1/rag: {len(sources)} sources, "
+                                     f"answer {answer[:80]!r}")
+        finally:
+            server.shutdown()
+        log(generation="D_served", n=index.n_docs,
+            generate_equal_direct=True, sse_ttft_ms=ttft_ms,
+            sse_tokens_per_s=tokens_out / seconds, sse_tokens=tokens_out,
+            json_chat_parsed_after=parsed, rag_sources=len(sources),
+            rag_answer_chars=len(answer), rag_sse_ttft_ms=rag_ttft_ms,
+            server=stats, card=self.card,
+            method="host clock from the request to the first SSE data "
+            "line (ttft) and to [DONE] (tokens/s over the greedy text's "
+            "byte tokens)")
+
+    def gen_summary(self) -> None:
+        log(phase="generation", parts=self.gen_parts,
+            seconds=sum(v["seconds"] for v in self.gen_parts.values()),
+            card=self.card)
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -3694,6 +3988,12 @@ class Smoke:
         self.models_part("B", self.phase21b_served_text, ref_index, tokens)
         self.models_part("C", self.phase21c_pairs)
         self.models_summary()
+        sd, cfg32 = self.gen_part("A", self.phase22a_parity)
+        self.gen_part("B", self.phase22b_cut, sd, cfg32)
+        del sd
+        self.gen_part("C", self.phase22c_gen)
+        self.gen_part("D", self.phase22d_served, ref_index, tokens)
+        self.gen_summary()
         del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
@@ -3835,6 +4135,24 @@ class _Port:
             init_reranker,
             load_qwen3_state,
         )
+        from a_nice_rag_tpu_torch.models.constrain import (
+            compile_constraint,
+            json_dfa,
+        )
+        from a_nice_rag_tpu_torch.models.convert import load_decoder_state
+        from a_nice_rag_tpu_torch.models.decoder import (
+            generate_batch,
+            generate_stream,
+            generate_text_stream,
+            lm_logits,
+        )
+        from a_nice_rag_tpu_torch.models.speculative import (
+            speculative_generate_stream,
+        )
+        from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+        from a_nice_rag_tpu_torch.serving.serve_cli import (
+            build_local_llm_api,
+        )
         from a_nice_rag_tpu_torch.retrieval.embed import PrecomputedEmbedder
         from a_nice_rag_tpu_torch.testing import synth_corpus
         from a_nice_rag_tpu_torch.serving import (
@@ -3852,6 +4170,15 @@ class _Port:
             serve_state,
         )
 
+        self.compile_constraint, self.json_dfa = compile_constraint, json_dfa
+        self.load_decoder_state, self.lm_logits = (load_decoder_state,
+                                                   lm_logits)
+        self.generate_stream, self.generate_batch = (generate_stream,
+                                                     generate_batch)
+        self.generate_text_stream = generate_text_stream
+        self.speculative_generate_stream = speculative_generate_stream
+        self.GenerationServer = GenerationServer
+        self.build_local_llm_api = build_local_llm_api
         self.build_state, self.serve_state = build_state, serve_state
         self.http_serve, self.FeedbackLog = http_serve, FeedbackLog
         self.NativeRetrievalFront = NativeRetrievalFront

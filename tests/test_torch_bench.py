@@ -212,7 +212,7 @@ def test_bench_refuses_unknown_stages():
     with pytest.raises(SystemExit):
         bench.main(["--stages", "2m,nope"])
     assert bench.STAGES == ("headline", "2m", "int8", "ivf", "crossover",
-                            "served")
+                            "served", "gen")
 
 
 def test_stage_configs_default_to_bench_widths():
@@ -232,3 +232,48 @@ def test_stage_configs_default_to_bench_widths():
     assert (served.n_docs, served.dim, served.batch, served.clients,
             served.qps_floor) == (9728, 2048, 512, 8, 1500.0)
     assert served.clients * served.rounds * served.per >= 200
+
+
+def test_gen_stage_on_cpu():
+    """The gen stage end to end on CPU tensors at a tiny width: the JAX
+    bench's keys (gen_serving_metrics), its floor asserted, the TTFT and
+    tick timings on the host clock, the card-only keys None; the floor
+    raises when missed."""
+    cfg = bench.GenConfig(vocab=259, hidden=64, layers=2, heads=4,
+                          kv_heads=2, head_dim=16, mlp=128,
+                          dtype=torch.float32, max_len=64, n_new=24,
+                          prompt=8, stream_chunk=8, slots=8, chunk=4,
+                          requests=8, ttft_requests=2, ticks=2, floor=0.0)
+    def profile(fn):
+        fn()
+        return [{"kernel": "a", "ms": 0.75, "launches": 5.0},
+                {"kernel": "b", "ms": 0.25, "launches": 2.0}]
+
+    out = bench.gen_stage(CPU, 1, TIMER, cfg, profile=profile)
+    for key in ("gen_stream_tok_s", "gen_batched_tok_s",
+                "gen_batched_vs_stream", "gen_ttft_p50_ms",
+                "gen_tick_host_ms", "gen_step_bound_ms"):
+        assert out[key] > 0, key
+    assert out["gen_model"] == "qwen3-0.6B-arch-2L-64h-float32"
+    assert (out["gen_slots"], out["gen_chunk"], out["gen_requests"]) == (
+        8, 4, 8)
+    assert out["gen_tick_launches"] == 7.0
+    assert out["gen_tick_device_busy_ms"] == 1.0
+    assert [k["kernel"] for k in out["gen_tick_top_kernels"]] == ["a", "b"]
+    assert out["gen_tick_event_ms"] is None and out["gen_wave_peak_gib"] \
+        is None and out["gen_tick_idle_share"] is None
+    assert out["gen_tick_bound_ms"] == 4 * out["gen_step_bound_ms"]
+    with pytest.raises(AssertionError, match="continuous batching"):
+        bench.gen_stage(CPU, 1, TIMER, dataclasses.replace(cfg, floor=1e9))
+
+
+def test_gen_config_defaults_to_the_jax_bench():
+    """bench.py:741-787: Qwen3-0.6B's widths, 64 slots, chunk 16, 64
+    requests of 160 tokens after a 64-id prompt, max_len 256; stream
+    chunk 32; floor 2.5."""
+    g = bench.GenConfig()
+    assert (g.vocab, g.hidden, g.layers, g.heads, g.kv_heads, g.head_dim,
+            g.mlp) == (151_936, 1024, 28, 16, 8, 128, 3072)
+    assert g.dtype == torch.bfloat16
+    assert (g.slots, g.chunk, g.requests, g.n_new, g.prompt, g.max_len,
+            g.stream_chunk, g.floor) == (64, 16, 64, 160, 64, 256, 32, 2.5)

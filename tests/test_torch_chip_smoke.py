@@ -79,6 +79,15 @@ class TinySmoke(chip_smoke.Smoke):
                  num_kv_heads=2, head_dim=16, intermediate_size=128,
                  rope_theta=1_000_000.0, rms_eps=1e-6)
     QWEN3_B, QWEN3_S, N_MODELS, MODEL_PAIRS = 8, 16, 4096, 32
+    # Phase 22: a decoder of the same shape rules (GQA 4:2, head_dim 16
+    # decoupled from 64 / 4, tied embeddings; bf16 as on the card), 8 slots
+    # of 96 rows, chunk 4; the ratio floor is the card's, so the rehearsal
+    # sets none. The cut's EOS sits inside the 512-token vocab.
+    GEN = dict(vocab=512, hidden=64, layers=3, heads=4, kv_heads=2,
+               head_dim=16, mlp=128, max_len=96, n_new=24, prompt=8,
+               stream_chunk=8, slots=8, chunk=4, requests=8,
+               ttft_requests=2, ticks=2, floor=0.0)
+    GEN_PROMPT_LEN, GEN_EOS = 16, 300
 
 
 def _sweep_csv(path):
@@ -150,6 +159,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # No CUDA kernel to trace on the CPU.
     port.profiled_device_ms = lambda fn, n: (0.0, 0.0)
     port.profiled_top_kernels = lambda fn: []
+    monkeypatch.setattr(port.bench, "gen_profile", lambda fn: [])
     port.sm_grid = lambda device, ctas_per_sm=4: 8
     port.int8_smem_bytes = topk_plan.smem_bytes
     port.float_smem_bytes = topk_plan.smem_bytes
@@ -480,6 +490,33 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for name in ("rerank", "nli"):
         assert c[name]["max_abs_err"] <= 2e-2 and c[name]["ms"] > 0
     assert c["rerank"]["device_ms"] > 0 and c["order_pairs_checked"] >= 0
+    # Phase 22: generation.
+    gen = {r["generation"]: r for r in records if "generation" in r}
+    assert list(gen) == ["A_parity", "B_cut", "C_gen", "D_served"]
+    a = gen["A_parity"]
+    assert a["prompts"] == [4, 16] and a["logits_rows"] == 64
+    assert a["cos_min"] >= 0.99 and a["widths"]["num_layers"] == 3
+    b = gen["B_cut"]
+    assert b["streams_equal_cpu"] == sorted(
+        ["stream_chunk1", "stream_chunk8", "batch", "speculative",
+         "server_wave", "server_per_slot", "server_chunked",
+         "server_retained", "json_object"])
+    assert b["retained_prefix_hits"] == 1
+    assert b["json_sampled_parsed_after"] >= 1
+    g = gen["C_gen"]
+    assert g["gen_slots"] == 8 and g["gen_requests"] == 8
+    assert g["gen_model"] == "qwen3-0.6B-arch-3L-64h-bfloat16"
+    for key in ("gen_stream_tok_s", "gen_batched_tok_s", "gen_ttft_p50_ms",
+                "gen_tick_host_ms", "gen_step_bound_ms"):
+        assert g[key] > 0, key
+    # No CUDA kernel or event on the CPU.
+    assert g["gen_tick_launches"] == 0 and g["gen_tick_event_ms"] is None
+    d = gen["D_served"]
+    assert d["generate_equal_direct"] and d["json_chat_parsed_after"] >= 1
+    assert d["rag_sources"] >= 1 and d["rag_answer_chars"] > 0
+    assert d["sse_tokens"] == 48 and d["sse_tokens_per_s"] > 0
+    summary22 = [r for r in records if r.get("phase") == "generation"][0]
+    assert list(summary22["parts"]) == ["A", "B", "C", "D"]
 
 
 def test_smoke_needs_the_card(monkeypatch, capsys):

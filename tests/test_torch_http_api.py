@@ -5,8 +5,13 @@ Mirrors tests/test_http_api.py on the CPU: health, search, rag, the
 error paths, both SSE cases (a gated LLM client proves deltas reach the
 client before generation ends, and a vanished client closes the
 generator), the UI, feedback, stats and embeddings (over
-PrecomputedEmbedder). The generation routes keep their paths and answer
-400: the port has no generation server yet. Last, /v1/search and
+PrecomputedEmbedder). The generation routes answer 400 when no
+generation server is attached; with one (the port's GenerationServer on
+the JAX package's decoder weights, carried across with
+``decoder_state_dict``), /v1/generate (JSON and SSE) and
+/v1/chat/completions (JSON, SSE and through the RAG layer's own
+OpenAICompatClient) return the JAX package's greedy text, 429 maps
+ServerBusy, and the payload knobs reach the server. Last, /v1/search and
 /v1/rag through the JAX package's server and the port's on one corpus:
 equal result ids and sources, similarities within 1e-6.
 """
@@ -387,3 +392,234 @@ def test_search_and_rag_parity_with_jax():
     finally:
         for s in servers:
             s.shutdown()
+
+
+# -- the generation half ---------------------------------------------------
+
+
+def _handler_server(api):
+    from http.server import ThreadingHTTPServer
+
+    from a_nice_rag_tpu_torch.serving.http_api import _make_handler
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _make_handler(api))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+@pytest.fixture(scope="module")
+def lm():
+    """The JAX package's demo decoder and the port's on its weights."""
+    import jax
+
+    from a_nice_rag_tpu.models.decoder import init_decoder, small_lm_config
+    from a_nice_rag_tpu_torch.models import decoder as td
+    from a_nice_rag_tpu_torch.models.convert import (
+        decoder_state_dict,
+        load_decoder_state,
+    )
+
+    model, params = init_decoder(small_lm_config())
+    return model, params, load_decoder_state(
+        td.small_lm_config(), decoder_state_dict(jax.device_get(params)),
+        device="cpu")
+
+
+def _sse(port, path, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        for raw in resp:
+            line = raw.decode("utf-8").strip()
+            if line.startswith("data:"):
+                events.append(line[len("data:"):].strip())
+    assert events[-1] == "[DONE]"
+    return [json.loads(e) for e in events[:-1]]
+
+
+def test_stats_endpoint_generation_block(lm):
+    """/v1/stats carries the generation server's counters when one is
+    attached, and no generation block otherwise."""
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    gsrv = GenerationServer(lm[2], slots=2, max_len=64, chunk=4)
+    assert "generation" not in ServingAPI(None).stats()
+    out = ServingAPI(None, gen_server=gsrv).stats()
+    assert out["generation"]["slots"] == 2
+    assert out["generation"]["tensor_parallel"] == 1
+
+
+def test_generate_backpressure_maps_to_429():
+    from a_nice_rag_tpu_torch.serving.genserver import ServerBusy
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    class _BusyServer:
+        def stream_text(self, *a, **kw):
+            raise ServerBusy("pending queue full (1); retry later")
+
+    httpd = _handler_server(ServingAPI(None, gen_server=_BusyServer()))
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(httpd.server_address[1], "/v1/generate", {"prompt": "x"})
+        assert e.value.code == 429
+        assert "retry later" in json.loads(e.value.read())["error"]
+    finally:
+        httpd.shutdown()
+
+
+def test_generate_payload_stop_plumbed():
+    """'stop' (string or list) and 'stop_token_ids' payload keys reach
+    GenerationServer.stream_text."""
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    seen = {}
+
+    class _Recorder:
+        def stream_text(self, prompt, max_new_tokens, **kw):
+            seen.update(kw, prompt=prompt, max_new_tokens=max_new_tokens)
+            yield "ok"
+
+    httpd = _handler_server(ServingAPI(None, gen_server=_Recorder()))
+    try:
+        out = _post(httpd.server_address[1], "/v1/generate", {
+            "prompt": "x", "max_tokens": 7, "stop": "\n\n",
+            "stop_token_ids": [5, 9], "temperature": 0.5})
+        assert out["text"] == "ok"
+        assert seen["stop"] == ["\n\n"] and seen["stop_token_ids"] == [5, 9]
+        assert seen["temperature"] == 0.5 and seen["max_new_tokens"] == 7
+    finally:
+        httpd.shutdown()
+
+
+def test_chat_completions_param_plumbing():
+    """OpenAI chat payload knobs (max_completion_tokens, temperature,
+    top_p, stop, response_format) reach the generation server; the reply
+    has the chat.completion shape and usage accounting."""
+    from a_nice_rag_tpu_torch.models.decoder import ByteTokenizer
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    seen = {}
+
+    class _Recorder:
+        def stream_text(self, prompt, max_new_tokens, **kw):
+            seen.update(kw, prompt=prompt, max_new_tokens=max_new_tokens)
+            yield "hi"
+
+        def complete(self, prompt_ids, max_new_tokens, **kw):
+            seen.update(kw, prompt_ids=prompt_ids,
+                        max_new_tokens=max_new_tokens)
+            return {"tokens": [104, 105], "logprobs": [0.0, 0.0],
+                    "finish_reason": "length"}
+
+    httpd = _handler_server(ServingAPI(None, gen_server=_Recorder()))
+    try:
+        port = httpd.server_address[1]
+        msgs = [{"role": "system", "content": "be brief"},
+                {"role": "user", "content": "hello"}]
+        out = _post(port, "/v1/chat/completions", {
+            "model": "local-demo", "messages": msgs,
+            "max_completion_tokens": 9, "temperature": 0.25,
+            "response_format": {"type": "json_object"}})
+        assert out["object"] == "chat.completion"
+        assert out["model"] == "local-demo"
+        assert out["choices"][0]["message"] == {"role": "assistant",
+                                                "content": "hi"}
+        assert out["choices"][0]["finish_reason"] == "length"
+        assert out["usage"]["completion_tokens"] == 2
+        assert out["usage"]["total_tokens"] == \
+            out["usage"]["prompt_tokens"] + 2
+        assert seen["max_new_tokens"] == 9 and seen["temperature"] == 0.25
+        assert seen["constraint"] == "json_object"
+        assert seen["prompt_ids"] == ByteTokenizer().encode(
+            render_chat_messages(msgs))
+        out = _post(port, "/v1/chat/completions", {
+            "messages": msgs, "stop": "\n", "top_p": 0.9, "max_tokens": 5})
+        assert out["choices"][0]["message"]["content"] == "hi"
+        assert out["choices"][0]["finish_reason"] == "stop"
+        assert seen["stop"] == ["\n"] and seen["top_p"] == 0.9
+        for bad in ({}, {"messages": []}, {"messages": [{"role": "u"}]}):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(port, "/v1/chat/completions", bad)
+            assert err.value.code == 400
+    finally:
+        httpd.shutdown()
+
+
+def test_generate_and_chat_serve_the_jax_greedy_text(lm):
+    """/v1/generate (JSON, SSE deltas) and /v1/chat/completions (JSON and
+    chat.completion.chunk SSE) over the port's GenerationServer return
+    the JAX package's greedy text for the same weights."""
+    from a_nice_rag_tpu.models.decoder import generate_text_stream
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    model, params, port_lm = lm
+    gsrv = GenerationServer(port_lm, slots=2, max_len=256, chunk=4)
+    httpd = _handler_server(ServingAPI(None, gen_server=gsrv))
+    try:
+        port = httpd.server_address[1]
+        want = "".join(generate_text_stream(model, params, "hello",
+                                            max_new_tokens=12))
+        assert _post(port, "/v1/generate", {
+            "prompt": "hello", "max_tokens": 12})["text"] == want
+        deltas = _sse(port, "/v1/generate", {
+            "prompt": "hello", "max_tokens": 12, "stream": True})
+        assert "".join(d["delta"] for d in deltas) == want
+        msgs = [{"role": "user", "content": "name one NICE guideline"}]
+        want = "".join(generate_text_stream(
+            model, params, render_chat_messages(msgs), max_new_tokens=10))
+        out = _post(port, "/v1/chat/completions", {"messages": msgs,
+                                                    "max_tokens": 10})
+        assert out["choices"][0]["message"]["content"] == want
+        chunks = _sse(port, "/v1/chat/completions", {
+            "messages": msgs, "max_tokens": 10, "stream": True})
+        assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+        assert "".join(c["choices"][0]["delta"].get("content", "")
+                       for c in chunks) == want
+        assert chunks[-1]["choices"][0]["finish_reason"] in ("stop",
+                                                             "length")
+        assert gsrv.stats()["tokens_emitted"] >= 20
+    finally:
+        httpd.shutdown()
+        gsrv.stop()
+
+
+def test_chat_completions_serve_own_provider_client(lm):
+    """The RAG layer's OpenAICompatClient pointed at this server streams
+    the JAX package's greedy text from the port's GenerationServer, raw
+    and through query_rag_stream."""
+    from a_nice_rag_tpu.models.decoder import generate_text_stream
+    from a_nice_rag_tpu_torch.rag.providers import OpenAICompatClient
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+    from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
+
+    model, params, port_lm = lm
+    gsrv = GenerationServer(port_lm, slots=2, max_len=4096, chunk=4)
+    httpd = _handler_server(ServingAPI(None, gen_server=gsrv))
+    try:
+        client = OpenAICompatClient(
+            "local-key", base_url=f"http://127.0.0.1:"
+            f"{httpd.server_address[1]}/v1/", timeout=120.0)
+        msgs = [{"role": "user", "content": "name one NICE guideline"}]
+        got = "".join(client.stream_chat("local", msgs, max_tokens=12,
+                                         stream_options=None))
+        assert got == "".join(generate_text_stream(
+            model, params, render_chat_messages(msgs), max_new_tokens=12))
+        c = synth_corpus(n_docs=64, dim=16, n_queries=2, seed=31)
+        rag = RAGSystem(indexes={InfoSource.NICE: build_index(
+            device="cpu", **_args(c))}, llm_clients={"openai": client},
+            device="cpu")
+        chunks, sources = [], None
+        for chunk, _, _, sources in rag.query_rag_stream(
+                " ".join(c.query_tokens[0][:4]), "gpt-4.1-mini",
+                model_weights={MODEL: 0.0, "BM25": 1.0},
+                use_hybrid_search=True, use_reranker=False,
+                common_sections_n=3):
+            chunks.append(chunk)
+        assert "".join(chunks) and sources
+    finally:
+        httpd.shutdown()
+        gsrv.stop()

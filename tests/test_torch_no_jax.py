@@ -30,8 +30,8 @@ missing = sorted(set(sys.argv[1:]) - set(names))
 assert not missing, missing
 """
 # The SearchEngine slice's, the reference-path slice's, the sharding
-# slice's, the serving slice's and the models slice's modules, beside the
-# earlier slices'.
+# slice's, the serving slice's, the models slice's and the generation
+# slice's modules, beside the earlier slices'.
 SLICE_MODULES = [
     "a_nice_rag_tpu_torch." + m for m in (
         "config", "text", "text.preprocess", "text.stopwords_en",
@@ -49,7 +49,9 @@ SLICE_MODULES = [
         "serving.scheduler", "serving.native_front", "serving.webui",
         "serving.http_api", "serving.serve_cli", "serving.app", "models",
         "models.tokenizer", "models.encoder", "models.embedder",
-        "models.reranker", "models.qwen3", "models.nli", "models.convert")
+        "models.reranker", "models.qwen3", "models.nli", "models.convert",
+        "models.decoder", "models.speculative", "models.constrain",
+        "models.hf_tokenizer", "serving.genserver")
 ]
 
 

@@ -323,3 +323,41 @@ def test_stage_a_words_survive_preprocessing():
     assert len(set(words)) == len(words)
     assert preprocess_text(" ".join(words), use_lemmatization=True) == words
     assert preprocess_text(" ".join(words)) == words
+
+
+@pytest.mark.parametrize("through_server", [False, True])
+def test_local_tpu_llm_client_matches_jax(through_server):
+    """LocalTpuLLMClient on the JAX package's decoder weights (carried
+    across with decoder_state_dict) streams the JAX package's client's
+    greedy text, directly and through a GenerationServer; a long prompt
+    keeps its tail and its BOS."""
+    import jax
+
+    from a_nice_rag_tpu.models.decoder import init_decoder, small_lm_config
+    from a_nice_rag_tpu.rag.providers import LocalTpuLLMClient as JaxClient
+    from a_nice_rag_tpu_torch.models import decoder as td
+    from a_nice_rag_tpu_torch.models.convert import (
+        decoder_state_dict,
+        load_decoder_state,
+    )
+    from a_nice_rag_tpu_torch.rag.providers import LocalTpuLLMClient
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+
+    cfg = dict(hidden_size=64, num_layers=1)
+    model, params = init_decoder(small_lm_config(**cfg), seed=3)
+    lm = load_decoder_state(td.small_lm_config(**cfg),
+                            decoder_state_dict(jax.device_get(params)),
+                            device="cpu")
+    server = (GenerationServer(lm, slots=2, max_len=256, chunk=4)
+              if through_server else None)
+    local = LocalTpuLLMClient(lm, max_new_tokens=16, max_prompt_tokens=64,
+                              server=server)
+    want = JaxClient(model, params, max_new_tokens=16, max_prompt_tokens=64)
+    try:
+        for content in ("what dose?", "long context " * 20):
+            msgs = [{"role": "user", "content": content}]
+            assert "".join(local.stream_chat("local-tpu", msgs)) == \
+                "".join(want.stream_chat("local-tpu", msgs))
+    finally:
+        if server is not None:
+            server.stop()

@@ -6,9 +6,13 @@ device, sharded over 4 "cpu" slots with a health swap (the retriever and
 its pool replaced live), an int8 index, the IVF route on both paths and
 the sharded IVF cache, and the batched base64 RPC in f32 and bf16. The
 flags of modules the port does not have yet exit naming their ROADMAP
-item. Last, /v1/search payloads (single JSON, b64 f32, b64 bf16) through
-the JAX package's build_state and the port's: equal result ids, scores
-within 1e-6.
+item. The local-LLM surface (``--llm local``, ``build_local_llm_api``):
+/v1/search, /v1/generate, /v1/rag, the UI and /v1/stats on one port, the
+draft checkpoint, JSON mode on the byte and on a checkpoint's tokenizer,
+and every generation flag reaching the server; the demo LM's greedy
+text equals the JAX package's for the same weights. Last, /v1/search
+payloads (single JSON, b64 f32, b64 bf16) through the JAX package's
+build_state and the port's: equal result ids, scores within 1e-6.
 """
 
 import base64
@@ -269,11 +273,8 @@ def test_serve_cli_batched_b64_search_bf16(corpus_index):
 @pytest.mark.parametrize("argv,item", [
     (["--embedder", "hashing", "--embedder-ckpt", "ckpt"], "item 9"),
     (["--embedder-ckpt", "ckpt"], "item 9"),
-    (["--llm", "local"], "item 8"),
-    (["--draft-ckpt", "d"], "item 8"),
-    (["--json-mode"], "item 8"),
-    (["--lm-tp", "2"], "item 8"),
-    (["--gen-slots", "4"], "item 8"),
+    (["--lm-tp", "2"], "item 8 (tensor-parallel"),
+    (["--llm", "local", "--lm-tp", "1"], "item 8 (tensor-parallel"),
     (["--pallas-rounded"], "packed bf16-key fold"),
     (["--pallas-rounded=1"], "packed bf16-key fold"),
 ])
@@ -281,6 +282,310 @@ def test_unported_flags_exit_with_their_item(argv, item):
     with pytest.raises(SystemExit) as e:
         main(["--demo", "--device", "cpu"] + argv)
     assert item in str(e.value) and "not ported" in str(e.value)
+
+
+def _llm_state(corpus_index):
+    from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
+
+    c, idx = corpus_index
+    embedder = OnDeviceEmbedder(EncoderConfig(
+        n_layers=1, dim=32, out_dim=32, vocab_size=1024, n_heads=2),
+        device="cpu")
+    return c, idx, embedder, build_state(idx, (MODEL,), use_bm25=True,
+                                         embedder=embedder)
+
+
+def _jax_demo_lm(seed=0, **cfg):
+    """The JAX package's decoder, its params and the port's DecoderLM on
+    them."""
+    import jax
+
+    from a_nice_rag_tpu.models.decoder import init_decoder, small_lm_config
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.models import decoder as td
+
+    model, params = init_decoder(small_lm_config(**cfg), seed=seed)
+    port = convert.load_decoder_state(
+        td.small_lm_config(**cfg),
+        convert.decoder_state_dict(jax.device_get(params)), device="cpu")
+    return model, params, port
+
+
+def test_serve_cli_local_llm_surface(corpus_index, monkeypatch):
+    """--llm local: one port serves scheduler-batched /v1/search plus the
+    RAG surface (/v1/rag through the on-device decoder and its
+    GenerationServer), raw /v1/generate, the UI and /v1/stats with the
+    generation counters; the demo LM's greedy text (the JAX package's
+    weights) equals the JAX package's."""
+    from a_nice_rag_tpu.models.decoder import generate_text_stream
+    from a_nice_rag_tpu_torch.models import decoder as td
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    model, params, port_lm = _jax_demo_lm()
+    monkeypatch.setattr(td, "init_decoder", lambda cfg, device: port_lm)
+    c, idx, embedder, state = _llm_state(corpus_index)
+    api = build_local_llm_api(idx, state, embedder, (MODEL,), gen_slots=2,
+                              gen_chunk=4, gen_max_len=640)
+    with _Served(state, lambda st, _, **kw: serve_state(st, W, api=api,
+                                                        **kw)) as s:
+        out = _search(s.port, _one(c, idx))
+        assert out["results"][0]["id"] == c.gold_ids[0]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{s.port}/v1/generate",
+            data=json.dumps({"prompt": "hello", "max_tokens": 8}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            gen = json.loads(resp.read())
+        assert gen["text"] == "".join(generate_text_stream(
+            model, params, "hello", max_new_tokens=8))
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{s.port}/v1/rag",
+            data=json.dumps({"query": "question 0", "llm_model": "local-tpu",
+                             "use_hybrid_search": True,
+                             "use_reranker": False}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            rag = json.loads(resp.read())
+        assert rag["answer"] and isinstance(rag["sources"], list)
+        # A cut RAG prompt still fits the cache with its whole answer.
+        assert not rag["answer"].startswith("Error"), rag["answer"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{s.port}/ui",
+                                    timeout=30) as resp:
+            assert b"<html" in resp.read()[:200].lower()
+        stats = _get(s.port, "/v1/stats")
+        assert "schedulers" in stats
+        g = stats["generation"]
+        assert g["slots"] == 2 and g["tokens_emitted"] >= 8
+        assert g["active"] == 0 and g["cancelled"] == 0
+    assert api.gen_server._thread is None  # shutdown stopped it
+
+
+def test_serve_cli_draft_ckpt_wiring(corpus_index, monkeypatch):
+    """--draft-ckpt plumbs a draft model into the GenerationServer
+    (speculative mode; greedy text stays the target's), enforces vocab
+    match with the target and refuses --json-mode beside it."""
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    c, idx, embedder, state = _llm_state(corpus_index)
+    draft_cfg = dict(num_layers=1, hidden_size=64, num_heads=2,
+                     num_kv_heads=1, head_dim=32, intermediate_size=128)
+    _, _, draft = _jax_demo_lm(3, **draft_cfg)
+
+    def fake_loader(path, device):
+        assert path == "fake-draft-dir"
+        return draft.cfg, draft
+
+    monkeypatch.setattr(convert, "load_decoder_checkpoint_dir", fake_loader)
+    api = build_local_llm_api(idx, state, embedder, (MODEL,), gen_slots=2,
+                              gen_chunk=4, gen_max_len=640,
+                              draft_ckpt="fake-draft-dir", gamma=3)
+    gen = api.gen_server
+    try:
+        assert gen.draft is draft and gen.gamma == 3
+        assert isinstance("".join(gen.stream_text("hello",
+                                                  max_new_tokens=6)), str)
+    finally:
+        gen.stop()
+    with pytest.raises(SystemExit, match="json-mode"):
+        build_local_llm_api(idx, state, embedder, (MODEL,),
+                            draft_ckpt="fake-draft-dir", json_mode=True)
+    _, _, bad = _jax_demo_lm(4, vocab_size=512, **draft_cfg)
+    monkeypatch.setattr(convert, "load_decoder_checkpoint_dir",
+                        lambda path, device: (bad.cfg, bad))
+    with pytest.raises(SystemExit, match="vocab"):
+        build_local_llm_api(idx, state, embedder, (MODEL,),
+                            draft_ckpt="fake-draft-dir")
+
+
+def test_serve_cli_json_mode(corpus_index):
+    """--json-mode registers JSON guided decoding: /v1/generate with
+    response_format json_object returns text that starts a JSON object,
+    and /v1/chat/completions with it a live prefix of one (parsing on a
+    natural stop)."""
+    from a_nice_rag_tpu_torch.models.constrain import json_dfa
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    c, idx, embedder, state = _llm_state(corpus_index)
+    api = build_local_llm_api(idx, state, embedder, (MODEL,), gen_slots=2,
+                              gen_chunk=4, gen_max_len=640, json_mode=True,
+                              json_depth=3)
+    with _Served(state, lambda st, _, **kw: serve_state(st, W, api=api,
+                                                        **kw)) as s:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{s.port}/v1/generate",
+            data=json.dumps({"prompt": "emit", "max_tokens": 16,
+                             "temperature": 1.0, "response_format":
+                             {"type": "json_object"}}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            gen = json.loads(resp.read())
+        assert gen["text"].lstrip(" \t\n\r")[:1] == "{"
+        chat = api.chat({"messages": [{"role": "user", "content": "x"}],
+                         "max_tokens": 24,
+                         "response_format": {"type": "json_object"}})
+        text = chat["choices"][0]["message"]["content"]
+        dfa, state_ = json_dfa(max_depth=3, top_level="object"), 0
+        for b in text.encode():
+            state_ = int(dfa.next[state_, b])
+            assert state_ >= 0, text  # a live prefix of a JSON object
+        if chat["choices"][0]["finish_reason"] == "stop":
+            json.loads(text)
+        assert set(api.gen_server.stats()["constraints"]) == {
+            "json", "json_object", "json_array"}
+
+
+def _byte_level_ckpt(tmp_path, eos, pieces):
+    from a_nice_rag_tpu_torch.models.hf_tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps({"eos_token_id": eos}))
+    (ckpt / "tokenizer.json").write_text(json.dumps({
+        "pre_tokenizer": {"type": "ByteLevel"},
+        "decoder": {"type": "ByteLevel"}, "added_tokens": [],
+        "model": {"type": "BPE", "vocab": {
+            "".join(b2u[b] for b in bs): i for i, bs in pieces.items()}}}))
+    return str(ckpt)
+
+
+def test_serve_cli_json_mode_real_ckpt_tokenizer(corpus_index, monkeypatch,
+                                                 tmp_path):
+    """--json-mode with --llm-ckpt: the grammar is lowered onto the
+    checkpoint's own tokenizer (multi-byte BPE pieces) and the server
+    decodes to the checkpoint's eos_token_id; the tables equal the JAX
+    package's lowering."""
+    from a_nice_rag_tpu.models.constrain import compile_constraint, json_dfa
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    _, _, lm = _jax_demo_lm(5)
+    monkeypatch.setattr(convert, "load_decoder_checkpoint_dir",
+                        lambda path, device: (lm.cfg, lm))
+    pieces = {10: b'{"', 11: b'a"', 12: b": ", 13: b"1", 15: b"}",
+              19: b'":'}
+    ckpt = _byte_level_ckpt(tmp_path, 77, pieces)
+    c, idx, embedder, state = _llm_state(corpus_index)
+    api = build_local_llm_api(idx, state, embedder, (MODEL,), llm_ckpt=ckpt,
+                              gen_slots=2, gen_chunk=4, gen_max_len=640,
+                              json_mode=True, json_depth=3)
+    gen = api.gen_server
+    con = gen._cons[gen._cname_to_id["json_object"]]
+    assert gen.eos_id == 77
+    assert con.table[0, 10] >= 0 and con.table[0, ord("{")] == -1
+    assert con.table[0, 15] == -1
+    want = compile_constraint(json_dfa(max_depth=3, top_level="object"),
+                              lm.cfg.vocab_size, 77, token_bytes=pieces)
+    np.testing.assert_array_equal(con.table, want.table)
+
+
+def test_serve_cli_real_ckpt_serves_with_hf_tokenizer(corpus_index,
+                                                      monkeypatch, tmp_path):
+    """A checkpoint with a runtime-valid tokenizer.json is served with its
+    own tokenizer everywhere: the generation endpoints and the RAG-local
+    client encode prompts with the checkpoint vocabulary."""
+    pytest.importorskip("tokenizers")
+    from tokenizers import (
+        Tokenizer,
+        decoders,
+        models,
+        pre_tokenizers,
+        trainers,
+    )
+
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.models.hf_tokenizer import HFTokenizer
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    tok = Tokenizer(models.BPE(unk_token=None))
+    tok.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(
+        ["what dose of metformin does NICE recommend"] * 40,
+        trainers.BpeTrainer(
+            vocab_size=300, special_tokens=["<|endoftext|>"],
+            initial_alphabet=pre_tokenizers.ByteLevel.alphabet(),
+            show_progress=False))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    tok.save(str(ckpt / "tokenizer.json"))
+    (ckpt / "config.json").write_text(json.dumps({"eos_token_id": 0}))
+    vocab = tok.get_vocab_size(with_added_tokens=True)
+    _, _, lm = _jax_demo_lm(5, vocab_size=vocab)
+    monkeypatch.setattr(convert, "load_decoder_checkpoint_dir",
+                        lambda path, device: (lm.cfg, lm))
+    c, idx, embedder, state = _llm_state(corpus_index)
+    api = build_local_llm_api(idx, state, embedder, (MODEL,),
+                              llm_ckpt=str(ckpt), gen_slots=2, gen_chunk=4,
+                              gen_max_len=256)
+    try:
+        assert isinstance(api.tokenizer, HFTokenizer)
+        assert api.rag_system.llm_clients["local"].tokenizer is api.tokenizer
+        out = api.generate({"prompt": "what dose of metformin",
+                            "max_tokens": 4})
+        assert isinstance(out["text"], str)
+        ids = api.tokenizer.encode("what dose of metformin")
+        assert all(i < vocab for i in ids)
+        assert len(ids) < len("what dose of metformin".encode())
+    finally:
+        api.gen_server.stop()
+
+
+@pytest.mark.parametrize("argv,attr,want", [
+    ([], "slots", 4),
+    (["--gen-slots", "3"], "slots", 3),
+    (["--gen-chunk", "2"], "chunk", 2),
+    (["--gen-max-len", "512"], "smax", 512),
+    (["--prefill-chunk", "32"], "prefill_chunk", 32),
+    (["--max-pending", "5"], "max_pending", 5),
+    (["--retain-prefixes", "2"], "retain_prefixes", 2),
+    (["--logprob-topk", "3"], "lp_k", 3),
+    (["--json-mode", "--json-depth", "2"], "constraints", True),
+])
+def test_main_llm_local_flags_reach_the_server(monkeypatch, argv, attr,
+                                               want):
+    """The generation flags no longer exit: main --llm local builds the
+    local-LLM surface (the hashing embedder added for RAG) and each flag
+    reaches the GenerationServer it serves."""
+    from a_nice_rag_tpu_torch.serving import serve_cli
+
+    served = []
+    monkeypatch.setattr(serve_cli, "serve_state",
+                        lambda state, w, **kw: served.append(kw["api"]))
+    main(["--demo", "--device", "cpu", "--llm", "local"] + argv)
+    (api,) = served
+    assert getattr(api.gen_server, attr) == want
+    assert api.gen_server.dev.type == "cpu"
+    assert "local" in api.rag_system.llm_clients
+    assert api.rag_system.embedder is not None
+
+
+def test_main_llm_ckpt_and_chat_template(monkeypatch, tmp_path):
+    """--llm-ckpt loads the checkpoint directory onto the index's device
+    (its eos_token_id becomes the server's), --chat-template forces the
+    prompt format and --draft-ckpt/--gamma reach the server."""
+    from a_nice_rag_tpu_torch.models import convert
+    from a_nice_rag_tpu_torch.serving import serve_cli
+
+    _, _, lm = _jax_demo_lm()
+    loaded = []
+
+    def loader(path, device):
+        loaded.append((path, str(device)))
+        return lm.cfg, lm
+
+    monkeypatch.setattr(convert, "load_decoder_checkpoint_dir", loader)
+    ckpt = _byte_level_ckpt(tmp_path, 5, {10: b"ab"})
+    served = []
+    monkeypatch.setattr(serve_cli, "serve_state",
+                        lambda state, w, **kw: served.append(kw["api"]))
+    main(["--demo", "--device", "cpu", "--llm", "local", "--llm-ckpt", ckpt,
+          "--draft-ckpt", ckpt, "--gamma", "2", "--chat-template", "plain"])
+    (api,) = served
+    assert loaded == [(ckpt, "cpu")] * 2
+    assert api.gen_server.eos_id == 5 and api.gen_server.gamma == 2
+    assert api.gen_server.draft is lm
 
 
 def test_main_needs_an_index_and_known_flags():
