@@ -76,6 +76,28 @@ def encoder_state_from_flax(params: Mapping) -> StateDict:
     return sd
 
 
+def moe_state_from_flax(params: Mapping) -> StateDict:
+    """``MoETransformerEncoder`` params -> ``models.moe``'s state dict:
+    ``MoEBlock_i`` holds the block's norms and projections under the
+    encoder Block's flax names and ``MoEFFN_0`` (``router``, and the
+    stacked ``w_gate``/``w_up``/``w_out``, the same in both layouts)."""
+    p = _tree(params)
+    sd = _module(p["Embed_0"], "embed")
+    i = 0
+    while f"MoEBlock_{i}" in p:
+        blk, pre = p[f"MoEBlock_{i}"], f"blocks.{i}."
+        for flax_name in ("RMSNorm_0", "Dense_0", "Dense_1", "RMSNorm_1"):
+            sd.update(_module(blk[flax_name], pre + _BLOCK[flax_name]))
+        ffn = blk["MoEFFN_0"]
+        sd.update(_module(ffn["router"], pre + "ffn.router"))
+        for w in ("w_gate", "w_up", "w_out"):
+            sd[pre + "ffn." + w] = _t(ffn[w])
+        i += 1
+    sd.update(_module(p["RMSNorm_0"], "norm"))
+    sd.update(_module(p["Dense_0"], "out"))
+    return sd
+
+
 def reranker_state_from_flax(params: Mapping) -> StateDict:
     """``CrossEncoderReranker`` params -> the port's: the trunk, the head
     (``Dense_0``, with a bias) and, with match features, ``match_proj``."""
@@ -100,6 +122,34 @@ def qwen3_state_from_flax(params: Mapping) -> StateDict:
                               f"layers.{i}.{name}", "weight"))
         i += 1
     return sd
+
+
+def adamw_state_from_optax(opt_state, to_state_dict=encoder_state_from_flax
+                           ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An ``optax.adamw`` state (its ``ScaleByAdamState(count, mu, nu)``,
+    ``jax.device_get`` of it) as AdamW's per-parameter state under the
+    port's names: ``step`` the count, ``exp_avg`` and ``exp_avg_sq`` the
+    moments, converted (flax kernels transposed) by ``to_state_dict``, the
+    converter of the matching params (``train.load_adamw_state`` sets
+    them on an optimizer)."""
+
+    def find(s):
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            return s
+        if isinstance(s, (tuple, list)):
+            for x in s:
+                hit = find(x)
+                if hit is not None:
+                    return hit
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the state")
+    mu, nu = to_state_dict(adam.mu), to_state_dict(adam.nu)
+    step = int(np.asarray(adam.count))
+    return {name: {"step": step, "exp_avg": mu[name],
+                   "exp_avg_sq": nu[name]} for name in mu}
 
 
 def decoder_state_dict(params: Mapping) -> StateDict:

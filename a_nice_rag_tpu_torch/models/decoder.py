@@ -156,7 +156,13 @@ class _CachedBlock(nn.Module):
         self.mlp = _MLP(cfg)
 
     def forward(self, x, kcache, vcache, cache_len):
-        cfg, a, m = self.cfg, self.self_attn, self.mlp
+        x = x + self.attend(x, kcache, vcache, cache_len)
+        return x + self.mlp_out(x)
+
+    def attend(self, x, kcache, vcache, cache_len):
+        """The attention sublayer's output before the residual add (a
+        tensor-parallel slot's partial sum, parallel/lm.py)."""
+        cfg, a = self.cfg, self.self_attn
         hd, nh, nkv, dt = (cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
                            cfg.dtype)
         b, s, _ = x.shape
@@ -189,10 +195,14 @@ class _CachedBlock(nn.Module):
         attn = torch.softmax(attn, dim=-1).to(dt)
         out = torch.einsum("bnrsk,bknd->bsnrd", attn, vcache).reshape(
             b, s, nh * hd)
-        x = x + dense(a.o_proj, out, dt)
+        return dense(a.o_proj, out, dt)
+
+    def mlp_out(self, x):
+        """The MLP sublayer's output before the residual add."""
+        m, dt = self.mlp, self.cfg.dtype
         h = self.post_attention_layernorm(x)
         act = F.silu(dense(m.gate_proj, h, dt)) * dense(m.up_proj, h, dt)
-        return x + dense(m.down_proj, act, dt)
+        return dense(m.down_proj, act, dt)
 
 
 class DecoderLM(nn.Module):
@@ -209,6 +219,10 @@ class DecoderLM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
+
+    def init_caches(self, batch: int, max_len: int):
+        """Zeroed per-layer caches on the model's device."""
+        return init_caches(self.cfg, batch, max_len, self.device)
 
     def forward(self, token_ids, kcaches, vcaches, cache_len):
         """token_ids [B, s]; kcaches/vcaches lists of per-layer

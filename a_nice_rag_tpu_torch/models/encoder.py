@@ -66,35 +66,50 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def rms_norm(x, scale):
+    """The encoder's RMSNorm of x with a float32 ``scale``."""
+    var = x.float().square().mean(-1, keepdim=True)
+    # x * rsqrt promotes to float32, is cast back to x's dtype, and the
+    # float32 scale promotes the product again: float32 out.
+    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
-        var = x.float().square().mean(-1, keepdim=True)
-        # x * rsqrt promotes to float32, is cast back to x's dtype, and
-        # the float32 scale promotes the product again: float32 out.
-        return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * self.scale
+        return rms_norm(x, self.scale)
+
+
+def split_heads(cfg, qkv, positions):
+    """A qkv projection [B, S, 3 dim] as rotated q, k and v [B, S, H, D]."""
+    head_dim = cfg.dim // cfg.n_heads
+    q, k, v = qkv.chunk(3, dim=-1)
+    b, s, _ = q.shape
+    q = _rope(q.reshape(b, s, cfg.n_heads, head_dim), positions)
+    k = _rope(k.reshape(b, s, cfg.n_heads, head_dim), positions)
+    return q, k, v.reshape(b, s, cfg.n_heads, head_dim)
+
+
+def attend(cfg, q, k, v, mask):
+    """Softmax attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] with
+    the keys masked by ``mask`` [B, Sk]: [B, Sq, H D] in ``cfg.dtype``."""
+    b, s = q.shape[:2]
+    attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / math.sqrt(q.shape[-1])
+    attn = torch.where(mask[:, None, None, :], attn, -1e30)
+    attn = torch.softmax(attn, dim=-1).to(cfg.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, s, cfg.dim)
 
 
 def attention_sublayer(cfg: EncoderConfig, norm: RMSNorm, qkv: nn.Linear,
                        proj: nn.Linear, x, mask, positions):
     """Pre-norm multi-head attention + residual (shared by the encoder's
     Block and the cross-encoder's)."""
-    head_dim = cfg.dim // cfg.n_heads
-    h = norm(x)
-    q, k, v = dense(qkv, h, cfg.dtype).chunk(3, dim=-1)
-    b, s, _ = q.shape
-    q = _rope(q.reshape(b, s, cfg.n_heads, head_dim), positions)
-    k = _rope(k.reshape(b, s, cfg.n_heads, head_dim), positions)
-    v = v.reshape(b, s, cfg.n_heads, head_dim)
-    attn = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        / math.sqrt(head_dim)
-    attn = torch.where(mask[:, None, None, :], attn, -1e30)
-    attn = torch.softmax(attn, dim=-1).to(cfg.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, s, cfg.dim)
-    return x + dense(proj, out, cfg.dtype)
+    q, k, v = split_heads(cfg, dense(qkv, norm(x), cfg.dtype), positions)
+    return x + dense(proj, attend(cfg, q, k, v, mask), cfg.dtype)
 
 
 def masked_mean(x, mask):
@@ -104,11 +119,15 @@ def masked_mean(x, mask):
     return (x.float() * w).sum(1) / w.sum(1).clamp(min=1.0)
 
 
+def unit_rows(o):
+    """Rows scaled to unit L2 norm (norms clipped at 1e-6)."""
+    return o / torch.linalg.norm(o, dim=-1, keepdim=True).clamp(min=1e-6)
+
+
 def pooled_projection(norm: RMSNorm, out: nn.Linear, x, mask):
     """Final RMSNorm + masked mean pool + float32 projection + L2
     normalize."""
-    o = dense(out, masked_mean(norm(x), mask), torch.float32)
-    return o / torch.linalg.norm(o, dim=-1, keepdim=True).clamp(min=1e-6)
+    return unit_rows(dense(out, masked_mean(norm(x), mask), torch.float32))
 
 
 class Block(nn.Module):

@@ -1,5 +1,5 @@
-"""The local faithfulness scorer, inference half (the port of the JAX
-package's ``models/nli.py``).
+"""The local faithfulness scorer (the port of the JAX package's
+``models/nli.py``).
 
 The reference's FaithfulnesswithHHEM (ragas_modified/metrics/
 _faithfulness.py:214) swaps the judge-LLM NLI stage for a local
@@ -15,27 +15,32 @@ non-entailed ones are sentences from OTHER documents (topic drift) and
 corrupted in-premise sentences (negation insertion / entity swap, the
 hard hallucination cases).
 
-Fine-tuning (``train_nli_scorer``, ``nli_scorer_for_corpus``) is
-training, which the port does not have yet (ROADMAP item 9).
+``train_nli_scorer`` fine-tunes the cross-encoder with binary
+cross-entropy on such pairs; ``nli_scorer_for_corpus`` synthesizes them
+from a corpus first.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from a_nice_rag_tpu_torch.device import DeviceLike
+from a_nice_rag_tpu_torch.models.encoder import EncoderConfig
 from a_nice_rag_tpu_torch.models.reranker import (
     CrossEncoderReranker,
+    init_reranker,
     score_pairs,
 )
 from a_nice_rag_tpu_torch.models.tokenizer import HashingTokenizer
+from a_nice_rag_tpu_torch.models.train import adamw
 
 _SENT_SPLIT = re.compile(r"(?<=[.!?])\s+")
-_TRAINING = ("NLI fine-tuning is training, which is not ported to "
-             "a_nice_rag_tpu_torch yet: ROADMAP queue 1, item 9 (training)")
 
 
 def _sentences(text: str) -> List[str]:
@@ -133,13 +138,86 @@ def _auc(scores: np.ndarray, labels: np.ndarray) -> float:
     )
 
 
-def train_nli_scorer(*args, **kwargs):
-    """Binary cross-entropy fine-tune of the cross-encoder on NLI pairs:
-    waits for ROADMAP item 9 (training)."""
-    raise NotImplementedError(_TRAINING)
+@dataclass
+class NliTrainResult:
+    scorer: NliScorer
+    losses: List[float]
+    holdout_auc: float
 
 
-def nli_scorer_for_corpus(*args, **kwargs):
-    """Synthesize pairs from a corpus and fine-tune: waits for ROADMAP
-    item 9 (training)."""
-    raise NotImplementedError(_TRAINING)
+def train_nli_scorer(
+    premises: Sequence[str],
+    hypotheses: Sequence[str],
+    labels: np.ndarray,
+    cfg: Optional[EncoderConfig] = None,
+    batch_size: int = 32,
+    epochs: int = 3,
+    lr: float = 1e-3,
+    seed: int = 0,
+    holdout_fraction: float = 0.15,
+    tokenizer: Optional[HashingTokenizer] = None,
+    use_match_features: bool = True,
+    init: Optional[Dict[str, torch.Tensor]] = None,
+    device: DeviceLike = "cuda",
+) -> NliTrainResult:
+    """Binary cross-entropy fine-tune of the cross-encoder on NLI pairs,
+    on ``device`` (the card unless asked otherwise); ``init`` (a state
+    dict) replaces the seeded initial weights.
+
+    ``use_match_features`` (default on) feeds the cross-segment lexical
+    interaction features: entailment-as-containment is exactly the signal
+    they encode, and without them a small from-scratch transformer cannot
+    learn token-identity copy detection."""
+    cfg = cfg or EncoderConfig(n_layers=2)
+    # max_len follows cfg: the tokenizer's default (128) would re-truncate
+    # long premises and read their tails as hallucinated.
+    tok = tokenizer or HashingTokenizer(vocab_size=cfg.vocab_size,
+                                        max_len=cfg.max_len)
+    model = init_reranker(cfg, seed, device, use_match_features)
+    if init is not None:
+        model.load_state_dict(init)
+    dev = model.embed.weight.device
+    rng = np.random.default_rng(seed)
+    n = len(premises)
+    perm = rng.permutation(n)
+    n_hold = max(1, int(n * holdout_fraction))
+    hold, train = perm[:n_hold], perm[n_hold:]
+
+    # Hypothesis in the query slot, premise in the (long) document slot,
+    # as NliScorer.score_batch serves them.
+    ids = torch.as_tensor(tok.encode_pairs(list(hypotheses), list(premises)),
+                          device=dev)
+    y = torch.as_tensor(np.asarray(labels, np.float32), device=dev)
+    optimizer = adamw(model.parameters(), lr)
+
+    losses: List[float] = []
+    for _ in range(epochs):
+        order = rng.permutation(train)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            b = torch.as_tensor(order[i:i + batch_size], device=dev)
+            optimizer.zero_grad(set_to_none=True)
+            loss = F.binary_cross_entropy_with_logits(model(ids[b]), y[b])
+            loss.backward()
+            optimizer.step()
+            losses.append(float(loss.detach()))
+
+    scorer = NliScorer(model, tok)
+    hold_scores = torch.sigmoid(score_pairs(
+        model, ids[torch.as_tensor(hold, device=dev)])).cpu().numpy()
+    auc = _auc(hold_scores, np.asarray(labels)[hold])
+    return NliTrainResult(scorer=scorer, losses=losses, holdout_auc=auc)
+
+
+def nli_scorer_for_corpus(
+    documents: Sequence[str],
+    n_pairs: int = 512,
+    seed: int = 0,
+    **train_kwargs,
+) -> NliTrainResult:
+    """One-call recipe: synthesize pairs from the corpus and fine-tune.
+
+    The returned result's ``.scorer`` drops into
+    ``FaithfulnesswithHHEM(llm=judge, nli_scorer=result.scorer)``.
+    """
+    prem, hyp, lab = synth_nli_pairs(documents, n_pairs=n_pairs, seed=seed)
+    return train_nli_scorer(prem, hyp, lab, seed=seed, **train_kwargs)

@@ -1,0 +1,13 @@
+"""The kernel wrappers' launch counts, bumped under one lock: the served
+fronts call the kernels from several dispatch threads at once, and a
+bare ``fn.launches += 1`` from two threads can lose one."""
+
+import threading
+
+_LOCK = threading.Lock()
+
+
+def count_launch(fn) -> None:
+    """One more launch of ``fn``'s kernel."""
+    with _LOCK:
+        fn.launches += 1

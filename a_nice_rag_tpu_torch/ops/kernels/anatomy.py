@@ -61,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     TAU_SLACK,
     TAU_STRIDE,
@@ -405,7 +406,7 @@ def anatomy_top_k(emb: torch.Tensor, queries: torch.Tensor, k: int,
                 d, k, plan.bq, int(qres), plan.splits, plan.per,
                 _ptr(threshold), _ptr(counts), _ptr(words), _ptr(row_max),
                 ws.data_ptr(), None, None, device=dev)
-    anatomy_top_k.launches += 1
+    count_launch(anatomy_top_k)
     return {"stage": words, "score": row_max, "compare": counts}[mode]
 
 
@@ -440,7 +441,7 @@ def anatomy_top_k_int8(values: torch.Tensor, scales: torch.Tensor,
                 n, d, k, *plan, _ptr(threshold), _ptr(counts),
                 _ptr(words), _ptr(row_max), ws.data_ptr(), None, None,
                 device=dev)
-    anatomy_top_k_int8.launches += 1
+    count_launch(anatomy_top_k_int8)
     return {"stage": words, "score": row_max, "compare": counts}[mode]
 
 
@@ -511,7 +512,7 @@ def fused_top_k_counted(emb: torch.Tensor, queries: torch.Tensor, k: int,
     out = _counted_launch(fn, (q.data_ptr(), emb.data_ptr()), b, n, d, k,
                           tau, dev, (plan.bq, int(qres), plan.splits,
                                      plan.per), rows == "bfloat16")
-    fused_top_k_counted.launches += 1
+    count_launch(fused_top_k_counted)
     return out
 
 
@@ -536,7 +537,7 @@ def fused_top_k_counted_int8(values: torch.Tensor, scales: torch.Tensor,
                                values.data_ptr(), scales.data_ptr()),
         b, n, d, k, tau, dev, tuple(split_plan_int8(n, b, d, k, dev)),
         False)
-    fused_top_k_counted_int8.launches += 1
+    count_launch(fused_top_k_counted_int8)
     return out
 
 

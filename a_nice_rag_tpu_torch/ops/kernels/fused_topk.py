@@ -36,6 +36,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
 K_MAX = 128
@@ -388,7 +389,7 @@ def fused_dense_top_k(
         return fused_dense_top_k_torch(emb, queries, k, mask)
     out = _float_call(emb, queries, k, mask, tau_only=False,
                       override=override)
-    fused_dense_top_k.launches += 1
+    count_launch(fused_dense_top_k)
     return out
 
 
@@ -492,7 +493,7 @@ def fused_dense_top_k_int8(
         )
     out = _int8_call(values, scales, q_values, q_scales, k, mask,
                      tau_only=False)
-    fused_dense_top_k_int8.launches += 1
+    count_launch(fused_dense_top_k_int8)
     return out
 
 

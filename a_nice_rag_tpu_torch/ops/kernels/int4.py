@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     H100_SMS,
     _I,
@@ -312,7 +313,7 @@ def int4_scores(q8: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((b, n), dtype=torch.int32, device=dev)
     _fold(_KIND_SCORES[unpack], q8, packed, n, d, b, dev, True, out)
-    int4_scores.launches += 1
+    count_launch(int4_scores)
     return out
 
 
@@ -330,7 +331,7 @@ def int4_fold_max(q8: torch.Tensor, packed: torch.Tensor,
         raise ValueError(f"unsupported device {dev}")
     out = torch.full((b,), _INT32_MIN, dtype=torch.int32, device=dev)
     _fold(_KIND_FOLD[unpack], q8, packed, n, d, b, dev, True, out)
-    int4_fold_max.launches += 1
+    count_launch(int4_fold_max)
     return out
 
 
@@ -346,7 +347,7 @@ def int8_fold_max(q8: torch.Tensor, e8: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {dev}")
     out = torch.full((b,), _INT32_MIN, dtype=torch.int32, device=dev)
     _fold(_KIND_INT8, q8, e8, n, d, b, dev, False, out)
-    int8_fold_max.launches += 1
+    count_launch(int8_fold_max)
     return out
 
 

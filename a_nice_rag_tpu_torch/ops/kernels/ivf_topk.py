@@ -38,6 +38,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _I,
     _P,
@@ -237,7 +238,7 @@ def ivf_dense_top_k(
                 max_tiles, n_real, b, d, k, tile_n, plan.bq, int(qres),
                 plan.walkers, tau_walkers, ws.data_ptr(), out_v.data_ptr(),
                 out_i.data_ptr(), device=dev)
-    ivf_dense_top_k.launches += 1
+    count_launch(ivf_dense_top_k)
     return out_v, out_i
 
 
@@ -291,7 +292,7 @@ def ivf_dense_top_k_int8(
                 tile_table.data_ptr(), max_tiles, n_real, b, d, k, tile_n,
                 plan.bq, plan.walkers, tau_walkers, ws.data_ptr(),
                 out_v.data_ptr(), out_i.data_ptr(), device=dev)
-    ivf_dense_top_k_int8.launches += 1
+    count_launch(ivf_dense_top_k_int8)
     return out_v, out_i
 
 

@@ -34,6 +34,7 @@ from typing import Tuple
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P, _launch
 from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
 
@@ -97,7 +98,7 @@ def xpack_keys(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = _flip("anr_xpack_keys", x, torch.int32)
-    xpack_keys.launches += 1
+    count_launch(xpack_keys)
     return out
 
 
@@ -112,7 +113,7 @@ def xpack_values(keys: torch.Tensor) -> torch.Tensor:
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
     out = _flip("anr_xpack_values", keys, torch.float32)
-    xpack_values.launches += 1
+    count_launch(xpack_values)
     return out
 
 
@@ -178,7 +179,7 @@ def bf16_row_reduce(x: torch.Tensor) -> RowReduce:
     if err != 0:
         raise RuntimeError(f"anr_bf16_row_reduce failed with cudaError_t "
                            f"{err}")
-    bf16_row_reduce.launches += 1
+    count_launch(bf16_row_reduce)
     top, arg, second, packed_arg = out.unbind()
     return top.view(torch.float32), arg, second.view(torch.float32), packed_arg
 

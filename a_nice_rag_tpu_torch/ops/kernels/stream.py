@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P, _launch, _ptr
 
 MAX_PARTS = 8
@@ -223,7 +224,7 @@ def stream_sum(parts: Parts, bias: Optional[torch.Tensor] = None, *,
             err = fn(*head, *args)
     if err != 0:
         raise RuntimeError(f"anr_stream_sum failed with cudaError_t {err}")
-    stream_sum.launches += 1
+    count_launch(stream_sum)
     return out
 
 
@@ -289,7 +290,7 @@ def stream_sum_busy(
                 x_iters, seed.data_ptr(), partials.data_ptr(),
                 work.data_ptr(), out.data_ptr(), grid, _BUSY_UNROLL,
                 device=dev)
-    stream_sum_busy.launches += 1
+    count_launch(stream_sum_busy)
     return out, work
 
 

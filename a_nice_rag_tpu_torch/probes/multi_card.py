@@ -1,6 +1,6 @@
 """The sharded path across distinct cards, against one card's virtual mesh.
 
-    python -m a_nice_rag_tpu_torch.probes.multi_card [N_CARDS]
+    python -m a_nice_rag_tpu_torch.probes.multi_card [N_CARDS] [tp]
 
 Lays the bench's 2M configuration (2^21 x 256 bf16 + CSR BM25, B = 256,
 k 32) over N_CARDS distinct cards, one shard a card (default: every
@@ -18,8 +18,21 @@ runs on both meshes:
            many slots.
 
 Each part reports its host-clock ms (every card synchronized, median of
-10) and its kernel launches. One JSON line on stdout, with each card's
-name and power limit.
+10) and its kernel launches. Then the tensor-parallel parts (``run_tp``),
+over the same cards and as many slots of the first:
+
+  tp_decode  GenerationServer(mesh=) with a tp axis over the cards: the
+             decoder at Qwen3-0.6B's widths (bf16, random weights), each
+             card holding its heads, MLP columns and kv heads; the greedy
+             streams of 4 requests equal across the two meshes, and the
+             tok/s of 64 requests over 64 slots (chunk 16) on each;
+  dp_tp_step make_sharded_train_step at EncoderConfig's defaults over
+             dp x tp = N/2 x 2 (1 x 2 for 2 cards): 3 steps' losses and
+             the updated weights equal across the two meshes (within
+             1e-5), and the step's host-clock ms.
+
+With ``tp`` only the tensor-parallel parts run. One JSON line on stdout,
+with each card's name and power limit.
 """
 
 from __future__ import annotations
@@ -176,6 +189,90 @@ def run(cards: Sequence, lead, cfg: Scale2MConfig = Scale2MConfig(),
     return out
 
 
+def _tokens(reqs):
+    out = []
+    for r in reqs:
+        toks = []
+        while not r.out.empty():
+            item = r.out.get_nowait()
+            if isinstance(item, int):
+                toks.append(item)
+        out.append(toks)
+    return out
+
+
+def run_tp(cards: Sequence, lead, lm_cfg=None, enc_cfg=None,
+           slots: int = 64, chunk: int = 16, new_tokens: int = 32,
+           batch: int = 32, seq: int = 128) -> Dict:
+    """The tensor-parallel parts over ``cards`` and ``len(cards)`` slots
+    of ``lead``; raises where the two meshes' results differ."""
+    from a_nice_rag_tpu_torch.bench import GenConfig, gen_model
+    from a_nice_rag_tpu_torch.models.encoder import (
+        EncoderConfig,
+        init_encoder,
+    )
+    from a_nice_rag_tpu_torch.models.train import make_sharded_train_step
+    from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
+
+    n, lead = len(cards), torch.device(lead)
+    meshes = {"cards": list(cards), "slots": [lead] * n}
+    devices = [torch.device(c) for c in cards]
+    model = gen_model(lm_cfg or GenConfig(), lead)
+    g = torch.Generator().manual_seed(14)
+    prompts = [torch.randint(0, 256, (k,), generator=g).tolist()
+               for k in (20, 9, 33, 14)]
+    out: Dict = {"tp_decode": {}, "dp_tp_step": {}}
+    streams = {}
+    for name, devs in meshes.items():
+        mesh = make_mesh((n,), ("tp",), devs)
+        srv = GenerationServer(model, slots=slots, max_len=256, chunk=chunk,
+                               eos_id=-1, mesh=mesh)
+        reqs = [srv.submit(x, 24) for x in prompts]
+        srv.drain()
+        streams[name] = _tokens(reqs)
+        reqs = [srv.submit(prompts[0], new_tokens) for _ in range(slots)]
+        synchronize(devices)
+        t0 = time.perf_counter()
+        srv.drain()
+        synchronize(devices)
+        seconds = time.perf_counter() - t0
+        got = sum(len(t) for t in _tokens(reqs))
+        out["tp_decode"][name] = {"tok_s": got / seconds,
+                                  "tokens": got, "seconds": seconds}
+        del srv
+    if streams["cards"] != streams["slots"]:
+        raise AssertionError("tp decode streams differ between the meshes")
+    out["tp_decode"]["streams_equal"] = True
+    del model
+
+    cfg = enc_cfg or EncoderConfig()
+    enc = init_encoder(cfg, seed=3, device=lead)
+    state = {k: v.clone() for k, v in enc.state_dict().items()}
+    ids = torch.randint(1, cfg.vocab_size, (2, batch, seq), generator=g)
+    shape = (n // 2, 2) if n >= 4 else (1, n)
+    losses, weights = {}, {}
+    for name, devs in meshes.items():
+        mesh = make_mesh(shape, ("dp", "tp"), devs)
+        step, params, _, _ = make_sharded_train_step(enc, state, mesh)
+        q, d = ids[0].to(lead), ids[1].to(lead)
+        losses[name] = [float(step(q, d)) for _ in range(3)]
+        weights[name] = params.state_dict()
+        out["dp_tp_step"][name] = {
+            "losses": losses[name],
+            "step_ms": host_ms(lambda: step(q, d), devices, n=3),
+            "slot_devices": sorted({str(s.device) for s in mesh.slots})}
+    err = max(float((weights["cards"][k].cpu() - weights["slots"][k].cpu())
+                    .abs().max()) for k in state)
+    if not torch.allclose(torch.tensor(losses["cards"]),
+                          torch.tensor(losses["slots"]), rtol=1e-5) or \
+            err > 1e-5:
+        raise AssertionError(f"dp x tp steps differ between the meshes: "
+                             f"{losses}, weights {err}")
+    out["dp_tp_step"].update(mesh=list(shape), batch=[batch, seq],
+                             weights_max_abs_diff=err, equal=True)
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     require_cuda()
@@ -183,7 +280,9 @@ def main(argv=None) -> int:
     if not 2 <= n <= torch.cuda.device_count():
         raise SystemExit(f"need 2 to {torch.cuda.device_count()} cards, "
                          f"asked for {n}")
-    out = run([f"cuda:{i}" for i in range(n)], "cuda:0")
+    cards = [f"cuda:{i}" for i in range(n)]
+    out = {"n_cards": n} if argv[1:] == ["tp"] else run(cards, "cuda:0")
+    out.update(run_tp(cards, "cuda:0"))
     out["cards"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

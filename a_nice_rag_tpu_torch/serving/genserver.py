@@ -46,8 +46,12 @@ verifies every slot's window in one forward, and each active slot
 advances by its own accept count (1..gamma+1 tokens a tick). Greedy
 streams stay the target-only server's.
 
-Tensor parallelism (the JAX server's ``mesh=``) is not ported:
-``mesh=`` raises, naming ROADMAP queue 1, item 8.
+``mesh=`` serves **tensor-parallel** over the mesh's ``tp`` slots
+(parallel/lm.py): each slot holds its share of the heads and MLP columns
+and only its kv heads of every layer's cache (the draft's too), and the
+model's call dispatches every sublayer to the slots, so the admission,
+decode and speculative paths below run unchanged. Greedy streams equal
+the one-slot server's.
 """
 
 from __future__ import annotations
@@ -71,13 +75,10 @@ from a_nice_rag_tpu_torch.models.decoder import (
     _decode_programs_constrained,
     _decode_programs_dynamic,
     gumbel,
-    init_caches,
     sample_logits_dynamic,
 )
 
 _END = object()  # sentinel on a request's token queue
-TENSOR_PARALLEL = ("tensor-parallel serving (mesh=, parallel/lm.py) is not "
-                   "ported yet: ROADMAP queue 1, item 8")
 
 
 class ServerBusy(RuntimeError):
@@ -143,9 +144,16 @@ class GenerationServer:
         logprob_topk: int = 0,
         retain_prefixes: int = 0,
         wave_prefill: bool = True,
+        tp_axis: str = "tp",
     ):
+        self.tp = 1
         if mesh is not None:
-            raise NotImplementedError(TENSOR_PARALLEL)
+            from a_nice_rag_tpu_torch.parallel.lm import shard_lm_params
+
+            model = shard_lm_params(model, mesh, tp_axis)
+            if draft_model is not None:
+                draft_model = shard_lm_params(draft_model, mesh, tp_axis)
+            self.tp = model.tp
         self.model = model
         self.dev = model.device
         self.slots, self.smax, self.chunk = slots, max_len, chunk
@@ -188,7 +196,7 @@ class GenerationServer:
         self._stop = threading.Event()
 
         cfg = model.cfg
-        self._kc, self._vc = init_caches(cfg, slots, max_len, self.dev)
+        self._kc, self._vc = self._rows(model, slots, max_len)
         self._tok = torch.zeros(slots, dtype=torch.long, device=self.dev)
         self._pos = torch.zeros(slots, dtype=torch.long, device=self.dev)
         self._done = torch.ones(slots, dtype=torch.bool, device=self.dev)
@@ -245,8 +253,7 @@ class GenerationServer:
         # (models/speculative.spec_round).
         self.draft, self.gamma = draft_model, gamma
         if draft_model is not None:
-            self._dkc, self._dvc = init_caches(draft_model.cfg, slots,
-                                               max_len, self.dev)
+            self._dkc, self._dvc = self._rows(draft_model, slots, max_len)
 
     # ------------------------------------------------------------ API
 
@@ -504,8 +511,10 @@ class GenerationServer:
             ids[i, : len(r)] = r
         return self._h2d(ids, torch.long)
 
-    def _rows(self, cfg, batch: int, length: int):
-        return init_caches(cfg, batch, length, self.dev)
+    def _rows(self, model, batch: int, length: int):
+        """Zeroed cache rows for ``model``: per layer, or per layer and
+        tp slot for a tensor-parallel one."""
+        return model.init_caches(batch, length)
 
     def _install(self, kc, vc, kr, vr, slots) -> None:
         """Copy row buffers [W, L, ...] into batch rows ``slots`` (an int
@@ -517,7 +526,8 @@ class GenerationServer:
             if isinstance(slots, int):
                 c[slots, :n] = r[0, :n]
             else:
-                c[slots, :n] = r[:, :n]
+                # A tensor-parallel slot's caches may sit on another card.
+                c[slots.to(c.device), :n] = r[:, :n]
 
     def _knobs(self, reqs: List[_Request]):
         """Per-row knob tensors and noise for a prefill of ``reqs``, or
@@ -673,7 +683,7 @@ class GenerationServer:
         if len(key_t) + self.chunk > self.smax:
             raise ValueError("prefix longer than the cache allows")
         ids = self._ids([list(key_t)], self._bucket(len(key_t)))
-        kr, vr = self._rows(self.model.cfg, 1, self.smax)
+        kr, vr = self._rows(self.model, 1, self.smax)
         self.model(ids, kr, vr, 0)
         with self._lock:
             self._prefix_cache.pop(key_t, None)
@@ -724,7 +734,7 @@ class GenerationServer:
         """Whole-prompt prefill of ``req`` into cache row ``slot`` through
         bucket-long row buffers; returns the first-token outputs."""
         n = len(req.prompt_ids)
-        kr, vr = self._rows(self.model.cfg, 1, bucket)
+        kr, vr = self._rows(self.model, 1, bucket)
         logits, _, _ = self.model(self._ids([req.prompt_ids], bucket), kr,
                                   vr, 0)
         info = self._first_tokens(logits[:, n - 1], [req],
@@ -739,7 +749,7 @@ class GenerationServer:
         cache tensor."""
         reqs = [it[1] for it in part]
         w = len(part)
-        kr, vr = self._rows(self.model.cfg, w, bucket)
+        kr, vr = self._rows(self.model, w, bucket)
         logits, _, _ = self.model(
             self._ids([r.prompt_ids for r in reqs], bucket), kr, vr, 0)
         lens = self._h2d([len(r.prompt_ids) for r in reqs], torch.long)
@@ -771,7 +781,7 @@ class GenerationServer:
         """Prefill the draft's cache row for ``slot`` with the FULL prompt
         (no sampling — the first token comes from the target prefill)."""
         bucket = self._bucket(len(req.prompt_ids))
-        kr, vr = self._rows(self.draft.cfg, 1, bucket)
+        kr, vr = self._rows(self.draft, 1, bucket)
         self.draft(self._ids([req.prompt_ids], bucket), kr, vr, 0)
         self._install(self._dkc, self._dvc, kr, vr, slot)
 
@@ -895,7 +905,7 @@ class GenerationServer:
             vr = [F.pad(r, (0, 0, 0, 0, 0, c)) for r in rows[1]]
             self.prefix_hits += 1
         else:
-            kr, vr = self._rows(self.model.cfg, 1, self.smax + c)
+            kr, vr = self._rows(self.model, 1, self.smax + c)
             done = 0
         req.slot = slot
         self._active[slot] = req
@@ -1082,7 +1092,7 @@ class GenerationServer:
                     k for k in self._cname_to_id
                     if k and k != "none"
                 ),
-                "tensor_parallel": 1,
+                "tensor_parallel": self.tp,
             }
 
     def drain(self, max_ticks: int = 10_000) -> None:

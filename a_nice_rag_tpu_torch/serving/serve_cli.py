@@ -17,21 +17,23 @@ stack end to end:
 
 With ``--embedder hashing``, ``/v1/search`` also takes raw text: the
 hashing encoder (``models.OnDeviceEmbedder``) embeds each text request on
-the index's device and the index's BM25 vocabulary gives its terms. With
-``--llm local`` the on-device decoder LM is attached on the index's
-device (``build_local_llm_api``): ``/v1/rag`` (+SSE) answers from it
-through a continuous-batching ``GenerationServer``, and ``/v1/generate``
-and ``/v1/chat/completions`` serve it, with JSON guided decoding under
-``--json-mode``. The flags of modules the port does not have yet exit
-with the ROADMAP item they wait for (``--embedder-ckpt``, an orbax
-checkpoint: item 9; ``--lm-tp``, tensor parallelism: item 8). The JAX
-CLI's ``-rounded`` flag, which selects the packed bf16-key fold, exits
-too: that fold was not ported.
+the index's device and the index's BM25 vocabulary gives its terms; its
+weights are seeded random unless ``--embedder-ckpt`` names a checkpoint
+of ``models.trainer.train_encoder`` (the port's format). With ``--llm
+local`` the on-device decoder LM is attached on the index's device
+(``build_local_llm_api``): ``/v1/rag`` (+SSE) answers from it through a
+continuous-batching ``GenerationServer``, and ``/v1/generate`` and
+``/v1/chat/completions`` serve it, with JSON guided decoding under
+``--json-mode``; ``--lm-tp N`` serves it tensor-parallel over the first N
+cards (N slots of the CPU under ``--device cpu``). The JAX CLI's
+``-rounded`` flag, which selects the packed bf16-key fold, exits: that
+fold was not ported.
 
 Usage:
     python -m a_nice_rag_tpu_torch.serving.serve_cli --index artifacts/nice \
         [--port 8800] [--autotune] [--shards 4] [--device cuda] \
-        [--embedder hashing] [--llm local [--llm-ckpt DIR] [--json-mode]]
+        [--embedder hashing [--embedder-ckpt DIR]]
+        [--llm local [--llm-ckpt DIR] [--json-mode] [--lm-tp N]]
     python -m a_nice_rag_tpu_torch.serving.serve_cli --demo
 """
 
@@ -58,12 +60,6 @@ from a_nice_rag_tpu_torch.serving.scheduler import (
 
 logger = logging.getLogger(__name__)
 
-# Flags of the JAX CLI whose modules the port does not have yet, with the
-# ROADMAP item each waits for.
-UNPORTED_FLAGS = {
-    "embedder_ckpt": "item 9 (training and its orbax checkpoints)",
-    "lm_tp": "item 8 (tensor-parallel generation, parallel/lm.py)",
-}
 ROUNDED_FOLD = ("selects the packed bf16-key fold, which is not ported "
                 "(ROADMAP queue 2: only if an H100 measurement asks for it)")
 
@@ -561,7 +557,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--embedder", default=None,
                    help="on-device query embedder so /v1/search takes raw "
                         "text: 'hashing' = the hashing tokenizer + the "
-                        "transformer encoder (seeded random weights)")
+                        "transformer encoder (seeded random weights "
+                        "unless --embedder-ckpt)")
+    p.add_argument("--embedder-ckpt", default=None,
+                   help="checkpoint dir of trained encoder params "
+                        "(models.trainer.train_encoder's checkpoint_dir; "
+                        "its latest step)")
     p.add_argument("--llm", default=None, choices=["local"],
                    help="'local' attaches the on-device decoder LM: adds "
                         "/v1/rag (+SSE), /v1/generate, "
@@ -610,10 +611,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="chat prompt format for /v1/chat/completions: "
                         "auto = the checkpoint's declared chat_template "
                         "with a marker-in-vocab fallback")
-    # The JAX CLI's flags for modules not yet ported: accepted so that
-    # they can exit with the ROADMAP item they wait for.
-    p.add_argument("--embedder-ckpt", default=None, help="not ported yet")
-    p.add_argument("--lm-tp", type=int, default=None, help="not ported yet")
+    p.add_argument("--lm-tp", type=int, default=None,
+                   help="tensor-parallel degree for the local LM: attention "
+                        "heads, MLP columns and KV caches split over the "
+                        "first N cards (parallel/lm.py's Megatron layout; "
+                        "greedy streams equal one card's)")
     return p
 
 
@@ -627,12 +629,12 @@ def main(argv=None) -> None:
             raise SystemExit(f"{arg} {ROUNDED_FOLD}")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    for name, item in UNPORTED_FLAGS.items():
-        value = getattr(args, name)
-        if value is not None and value is not False:
-            raise SystemExit(
-                f"--{name.replace('_', '-')} is not ported to "
-                f"a_nice_rag_tpu_torch yet: ROADMAP queue 1, {item}")
+    if args.lm_tp is not None and args.llm != "local":
+        raise SystemExit("--lm-tp needs --llm local")
+    if args.llm and not args.embedder:
+        args.embedder = "hashing"  # RAG needs a query embedder
+    if args.embedder_ckpt and args.embedder != "hashing":
+        raise SystemExit("--embedder-ckpt needs --embedder hashing")
 
     if args.demo:
         from a_nice_rag_tpu_torch.index import build_index
@@ -655,18 +657,9 @@ def main(argv=None) -> None:
     )
     use_bm25 = not args.no_bm25 and index.bm25 is not None
     embedder = None
-    if args.llm and not args.embedder:
-        args.embedder = "hashing"  # RAG needs a query embedder
     if args.embedder == "hashing":
-        from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
-        from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
-
-        mat = index.dense_matrix(model_names[0])
-        if isinstance(mat, QuantizedDense):
-            mat = mat.values
-        out_dim = int(mat.shape[1])
-        embedder = OnDeviceEmbedder(EncoderConfig(out_dim=out_dim),
-                                    device=index.device)
+        embedder = hashing_embedder(index, model_names[0],
+                                    args.embedder_ckpt)
     elif args.embedder:
         raise SystemExit(f"unknown --embedder {args.embedder!r}")
     state = build_state(
@@ -696,7 +689,7 @@ def main(argv=None) -> None:
             json_mode=args.json_mode, json_depth=args.json_depth,
             logprob_topk=args.logprob_topk,
             retain_prefixes=args.retain_prefixes,
-            chat_template=args.chat_template,
+            chat_template=args.chat_template, lm_tp=args.lm_tp,
         )
     native = None
     if args.native_port is not None:
@@ -719,6 +712,30 @@ def main(argv=None) -> None:
     finally:
         if native is not None:
             native.stop()
+
+
+def hashing_embedder(index, model: str, ckpt: Optional[str] = None):
+    """``--embedder hashing [--embedder-ckpt DIR]``: the hashing encoder
+    (``EncoderConfig`` at the width of the index's ``model`` matrix) on
+    the index's device, holding the latest checkpoint's params under
+    ``ckpt`` (``models.trainer.train_encoder``'s ``checkpoint_dir``) when
+    given, seeded random weights otherwise."""
+    from a_nice_rag_tpu_torch.models import EncoderConfig, OnDeviceEmbedder
+    from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
+
+    mat = index.dense_matrix(model)
+    if isinstance(mat, QuantizedDense):
+        mat = mat.values
+    embedder = OnDeviceEmbedder(EncoderConfig(out_dim=int(mat.shape[1])),
+                                device=index.device)
+    if ckpt:
+        from a_nice_rag_tpu_torch.models.checkpoint import restore_checkpoint
+
+        # (step, params, opt_state): the params alone are served.
+        _, params, _ = restore_checkpoint(
+            ckpt, template=embedder.model.state_dict())
+        embedder.model.load_state_dict(params)
+    return embedder
 
 
 def _checkpoint_eos(llm_ckpt: str, default: int) -> int:
@@ -791,14 +808,17 @@ def build_local_llm_api(index, state, embedder, model_names,
                         prefill_chunk=None, json_mode: bool = False,
                         json_depth: int = 4, logprob_topk: int = 0,
                         retain_prefixes: int = 0,
-                        chat_template: str = "auto"):
+                        chat_template: str = "auto",
+                        lm_tp: Optional[int] = None):
     """Attach the on-device decoder LM to this deployment, on the index's
     device: a continuous-batching GenerationServer shared by
     /v1/generate, /v1/chat/completions and the RAG LLM hop, a RAGSystem
     over this serve state's engine (sharded or single-device), and a
     ServingAPI exposing /v1/rag (+SSE) and the browser UI. No SaaS
     anywhere (the reference's generation hop is SaaS-only,
-    src/query_rag.py:434-513)."""
+    src/query_rag.py:434-513). ``lm_tp`` > 1 serves the LM over a ``tp``
+    mesh of the first ``lm_tp`` cards (``lm_tp`` slots of the CPU when the
+    index is on the CPU)."""
     from a_nice_rag_tpu_torch.config import InfoSource
     from a_nice_rag_tpu_torch.models import convert
     from a_nice_rag_tpu_torch.models.decoder import (
@@ -813,6 +833,21 @@ def build_local_llm_api(index, state, embedder, model_names,
     from a_nice_rag_tpu_torch.serving.http_api import ServingAPI
 
     dev = index.device
+    mesh = None
+    if lm_tp is not None and lm_tp > 1:
+        from a_nice_rag_tpu_torch.parallel import make_mesh
+
+        if dev.type == "cuda":
+            n = torch.cuda.device_count()
+            if lm_tp > n:
+                raise SystemExit(
+                    f"--lm-tp {lm_tp} > available devices ({n})")
+            devices = [f"cuda:{i}" for i in range(lm_tp)]
+        else:
+            devices = [dev] * lm_tp
+        mesh = make_mesh((lm_tp,), ("tp",), devices)
+        logger.info("serve: local LM tensor-parallel over %s",
+                    [str(d) for d in mesh.devices])
     if llm_ckpt:
         lm_cfg, lm = convert.load_decoder_checkpoint_dir(llm_ckpt,
                                                          device=dev)
@@ -855,7 +890,7 @@ def build_local_llm_api(index, state, embedder, model_names,
                            prefill_chunk=prefill_chunk,
                            max_pending=max_pending, constraints=constraints,
                            logprob_topk=logprob_topk,
-                           retain_prefixes=retain_prefixes)
+                           retain_prefixes=retain_prefixes, mesh=mesh)
     # The client's prompt window leaves the cache room for its 256-token
     # answer rounded up to whole chunks, and for the BOS it prepends to a
     # cut prompt (the JAX package's gen_max_len - 256 overflows the row by

@@ -177,6 +177,36 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      which must json.loads), a /v1/rag SSE answer from the local LLM, and
      the generate stream's TTFT and tokens/s; then the ``generation``
      line;
+ 23. tensor-parallel generation and training (parallel/lm.py,
+     models/train.py, trainer.py, checkpoint.py, rerank_train.py, nli.py,
+     pipeline.py, moe.py), each part a path of its own: (a), (b), (d)
+     and (e) launch no kernel, (c) serves through K1. (a) phase 22's
+     decoder over tp = 2 and 4 slots of the card: the prefill logits
+     against phase 22 (a)'s CPU float32 logits, cosine >= 0.99 a row; on
+     its float32 cut, the greedy streams of the staggered wave,
+     speculative decoding and chunked prefill over a cached prefix equal
+     to the one-slot server's on the card; tok/s at 64 slots, chunk 16,
+     tp = 1 and 2; (b) train_encoder at EncoderConfig's defaults (the
+     served hashing encoder: vocab 32,768, 4 layers x 256, 4 heads, out
+     256) on 3,840 seeded query/document pairs, 256 x 128 tokens a batch,
+     60 steps, a checkpoint every 20, then one more epoch resumed from
+     the last: the loss falls, recall@1 on the held-out pairs rises, the
+     first step's loss and parameters on the card (float32) equal to the
+     CPU's float32 step on 64 rows, step ms, tokens/s and peak memory;
+     (c) that checkpoint served as serve_cli --embedder hashing
+     --embedder-ckpt builds it over stage A's index: text replies equal
+     to a direct embed + retrieve_device, K1 launched; (d) the reranker
+     (2 x 256) trained on candidates mine_candidates takes from
+     SearchEngine's hybrid lists over the calibrated corpus with hard
+     distractors (holdout accuracy >= 0.85, tests/test_rerank_lift.py's
+     floor) and the NLI scorer (2 x 256) on synth_nli_pairs (holdout AUC
+     > 0.7, tests/test_nli_scorer.py's), each loss falling; (e) the
+     parallel steps at EncoderConfig's defaults over 8 slots of the card:
+     dp x tp 4 x 2, dp x tp x sp 2 x 2 x 2, dp x pp 2 x 4 (2 and 3
+     microbatches) and dp x ep 2 x 4 (MoE, 4 experts): the first loss
+     within 1e-2 of the one-slot step's (bf16), the loss falling over 4
+     steps, each slot holding only its shards; then the ``training``
+     line;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -245,6 +275,7 @@ import dataclasses
 import itertools
 import json
 import logging
+import os
 import re
 import statistics
 import sys
@@ -312,6 +343,30 @@ F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
 INT8_OP_S = 1979e12
 QUERY_PIECES = 3
+
+
+# Phase 23 (d)'s NLI corpus: tests/test_nli_scorer.py's documents.
+NLI_DOCS = [
+    "Offer lifestyle advice to adults with hypertension. Blood pressure "
+    "should be measured in both arms at diagnosis. Treatment with ACE "
+    "inhibitors is recommended for adults under 55 years.",
+    "Methotrexate is the first-line DMARD for rheumatoid arthritis. "
+    "Folic acid supplementation reduces methotrexate toxicity. Monitor "
+    "full blood count every 2 weeks until the dose is stable.",
+    "Children with asthma should have a personalised action plan. "
+    "Inhaled corticosteroids are the preferred preventer therapy. Review "
+    "inhaler technique at every asthma consultation.",
+    "Statins are recommended for the primary prevention of "
+    "cardiovascular disease. Atorvastatin 20 mg is the usual starting "
+    "dose. Liver function should be checked before starting treatment.",
+    "Antibiotic prophylaxis is not routinely recommended for dental "
+    "procedures. Amoxicillin remains the first choice for "
+    "community-acquired pneumonia. Review antibiotic treatment after 48 "
+    "hours of therapy.",
+    "Screen all pregnant women for gestational diabetes risk factors. "
+    "An oral glucose tolerance test is offered at 24 to 28 weeks. "
+    "Metformin can be used when lifestyle changes are insufficient.",
+]
 
 
 def log(**fields) -> None:
@@ -469,6 +524,40 @@ class Smoke:
     GEN = {}
     GEN_PROMPTS, GEN_PROMPT_LEN, GEN_CUT, GEN_EOS = 4, 64, 2, 151_643
     GEN_JSON_DEPTH, GEN_JSON_TRIES, GEN_COS = 2, 16, 0.99
+    # Phase 23: the tp degrees of the virtual mesh on the card; the tok/s
+    # run's new tokens a request (64 requests over GEN's 64 slots, chunk
+    # 16). The trainer: EncoderConfig fields (empty = its defaults, the
+    # served encoder), the pairs, the batch (rows; the tokenizer's 128
+    # tokens each), the epochs (3,840 / 256 x 4 = 60 steps), the checkpoint
+    # and eval period, the pool of words the pairs share and the rows of
+    # the card-vs-CPU first step. Its tolerances (float32 on both): the
+    # first loss relative; a parameter within PARAM_ATOL except at most a
+    # PARAM_SHARE of them, which AdamW's first step may move apart by up
+    # to 2 x lr (m / sqrt(v) is the sign of a gradient, and a gradient
+    # near zero may take either sign under two summation orders).
+    TP_DEGREES, TP_NEW = (2, 4), 32
+    TRAIN = {}
+    TRAIN_PAIRS, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_EVERY = 3840, 256, 4, 20
+    TRAIN_WORDS, TRAIN_CPU_ROWS = 300, 64
+    TRAIN_LOSS_RTOL, PARAM_ATOL, PARAM_SHARE = 1e-4, 1e-5, 1e-3
+    # The reranker's training queries over the calibrated corpus (its
+    # sizes and floor: tests/test_rerank_lift.py's full tier), the NLI
+    # scorer's pairs and epochs (tests/test_nli_scorer.py's) and floors.
+    RERANK_CORPUS = dict(n_docs=1024, dim=128, n_queries=192,
+                         vocab_size=6000, seed=42)
+    RERANK_QUERIES, RERANK_EPOCHS, RERANK_FLOOR = 288, 2, 0.85
+    NLI_PAIRS, NLI_EPOCHS, NLI_AUC_FLOOR = 256, 6, 0.7
+    # The parallel steps: rows x tokens a batch, steps. Their first step
+    # against the one-slot step's from the same weights (bf16 compute), by
+    # the mesh's kind: the loss relative; each gradient's relative L2
+    # error; the weights after it by phase (b)'s share-past-PARAM_ATOL
+    # rule. tp / sp split matrix products, so their row-split partials are
+    # rounded to bf16 once more; pp and ep run the one-slot arithmetic on
+    # row blocks.
+    PAR_BATCH, PAR_STEPS = 48, 4
+    PAR_LOSS_RTOL = {"tp": 2e-3, "pp": 1e-5, "ep": 1e-5}
+    PAR_GRAD_RTOL = {"tp": 5e-2, "pp": 5e-2, "ep": 5e-2}
+    PAR_PARAM_SHARE = {"tp": 1e-2, "pp": 1e-2, "ep": 1e-2}
 
     def __init__(self, port):
         self.p = port
@@ -488,6 +577,7 @@ class Smoke:
         self.served_latency_ms, self.served_layers_ms = {}, {}
         self.models_parts, self.models_k1 = {}, 0
         self.gen_parts = {}
+        self.train_parts = {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -3710,6 +3800,8 @@ class Smoke:
         want = p.lm_logits(p.load_decoder_state(cfg32, sd, device="cpu"),
                            ids.cpu())
         cpu_s = time.perf_counter() - t0
+        # Phase 23 (a) holds the tensor-parallel logits against these.
+        self.gen_ref = (ids, want)
         got, want = got.flatten(0, 1), want.flatten(0, 1)
         cos = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
         if float(cos.min()) < self.GEN_COS:
@@ -3933,6 +4025,495 @@ class Smoke:
             seconds=sum(v["seconds"] for v in self.gen_parts.values()),
             card=self.card)
 
+    # -- phase 23: tensor-parallel generation and training --------------
+
+    def train_part(self, name, fn, *args):
+        """Run one part of phase 23 as a path of its own: parts (a), (b),
+        (d) and (e) run no kernel of the port and must launch none; (c)
+        serves through K1, its launches counted on the main path."""
+        if name != "C":
+            return self.part(self.train_parts, name, lambda: self.no_kernels(
+                f"phase 23 ({name})", lambda: fn(*args)))
+        k1 = self.main_launches["fused_dense_top_k"]
+        out = self.part(self.train_parts, name, fn, *args)
+        self.train_parts[name]["k1_launches"] = (
+            self.main_launches["fused_dense_top_k"] - k1)
+        return out
+
+    def tp_mesh(self, tp):
+        return self.p.make_mesh((tp,), ("tp",), devices=[self.dev] * tp)
+
+    def tp_streams(self, model, draft, prompts, tp):
+        """Part (a)'s greedy streams on one server setting: the staggered
+        wave, speculative decoding and chunked prefill over a cached
+        prefix; tp 1 is the one-slot server."""
+        p, eos = self.p, self.GEN_EOS
+
+        def server(**kw):
+            return p.GenerationServer(model, max_len=128, chunk=4,
+                                      eos_id=eos, mesh=None if tp == 1
+                                      else self.tp_mesh(tp), **kw)
+
+        def staggered(srv):
+            first = srv.submit(prompts[0], 12)
+            srv.tick()
+            srv.tick()
+            rest = [srv.submit(x, 12) for x in prompts[1:]]
+            srv.drain()
+            return [self.gen_tokens(r) for r in [first, *rest]]
+
+        out = {"staggered_wave": staggered(server(slots=4)),
+               "speculative": staggered(server(slots=4, draft_model=draft,
+                                               gamma=4))}
+        srv = server(slots=3, prefill_chunk=16)
+        prefix = prompts[2][:24]
+        srv.cache_prefix(prefix)
+        reqs = [srv.submit(x, 9) for x in (prefix + prompts[0][:5],
+                                           prompts[1], prompts[3])]
+        srv.drain()
+        out["chunked_prefix"] = [self.gen_tokens(r) for r in reqs]
+        out["prefix_hits"] = srv.prefix_hits
+        return out
+
+    def tp_tok_s(self, model, tp):
+        """tok/s of 64 requests x TP_NEW tokens over the gen
+        configuration's slots and chunk, after a one-chunk warm-up."""
+        cfg = self.gen_cfg()
+        srv = self.p.GenerationServer(
+            model, slots=cfg.slots, max_len=cfg.max_len, chunk=cfg.chunk,
+            eos_id=-1, mesh=None if tp == 1 else self.tp_mesh(tp))
+        prompt = list(range(2, 2 + cfg.prompt))
+        warm = [srv.submit(prompt, cfg.chunk) for _ in range(cfg.slots)]
+        srv.drain()
+        for r in warm:
+            self.gen_tokens(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(prompt, self.TP_NEW) for _ in range(cfg.slots)]
+        srv.drain()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        n = sum(len(self.gen_tokens(r)) for r in reqs)
+        if n != cfg.slots * self.TP_NEW:
+            raise AssertionError(f"tp {tp}: {n} tokens of "
+                                 f"{cfg.slots * self.TP_NEW}")
+        return n / seconds
+
+    def phase23a_tp_decode(self, sd, cfg32) -> None:
+        """Phase 22's decoder split over tp slots of the card."""
+        p = self.p
+        model = self.b.gen_model(self.gen_cfg(), self.dev)
+        ids, want = self.gen_ref
+        want = want.flatten(0, 1)
+        cos = {}
+        for tp in self.TP_DEGREES:
+            lm = p.shard_lm_params(model, self.tp_mesh(tp))
+            kc, vc = lm.init_caches(*ids.shape)
+            with torch.no_grad():
+                got = lm(ids, kc, vc, 0)[0].flatten(0, 1).cpu()
+            del lm, kc, vc
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"tp {tp}: logits are not finite")
+            c = (got * want).sum(-1) / (got.norm(dim=-1) * want.norm(dim=-1))
+            cos[tp] = {"min": float(c.min()), "median": float(c.median()),
+                       "top1_agreement": float((got.argmax(-1)
+                                                == want.argmax(-1)).float()
+                                               .mean())}
+            if cos[tp]["min"] < self.GEN_COS:
+                raise AssertionError(f"tp {tp}: bf16 logits against the "
+                                     f"CPU's float32: cosine {cos[tp]}")
+        tok_s = {tp: self.tp_tok_s(model, tp) for tp in (1, 2)}
+        del model
+        cut = dataclasses.replace(cfg32, num_layers=self.GEN_CUT)
+        one = dataclasses.replace(cfg32, num_layers=1)
+        target = p.load_decoder_state(cut, sd, device=self.dev)
+        draft = p.load_decoder_state(one, sd, device=self.dev)
+        g = np.random.default_rng(2301)
+        prompts = [g.integers(0, 256, n).tolist() for n in (20, 9, 33, 14)]
+        runs = {tp: self.tp_streams(target, draft, prompts, tp)
+                for tp in (1, *self.TP_DEGREES)}
+        for tp in self.TP_DEGREES:
+            for name, streams in runs[1].items():
+                if runs[tp][name] != streams:
+                    raise AssertionError(f"tp {tp}, {name}: {runs[tp][name]}"
+                                         f" against one slot's {streams}")
+        if runs[1]["prefix_hits"] != 1:
+            raise AssertionError("the cached prefix was not used")
+        log(training="A_tp_decode", tp=list(self.TP_DEGREES),
+            prompts=list(ids.shape), cos=cos, cut_layers=self.GEN_CUT,
+            streams_equal_one_slot=sorted(k for k in runs[1]
+                                          if k != "prefix_hits"),
+            tok_s=tok_s,
+            tok_s_tp2_over_tp1=tok_s[2] / tok_s[1],
+            slots=self.gen_cfg().slots, chunk=self.gen_cfg().chunk,
+            new_tokens=self.TP_NEW, card=self.card,
+            method="tok/s: host clock from submitting a request a slot to "
+            "the drained server, after a one-chunk warm-up; all tp slots "
+            "on the one card, so tp > 1 adds launches and moves no bytes")
+
+    def train_pairs(self, seed):
+        """TRAIN_PAIRS (query, document) texts: a document holds 6 words
+        of its own and 100 of a pool of TRAIN_WORDS shared by all; its
+        query 3 of the 6 and 9 other pool words. The pool words swamp a
+        seeded encoder's mean, so recall@1 starts near chance; it rises as
+        training learns to weigh the words of one pair over the pool's."""
+        g = np.random.default_rng(seed)
+        pool = [stage_a_word(v) for v in range(self.TRAIN_WORDS)]
+        queries, docs = [], []
+        for i in range(self.TRAIN_PAIRS):
+            own = [stage_a_word(self.TRAIN_WORDS + 6 * i + j)
+                   for j in range(6)]
+            doc = own + [pool[j] for j in g.choice(
+                self.TRAIN_WORDS, 100, replace=False)]
+            query = list(g.choice(own, 3, replace=False)) + [
+                pool[j] for j in g.choice(self.TRAIN_WORDS, 9,
+                                          replace=False)]
+            docs.append(" ".join(g.permutation(doc)))
+            queries.append(" ".join(g.permutation(query)))
+        return queries, docs
+
+    def first_step_vs_cpu(self, queries, docs):
+        """One AdamW step from the same float32 weights on TRAIN_CPU_ROWS
+        pairs, on the card and on the CPU."""
+        p = self.p
+        cfg = dataclasses.replace(p.EncoderConfig(**self.TRAIN),
+                                  dtype=torch.float32)
+        tok = p.HashingTokenizer(vocab_size=cfg.vocab_size)
+        rows = self.TRAIN_CPU_ROWS
+        q = torch.as_tensor(tok.encode_batch(queries[:rows]))
+        d = torch.as_tensor(tok.encode_batch(docs[:rows]))
+        out = {}
+        for dev in (self.dev, "cpu"):
+            enc = p.init_encoder(cfg, seed=23, device="cpu").to(dev)
+            step, _ = p.make_train_step(enc)
+            loss = float(step(q.to(dev), d.to(dev)))
+            out[str(dev)] = (loss, self.cpu_state(enc))
+        (loss, card), (want_loss, cpu) = out[str(self.dev)], out["cpu"]
+        err = torch.cat([(card[k] - cpu[k]).abs().flatten() for k in cpu])
+        past = float((err > self.PARAM_ATOL).float().mean())
+        lr = 1e-3
+        if abs(loss - want_loss) > self.TRAIN_LOSS_RTOL * abs(want_loss) \
+                or past > self.PARAM_SHARE or float(err.max()) > 2.1 * lr:
+            raise AssertionError(
+                f"first step on the card against the CPU: loss {loss} / "
+                f"{want_loss}, {past} of the parameters past "
+                f"{self.PARAM_ATOL}, max {float(err.max())}")
+        return {"rows": rows, "loss": loss, "cpu_loss": want_loss,
+                "param_max_abs_err": float(err.max()),
+                "param_share_past_atol": past}
+
+    def phase23b_trainer(self, ckpt) -> None:
+        """train_encoder at EncoderConfig's defaults, a checkpoint every
+        TRAIN_EVERY steps, then one more epoch resumed from the last."""
+        p = self.p
+        cfg = p.EncoderConfig(**self.TRAIN)
+        queries, docs = self.train_pairs(2302)
+        first = self.first_step_vs_cpu(queries, docs)
+        kw = dict(cfg=cfg, batch_size=self.TRAIN_BATCH, seed=23,
+                  eval_every=self.TRAIN_EVERY, device=self.dev)
+        before = p.train_encoder(queries, docs, epochs=0, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = p.train_encoder(queries, docs, epochs=self.TRAIN_EPOCHS,
+                            checkpoint_dir=ckpt,
+                            checkpoint_every=self.TRAIN_EVERY, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # Training's own peak: what was allocated before it (the resident
+        # 2M index among it) is left out.
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        steps = self.TRAIN_PAIRS // self.TRAIN_BATCH * self.TRAIN_EPOCHS
+        saved = sorted(int(x) for x in os.listdir(ckpt))
+        r0, r1 = before.eval_recall[-1][1], r.eval_recall[-1][1]
+        if r.steps != steps or saved != list(range(
+                self.TRAIN_EVERY, steps + 1, self.TRAIN_EVERY)):
+            raise AssertionError(f"{r.steps} steps, checkpoints {saved}")
+        if not r.losses[-1] < r.losses[0] or not r1 > r0:
+            raise AssertionError(f"training: loss {r.losses[0]} -> "
+                                 f"{r.losses[-1]}, recall@1 {r0} -> {r1}")
+        resumed = p.train_encoder(queries, docs, epochs=1,
+                                  checkpoint_dir=ckpt,
+                                  checkpoint_every=10 ** 9, **kw)
+        more = self.TRAIN_PAIRS // self.TRAIN_BATCH
+        if resumed.steps != steps + more or \
+                p.latest_step(ckpt) != steps + more:
+            raise AssertionError(f"resume counted {resumed.steps} steps")
+        tokens = 2 * steps * self.TRAIN_BATCH * p.HashingTokenizer().max_len
+        log(training="B_trainer", widths={k: v for k, v in
+                                          dataclasses.asdict(cfg).items()
+                                          if k != "dtype"},
+            dtype=str(cfg.dtype), pairs=self.TRAIN_PAIRS,
+            batch=[self.TRAIN_BATCH, p.HashingTokenizer().max_len],
+            steps=r.steps, loss_first=r.losses[0], loss_last=r.losses[-1],
+            recall1_before=r0, recall1=r.eval_recall,
+            resumed_steps=resumed.steps, resumed_loss=resumed.losses,
+            checkpoints=saved + [resumed.steps], step_ms=seconds / steps * 1e3,
+            tokens_per_s=tokens / seconds, peak_gib=peak,
+            resident_gib=resident / 2**30,
+            first_step_vs_cpu=first, card=self.card,
+            method="host clock around train_encoder (its tokenizing, "
+            "evals and checkpoints included) ending in a synchronize; "
+            "tokens: queries and documents, padding included")
+
+    def phase23c_served_ckpt(self, index, tokens, ckpt) -> None:
+        """serve_cli --embedder hashing --embedder-ckpt over stage A's
+        index: text replies equal to a direct embed + retrieve_device."""
+        p = self.p
+        import urllib.request
+        emb = p.hashing_embedder(index, MODEL, ckpt)
+        _, params, _ = p.restore_checkpoint(ckpt)
+        for k, v in params.items():
+            if not torch.equal(emb.model.state_dict()[k].cpu(), v):
+                raise AssertionError(f"served encoder's {k} is not the "
+                                     "checkpoint's")
+        w = {MODEL: 5.0, "BM25": 1.0}
+        state = p.build_state(index, (MODEL,), use_bm25=True,
+                              similarity_k=32, common_sections_n=15,
+                              budget=1024, embedder=emb)
+        texts = [" ".join(t) for t in tokens[:self.RAG_QUERIES]]
+        want = []
+        for text in texts:
+            q_vec = emb.embed_queries([text])
+            terms = index.pad_term_ids(
+                [p.preprocess_text(text, use_lemmatization=True)],
+                state.t_max)
+            rows = state.retriever.retrieve_device(
+                {MODEL: q_vec}, terms, w, None, 40.0)[0][0].tolist()
+            want.append([index.meta.ids[j] for j in rows if j >= 0])
+        server = p.serve_state(state, w, port=0, background=True)
+
+        def search():
+            out = []
+            for text in texts:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{server.server_address[1]}"
+                    "/v1/search", data=json.dumps({"query": text}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    out.append([x["id"] for x in
+                                json.loads(resp.read())["results"]])
+            return out
+
+        try:
+            got, counts = self.main_path(search)
+        finally:
+            server.shutdown()
+        if got != want or not all(got):
+            raise AssertionError("served checkpoint: replies differ from a "
+                                 "direct embed + retrieve_device")
+        self.expect("served checkpoint", counts, at_least=True,
+                    fused_dense_top_k=1)
+        log(training="C_served_ckpt", n=index.n_docs, texts=len(texts),
+            step=p.latest_step(ckpt), ids_equal_direct=True,
+            k1_launches=counts["fused_dense_top_k"], card=self.card)
+        del state, emb
+
+    def phase23d_pair_trainers(self) -> None:
+        """The reranker and the NLI scorer trained at their defaults."""
+        p = self.p
+        c = p.add_hard_distractors(
+            p.calibrated_quality_corpus(**self.RERANK_CORPUS),
+            **self.SWEEP_DISTRACTORS)
+        index = p.build_index(ids=c.ids, sources=c.sources,
+                              contents=c.contents, embeddings=c.embeddings,
+                              token_lists=c.tokens, device=self.dev)
+        n = self.RERANK_QUERIES
+        gold, toks, q_emb, texts = p.calibrated_sample_queries(
+            c, n, vocab_size=self.RERANK_CORPUS["vocab_size"], seed=99)
+        got = p.SearchEngine(index, reranker=p.IdentityReranker()).retrieve(
+            query_embeddings={MODEL: q_emb[MODEL]}, query_texts=texts,
+            query_token_lists=toks, similarity_k=25, common_sections_n=15,
+            wrrf_k=40.0, model_weights={MODEL: 5.0, "BM25": 1.0},
+            use_hybrid_search=True)
+        row_of = index.meta.id_to_row
+        ranked = np.full((n, 15), -1, np.int64)
+        for i, ids in enumerate(got):
+            for j, d in enumerate(ids[:15]):
+                ranked[i, j] = row_of.get(d, -1)
+        qs, cands = p.mine_candidates(texts, list(gold), ranked, c.contents,
+                                      n_negatives=5, seed=0)
+        t0 = time.perf_counter()
+        rr = p.train_cross_encoder_reranker(
+            qs, cands, epochs=self.RERANK_EPOCHS, batch_size=32, seed=0,
+            device=self.dev)
+        rr_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nli = p.nli_scorer_for_corpus(NLI_DOCS, n_pairs=self.NLI_PAIRS,
+                                      seed=0, epochs=self.NLI_EPOCHS,
+                                      batch_size=32, device=self.dev)
+        nli_s = time.perf_counter() - t0
+        for name, r in (("reranker", rr), ("nli", nli)):
+            if not r.losses[-1] < r.losses[0]:
+                raise AssertionError(f"{name}: loss {r.losses[0]} -> "
+                                     f"{r.losses[-1]}")
+        if rr.holdout_accuracy < self.RERANK_FLOOR or \
+                not nli.holdout_auc > self.NLI_AUC_FLOOR:
+            raise AssertionError(f"holdout: reranker accuracy "
+                                 f"{rr.holdout_accuracy}, NLI AUC "
+                                 f"{nli.holdout_auc}")
+        log(training="D_pair_trainers", docs=len(c.ids), queries=n,
+            candidates=len(cands[0]),
+            reranker={"steps": len(rr.losses), "loss_first": rr.losses[0],
+                      "loss_last": rr.losses[-1], "seconds": rr_s,
+                      "holdout_accuracy": rr.holdout_accuracy,
+                      "holdout_floor": self.RERANK_FLOOR},
+            nli={"pairs": self.NLI_PAIRS, "steps": len(nli.losses),
+                 "loss_first": nli.losses[0], "loss_last": nli.losses[-1],
+                 "seconds": nli_s, "holdout_auc": nli.holdout_auc,
+                 "holdout_floor": self.NLI_AUC_FLOOR}, card=self.card)
+        del index
+
+    def parallel_batch(self, vocab, seed):
+        g = np.random.default_rng(seed)
+        t = g.integers(1, vocab, (self.PAR_BATCH,
+                                  self.p.HashingTokenizer().max_len))
+        t[1::2, 96:] = 0  # padded rows
+        return torch.as_tensor(t, device=self.dev)
+
+    def one_slot_step(self, model, q, d, aux=False):
+        """One AdamW step of the plain model (the aux loss weighted as
+        make_moe_train_step weighs it): its loss, gradients and weights."""
+        p = self.p
+        opt = p.adamw(model.parameters())
+        opt.zero_grad(set_to_none=True)
+        qe, de = model(q), model(d)
+        if aux:
+            loss = p.contrastive_loss(qe[0], de[0])
+            total = loss + 0.01 * (qe[1] + de[1])
+        else:
+            loss = total = p.contrastive_loss(qe, de)
+        total.backward()
+        opt.step()
+        named = dict(model.named_parameters())
+        return (float(loss.detach()),
+                {k: v.grad.detach().clone() for k, v in named.items()},
+                {k: v.detach().clone() for k, v in named.items()})
+
+    @staticmethod
+    def gathered(name, params, attr):
+        """A SlotParams' whole tensors (``attr`` "data" or "grad") from the
+        first copy of each piece; every other copy must equal it."""
+        out = {}
+        for k, split in params.split.items():
+            pieces = {}
+            for idx in params.index:
+                t = getattr(params.params[idx][k], attr).detach()
+                j = 0 if split is None else idx[params.axes.index(split[0])]
+                if j not in pieces:
+                    pieces[j] = t
+                elif not torch.equal(pieces[j], t.to(pieces[j].device)):
+                    raise AssertionError(f"{name}: the copies of {k}'s "
+                                         f"piece {j} differ ({attr})")
+            first = pieces[0]
+            out[k] = first if split is None else torch.cat(
+                [pieces[j].to(first.device) for j in sorted(pieces)],
+                split[1])
+        return out
+
+    def phase23e_parallel_steps(self) -> None:
+        """The parallel train steps over 8 slots of the card, each against
+        one step of the plain model from the same weights."""
+        p = self.p
+        cfg = p.EncoderConfig(**self.TRAIN)
+        enc = p.init_encoder(cfg, seed=5, device=self.dev)
+        sd = {k: v.clone() for k, v in enc.state_dict().items()}
+        q, d = (self.parallel_batch(cfg.vocab_size, s) for s in (1, 2))
+        one = self.one_slot_step(enc, q, d)  # sd keeps the weights before
+        slots8, lr, out = [self.dev] * 8, 1e-3, {}
+
+        def check(name, kind, step, params, want, as_flat=lambda x: x):
+            first = float(step(q, d))
+            want_loss, want_grads, want_weights = want
+            raw = self.gathered(name, params, "data")
+            grads = as_flat(self.gathered(name, params, "grad"))
+            weights = as_flat(raw)
+            if sorted(grads) != sorted(want_grads):
+                raise AssertionError(f"{name}: parameters {sorted(grads)}")
+            grad_err = max(float((grads[k] - g).norm() / g.norm().clamp(
+                min=1e-30)) for k, g in want_grads.items())
+            err = torch.cat([(weights[k] - w).abs().flatten()
+                             for k, w in want_weights.items()])
+            past = float((err > self.PARAM_ATOL).float().mean())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [first] + [float(step(q, d))
+                                for _ in range(self.PAR_STEPS - 1)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / (self.PAR_STEPS - 1) * 1e3
+            loss_err = abs(first - want_loss) / abs(want_loss)
+            if loss_err > self.PAR_LOSS_RTOL[kind] or \
+                    grad_err > self.PAR_GRAD_RTOL[kind] or \
+                    past > self.PAR_PARAM_SHARE[kind] or \
+                    float(err.max()) > 2.1 * lr or \
+                    not losses[-1] < losses[0]:
+                raise AssertionError(
+                    f"{name}: losses {losses}, one slot {want_loss}; "
+                    f"gradient relative error {grad_err}; {past} of the "
+                    f"weights past {self.PARAM_ATOL}, max "
+                    f"{float(err.max())}")
+            for idx in params.index:
+                for k, t in params.params[idx].items():
+                    shape = list(raw[k].shape)
+                    if params.split[k] is not None:
+                        ax, dim = params.split[k]
+                        shape[dim] //= params.grid.shape[
+                            params.axes.index(ax)]
+                    if list(t.shape) != shape:
+                        raise AssertionError(f"{name}: slot {idx} holds {k} "
+                                             f"{list(t.shape)}, not {shape}")
+            out[name] = {"kind": kind, "losses": losses,
+                         "one_slot_loss": want_loss,
+                         "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                         "param_share_past_atol": past,
+                         "param_max_abs_err": float(err.max()),
+                         "step_ms": ms}
+
+        for name, shape, axes, sp in (("dp4_tp2", (4, 2), ("dp", "tp"), None),
+                                      ("dp2_tp2_sp2", (2, 2, 2),
+                                       ("dp", "tp", "sp"), "sp")):
+            mesh = p.make_mesh(shape, axes, devices=slots8)
+            step, params, _, layout = p.make_sharded_train_step(
+                enc, sd, mesh, sp_axis=sp)
+            if layout != ("dp", sp):
+                raise AssertionError(f"{name}: batch layout {layout}")
+            check(name, "tp", step, params, one)
+            del step, params
+        for n_micro in (2, 3):
+            mesh = p.make_mesh((2, 4), ("dp", "pp"), devices=slots8)
+            step, pipe, _, _ = p.make_pipeline_train_step(
+                cfg, sd, mesh, n_micro=n_micro)
+            check(f"dp2_pp4_micro{n_micro}", "pp", step, pipe, one,
+                  lambda flat: p.merge_pipeline_params(
+                      *p.pipeline_parts(flat)))
+            del step, pipe
+        moe = p.init_moe_encoder(p.MoEEncoderConfig(), seed=6,
+                                 device=self.dev)
+        msd = {k: v.clone() for k, v in moe.state_dict().items()}
+        mone = self.one_slot_step(moe, q, d, aux=True)
+        mesh = p.make_mesh((2, 4), ("dp", "ep"), devices=slots8)
+        step, params, _, _ = p.make_moe_train_step(moe, msd, mesh)
+        check("dp2_ep4_moe", "ep", step, params, mone)
+        log(training="E_parallel_steps", slots=8, widths={
+            k: v for k, v in dataclasses.asdict(cfg).items()
+            if k != "dtype"}, dtype=str(cfg.dtype),
+            batch=list(q.shape), steps=self.PAR_STEPS,
+            loss_rtol=self.PAR_LOSS_RTOL, grad_rtol=self.PAR_GRAD_RTOL,
+            param_share=self.PAR_PARAM_SHARE, param_atol=self.PARAM_ATOL,
+            meshes=out, card=self.card,
+            method="first step against one step of the plain model from "
+            "the same weights (every copy of a piece equal); step_ms: host "
+            "clock over the steps after the first, ending in a "
+            "synchronize; all 8 slots on the one card")
+
+    def train_summary(self) -> None:
+        log(phase="training", parts=self.train_parts,
+            seconds=sum(v["seconds"] for v in self.train_parts.values()),
+            k1_launches=self.train_parts["C"]["k1_launches"],
+            card=self.card)
+
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -3990,10 +4571,18 @@ class Smoke:
         self.models_summary()
         sd, cfg32 = self.gen_part("A", self.phase22a_parity)
         self.gen_part("B", self.phase22b_cut, sd, cfg32)
-        del sd
         self.gen_part("C", self.phase22c_gen)
         self.gen_part("D", self.phase22d_served, ref_index, tokens)
         self.gen_summary()
+        self.train_part("A", self.phase23a_tp_decode, sd, cfg32)
+        del sd
+        with tempfile.TemporaryDirectory() as ckpt:
+            self.train_part("B", self.phase23b_trainer, ckpt)
+            self.train_part("C", self.phase23c_served_ckpt, ref_index,
+                            tokens, ckpt)
+        self.train_part("D", self.phase23d_pair_trainers)
+        self.train_part("E", self.phase23e_parallel_steps)
+        self.train_summary()
         del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
@@ -4152,7 +4741,32 @@ class _Port:
         from a_nice_rag_tpu_torch.serving.genserver import GenerationServer
         from a_nice_rag_tpu_torch.serving.serve_cli import (
             build_local_llm_api,
+            hashing_embedder,
         )
+        from a_nice_rag_tpu_torch.models import (
+            MoEEncoderConfig,
+            contrastive_loss,
+            init_encoder,
+            init_moe_encoder,
+            make_moe_train_step,
+            make_pipeline_train_step,
+            make_sharded_train_step,
+            make_train_step,
+            merge_pipeline_params,
+            mine_candidates,
+            nli_scorer_for_corpus,
+            train_cross_encoder_reranker,
+        )
+        from a_nice_rag_tpu_torch.models.pipeline import pipeline_parts
+        from a_nice_rag_tpu_torch.models.train import adamw
+        from a_nice_rag_tpu_torch.models.checkpoint import (
+            latest_step,
+            restore_checkpoint,
+        )
+        from a_nice_rag_tpu_torch.models.trainer import train_encoder
+        from a_nice_rag_tpu_torch.parallel.lm import shard_lm_params
+        from a_nice_rag_tpu_torch.retrieval.rerank import IdentityReranker
+        from a_nice_rag_tpu_torch.testing import calibrated_sample_queries
         from a_nice_rag_tpu_torch.retrieval.embed import PrecomputedEmbedder
         from a_nice_rag_tpu_torch.testing import synth_corpus
         from a_nice_rag_tpu_torch.serving import (
@@ -4170,6 +4784,26 @@ class _Port:
             serve_state,
         )
 
+        self.hashing_embedder, self.shard_lm_params = (hashing_embedder,
+                                                       shard_lm_params)
+        self.MoEEncoderConfig, self.init_moe_encoder = (MoEEncoderConfig,
+                                                        init_moe_encoder)
+        self.make_moe_train_step = make_moe_train_step
+        self.make_pipeline_train_step = make_pipeline_train_step
+        self.merge_pipeline_params, self.pipeline_parts = (
+            merge_pipeline_params, pipeline_parts)
+        self.adamw = adamw
+        self.make_sharded_train_step = make_sharded_train_step
+        self.make_train_step, self.contrastive_loss = (make_train_step,
+                                                       contrastive_loss)
+        self.init_encoder, self.train_encoder = init_encoder, train_encoder
+        self.mine_candidates = mine_candidates
+        self.train_cross_encoder_reranker = train_cross_encoder_reranker
+        self.nli_scorer_for_corpus = nli_scorer_for_corpus
+        self.latest_step, self.restore_checkpoint = (latest_step,
+                                                     restore_checkpoint)
+        self.IdentityReranker = IdentityReranker
+        self.calibrated_sample_queries = calibrated_sample_queries
         self.compile_constraint, self.json_dfa = compile_constraint, json_dfa
         self.load_decoder_state, self.lm_logits = (load_decoder_state,
                                                    lm_logits)

@@ -28,6 +28,7 @@ from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
 from a_nice_rag_tpu_torch.ops.kernels import keys as ks
 from a_nice_rag_tpu_torch.ops.kernels import stream as st
 from a_nice_rag_tpu_torch.ops.kernels import topk_plan
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.probes import bf16_fold
 
 WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
@@ -88,6 +89,24 @@ class TinySmoke(chip_smoke.Smoke):
                stream_chunk=8, slots=8, chunk=4, requests=8,
                ttft_requests=2, ticks=2, floor=0.0)
     GEN_PROMPT_LEN, GEN_EOS = 16, 300
+    # Phase 23: tp 2 (the tiny decoder's 2 kv heads); the served encoder's
+    # layers at stage A's tiny width, trained on 64 pairs over a pool of
+    # 150 words, 8 rows a batch, 16 steps; the pair trainers on a small
+    # calibrated corpus with no holdout floor (the floors are the card's
+    # sizes'); 12 rows a parallel batch. The encoder computes in float32
+    # here: the CPU's bf16 matrix products round row blocks of another
+    # height (a pipeline microbatch's) differently, which the card's
+    # float32-accumulating ones do not, so float32 holds the parallel
+    # steps to the card's tolerances.
+    TP_DEGREES, TP_NEW = (2,), 8
+    TRAIN = dict(out_dim=32, dtype=torch.float32)
+    TRAIN_PAIRS, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_EVERY = 64, 8, 2, 4
+    TRAIN_WORDS, TRAIN_CPU_ROWS = 150, 4
+    RERANK_CORPUS = dict(n_docs=128, dim=16, n_queries=32, vocab_size=500,
+                         seed=42)
+    RERANK_QUERIES, RERANK_EPOCHS, RERANK_FLOOR = 96, 4, 0.0
+    NLI_PAIRS, NLI_EPOCHS, NLI_AUC_FLOOR = 96, 3, 0.0
+    PAR_BATCH = 12
 
 
 def _sweep_csv(path):
@@ -145,7 +164,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
 
         def counted(*args, _wrapper=wrapper, _plain=plain, **kwargs):
-            _wrapper.launches += 1
+            count_launch(_wrapper)
             return _plain(*args, **kwargs)
 
         monkeypatch.setattr(mod, name + "_torch", counted)
@@ -211,8 +230,14 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     models = {r["inference"]: r for r in records if "inference" in r}
     k1_models = summary21["k1_launches"]
     assert k1_models == 1 + models["B_served_text"]["k1_launches"]
+    # Phase 23's: (c) the served checkpoint's text requests (a batch a
+    # launch).
+    summary23 = [r for r in records if r.get("phase") == "training"][0]
+    assert summary23["k1_launches"] == summary23["parts"]["C"][
+        "k1_launches"] >= 1
     assert [k["launches"] for k in kernels][:4] == [
-        52 + k1_served + k1_models, 10, 325 + 64, 288]
+        52 + k1_served + k1_models + summary23["k1_launches"], 10,
+        325 + 64, 288]
     assert all(k["launches"] >= 1 for k in kernels[4:])
     no_library = {"stream_sum_busy", "fused_top_k_counted",
                   "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
@@ -517,6 +542,45 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert d["sse_tokens"] == 48 and d["sse_tokens_per_s"] > 0
     summary22 = [r for r in records if r.get("phase") == "generation"][0]
     assert list(summary22["parts"]) == ["A", "B", "C", "D"]
+    # Phase 23: tensor-parallel generation and training.
+    train = {r["training"]: r for r in records if "training" in r}
+    assert list(train) == ["A_tp_decode", "B_trainer", "C_served_ckpt",
+                           "D_pair_trainers", "E_parallel_steps"]
+    a = train["A_tp_decode"]
+    assert a["tp"] == [2] and a["cos"]["2"]["min"] >= 0.99
+    assert a["streams_equal_one_slot"] == ["chunked_prefix", "speculative",
+                                           "staggered_wave"]
+    assert set(a["tok_s"]) == {"1", "2"} and a["tok_s_tp2_over_tp1"] > 0
+    b = train["B_trainer"]
+    assert b["steps"] == 16 and b["checkpoints"] == [4, 8, 12, 16, 24]
+    assert b["resumed_steps"] == 24 and len(b["resumed_loss"]) == 8
+    assert b["loss_last"] < b["loss_first"]
+    assert b["recall1"][-1][1] > b["recall1_before"]
+    first = b["first_step_vs_cpu"]
+    assert first["rows"] == 4 and first["param_share_past_atol"] <= 1e-3
+    assert first["loss"] == pytest.approx(first["cpu_loss"], rel=1e-4)
+    assert b["step_ms"] > 0 and b["tokens_per_s"] > 0
+    c = train["C_served_ckpt"]
+    assert c["ids_equal_direct"] and c["step"] == 24
+    assert c["k1_launches"] == summary23["k1_launches"]
+    d = train["D_pair_trainers"]
+    for name in ("reranker", "nli"):
+        assert d[name]["loss_last"] < d[name]["loss_first"]
+    assert d["candidates"] == 6 and d["reranker"]["holdout_accuracy"] > 0
+    e = train["E_parallel_steps"]
+    assert list(e["meshes"]) == ["dp4_tp2", "dp2_tp2_sp2", "dp2_pp4_micro2",
+                                 "dp2_pp4_micro3", "dp2_ep4_moe"]
+    assert [m["kind"] for m in e["meshes"].values()] == [
+        "tp", "tp", "pp", "pp", "ep"]
+    for m in e["meshes"].values():
+        kind = m["kind"]
+        assert len(m["losses"]) == 4 and m["losses"][-1] < m["losses"][0]
+        assert m["losses"][0] == pytest.approx(m["one_slot_loss"],
+                                               rel=e["loss_rtol"][kind])
+        assert m["grad_rel_err"] <= e["grad_rtol"][kind]
+        assert m["param_share_past_atol"] <= e["param_share"][kind]
+        assert m["param_max_abs_err"] <= 2.1e-3
+    assert list(summary23["parts"]) == ["A", "B", "C", "D", "E"]
 
 
 def test_smoke_needs_the_card(monkeypatch, capsys):

@@ -10,7 +10,7 @@ same weights (2 layers, hidden 128, the byte vocabulary, float32; params
 carried across with ``decoder_state_dict``) token for token. Sampled
 streams use the port's own generator, so they are held to their own
 reproducibility and validity; log-probabilities within 1e-4 of a direct
-forward. Tensor parallelism (``mesh=``) raises, naming its ROADMAP item.
+forward. Tensor parallelism (``mesh=``) is in test_torch_lm_tp.py.
 """
 
 import functools
@@ -1021,7 +1021,11 @@ def test_wave_prefill_equals_per_slot_prefill_with_bucket_rows():
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    """Tensor parallelism is not ported: mesh= raises rather than serving
-    on one device."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        GenerationServer(_setup(), mesh=object())
+    """mesh= serves tensor-parallel over the mesh's tp axis
+    (tests/test_torch_lm_tp.py); a mesh without one raises rather than
+    serving on one slot."""
+    from a_nice_rag_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="no axis 'tp'"):
+        GenerationServer(_setup(), mesh=make_mesh((2,), ("dp",),
+                                                  devices=["cpu"] * 2))

@@ -27,13 +27,18 @@ from a_nice_rag_tpu.models.reranker import CrossEncoderReranker as JaxCE
 from a_nice_rag_tpu_torch.models import (
     EncoderConfig,
     HashingTokenizer,
+    MoEEncoderConfig,
     OnDeviceEmbedder,
     OnDeviceReranker,
     init_encoder,
+    init_moe_encoder,
     init_reranker,
     load_hf_encoder,
+    train_cross_encoder_reranker,
+    train_nli_scorer,
 )
 from a_nice_rag_tpu_torch.models import qwen3 as port_qwen3
+from a_nice_rag_tpu_torch.models.trainer import train_encoder
 from a_nice_rag_tpu_torch.models.convert import (
     encoder_state_from_flax,
     reranker_state_from_flax,
@@ -287,6 +292,10 @@ def test_convert_fills_every_parameter():
     lambda: OnDeviceEmbedder(),
     lambda: OnDeviceReranker(),
     lambda: init_encoder(EncoderConfig()),
+    lambda: init_moe_encoder(MoEEncoderConfig()),
+    lambda: train_encoder(["q"], ["d"], batch_size=1),
+    lambda: train_cross_encoder_reranker(["q"], [["a", "b"]]),
+    lambda: train_nli_scorer(["p"], ["h"], np.ones(1)),
 ])
 def test_entry_points_default_to_the_card(make, monkeypatch):
     """No device argument means the card; without one they raise rather

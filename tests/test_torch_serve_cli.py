@@ -5,8 +5,9 @@ Mirrors tests/test_serve_cli.py's serving cases on the CPU: single
 device, sharded over 4 "cpu" slots with a health swap (the retriever and
 its pool replaced live), an int8 index, the IVF route on both paths and
 the sharded IVF cache, and the batched base64 RPC in f32 and bf16. The
-flags of modules the port does not have yet exit naming their ROADMAP
-item. The local-LLM surface (``--llm local``, ``build_local_llm_api``):
+packed fold's flag exits as unported; ``--embedder-ckpt`` serves a
+trained checkpoint and ``--lm-tp`` the LM tensor-parallel. The local-LLM
+surface (``--llm local``, ``build_local_llm_api``):
 /v1/search, /v1/generate, /v1/rag, the UI and /v1/stats on one port, the
 draft checkpoint, JSON mode on the byte and on a checkpoint's tokenizer,
 and every generation flag reaching the server; the demo LM's greedy
@@ -24,6 +25,7 @@ import urllib.request
 import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 from a_nice_rag_tpu.index import build_index as jax_build_index
 from a_nice_rag_tpu.serving.serve_cli import build_state as jax_build_state
@@ -271,17 +273,116 @@ def test_serve_cli_batched_b64_search_bf16(corpus_index):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--embedder", "hashing", "--embedder-ckpt", "ckpt"], "item 9"),
-    (["--embedder-ckpt", "ckpt"], "item 9"),
-    (["--lm-tp", "2"], "item 8 (tensor-parallel"),
-    (["--llm", "local", "--lm-tp", "1"], "item 8 (tensor-parallel"),
-    (["--pallas-rounded"], "packed bf16-key fold"),
-    (["--pallas-rounded=1"], "packed bf16-key fold"),
+    pytest.param(["--pallas-rounded"], "packed bf16-key fold",
+                 id="argv4-packed bf16-key fold"),
+    pytest.param(["--pallas-rounded=1"], "packed bf16-key fold",
+                 id="argv5-packed bf16-key fold"),
 ])
 def test_unported_flags_exit_with_their_item(argv, item):
+    """The packed fold's flag is the one of the JAX CLI left unported."""
     with pytest.raises(SystemExit) as e:
         main(["--demo", "--device", "cpu"] + argv)
     assert item in str(e.value) and "not ported" in str(e.value)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--lm-tp", "2"], "--lm-tp needs --llm local"),
+    (["--embedder-ckpt", "ckpt"], "--embedder-ckpt needs --embedder"),
+])
+def test_tp_and_checkpoint_flags_need_their_surface(argv, message):
+    with pytest.raises(SystemExit, match=message):
+        main(["--demo", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_main_lm_tp_serves_tensor_parallel(monkeypatch, tp):
+    """--llm local --lm-tp N serves the local LM over N slots (of the CPU
+    here; the first N cards on the card) with the one-slot greedy
+    stream."""
+    from a_nice_rag_tpu_torch.models.decoder import generate_stream
+    from a_nice_rag_tpu_torch.serving import serve_cli
+
+    served = []
+    monkeypatch.setattr(serve_cli, "serve_state",
+                        lambda state, w, **kw: served.append(kw["api"]))
+    main(["--demo", "--device", "cpu", "--llm", "local", "--gen-slots",
+          "2", "--lm-tp", str(tp)])
+    (api,) = served
+    gen = api.gen_server
+    try:
+        assert gen.stats()["tensor_parallel"] == tp
+        assert len(gen._kc) == gen.model.cfg.num_layers * tp
+        prompt = list(b"NICE guidance on asthma")
+        want = list(generate_stream(api.rag_system.llm_clients[
+            "local"].model, prompt, max_new_tokens=12))
+        assert gen.complete(prompt, 12)["tokens"] == want
+    finally:
+        gen.stop()
+
+
+def test_lm_tp_beyond_the_cards_exits(monkeypatch):
+    """--lm-tp N on the card takes the first N cards and exits with the
+    JAX CLI's message when there are fewer."""
+    from a_nice_rag_tpu_torch.serving.serve_cli import build_local_llm_api
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+
+    class OnCard:
+        device = torch.device("cuda", 0)
+
+    with pytest.raises(SystemExit, match=r"--lm-tp 4 > available devices "
+                                         r"\(2\)"):
+        build_local_llm_api(OnCard(), None, None, (MODEL,), lm_tp=4)
+
+
+def _encoder_ckpt(tmp_path, out_dim, seed=5):
+    from a_nice_rag_tpu_torch.models import EncoderConfig, init_encoder
+    from a_nice_rag_tpu_torch.models.checkpoint import save_checkpoint
+
+    enc = init_encoder(EncoderConfig(out_dim=out_dim), seed=seed,
+                       device="cpu")
+    path = str(tmp_path / "enc")
+    save_checkpoint(path, 3, enc.state_dict(), {"state": {}})
+    return path, enc
+
+
+def test_main_embedder_ckpt_serves_the_checkpoint(monkeypatch, tmp_path):
+    """--embedder hashing --embedder-ckpt DIR restores the latest step's
+    params (the tuple's middle) into the served encoder: a text
+    /v1/search returns the ids of the checkpoint's own vector through a
+    direct retrieve_device."""
+    from a_nice_rag_tpu_torch.models import HashingTokenizer
+    from a_nice_rag_tpu_torch.serving import serve_cli
+
+    path, enc = _encoder_ckpt(tmp_path, 128)
+    served = []
+    monkeypatch.setattr(serve_cli, "serve_state",
+                        lambda state, w, **kw: served.append((state, w)))
+    main(["--demo", "--device", "cpu", "--embedder", "hashing",
+          "--embedder-ckpt", path])
+    (state, w), = served
+    for k, v in enc.state_dict().items():
+        assert torch.equal(state.embedder.model.state_dict()[k], v), k
+    text = "hypertension in adults"
+    ids = HashingTokenizer(vocab_size=32768).encode_batch([text])
+    with torch.no_grad():
+        want_vec = enc(torch.as_tensor(ids)).numpy()[0]
+    q_vec, terms = state.encode_text_query(text)
+    np.testing.assert_allclose(q_vec, want_vec, rtol=1e-6, atol=1e-6)
+    model = state.retriever.model_names[0]
+    with _Served(state, lambda st, _, **kw: serve_state(st, w, **kw)) as s:
+        got = [r["id"] for r in _search(s.port, {"query": text})["results"]]
+    rows = state.retriever.retrieve_device(
+        {model: want_vec[None]}, terms[None], w, None, 40.0)[0]
+    assert got == [state.index.meta.ids[r] for r in rows[0].tolist()
+                   if r >= 0] and got
+
+
+def test_main_embedder_ckpt_of_another_width_raises(tmp_path):
+    path, _ = _encoder_ckpt(tmp_path, 64)
+    with pytest.raises(ValueError, match="shape"):
+        main(["--demo", "--device", "cpu", "--embedder", "hashing",
+              "--embedder-ckpt", path])
 
 
 def _llm_state(corpus_index):

@@ -442,3 +442,35 @@ def test_retrieve_device_is_thread_safe(pair):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors[:3]
     assert idx._version > 0
+
+
+def test_launch_counts_survive_concurrent_calls():
+    """The served fronts call the kernels from several dispatch threads:
+    ``count_launch`` from more threads than cores, with the interpreter's
+    switch interval shortened, loses no launch."""
+    import sys
+    import threading
+
+    from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
+
+    def kernel():
+        pass
+
+    kernel.launches = 0
+
+    def bump():
+        for _ in range(2000):
+            count_launch(kernel)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=bump) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    assert kernel.launches == 16 * 2000
