@@ -232,6 +232,11 @@ class NativeRetrievalFront:
                     lib.anr_serve_reply_error(self._h, tok, msg)
                 continue
             n_out = rows.shape[1]
+            # Counted before the replies go out, so a client holding its
+            # reply finds its batch in the counters.
+            with self._count_mu:
+                self.batches_run += 1
+                self.rows_served += sum(counts)
             off = 0
             for tok, c in zip(toks, counts):
                 r = np.ascontiguousarray(rows[off:off + c], np.int32)
@@ -242,9 +247,6 @@ class NativeRetrievalFront:
                     s.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
                 )
                 off += c
-            with self._count_mu:
-                self.batches_run += 1
-                self.rows_served += off
 
     def _queries(self, emb_buf: np.ndarray, rows: int,
                  b_pad: int) -> torch.Tensor:

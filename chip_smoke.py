@@ -207,6 +207,26 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      within 1e-2 of the one-slot step's (bf16), the loss falling over 4
      steps, each slot holding only its shards; then the ``training``
      line;
+ 24. the evaluation layer (evals/ragas, run_ragas_eval, question_gen; no
+     kernel on it: each part launches none): (a) the guided local judge
+     (LocalGuidedJudgeLLM, schema DFAs) over the small_lm_config decoder
+     (float32, seeded) under a greedy GenerationServer on the card and
+     on the CPU: evaluate(Faithfulness, ResponseRelevancy) over 4 seeded
+     rows, every verdict, constraint name and score equal; (b) the judge
+     at phase 22's widths (bf16, random weights) on a 16-slot server
+     (prompts prefilled whole, one at a time) over stage A's index (each document given ~550
+     bytes of text): generate_questions over 8 chunks and
+     collect_rag_answers through LocalTpuLLMClient on that server (the
+     text under plain-sentence constraints: the random vocabulary's ids
+     past the bytes decode to nothing), score_rows with the guided judge
+     (its budget the schemas' longest sentence, so every verdict stops
+     and validates; no repair call) and EmbedderJudgeEmbeddings over the
+     hashing embedder, write_results_csv; seconds, judge calls, tokens,
+     tok/s, prompt tokens, peak memory; (c) FaithfulnesswithHHEM with an
+     NLI scorer trained on the card over tests/test_judge_discrimination.
+     py's corpus, its grounded and corrupted extractive responders over
+     64 questions through RAGSystem: grounded >= 0.8, corrupted <= 0.3;
+     then the ``evaluation`` line;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -270,6 +290,8 @@ except stage F's corpus, which is the bench's numpy synth_corpus.
 
 from __future__ import annotations
 
+import collections.abc
+import copy
 import csv
 import dataclasses
 import itertools
@@ -281,6 +303,7 @@ import statistics
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -367,6 +390,105 @@ NLI_DOCS = [
     "An oral glucose tolerance test is offered at 24 to 28 weeks. "
     "Metformin can be used when lifestyle changes are insufficient.",
 ]
+
+
+def in_chunks(n: int, chunk: int) -> int:
+    """``n`` decode steps in whole chunks."""
+    return -(-n // chunk) * chunk
+
+
+def longest_sentence(dfa) -> int:
+    """Bytes in the longest sentence ``dfa`` accepts (a longest path from
+    state 0 in its reachable, acyclic graph); raises where the language
+    is unbounded."""
+    nxt = np.asarray(dfa.next)
+    succ = [np.unique(row[row >= 0]).tolist() for row in nxt]
+    seen, todo = {0}, [0]
+    while todo:
+        for t in succ[todo.pop()]:
+            if t not in seen:
+                seen.add(t)
+                todo.append(t)
+    indeg = dict.fromkeys(seen, 0)
+    for s in seen:
+        for t in succ[s]:
+            indeg[t] += 1
+    order, ready = [], [s for s in seen if indeg[s] == 0]
+    while ready:
+        s = ready.pop()
+        order.append(s)
+        for t in succ[s]:
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                ready.append(t)
+    if len(order) != len(seen):
+        raise ValueError("the automaton accepts sentences of any length")
+    best = {}
+    for s in reversed(order):
+        tails = [best[t] + 1 for t in succ[s] if best[t] >= 0]
+        best[s] = max(tails + [0 if dfa.accept[s] else -1])
+    return best[0]
+
+
+class ChunkTexts(collections.abc.Sequence):
+    """The text of every document of an index too large to hold them all
+    as strings (2^21 of ~550 bytes): ``n_bytes`` of guideline-like
+    sentences, made from the row on access."""
+
+    WORDS = ("adults", "children", "hypertension", "asthma", "diabetes",
+             "statins", "treatment", "review", "offer", "monitor", "dose",
+             "therapy", "blood", "pressure", "risk", "lifestyle", "advice",
+             "weeks", "daily", "first-line", "referral", "symptoms")
+
+    def __init__(self, n: int, n_bytes: int):
+        self.n, self.n_bytes = n, n_bytes
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, row: int) -> str:
+        if not 0 <= row < self.n:
+            raise IndexError(row)
+        g = np.random.default_rng(row)
+        words = [self.WORDS[i] for i in g.integers(0, len(self.WORDS),
+                                                    self.n_bytes)]
+        text, i = f"Section {row}.", 0
+        while len(text) < self.n_bytes:
+            text += f" Offer {words[i]} to {words[i + 1]} with " \
+                    f"{words[i + 2]} {words[i + 3]}."
+            i += 4
+        return text[:self.n_bytes - 1] + "."
+
+
+class Constrained:
+    """A server seen through ``stream``, each request under one of its
+    registered constraints: LocalTpuLLMClient's ``server=``."""
+
+    def __init__(self, server, constraint: str):
+        self.server, self.constraint = server, constraint
+
+    def stream(self, ids, max_new_tokens):
+        return self.server.stream(ids, max_new_tokens=max_new_tokens,
+                                  constraint=self.constraint)
+
+
+def sentenceify(tokens, n=9) -> str:
+    """tests/test_judge_discrimination.py's document text: sentences of
+    ``n`` tokens."""
+    return " ".join(" ".join(tokens[i:i + n]) + "."
+                    for i in range(0, len(tokens), n))
+
+
+def statement_responder(prompt: str) -> str:
+    """tests/test_judge_discrimination.py's statement extraction: the
+    sentences of the answer in the prompt's trailing input."""
+    tail = prompt.rsplit("Now process this input:", 1)[-1]
+    m = re.search(r"Input: (\{.*\})\s*Output:\s*$", tail, re.S)
+    data = json.loads(m.group(1)) if m else {}
+    text = data.get("answer") or data.get("response") or ""
+    sents = [s.strip() for s in re.split(r"(?<=\.)\s+", text)
+             if len(s.strip()) > 12]
+    return json.dumps({"statements": sents[:8] or [text[:80]]})
 
 
 def log(**fields) -> None:
@@ -558,6 +680,23 @@ class Smoke:
     PAR_LOSS_RTOL = {"tp": 2e-3, "pp": 1e-5, "ep": 1e-5}
     PAR_GRAD_RTOL = {"tp": 5e-2, "pp": 5e-2, "ep": 5e-2}
     PAR_PARAM_SHARE = {"tp": 1e-2, "pp": 1e-2, "ep": 1e-2}
+    # Phase 24: (a) seeded rows of the card-vs-CPU judge and its string
+    # and list caps (NLIOut's longest sentence is then 402 bytes); (b) the
+    # chunks questioned, each document's bytes (15 retrieved make the NLI
+    # prompt ~9.5 KB), the server's slots and decode chunk, the
+    # constrained question's and answer's longest, the judge's caps
+    # (NLIOut's longest sentence is then 306 bytes);
+    # (c) tests/test_judge_discrimination.py's corpus (64 questions), NLI
+    # recipe and floors.
+    EVAL_SAMPLES, EVAL_SMALL_CAPS = 4, (12, 2)
+    EVAL_CHUNKS, EVAL_CHUNK_BYTES, EVAL_SLOTS = 8, 550, 16
+    EVAL_DECODE_CHUNK = 8
+    EVAL_QUESTION_CHARS, EVAL_ANSWER_CHARS, EVAL_CAPS = 40, 48, (8, 2)
+    DISCRIM_CORPUS = dict(n_docs=384, dim=64, n_queries=64,
+                          vocab_size=4000, seed=42)
+    DISCRIM_ENCODER = dict(n_layers=2, dim=96, n_heads=4, max_len=256)
+    DISCRIM_NLI = dict(n_pairs=512, seed=0, epochs=6, batch_size=32)
+    DISCRIM_FLOORS = (0.8, 0.3)
 
     def __init__(self, port):
         self.p = port
@@ -578,6 +717,7 @@ class Smoke:
         self.models_parts, self.models_k1 = {}, 0
         self.gen_parts = {}
         self.train_parts = {}
+        self.eval_parts = {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -4513,6 +4653,360 @@ class Smoke:
             k1_launches=self.train_parts["C"]["k1_launches"],
             card=self.card)
 
+    # -- phase 24: the evaluation layer -----------------------------------
+
+    def eval_part(self, name, fn, *args):
+        """Run one part of phase 24 as a path of its own: the judge, the
+        RAG answers (SearchEngine's plain routes) and the scorers run no
+        kernel of the port, so it must launch none."""
+        return self.part(self.eval_parts, name, lambda: self.no_kernels(
+            f"evaluation ({name})", lambda: fn(*args)))
+
+    @staticmethod
+    def recorded(judge):
+        """Wrap ``judge._one`` (one guided completion): the prompt's token
+        count, the verdict, or the exception that ended it."""
+        rec = {"prompt_tokens": [], "verdicts": [], "failures": []}
+        one = judge._one
+
+        def wrapped(prompt, temperature, constraint):
+            rec["prompt_tokens"].append(len(judge.tokenizer.encode(prompt)))
+            try:
+                out = one(prompt, temperature, constraint)
+            except Exception as e:
+                rec["failures"].append(repr(e))
+                raise
+            rec["verdicts"].append(out)
+            return out
+
+        judge._one = wrapped
+        return rec
+
+    def judge_budget(self, rows, caps):
+        """(max_tokens, prompt_tokens) of a judge over ``rows``:
+        max_tokens is the longest sentence any of the two metrics' output
+        schemas accepts under the string / list ``caps``, and the EOS
+        after it, so every verdict stops; prompt_tokens the longest of
+        their three prompts in byte tokens with the BOS, the NLI prompt's
+        statements at their longest (a byte the decoder cannot read widens
+        to U+FFFD, 3 bytes)."""
+        p = self.p
+        faith, rel = p.Faithfulness(), p.ResponseRelevancy()
+        longest = {}
+        for prompt in (faith.statement_prompt, faith.nli_prompt,
+                       rel.question_prompt):
+            longest[prompt.name] = longest_sentence(p.schema_dfa(
+                prompt.output_model.model_json_schema(), compact=True,
+                default_max_string=caps[0], default_max_items=caps[1]))
+        statements = longest[faith.statement_prompt.name]
+        prompt_bytes = 0
+        for r in rows:
+            prompt_bytes = max(
+                prompt_bytes,
+                len(faith.statement_prompt.render(p.StatementsIn(
+                    question=r["user_input"], answer=r["response"]))
+                    .encode()),
+                len(faith.nli_prompt.render(p.NLIIn(
+                    context="\n".join(r["retrieved_contexts"]),
+                    statements=[])).encode()) + 3 * statements,
+                len(rel.question_prompt.render(p.GenQuestionIn(
+                    response=r["response"])).encode()))
+        return max(longest.values()) + 1, prompt_bytes + 1
+
+    def eval_samples(self):
+        """EVAL_SAMPLES seeded rows over NLI_DOCS: a question, a response
+        of two of a document's sentences, two documents as contexts."""
+        g = np.random.default_rng(2400)
+        rows = []
+        for i in range(self.EVAL_SAMPLES):
+            a, b = g.choice(len(NLI_DOCS), 2, replace=False)
+            sents = self.p.sentences(NLI_DOCS[a])
+            rows.append({
+                "user_input": f"What does guideline {a} recommend ({i})?",
+                "response": " ".join(sents[:2]),
+                "retrieved_contexts": [NLI_DOCS[a], NLI_DOCS[b]],
+            })
+        return rows
+
+    def judged(self, dev, sd, cfg, rows, caps):
+        """evaluate(Faithfulness, ResponseRelevancy) over ``rows`` through
+        the guided judge on a server over ``sd`` on ``dev``: the sorted
+        verdicts, the registered constraint names, the scores."""
+        p = self.p
+        max_tokens, prompt = self.judge_budget(rows, caps)
+        max_len = prompt + in_chunks(max_tokens, 4)
+        model = p.load_decoder_state(cfg, sd, device=dev)
+        srv = p.GenerationServer(model, slots=4, max_len=max_len, chunk=4)
+        try:
+            # default_temperature 0.0: the prompts' 1e-8 becomes argmax
+            # (a positive temperature samples, and each device draws its
+            # own noise).
+            judge = p.LocalGuidedJudgeLLM(
+                srv, max_tokens=max_tokens, max_string_len=caps[0],
+                max_items=caps[1], default_temperature=0.0)
+            rec = self.recorded(judge)
+            result = p.evaluate(
+                p.EvaluationDataset.from_list(rows),
+                [p.Faithfulness(), p.ResponseRelevancy()], llm=judge,
+                embeddings=p.FakeJudgeEmbeddings(),
+                run_config=p.RunConfig(max_retries=0),
+                raise_exceptions=True, show_progress=False)
+            names = srv.stats()["constraints"]
+        finally:
+            srv.stop()
+        scores = [{k: ("nan" if v != v else v) for k, v in s.items()}
+                  for s in result.scores]
+        return sorted(rec["verdicts"]), names, scores, max_tokens
+
+    def phase24a_parity(self) -> None:
+        """The guided judge on the card against the CPU: the small
+        decoder (float32, seeded) under a greedy server on each, the same
+        verdicts, constraint names and scores."""
+        p = self.p
+        cfg = p.small_lm_config()
+        sd = self.cpu_state(p.init_decoder(cfg, seed=2401, device="cpu"))
+        rows = self.eval_samples()
+        card = self.judged(self.dev, sd, cfg, rows, self.EVAL_SMALL_CAPS)
+        cpu = self.judged("cpu", sd, cfg, rows, self.EVAL_SMALL_CAPS)
+        for what, got, want in zip(("verdicts", "constraints", "scores"),
+                                   card, cpu):
+            if got != want:
+                raise AssertionError(f"judge parity, {what}: card {got} "
+                                     f"against CPU {want}")
+        verdicts, names, scores, max_tokens = card
+        log(evaluation="A_parity", samples=len(rows), judge_calls=len(
+            verdicts), constraints=names, scores=scores,
+            max_tokens=max_tokens, caps=list(self.EVAL_SMALL_CAPS),
+            verdicts_equal_cpu=True, card=self.card)
+
+    def eval_index(self, index):
+        """Stage A's index with a text for every document (made from its
+        row on access: EVAL_CHUNK_BYTES of guideline-like sentences), the
+        arrays shared."""
+        docs = copy.copy(index)
+        docs.meta = copy.copy(index.meta)
+        docs.meta.contents = ChunkTexts(index.n_docs, self.EVAL_CHUNK_BYTES)
+        return docs
+
+    def phase24b_full_width(self, index) -> None:
+        """The judged RAG evaluation at GEN's widths over stage A's index:
+        questions from 8 of its chunks, RAG answers, the guided judge's
+        Faithfulness and ResponseRelevancy, the CSVs. The weights are
+        random, so the scores say nothing of quality: the part proves the
+        path. The random vocabulary's ids past the bytes decode to no
+        text, so the questions and answers are drawn under a constraint
+        of plain sentences (the server's own decoding constraint, the
+        judge's verdicts under their schemas')."""
+        p = self.p
+        docs = self.eval_index(index)
+        embedder = p.hashing_embedder(docs, MODEL)
+        model = self.b.gen_model(self.gen_cfg(), self.dev)
+        g = np.random.default_rng(2402)
+        rows_of = g.choice(docs.n_docs, self.EVAL_CHUNKS, replace=False)
+        chunks = p.filter_chunks([
+            {"title": f"CG_{r}", "source": docs.meta.sources[r],
+             "content": docs.meta.contents[r]} for r in rows_of.tolist()])
+        if len(chunks) != self.EVAL_CHUNKS:
+            raise AssertionError(f"filter_chunks kept {len(chunks)} chunks")
+        qc, ac = self.EVAL_QUESTION_CHARS, self.EVAL_ANSWER_CHARS
+        question_re = rf"[A-Z][a-z ,']{{7,{qc - 2}}}\?"
+        answer_re = rf"[A-Z][a-z0-9 ,;'()-]{{15,{ac - 2}}}\."
+        # The budget from a worst row: the longest question and answer the
+        # constraints allow, common_sections_n (15) documents as context.
+        worst = [{"user_input": "Q" * qc, "response": "A" * ac,
+                  "retrieved_contexts": [docs.meta.contents[0]] * 15}]
+        max_tokens, prompt = self.judge_budget(worst, self.EVAL_CAPS)
+        # The RAG prompt is cut to the judge's longest (its tail kept).
+        step = self.EVAL_DECODE_CHUNK
+        max_len = prompt + in_chunks(max(max_tokens, ac + 1), step)
+        # Each prompt prefilled whole, one at a time: a wave of 8 NLI
+        # prompts would hold [8, 16, L, L] float32 scores (~56 GB at L =
+        # 10k), and a chunked prefill runs a decode chunk beside each of
+        # its chunks, one prompt in flight.
+        srv = p.GenerationServer(
+            model, slots=self.EVAL_SLOTS, max_len=max_len,
+            chunk=self.EVAL_DECODE_CHUNK, wave_prefill=False)
+        srv.register_constraint("question", question_re)
+        srv.register_constraint("answer", answer_re)
+        srv.start()
+        try:
+            t0 = time.perf_counter()
+            questions = p.generate_questions(
+                chunks, p.LocalTpuLLMClient(
+                    None, max_new_tokens=qc + 1, max_prompt_tokens=prompt - 1,
+                    server=Constrained(srv, "question")),
+                llm_model="local-qwen3", max_workers=self.EVAL_CHUNKS)
+            q_s = time.perf_counter() - t0
+            texts = [q["query"] for q in questions]
+            if not all(re.fullmatch(question_re, t) for t in texts):
+                raise AssertionError(f"questions {texts}")
+            rag = p.RAGSystem(
+                indexes={p.InfoSource.NICE: docs}, embedder=embedder,
+                llm_clients={"local": p.LocalTpuLLMClient(
+                    None, max_new_tokens=ac + 1,
+                    max_prompt_tokens=prompt - 1,
+                    server=Constrained(srv, "answer"))},
+                device=self.dev)
+            t0 = time.perf_counter()
+            # One question a thread, so the answers decode as one wave.
+            with ThreadPoolExecutor(len(texts)) as pool:
+                rows = [r for part in pool.map(
+                    lambda t: p.collect_rag_answers(
+                        rag, [t], "local-qwen3",
+                        model_weights={MODEL: 5.0, "BM25": 1.0},
+                        use_reranker=False), texts) for r in part]
+            rag_s = time.perf_counter() - t0
+            for r in rows:
+                if not re.fullmatch(answer_re, r["response"]) or len(
+                        r["retrieved_contexts"]) != 15:
+                    raise AssertionError(f"RAG row {r['response']!r}, "
+                                         f"{len(r['retrieved_contexts'])} "
+                                         "contexts")
+            judge = p.LocalGuidedJudgeLLM(
+                srv, max_tokens=max_tokens, max_string_len=self.EVAL_CAPS[0],
+                max_items=self.EVAL_CAPS[1], default_temperature=0.0)
+            rec = self.recorded(judge)
+            repairs = []
+            agenerate = judge.agenerate
+
+            async def counted(prompt, n=1, temperature=1e-8, schema=None):
+                if schema is None:
+                    repairs.append(prompt[:60])
+                return await agenerate(prompt, n, temperature, schema)
+
+            judge.agenerate = counted
+            tokens0 = srv.stats()["tokens_emitted"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = p.score_rows(
+                rows, judge, p.EmbedderJudgeEmbeddings(embedder),
+                show_progress=False)
+            judge_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            tokens = srv.stats()["tokens_emitted"] - tokens0
+            with tempfile.TemporaryDirectory() as tmp:
+                agg = os.path.join(tmp, "ragas.csv")
+                per = os.path.join(tmp, "ragas_rows.csv")
+                p.write_results_csv(result, "local-qwen3", agg, per)
+                with open(per, encoding="utf-8", newline="") as f:
+                    table = list(csv.reader(f))
+                if not os.path.exists(agg) or len(table) != len(rows) + 1:
+                    raise AssertionError(f"CSV rows {len(table)}")
+        finally:
+            srv.stop()
+        if rec["failures"] or repairs:
+            raise AssertionError(f"judge failures {rec['failures']}, "
+                                 f"repairs {repairs}, verdicts "
+                                 f"{rec['verdicts'][:6]}")
+        if len(rec["verdicts"]) < 2 * len(rows):
+            raise AssertionError(f"{len(rec['verdicts'])} verdicts")
+        self.check_scores(result, rec["verdicts"])
+        pt = sorted(rec["prompt_tokens"])
+        log(evaluation="B_full_width", widths=dataclasses.asdict(model.cfg)
+            | {"dtype": str(model.cfg.dtype)}, index_docs=docs.n_docs,
+            chunks=len(chunks), questions=len(texts), rag_rows=len(rows),
+            judge_calls=len(rec["verdicts"]), repairs=len(repairs),
+            all_stopped=True, max_tokens=max_tokens,
+            caps=list(self.EVAL_CAPS), max_len=max_len,
+            slots=self.EVAL_SLOTS, decode_chunk=self.EVAL_DECODE_CHUNK,
+            prompt_tokens_p50=pt[len(pt) // 2], prompt_tokens_max=pt[-1],
+            judge_seconds=judge_s, generated_tokens=tokens,
+            tok_s=tokens / judge_s, peak_gib=peak,
+            question_seconds=q_s, rag_seconds=rag_s,
+            scores=result.aggregate(), csv_rows=len(table) - 1,
+            card=self.card,
+            method="judge_seconds: host clock around score_rows (all "
+            "judge calls, the embedder's); tok/s: the server's emitted "
+            "tokens over it; peak: max_memory_allocated over score_rows; "
+            "random weights, so the scores carry no meaning")
+
+    @staticmethod
+    def check_scores(result, verdicts) -> None:
+        """Every score a number in [0, 1], except where the metric itself
+        defines NaN (its judge returned no statement, verdict or question)
+        or a cosine, ResponseRelevancy's, below zero."""
+        empty = any(re.search(r'"(statements|verdicts)":\[\]', v)
+                    or '"question":""' in v for v in verdicts)
+        for row in result.scores:
+            for name, v in row.items():
+                if v != v:
+                    if not empty:
+                        raise AssertionError(f"{name} NaN with every "
+                                             "verdict filled")
+                elif not (0.0 <= v <= 1.0 or (
+                        name == "answer_relevancy" and -1.0 <= v < 0.0)):
+                    raise AssertionError(f"{name} score {v}")
+
+    def phase24c_discrimination(self) -> None:
+        """FaithfulnesswithHHEM with an NLI scorer trained on the card
+        must separate grounded from corrupted responses:
+        tests/test_judge_discrimination.py's corpus, recipe, responders
+        and floors, its questions through RAGSystem."""
+        p = self.p
+        c = p.calibrated_quality_corpus(**self.DISCRIM_CORPUS)
+        contents = [sentenceify(t) for t in c.tokens]
+        t0 = time.perf_counter()
+        nli = p.nli_scorer_for_corpus(
+            contents[:256], cfg=p.EncoderConfig(**self.DISCRIM_ENCODER),
+            device=self.dev, **self.DISCRIM_NLI)
+        train_s = time.perf_counter() - t0
+        index = p.build_index(ids=c.ids, sources=c.sources,
+                              contents=contents, embeddings=c.embeddings,
+                              token_lists=c.tokens, device=self.dev)
+        texts = c.texts()
+        table = {t: c.query_embeddings[MODEL][i]
+                 for i, t in enumerate(texts)}
+        rng = np.random.default_rng(5)
+        asked = {t: i for i, t in enumerate(texts)}
+
+        def respond(corrupt):
+            def answer(messages):
+                user = messages[-1]["content"]
+                ctx = [part.split("\nContext: ", 1)[1]
+                       for part in user.split("\n\n---\n\n")
+                       if "\nContext: " in part]
+                sents = [s for d in ctx for s in p.sentences(d)]
+                if not corrupt:
+                    return " ".join(sents[:3])
+                qi = asked[user.split("\n\nContext from", 1)[0]]
+                far = p.sentences(contents[(100 + 7 * qi) % len(contents)])
+                return " ".join(far[:2] + [p.negate(sents[0], rng)])
+            return answer
+
+        scores, t0 = {}, time.perf_counter()
+        for kind in ("grounded", "corrupted"):
+            rag = p.RAGSystem(
+                indexes={p.InfoSource.NICE: index},
+                embedder=p.PrecomputedEmbedder(table),
+                llm_clients={"fake": p.FakeLLMClient(
+                    respond(kind == "corrupted"))}, device=self.dev)
+            rows = p.collect_rag_answers(
+                rag, texts, "fake-llm", use_reranker=False,
+                model_weights={MODEL: 5.0, "BM25": 1.0})
+            scores[kind] = p.evaluate(
+                p.EvaluationDataset.from_list(rows),
+                [p.FaithfulnesswithHHEM(nli_scorer=nli.scorer)],
+                llm=p.FakeJudgeLLM(statement_responder),
+                raise_exceptions=True, show_progress=False,
+            ).aggregate()["faithfulness_with_hhem"]
+        judge_s = time.perf_counter() - t0
+        low, high = self.DISCRIM_FLOORS
+        if not (scores["grounded"] >= low and scores["corrupted"] <= high):
+            raise AssertionError(f"faithfulness grounded "
+                                 f"{scores['grounded']} (floor {low}), "
+                                 f"corrupted {scores['corrupted']} "
+                                 f"(ceiling {high})")
+        log(evaluation="C_discrimination", docs=len(contents),
+            questions=len(texts), nli_holdout_auc=nli.holdout_auc,
+            nli_train_seconds=train_s, faithfulness=scores,
+            floors={"grounded_min": low, "corrupted_max": high},
+            rag_and_scoring_seconds=judge_s, card=self.card)
+
+    def eval_summary(self) -> None:
+        log(phase="evaluation", parts=self.eval_parts,
+            seconds=sum(v["seconds"] for v in self.eval_parts.values()),
+            card=self.card)
 
     def kernels_line(self) -> None:
         rows = []
@@ -4583,6 +5077,11 @@ class Smoke:
         self.train_part("D", self.phase23d_pair_trainers)
         self.train_part("E", self.phase23e_parallel_steps)
         self.train_summary()
+        torch.cuda.empty_cache()
+        self.eval_part("A", self.phase24a_parity)
+        self.eval_part("B", self.phase24b_full_width, ref_index)
+        self.eval_part("C", self.phase24c_discrimination)
+        self.eval_summary()
         del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
@@ -4783,6 +5282,67 @@ class _Port:
             build_state,
             serve_state,
         )
+        from a_nice_rag_tpu_torch.evals.question_gen import (
+            filter_chunks,
+            generate_questions,
+        )
+        from a_nice_rag_tpu_torch.evals.ragas import (
+            EvaluationDataset,
+            FakeJudgeEmbeddings,
+            FakeJudgeLLM,
+            RunConfig,
+            evaluate,
+        )
+        from a_nice_rag_tpu_torch.evals.ragas.embeddings import (
+            EmbedderJudgeEmbeddings,
+        )
+        from a_nice_rag_tpu_torch.evals.ragas.llm import LocalGuidedJudgeLLM
+        from a_nice_rag_tpu_torch.evals.ragas.metrics import (
+            Faithfulness,
+            FaithfulnesswithHHEM,
+            ResponseRelevancy,
+        )
+        from a_nice_rag_tpu_torch.evals.ragas.metrics.answer_relevance import (
+            GenQuestionIn,
+        )
+        from a_nice_rag_tpu_torch.evals.ragas.metrics.faithfulness import (
+            NLIIn,
+            StatementsIn,
+        )
+        from a_nice_rag_tpu_torch.evals.run_ragas_eval import (
+            collect_rag_answers,
+            score_rows,
+            write_results_csv,
+        )
+        from a_nice_rag_tpu_torch.models.constrain import schema_dfa
+        from a_nice_rag_tpu_torch.models.decoder import (
+            init_decoder,
+            small_lm_config,
+        )
+        from a_nice_rag_tpu_torch.models.nli import _negate, _sentences
+        from a_nice_rag_tpu_torch.rag.providers import LocalTpuLLMClient
+
+        self.filter_chunks, self.generate_questions = (filter_chunks,
+                                                       generate_questions)
+        self.EvaluationDataset, self.evaluate = EvaluationDataset, evaluate
+        self.FakeJudgeEmbeddings, self.FakeJudgeLLM = (FakeJudgeEmbeddings,
+                                                       FakeJudgeLLM)
+        self.RunConfig = RunConfig
+        self.EmbedderJudgeEmbeddings = EmbedderJudgeEmbeddings
+        self.LocalGuidedJudgeLLM = LocalGuidedJudgeLLM
+        self.Faithfulness, self.ResponseRelevancy = (Faithfulness,
+                                                     ResponseRelevancy)
+        self.FaithfulnesswithHHEM = FaithfulnesswithHHEM
+        self.GenQuestionIn, self.NLIIn, self.StatementsIn = (
+            GenQuestionIn, NLIIn, StatementsIn)
+        self.collect_rag_answers, self.score_rows = (collect_rag_answers,
+                                                     score_rows)
+        self.write_results_csv, self.schema_dfa = (write_results_csv,
+                                                   schema_dfa)
+        self.init_decoder, self.small_lm_config = (init_decoder,
+                                                   small_lm_config)
+        self.negate, self.sentences = _negate, _sentences
+        self.LocalTpuLLMClient = LocalTpuLLMClient
 
         self.hashing_embedder, self.shard_lm_params = (hashing_embedder,
                                                        shard_lm_params)

@@ -107,6 +107,18 @@ class TinySmoke(chip_smoke.Smoke):
     RERANK_QUERIES, RERANK_EPOCHS, RERANK_FLOOR = 96, 4, 0.0
     NLI_PAIRS, NLI_EPOCHS, NLI_AUC_FLOOR = 96, 3, 0.0
     PAR_BATCH = 12
+    # Phase 24: the judges' caps at (4 bytes, 1 item), 110-byte documents,
+    # 4 slots, 2 chunks, short constrained questions and answers; a small
+    # calibrated corpus and a one-epoch NLI scorer with no floors (the
+    # floors are the card's sizes').
+    EVAL_SMALL_CAPS, EVAL_CAPS = (4, 1), (4, 1)
+    EVAL_CHUNK_BYTES, EVAL_SLOTS, EVAL_DECODE_CHUNK = 110, 4, 4
+    EVAL_CHUNKS, EVAL_QUESTION_CHARS, EVAL_ANSWER_CHARS = 2, 16, 24
+    DISCRIM_CORPUS = dict(n_docs=128, dim=16, n_queries=8, vocab_size=500,
+                          seed=42)
+    DISCRIM_ENCODER = dict(n_layers=1, dim=32, n_heads=2, max_len=128)
+    DISCRIM_NLI = dict(n_pairs=64, seed=0, epochs=1, batch_size=32)
+    DISCRIM_FLOORS = (0.0, 1.0)
 
 
 def _sweep_csv(path):
@@ -581,6 +593,25 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert m["param_share_past_atol"] <= e["param_share"][kind]
         assert m["param_max_abs_err"] <= 2.1e-3
     assert list(summary23["parts"]) == ["A", "B", "C", "D", "E"]
+    # Phase 24: the evaluation layer.
+    ev = {r["evaluation"]: r for r in records if "evaluation" in r}
+    assert list(ev) == ["A_parity", "B_full_width", "C_discrimination"]
+    a = ev["A_parity"]
+    assert a["verdicts_equal_cpu"] and a["samples"] == 4
+    assert len(a["constraints"]) == 3 and a["judge_calls"] >= 8
+    b = ev["B_full_width"]
+    assert b["widths"]["num_layers"] == 3 and b["widths"]["vocab_size"] == 512
+    assert b["chunks"] == b["questions"] == b["rag_rows"] == b["csv_rows"] == 2
+    assert b["judge_calls"] >= 2 * 2 and b["repairs"] == 0
+    assert b["all_stopped"] and b["generated_tokens"] > 0
+    assert b["prompt_tokens_max"] + b["max_tokens"] <= b["max_len"]
+    for key in ("judge_seconds", "tok_s", "question_seconds", "rag_seconds"):
+        assert b[key] > 0, key
+    c = ev["C_discrimination"]
+    assert c["questions"] == 8 and c["docs"] == 128
+    assert set(c["faithfulness"]) == {"grounded", "corrupted"}
+    summary24 = [r for r in records if r.get("phase") == "evaluation"][0]
+    assert list(summary24["parts"]) == ["A", "B", "C"]
 
 
 def test_smoke_needs_the_card(monkeypatch, capsys):
