@@ -1,8 +1,8 @@
 """Tokenization, stopword filtering, and lemmatization (the BM25 path's
 text preprocessing).
 
-Copy of the JAX package's ``text/preprocess.py`` pure-Python path, which
-imports no jax; pipeline parity with the reference system's
+Copy of the JAX package's ``text/preprocess.py``, which imports no jax;
+pipeline parity with the reference system's
 ``src/processing/preprocess_bm25.py:33-52``:
 
 1. lowercase
@@ -16,7 +16,10 @@ imports no jax; pipeline parity with the reference system's
    (``lemma_calibration.py``) over morphy-style suffix rules
 
 Corpus and query sides always use the same implementation, so the BM25
-token streams stay self-consistent.
+token streams stay self-consistent. ``preprocess_text`` takes the native
+C++ path (``native/anr_text.cpp``) for ASCII text where NLTK's data is
+not installed; ``preprocess_text_python`` is the authoritative pure
+path, and the two give the same tokens.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import string
 from typing import List, Optional
 
+from a_nice_rag_tpu_torch.native.build import native_preprocess
 from a_nice_rag_tpu_torch.text.lemma_calibration import CALIBRATED_LEMMAS
 from a_nice_rag_tpu_torch.text.stopwords_en import STOPWORDS_EN
 
@@ -221,11 +225,27 @@ def preprocess_text(
 ) -> List[str]:
     """Full preprocessing pipeline (query and corpus sides).
 
-    The JAX package's ``preprocess_text`` may route ASCII text through a
-    native C++ fast path with the same output; this port keeps only the
-    pure-Python path (that package's ``preprocess_text_python``), which
-    is the authoritative one, and leaves the native build for later.
+    Routes ASCII inputs through the native C++ library
+    (``native.build.native_preprocess``) when NLTK's data-backed tokenizer
+    and lemmatizer are not installed and the library is built; the tokens
+    are :func:`preprocess_text_python`'s. Without the library (its build
+    error is in ``native.build.text_build_error``), or when its output
+    would overflow, the Python path runs.
     """
+    if not text:
+        return []
+    _try_nltk()
+    if not _nltk_word_tokenize and not _nltk_lemmatizer and text.isascii():
+        native = native_preprocess(text, use_lemmatization)
+        if native is not None:
+            return native
+    return preprocess_text_python(text, use_lemmatization)
+
+
+def preprocess_text_python(
+    text: Optional[str], use_lemmatization: bool = False
+) -> List[str]:
+    """Pure-Python reference path (authoritative; used by parity tests)."""
     if not text:
         return []
     text = text.lower().translate(_PUNCT_TABLE).translate(

@@ -227,6 +227,23 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      py's corpus, its grounded and corrupted extractive responders over
      64 questions through RAGSystem: grounded >= 0.8, corrupted <= 0.3;
      then the ``evaluation`` line;
+ 25. offline ingestion (ingest/, utils/corpus_stats.py, native/anr_text.cpp;
+     no kernel on it: each part launches none): (a) 196 seeded guidelines
+     in NICE's structured-document XML (testing.guidelines, ~9.5k chunks,
+     a rare planted term in every section) through run_pipeline's convert,
+     chunk and preprocess stages as the CLI runs them, each stage's
+     seconds, the chunk count, corpus_stats' totals; (b) preprocess over
+     every chunk by the native library and the Python path, rows equal,
+     the stage's tokens CSV equal to the Python rows', both seconds; (c)
+     embed_chunks_incremental with phase 21 (b)'s served hashing encoder
+     on the card in batches of 100 into a chunk DB (a rerun embeds none),
+     256 stored rows against the CPU's float32 forward (cosine >= 0.99),
+     rows/s; (d) build_artifact_from_chunk_dbs on the card and on the
+     CPU, the two artifacts equal (float BM25 arrays within 1e-6
+     relative), seconds and bytes; (e) the card's artifact loaded on the
+     card, SearchEngine's hybrid retrieve with 256 stored chunks' contents
+     as queries, recall@10 of each chunk's own id >= 0.90; then the
+     ``ingest`` line;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -294,6 +311,7 @@ import collections.abc
 import copy
 import csv
 import dataclasses
+import importlib.util
 import itertools
 import json
 import logging
@@ -697,6 +715,16 @@ class Smoke:
     DISCRIM_ENCODER = dict(n_layers=2, dim=96, n_heads=4, max_len=256)
     DISCRIM_NLI = dict(n_pairs=512, seed=0, epochs=6, batch_size=32)
     DISCRIM_FLOORS = (0.8, 0.3)
+    # Phase 25: the synthetic guideline corpus (testing.guidelines: ~50
+    # chunks a guideline at the chunker's defaults, so 196 guidelines make
+    # ~9.5k chunks, near the reference deployment's 9.7k) and its seed; the
+    # encoder (EncoderConfig fields over phase 21 (b)'s served one; empty
+    # = its widths), the embedding batch, the stored rows held against the
+    # CPU's float32 forward (cosine QWEN3_COS), the queries of the recall
+    # check and its floor (the bench's headline hybrid floor).
+    INGEST_GUIDELINES, INGEST_SEED, INGEST_ENCODER = 196, 25, {}
+    INGEST_BATCH, INGEST_CPU_ROWS = 100, 256
+    INGEST_QUERIES, INGEST_RECALL = 256, 0.90
 
     def __init__(self, port):
         self.p = port
@@ -718,6 +746,7 @@ class Smoke:
         self.gen_parts = {}
         self.train_parts = {}
         self.eval_parts = {}
+        self.ingest_parts, self.ingest_seconds = {}, {}
         self.t0 = time.perf_counter()
         self.timer = port.bench.Timer(
             device_ms=lambda fn, n: port.device_loop_ms(fn, n_loop=n,
@@ -5008,6 +5037,272 @@ class Smoke:
             seconds=sum(v["seconds"] for v in self.eval_parts.values()),
             card=self.card)
 
+    # -- phase 25: ingestion ---------------------------------------------
+
+    def ingest_part(self, name, fn, *args):
+        """Run one part of phase 25 as a path of its own: ingestion is host
+        Python, the encoder's plain torch forward and build_index below the
+        kernel threshold, and SearchEngine's plain routes, so it must
+        launch no kernel."""
+        return self.part(self.ingest_parts, name, lambda: self.no_kernels(
+            f"ingestion ({name})", lambda: fn(*args)))
+
+    def phase25a_stages(self, w):
+        """The seeded guideline corpus in NICE's structured-document XML,
+        then run_pipeline's convert, chunk and preprocess stages as the CLI
+        runs them, each stage's seconds from the records it logs."""
+        p = self.p
+        t0 = time.perf_counter()
+        docs = p.guideline_documents(self.INGEST_GUIDELINES,
+                                     seed=self.INGEST_SEED)
+        p.write_guidelines(str(w / "xml"), docs)
+        corpus_s = time.perf_counter() - t0
+        # TokenCounter("auto") imports transformers, where it is installed,
+        # and looks for the tokenizer's cached files: once a process, timed
+        # apart from the chunk stage, which builds its own counter.
+        t0 = time.perf_counter()
+        counter = p.TokenCounter()
+        counter_s = time.perf_counter() - t0
+        with _LogTimes() as times:
+            t0 = time.time()
+            p.run_pipeline(["--workdir", str(w), "--stages",
+                            "convert,chunk,preprocess"])
+            total = time.time() - t0
+        ends = [times.seconds_until(x, t0) for x in (
+            "converted ", "chunked into ", "preprocessed ")]
+        with open(w / "chunked_guidelines.json", encoding="utf-8") as f:
+            chunks = json.load(f)
+        stats = p.corpus_stats(chunks, token_counter=counter)
+        if stats["n_guidelines"] != len(docs) or not chunks:
+            raise AssertionError(f"{stats['n_guidelines']} guidelines "
+                                 f"chunked of {len(docs)}")
+        self.ingest_seconds.update(
+            corpus=corpus_s, token_counter=counter_s, convert=ends[0],
+            chunk=ends[1] - ends[0], preprocess=ends[2] - ends[1])
+        log(ingest="A_stages", guidelines=len(docs),
+            sections_planted=sum(d.sections for d in docs),
+            xml_bytes=sum(len(d.xml) for d in docs), chunks=len(chunks),
+            token_counter="heuristic" if counter._fn is
+            p.heuristic_token_count else "hf", transformers_installed=(
+                importlib.util.find_spec("transformers") is not None),
+            chunk_tokens_mean=stats["mean_chunk_tokens"],
+            chunk_tokens_median=stats["median_chunk_tokens"],
+            total_words=stats["total_words"],
+            total_tokens=stats["total_tokens"],
+            seconds={k: self.ingest_seconds[k] for k in (
+                "corpus", "token_counter", "convert", "chunk",
+                "preprocess")},
+            cli_seconds=total, card=self.card,
+            method="host clock; each stage from the record run_pipeline "
+            "logs at its end")
+        return chunks
+
+    def phase25b_routes(self, w, chunks) -> None:
+        """preprocess over every chunk by both routes (regular and
+        lemmatized tokens): the native library's rows equal the Python
+        path's, and the preprocess stage's tokens CSV is the Python rows'
+        byte for byte."""
+        p = self.p
+        if p.load_text_lib() is None:
+            raise AssertionError("the native text library did not load: "
+                                 f"{p.native_build.text_build_error}")
+        contents = [c["content"] for c in chunks]
+
+        def route(fn):
+            t0 = time.perf_counter()
+            rows = [(fn(t, False), fn(t, True)) for t in contents]
+            return rows, time.perf_counter() - t0
+
+        native, native_s = route(p.native_preprocess)
+        python, python_s = route(p.preprocess_text_python)
+        if native != python:
+            bad = next(i for i, (a, b) in enumerate(zip(native, python))
+                       if a != b)
+            raise AssertionError(f"chunk {bad}: native tokens differ from "
+                                 "the Python path's")
+        p.write_tokens_csv([
+            {"id": c["title"], "source": c.get("source", "unknown"),
+             "content": c["content"], "tokens_regular": r,
+             "tokens_lemmatized": lem}
+            for c, (r, lem) in zip(chunks, python)], str(w / "python.csv"))
+        if (w / "python.csv").read_bytes() != \
+                (w / "chunks_bm25.csv").read_bytes():
+            raise AssertionError("the preprocess stage's tokens CSV differs "
+                                 "from the Python path's rows")
+        self.ingest_seconds.update(preprocess_native=native_s,
+                                   preprocess_python=python_s)
+        log(ingest="B_routes", chunks=len(contents),
+            ascii_chunks=sum(t.isascii() for t in contents),
+            tokens=sum(len(a) + len(b) for a, b in python),
+            native_s=native_s, python_s=python_s,
+            native_speedup=python_s / native_s, rows_equal=True,
+            csv_equal_python=True, library=str(p.native_build.
+                                                 text_library_path().name),
+            card=self.card, method="host clock over every chunk, both "
+            "variants (regular, lemmatized) a chunk")
+
+    def phase25c_embed(self, w, chunks):
+        """embed_chunks_incremental with the served hashing encoder on the
+        card into a chunk DB; a rerun embeds nothing; INGEST_CPU_ROWS
+        stored rows against the CPU's float32 forward of the same
+        weights."""
+        p = self.p
+        emb = p.OnDeviceEmbedder(
+            p.EncoderConfig(out_dim=self.D_A, **self.INGEST_ENCODER),
+            device=self.dev)
+        db = str(w / f"{MODEL.replace('/', '_')}_chunks.db")
+        t0 = time.perf_counter()
+        n = p.embed_chunks_incremental(chunks, emb, db,
+                                       batch_size=self.INGEST_BATCH)
+        embed_s = time.perf_counter() - t0
+        again = p.embed_chunks_incremental(chunks, emb, db,
+                                           batch_size=self.INGEST_BATCH)
+        if n != len(chunks) or again != 0:
+            raise AssertionError(f"embedded {n} of {len(chunks)} chunks, "
+                                 f"then {again} on the rerun")
+        ids, contents, _, _, rows = p.load_reference_chunk_db(db)
+        g = np.random.default_rng(self.INGEST_SEED)
+        pick = np.sort(g.choice(len(ids), min(self.INGEST_CPU_ROWS,
+                                              len(ids)), replace=False))
+        cpu = p.OnDeviceEmbedder(
+            dataclasses.replace(emb.cfg, dtype=torch.float32),
+            state_dict=self.cpu_state(emb.model), device="cpu")
+        want = cpu.embed_documents([contents[i] for i in pick])
+        got = rows[pick]
+        cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                     * np.linalg.norm(want, axis=1))
+        if not cos.min() >= self.QWEN3_COS:
+            raise AssertionError(f"stored embedding cosine {cos.min()} "
+                                 f"below {self.QWEN3_COS}")
+        self.ingest_seconds["embed"] = embed_s
+        log(ingest="C_embed", chunks=len(chunks), rows=len(ids),
+            duplicate_ids=len(chunks) - len(ids), rerun_embedded=again,
+            batch=self.INGEST_BATCH, rows_per_s=n / embed_s,
+            embed_s=embed_s, encoder={"dim": emb.cfg.dim,
+                                      "layers": emb.cfg.n_layers,
+                                      "out_dim": emb.cfg.out_dim,
+                                      "dtype": str(emb.cfg.dtype)},
+            cpu_rows=len(pick), cos_min=float(cos.min()),
+            cos_floor=self.QWEN3_COS, card=self.card,
+            method="host clock around embed_chunks_incremental: "
+            "tokenizing, the encoder on the card, SQLite writes")
+        return emb, db
+
+    def phase25d_artifact(self, w, db):
+        """build_artifact_from_chunk_dbs on the card and on the CPU from
+        the same chunk DB and tokens CSV: ids, sources, contents, urls,
+        the vocabulary and integer arrays equal, dense rows equal, float
+        BM25 arrays within 1e-6 relative."""
+        p = self.p
+        tokens = p.load_preprocessed_tokens_csv(str(w / "chunks_bm25.csv"))
+        out = {}
+        for name, dev in (("card", self.dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            p.build_artifact_from_chunk_dbs(
+                {MODEL: db}, str(w / f"artifact_{name}"),
+                token_lists_by_id=tokens, device=dev)
+            out[name] = time.perf_counter() - t0
+        card, cpu = w / "artifact_card", w / "artifact_cpu"
+        with open(card / "meta.json") as f:
+            meta = json.load(f)
+        with open(cpu / "meta.json") as f:
+            meta_cpu = json.load(f)
+        for key, value in meta.items():
+            if key != "bm25_stats" and value != meta_cpu[key]:
+                raise AssertionError(f"artifact meta {key!r}: card and CPU "
+                                     "differ")
+        for key, value in meta["bm25_stats"].items():
+            other = meta_cpu["bm25_stats"][key]
+            if not abs(value - other) <= 1e-6 * abs(other):
+                raise AssertionError(f"bm25_stats {key}: {value} against "
+                                     f"the CPU's {other}")
+        a, b = np.load(card / "arrays.npz"), np.load(cpu / "arrays.npz")
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f"npz keys {a.files} against {b.files}")
+        rel, equal = 0.0, []
+        for key in b.files:
+            x, y = a[key], b[key]
+            if x.dtype != y.dtype or x.shape != y.shape:
+                raise AssertionError(f"{key}: {x.dtype}{x.shape} against "
+                                     f"{y.dtype}{y.shape}")
+            if np.array_equal(x, y):
+                equal.append(key)
+            elif key.startswith("bm25/") and x.dtype.kind == "f":
+                err = float((np.abs(x.astype(np.float64) - y)
+                             / np.maximum(np.abs(y), 1e-30)).max())
+                if not err <= 1e-6:
+                    raise AssertionError(f"{key}: relative error {err}")
+                rel = max(rel, err)
+            else:
+                raise AssertionError(f"{key}: card and CPU arrays differ")
+        nbytes = {name: sum(f.stat().st_size for f in d.iterdir())
+                  for name, d in (("card", card), ("cpu", cpu))}
+        self.ingest_seconds.update(artifact_card=out["card"],
+                                   artifact_cpu=out["cpu"])
+        log(ingest="D_artifact", docs=meta["n_docs"],
+            docs_padded=meta["n_docs_padded"], vocab=len(meta["vocab"]),
+            keys_equal=sorted(equal), bm25_max_rel_err=rel,
+            seconds=out, bytes=nbytes, card=self.card,
+            method="host clock around build_artifact_from_chunk_dbs "
+            "(reading the DB, build_index, save_index)")
+        return card
+
+    def phase25e_retrieval(self, art, emb) -> None:
+        """The card's artifact loaded on the card, SearchEngine's hybrid
+        retrieve (the reference's Voyage + BM25 weights) with the
+        contents of INGEST_QUERIES stored chunks as queries: each chunk's
+        own id within the first 10."""
+        p = self.p
+        t0 = time.perf_counter()
+        index = p.load_index(str(art), device=self.dev)
+        load_s = time.perf_counter() - t0
+        if index.dense[MODEL].device.type != torch.device(self.dev).type:
+            raise AssertionError("the artifact did not load on the card")
+        g = np.random.default_rng(self.INGEST_SEED + 1)
+        pick = np.sort(g.choice(index.n_docs, min(self.INGEST_QUERIES,
+                                                  index.n_docs),
+                                replace=False))
+        texts = [index.meta.contents[i] for i in pick]
+        t0 = time.perf_counter()
+        q = emb.embed_queries(texts)
+        terms = [p.preprocess_text(t, True) for t in texts]
+        prep_s = time.perf_counter() - t0
+        eng = p.SearchEngine(index)
+        t0 = time.perf_counter()
+        lists = eng.retrieve({MODEL: q}, query_token_lists=terms,
+                             model_weights={MODEL: 5.0, "BM25": 1.0},
+                             use_hybrid_search=True)
+        retrieve_s = time.perf_counter() - t0
+        ids = [index.meta.ids[i] for i in pick]
+        recall = sum(cid in found[:10] for cid, found in zip(ids, lists)) \
+            / len(ids)
+        if recall < self.INGEST_RECALL:
+            raise AssertionError(f"recall@10 {recall} of the chunks' own "
+                                 f"ids below {self.INGEST_RECALL}")
+        self.ingest_seconds.update(load=load_s, retrieve=retrieve_s)
+        log(ingest="E_retrieval", docs=index.n_docs, queries=len(ids),
+            recall10=recall, recall_floor=self.INGEST_RECALL,
+            weights=[5, 1], similarity_k=25, common_sections_n=15,
+            load_s=load_s, query_prep_s=prep_s, retrieve_s=retrieve_s,
+            retrieve_ms_per_query=retrieve_s * 1e3 / len(ids),
+            card=self.card, method="host clock; load_index onto the card, "
+            "one batched retrieve")
+
+    def phase25_ingest(self) -> None:
+        with tempfile.TemporaryDirectory() as tmp:
+            w = Path(tmp)
+            chunks = self.ingest_part("A", self.phase25a_stages, w)
+            self.ingest_part("B", self.phase25b_routes, w, chunks)
+            emb, db = self.ingest_part("C", self.phase25c_embed, w, chunks)
+            art = self.ingest_part("D", self.phase25d_artifact, w, db)
+            self.ingest_part("E", self.phase25e_retrieval, art, emb)
+        log(phase="ingest", parts=self.ingest_parts,
+            seconds=sum(v["seconds"] for v in self.ingest_parts.values()),
+            stage_seconds=self.ingest_seconds, kernel_launches=0,
+            card=self.card)
+        del emb
+        torch.cuda.empty_cache()
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -5082,6 +5377,7 @@ class Smoke:
         self.eval_part("B", self.phase24b_full_width, ref_index)
         self.eval_part("C", self.phase24c_discrimination)
         self.eval_summary()
+        self.phase25_ingest()
         del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
@@ -5321,6 +5617,47 @@ class _Port:
         )
         from a_nice_rag_tpu_torch.models.nli import _negate, _sentences
         from a_nice_rag_tpu_torch.rag.providers import LocalTpuLLMClient
+        from a_nice_rag_tpu_torch.index import load_index
+        from a_nice_rag_tpu_torch.index.io import (
+            load_preprocessed_tokens_csv,
+            load_reference_chunk_db,
+        )
+        from a_nice_rag_tpu_torch.ingest import TokenCounter
+        from a_nice_rag_tpu_torch.ingest.bm25_build import write_tokens_csv
+        from a_nice_rag_tpu_torch.ingest.embed_db import (
+            build_artifact_from_chunk_dbs,
+            embed_chunks_incremental,
+        )
+        from a_nice_rag_tpu_torch.ingest.run_pipeline import (
+            main as run_pipeline,
+        )
+        from a_nice_rag_tpu_torch.ingest.tokens import heuristic_token_count
+        from a_nice_rag_tpu_torch.native import build as native_build
+        from a_nice_rag_tpu_torch.testing.guidelines import (
+            guideline_documents,
+            write_guidelines,
+        )
+        from a_nice_rag_tpu_torch.text.preprocess import (
+            preprocess_text_python,
+        )
+        from a_nice_rag_tpu_torch.utils.corpus_stats import corpus_stats
+
+        self.load_index = load_index
+        self.load_preprocessed_tokens_csv = load_preprocessed_tokens_csv
+        self.load_reference_chunk_db = load_reference_chunk_db
+        self.TokenCounter = TokenCounter
+        self.heuristic_token_count = heuristic_token_count
+        self.write_tokens_csv = write_tokens_csv
+        self.build_artifact_from_chunk_dbs = build_artifact_from_chunk_dbs
+        self.embed_chunks_incremental = embed_chunks_incremental
+        self.run_pipeline = run_pipeline
+        self.native_build = native_build
+        self.load_text_lib = native_build.load_text_lib
+        self.native_preprocess = native_build.native_preprocess
+        self.guideline_documents = guideline_documents
+        self.write_guidelines = write_guidelines
+        self.preprocess_text_python = preprocess_text_python
+        self.corpus_stats = corpus_stats
 
         self.filter_chunks, self.generate_questions = (filter_chunks,
                                                        generate_questions)

@@ -119,6 +119,8 @@ class TinySmoke(chip_smoke.Smoke):
     DISCRIM_ENCODER = dict(n_layers=1, dim=32, n_heads=2, max_len=128)
     DISCRIM_NLI = dict(n_pairs=64, seed=0, epochs=1, batch_size=32)
     DISCRIM_FLOORS = (0.0, 1.0)
+    # Phase 25: 3 guidelines (~150 chunks), a 2-layer encoder.
+    INGEST_GUIDELINES, INGEST_ENCODER = 3, dict(n_layers=2)
 
 
 def _sweep_csv(path):
@@ -170,6 +172,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    # Phase 25's chunker counts with the heuristic, as on the card's
+    # machine (no cached tokenizer there): no tokenizer is looked up.
+    from a_nice_rag_tpu_torch.ingest import tokens
+    monkeypatch.setattr(tokens.TokenCounter, "_try_hf",
+                        staticmethod(lambda name: None))
     for mod, name in WRAPPED:
         wrapper, plain = getattr(mod, name), getattr(mod, name + "_torch")
         # Restored at teardown, so no other test sees these launches.
@@ -612,6 +619,71 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert set(c["faithfulness"]) == {"grounded", "corrupted"}
     summary24 = [r for r in records if r.get("phase") == "evaluation"][0]
     assert list(summary24["parts"]) == ["A", "B", "C"]
+    # Phase 25: ingestion, after phase 24.
+    _check_ingest(records, TinySmoke.INGEST_GUIDELINES)
+    assert records.index(summary24) < records.index(
+        [r for r in records if r.get("phase") == "ingest"][0])
+
+
+def _check_ingest(records, n_guidelines):
+    """Phase 25's lines: every part, its checks, no kernel launched."""
+    ing = {r["ingest"]: r for r in records if "ingest" in r}
+    assert list(ing) == ["A_stages", "B_routes", "C_embed", "D_artifact",
+                         "E_retrieval"]
+    a = ing["A_stages"]
+    assert a["guidelines"] == n_guidelines and a["chunks"] > 10 * n_guidelines
+    assert a["token_counter"] == "heuristic"
+    assert 200 <= a["chunk_tokens_mean"] <= 600
+    assert a["sections_planted"] > 0 and a["total_tokens"] > 0
+    for key in ("corpus", "token_counter", "convert", "chunk",
+                "preprocess"):
+        assert a["seconds"][key] > 0, key
+    b = ing["B_routes"]
+    assert b["rows_equal"] and b["csv_equal_python"]
+    assert b["chunks"] == b["ascii_chunks"] == a["chunks"]
+    assert b["native_s"] > 0 and b["python_s"] > 0
+    assert b["library"].startswith("libanr_text_")
+    c = ing["C_embed"]
+    assert c["rows"] + c["duplicate_ids"] == c["chunks"] == a["chunks"]
+    assert c["rerun_embedded"] == 0 and c["rows_per_s"] > 0
+    assert c["cos_min"] >= 0.99 and c["cpu_rows"] == min(256, c["rows"])
+    assert c["encoder"]["layers"] == 2
+    d = ing["D_artifact"]
+    assert d["docs"] == c["rows"] and d["bm25_max_rel_err"] <= 1e-6
+    # Both builds ran on the CPU here: every array is equal.
+    assert d["keys_equal"] == ["bm25/doc_ids", "bm25/doc_mask",
+                               "bm25/impact", "bm25/indptr",
+                               "dense/voyage-3-large"]
+    assert all(v > 0 for v in d["bytes"].values())
+    e = ing["E_retrieval"]
+    assert e["recall10"] >= 0.90 and e["queries"] == min(256, d["docs"])
+    summary = [r for r in records if r.get("phase") == "ingest"][0]
+    assert list(summary["parts"]) == ["A", "B", "C", "D", "E"]
+    assert summary["kernel_launches"] == 0 and summary["seconds"] > 0
+    assert set(summary["stage_seconds"]) == {
+        "corpus", "token_counter", "convert", "chunk", "preprocess",
+        "preprocess_native", "preprocess_python", "embed", "artifact_card",
+        "artifact_cpu", "load", "retrieve"}
+    assert summary["card"] == "cpu, n/a"
+
+
+def test_ingest_phase_on_cpu(monkeypatch, capsys):
+    """Phase 25 alone on TinySmoke's corpus, the kernels' launch counts
+    as they are: the phase launches none (no_kernels raises otherwise)."""
+    from a_nice_rag_tpu_torch.ingest import tokens
+
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 1)
+    monkeypatch.setattr(tokens.TokenCounter, "_try_hf",
+                        staticmethod(lambda name: None))
+    port = chip_smoke._Port()
+    monkeypatch.setattr(port.bench, "card_line", lambda: "cpu, n/a")
+    port.require_cuda = lambda: torch.device("cpu")
+    TinySmoke(port).phase25_ingest()
+    records = [json.loads(line) for line in
+               capsys.readouterr().out.strip().splitlines()]
+    _check_ingest(records, TinySmoke.INGEST_GUIDELINES)
 
 
 def test_smoke_needs_the_card(monkeypatch, capsys):

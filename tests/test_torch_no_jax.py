@@ -15,7 +15,9 @@ REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "a_nice_rag_tpu_torch"
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+if os.environ["ANR_TRANSFORMERS"] == "absent":
+    sys.modules["transformers"] = None  # importing it raises
 import a_nice_rag_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -35,9 +37,9 @@ assert not missing, missing
 """
 # The SearchEngine slice's, the reference-path slice's, the sharding
 # slice's, the serving slice's, the models slice's, the generation
-# slice's, the training and tensor-parallel slice's and the evaluation
-# slice's modules (the judge framework on its pydantic-free model base),
-# beside the earlier slices'.
+# slice's, the training and tensor-parallel slice's, the evaluation
+# slice's modules (the judge framework on its pydantic-free model base)
+# and the ingestion slice's, beside the earlier slices'.
 SLICE_MODULES = [
     "a_nice_rag_tpu_torch." + m for m in (
         "config", "text", "text.preprocess", "text.stopwords_en",
@@ -89,19 +91,33 @@ SLICE_MODULES = [
         "evals.ragas.metrics.string_metrics",
         "evals.ragas.metrics.summarization", "evals.ragas.optimizers",
         "evals.ragas.prompt", "evals.ragas.run_config",
-        "evals.ragas.testset", "evals.ragas.validation")
+        "evals.ragas.testset", "evals.ragas.validation", "ingest.tokens",
+        "ingest.xml_to_md", "ingest.chunker", "ingest.embed_db",
+        "ingest.nice_api", "ingest.run_pipeline", "utils.corpus_stats",
+        "testing.guidelines")
 ]
 
 
-def test_port_modules_import_without_jax():
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+def _import_all(transformers: str) -> None:
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               ANR_TRANSFORMERS=transformers)
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL, *SLICE_MODULES], cwd=REPO,
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 149, proc.stdout
+    assert n_modules >= 157, proc.stdout
+
+
+def test_port_modules_import_without_jax():
+    _import_all("present")
+
+
+def test_port_modules_import_without_transformers():
+    """The same check where transformers is not installed, as on the
+    card's machine: no module needs it to import."""
+    _import_all("absent")
 
 
 def test_port_sources_hold_no_jax_or_tpu_kernel_code():
@@ -150,7 +166,9 @@ names = ["chip_smoke", "a_nice_rag_tpu_torch.bench",
          "a_nice_rag_tpu_torch.serving.native_front",
          "a_nice_rag_tpu_torch.serving.http_api",
          "a_nice_rag_tpu_torch.native.build",
-         "a_nice_rag_tpu_torch.models"]
+         "a_nice_rag_tpu_torch.models",
+         "a_nice_rag_tpu_torch.ingest.run_pipeline",
+         "a_nice_rag_tpu_torch.testing.guidelines"]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -168,4 +186,4 @@ def test_bench_probes_and_smoke_import_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["27"]
+    assert proc.stdout.split() == ["29"]
