@@ -50,12 +50,17 @@ around back-to-back calls ending in a synchronize (``chained_ms``);
 ``qps_host_sync`` and ``p50_latency_ms`` read the result to the host
 after every call.
 
-Not carried over from bench.py: the ``packed`` and ``iterate`` fold rows
-and ``xpack_ids_equal_iterate`` (:242-308) time TPU folds that the port
-does not have; the CPU fallback, platform probe and re-exec (:1121-1165)
-and the round-trip de-bias and stream clamp (:199-237) work around a
-remote TPU backend; its TPU-calibrated IVF speed-up floors are reported,
-not asserted.
+The 2m stage also runs its hybrid on the rounded fold (K1r,
+``KernelConfig(rounded=True)``, bench.py's ``packed`` row, :242-262):
+``batch_2m_true_packed_ms`` and ``qps_2m_true_packed`` beside
+``batch_2m_true_ms``, and ``recall@10_2m_packed`` held to 0.99.
+
+Not carried over from bench.py: the ``iterate`` fold row and
+``xpack_ids_equal_iterate`` (:264-308) time a second exact TPU fold, and
+the port has one exact kernel; the CPU fallback, platform probe and
+re-exec (:1121-1165) and the round-trip de-bias and stream clamp
+(:199-237) work around a remote TPU backend; its TPU-calibrated IVF
+speed-up floors are reported, not asserted.
 
 Prints ONE JSON line. Raises without a GPU: there is no CPU fallback.
 """
@@ -91,6 +96,7 @@ from a_nice_rag_tpu_torch.index.ivf import (
 )
 from a_nice_rag_tpu_torch.ops import kernels
 from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays, postings_required
+from a_nice_rag_tpu_torch.ops.kernels.autotune import KernelConfig
 from a_nice_rag_tpu_torch.ops.quantized import (
     QuantizedDense,
     quantize_embeddings,
@@ -513,6 +519,22 @@ def scale_2m_stage(device, repeats: int, timer: Timer,
         call, cfg.n_loop), repeats)
     out["batch_2m_ms"] = b / qps * 1e3
     out["qps_2m_true"] = b / true_ms * 1e3
+    # The rounded fold (bench.py's packed row): its own recall floor shows
+    # that selecting on bf16-rounded scores keeps the planted gold.
+    retr_r = FusedRetriever(index, (MODEL,), use_bm25=True,
+                            kernel_config=KernelConfig(rounded=True), **kw)
+
+    def call_r():
+        return retr_r.retrieve_device(qd, terms, hybrid, None, 40.0)
+
+    r_p = recall_at_10(call_r()[0], gold)
+    if r_p < 0.99:
+        raise AssertionError(f"2M rounded-fold hybrid recall@10 {r_p} "
+                             f"below the floor 0.99")
+    out["recall@10_2m_packed"] = r_p
+    packed_ms = _timed(out, "batch_2m_true_packed_ms",
+                       lambda: timer.device_ms(call_r, cfg.n_loop), repeats)
+    out["qps_2m_true_packed"] = b / packed_ms * 1e3
     _floor_keys(out, stream_floor(emb, timer, repeats), "2m", true_ms,
                 emb.numel() * emb.element_size())
     return out

@@ -99,7 +99,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 // is scored or folded: each thread reads back the words its share of the
 // staged chunks (and of a resident query block, once) hold once they have
 // landed, and the XOR of them is returned.
-template <typename T, int BQN, bool DOT, typename Walk, typename OnTile>
+template <typename T, int BQN, bool DOT, bool ROUND, typename Walk,
+          typename OnTile>
 __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
                                  int B, int D, int q0, bool qres,
                                  const Walk& walk, const SmemT<BQN>& sm,
@@ -293,7 +294,8 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 const int col = wm * WM + mt * 16 + g + 8 * h;
-                const float v = acc[mt][nt][2 * h + i];
+                const float v =
+                    selection_score<ROUND>(acc[mt][nt][2 * h + i]);
                 sm.scores[r * (TN + 1) + col] = v;
                 hit |= v >= wv;
                 acc[mt][nt][2 * h + i] = 0.f;
@@ -308,8 +310,9 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
           bool hit = false;
 #pragma unroll
           for (int jj = 0; jj < DT; ++jj) {
-            sm.scores[r * (TN + 1) + tx + TXN * jj] = facc[i][jj];
-            hit |= facc[i][jj] >= wv;
+            const float v = selection_score<ROUND>(facc[i][jj]);
+            sm.scores[r * (TN + 1) + tx + TXN * jj] = v;
+            hit |= v >= wv;
             facc[i][jj] = 0.f;
           }
           if (hit) sm.hit[r] = 1;
@@ -330,9 +333,11 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
 // The float rows of K1 / K3 as the split kernels of split_topk.cuh take
 // them: q [PLANES][B, D] (bf16 rows: the three pieces; f32 rows: the f32
 // query), e [*, D], an optional [N] mask, and whether the query block is
-// resident (qres) or streamed by depth chunk.
-template <typename T>
+// resident (qres) or streamed by depth chunk. ROUND: K1r's rounded
+// selection scores (topk_common.cuh's selection_score).
+template <typename T, bool ROUND = false>
 struct FloatRows {
+  static constexpr bool ROUNDED = ROUND;
   const T* q;
   const T* e;
   const uint8_t* mask;
@@ -360,8 +365,8 @@ struct FloatRows {
   template <int BQN, bool DOT, typename Walk, typename OnTile>
   __device__ unsigned stream(int q0, const Walk& walk, const SmemT<BQN>& sm,
                              OnTile&& on_tile) const {
-    return stream_float<T, BQN, DOT>(q, e, mask, B, D, q0, qres, walk, sm,
-                                     on_tile);
+    return stream_float<T, BQN, DOT, ROUND>(q, e, mask, B, D, q0, qres,
+                                            walk, sm, on_tile);
   }
 };
 

@@ -6,6 +6,20 @@
 //      (f32 or bf16 rows, f32 queries)
 //   K2 fused_dense_top_k_int8 (fused_topk.py:1218)
 //      (int8 rows with per-row scales, int8 queries with per-query scales)
+//   K1r, K2r: the same calls' rounded fold (algo="packed": the bodies
+//      _kernel_packed, fused_topk.py:359, and _kernel_packed_int8, :377)
+//
+// K1r / K2r take the top k of every score rounded to bf16 (to nearest,
+// ties to even): bf16(q . e), bf16(float(acc) * doc_scale). The TPU
+// kernels packed that bf16 key and the column into one int32 because
+// Mosaic's argmax is f32-only; here the one change is at the score store
+// (topk_common.cuh's selection_score, a compile-time flag of the rows):
+// the tau pass scores and rounds the subsample exactly as the main pass
+// does, so its lowered k-th best stays a lower bound, and the lists' rule
+// (score desc, id asc) and the merge order the ties. Their values are the
+// rounded scores (K2r: times the query scale, after selection), -0.0
+// below +0.0. The callers take K1 / K2 for masked calls and N % 1024 != 0,
+// as the TPU launchers did (ops/kernels/fused_topk.py).
 //
 // Contract (both): for every query, the k best documents by
 // (score descending, doc id ascending), masked documents never being
@@ -62,7 +76,7 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool ROUND>
 int fused_float(const float* q, const T* e, const uint8_t* mask, int B,
                 int N, int D, int k, int bq, int qres, int splits, int per,
                 int tau_splits, int tau_per, void* ws_base, float* out_v,
@@ -76,7 +90,7 @@ int fused_float(const float* q, const T* e, const uint8_t* mask, int B,
   cudaError_t err;
   const T* planes = query_planes<T>(q, B, D, ws, stream, err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const FloatRows<T> rows{planes, e, mask, B, D, qres != 0};
+  const FloatRows<T, ROUND> rows{planes, e, mask, B, D, qres != 0};
   const SplitPlan sub{N, tau_per, TAU_STRIDE};
   if (tau_out != nullptr) {  // tau alone
     ws.tau = tau_out;
@@ -88,6 +102,7 @@ int fused_float(const float* q, const T* e, const uint8_t* mask, int B,
                                    out_i, stream));
 }
 
+template <bool ROUND>
 int fused_int8(const int8_t* q_values, const float* q_scales,
                const int8_t* values, const float* scales,
                const uint8_t* mask, int B, int N, int D, int k, int bq,
@@ -99,7 +114,7 @@ int fused_int8(const int8_t* q_values, const float* q_scales,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Workspace ws = carve_workspace(ws_base, B, k, splits, tau_splits, D, false);
-  const Int8Rows rows{q_values, values, scales, mask, B, D};
+  const Int8RowsT<ROUND> rows{q_values, values, scales, mask, B, D};
   const SplitPlan sub{N, tau_per, TAU_STRIDE};
   if (tau_out != nullptr) {
     ws.tau = tau_out;
@@ -137,40 +152,43 @@ long long anr_topk_workspace_bytes(int B, int k, int walkers,
   return static_cast<long long>(bytes);
 }
 
-// K1. tau_out null: the top-k into out_v / out_i; else tau alone (the
-// subsample pass), into tau_out [B].
+// K1 (rounded: K1r). tau_out null: the top-k into out_v / out_i; else tau
+// alone (the subsample pass), into tau_out [B].
 int anr_fused_topk_f32(const float* q, const float* e, const uint8_t* mask,
                        int B, int N, int D, int k, int bq, int qres,
                        int splits, int per, int tau_splits, int tau_per,
-                       void* ws, float* out_v, int* out_i, float* tau_out,
-                       void* stream) {
-  return fused_float<float>(q, e, mask, B, N, D, k, bq, qres, splits, per,
-                            tau_splits, tau_per, ws, out_v, out_i, tau_out,
-                            static_cast<cudaStream_t>(stream));
+                       int rounded, void* ws, float* out_v, int* out_i,
+                       float* tau_out, void* stream) {
+  auto* run = rounded ? fused_float<float, true> : fused_float<float, false>;
+  return run(q, e, mask, B, N, D, k, bq, qres, splits, per, tau_splits,
+             tau_per, ws, out_v, out_i, tau_out,
+             static_cast<cudaStream_t>(stream));
 }
 
 int anr_fused_topk_bf16(const float* q, const void* e, const uint8_t* mask,
                         int B, int N, int D, int k, int bq, int qres,
                         int splits, int per, int tau_splits, int tau_per,
-                        void* ws, float* out_v, int* out_i, float* tau_out,
-                        void* stream) {
-  return fused_float<__nv_bfloat16>(
-      q, static_cast<const __nv_bfloat16*>(e), mask, B, N, D, k, bq, qres,
-      splits, per, tau_splits, tau_per, ws, out_v, out_i, tau_out,
-      static_cast<cudaStream_t>(stream));
+                        int rounded, void* ws, float* out_v, int* out_i,
+                        float* tau_out, void* stream) {
+  auto* run = rounded ? fused_float<__nv_bfloat16, true>
+                      : fused_float<__nv_bfloat16, false>;
+  return run(q, static_cast<const __nv_bfloat16*>(e), mask, B, N, D, k, bq,
+             qres, splits, per, tau_splits, tau_per, ws, out_v, out_i,
+             tau_out, static_cast<cudaStream_t>(stream));
 }
 
-// K2 (tau_out as K1's; tau on the selection scores, before the query
-// scale).
+// K2 (rounded: K2r; tau_out as K1's; tau on the selection scores, before
+// the query scale).
 int anr_fused_topk_int8(const int8_t* q_values, const float* q_scales,
                         const int8_t* values, const float* scales,
                         const uint8_t* mask, int B, int N, int D, int k,
                         int bq, int splits, int per, int tau_splits,
-                        int tau_per, void* ws, float* out_v, int* out_i,
-                        float* tau_out, void* stream) {
-  return fused_int8(q_values, q_scales, values, scales, mask, B, N, D, k, bq,
-                    splits, per, tau_splits, tau_per, ws, out_v, out_i,
-                    tau_out, static_cast<cudaStream_t>(stream));
+                        int tau_per, int rounded, void* ws, float* out_v,
+                        int* out_i, float* tau_out, void* stream) {
+  auto* run = rounded ? fused_int8<true> : fused_int8<false>;
+  return run(q_values, q_scales, values, scales, mask, B, N, D, k, bq,
+             splits, per, tau_splits, tau_per, ws, out_v, out_i, tau_out,
+             static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

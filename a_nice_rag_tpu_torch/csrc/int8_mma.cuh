@@ -78,7 +78,7 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
 // landed, and the XOR of them is returned (the CTA's XOR is the XOR of
 // the query block's words and of every word of its documents, zero past
 // D).
-template <int BQN, bool DOT, typename Walk, typename OnTile>
+template <int BQN, bool DOT, bool ROUND, typename Walk, typename OnTile>
 __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
                                 const float* escale, const uint8_t* mask,
                                 int B, int D, int q0, const Walk& walk,
@@ -196,8 +196,8 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               const int r = wn * WN + nt * 8 + 2 * t + i;
-              sm.scores[r * (TN + 1) + col] =
-                  static_cast<float>(acc[mt][nt][2 * h + i]) * sc;
+              sm.scores[r * (TN + 1) + col] = selection_score<ROUND>(
+                  static_cast<float>(acc[mt][nt][2 * h + i]) * sc);
               acc[mt][nt][2 * h + i] = 0;
             }
           }
@@ -217,8 +217,11 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
 
 // The int8 rows of K2 / K4 as the split kernels of split_topk.cuh take
 // them: q [B, D] int8 queries, e [*, D] int8 rows with scales escale, an
-// optional [N] mask.
-struct Int8Rows {
+// optional [N] mask. ROUND: K2r's rounded selection scores, bf16(float(acc)
+// * doc_scale) (topk_common.cuh's selection_score).
+template <bool ROUND = false>
+struct Int8RowsT {
+  static constexpr bool ROUNDED = ROUND;
   const int8_t* q;
   const int8_t* e;
   const float* escale;
@@ -234,9 +237,11 @@ struct Int8Rows {
   template <int BQN, bool DOT, typename Walk, typename OnTile>
   __device__ unsigned stream(int q0, const Walk& walk, const SmemT<BQN>& sm,
                              OnTile&& on_tile) const {
-    return stream_int8<BQN, DOT>(q, e, escale, mask, B, D, q0, walk, sm,
-                                 on_tile);
+    return stream_int8<BQN, DOT, ROUND>(q, e, escale, mask, B, D, q0, walk,
+                                        sm, on_tile);
   }
 };
+
+using Int8Rows = Int8RowsT<false>;
 
 }  // namespace

@@ -73,8 +73,8 @@ template <class Rows, int BQN>
 struct MinCtas {
   static constexpr int value = BQN == 16 ? 3 : 1;
 };
-template <int BQN>
-struct MinCtas<Int8Rows, BQN> {
+template <bool ROUND, int BQN>
+struct MinCtas<Int8RowsT<ROUND>, BQN> {
   static constexpr int value = BQN == 16 ? 3 : 2;
 };
 
@@ -305,8 +305,9 @@ cudaError_t run_tau(const Rows& rows, const Plan& sub, int tau_walkers,
                       nullptr, nullptr, nullptr, ws.tau, stream);
 }
 
-// K1-K4: tau, the main pass seeded with it, the merge (qscale: int8's
-// query scales, applied to the k outputs only).
+// K1-K4 (and K1r / K2r, whose rows round): tau, the main pass seeded with
+// it, the merge (qscale: int8's query scales, applied to the k outputs
+// only).
 template <class Rows, class Plan>
 cudaError_t run_topk(const Rows& rows, const Plan& main, int walkers,
                      const Plan& sub, int tau_walkers, int bq, int k,
@@ -318,7 +319,7 @@ cudaError_t run_topk(const Rows& rows, const Plan& main, int walkers,
                                ws.part_v, ws.part_i, stream);
   if (err != cudaSuccess) return err;
   return launch_merge(ws.part_v, ws.part_i, rows.B, walkers * k, k, qscale,
-                      out_v, out_i, nullptr, stream);
+                      out_v, out_i, nullptr, stream, Rows::ROUNDED);
 }
 
 bool split_args_ok(int B, int N, int D, int k, int bq, int splits, int per,

@@ -51,6 +51,35 @@ __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
+// -- the rounded fold --------------------------------------------------------
+
+// K1r / K2r (the TPU kernels' algo="packed") select on every score rounded
+// to bf16 (to nearest, ties to even) and back to f32, at the one place a
+// score is stored, so the tau pass, the fold and the merge all see the
+// rounded value and the running lists' rule (score desc, id asc) orders
+// its many ties. bf16 -0.0 orders below +0.0 there (the TPU kernel's
+// packed key maps it to -1, +0.0 to 0), where f32 compares them equal: it
+// is carried as the negative f32 nearest zero (bits 0x80000001, no bf16
+// value), which lies above every negative bf16 and below +0.0, and the
+// merge writes it out as -0.0.
+constexpr unsigned ROUNDED_NEG_ZERO = 0x80000001u;
+
+template <bool ROUND>
+__device__ __forceinline__ float selection_score(float v) {
+  if constexpr (ROUND) {
+    const float r = __bfloat162float(__float2bfloat16_rn(v));
+    return __float_as_uint(r) == 0x80000000u
+               ? __uint_as_float(ROUNDED_NEG_ZERO)
+               : r;
+  } else {
+    return v;
+  }
+}
+
+__device__ __forceinline__ float unround_score(float v) {
+  return __float_as_uint(v) == ROUNDED_NEG_ZERO ? -0.f : v;
+}
+
 // -- staging ---------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -430,11 +459,14 @@ __device__ __forceinline__ float lowered(float kth) {
 // are, and the selection is exact. Then the selected entries are ranked
 // among themselves and written sorted: out_v [B][k] (times qscale[row]
 // where qscale is given: int8's query scale, after selection), out_i,
-// (-inf, -1) past the candidates. With ``tau`` set, writes only tau[row]
-// = lowered(k-th best), or -inf with fewer than k candidates.
+// (-inf, -1) past the candidates; ``unround``: the rounded fold's lists,
+// whose -0.0 is written back from its carried form. With ``tau`` set,
+// writes only tau[row] = lowered(k-th best), or -inf with fewer than k
+// candidates.
 __global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const float* part_v, const int* part_i, int m, int k,
-                 const float* qscale, float* out_v, int* out_i, float* tau) {
+                 const float* qscale, float* out_v, int* out_i, float* tau,
+                 bool unround) {
   __shared__ int hist[256];
   __shared__ int bin_s, need_s, done_s, count_s;
   __shared__ unsigned long long keys_s[MERGE_KMAX];
@@ -538,7 +570,8 @@ __global__ void __launch_bounds__(MERGE_THREADS)
     if (s < count) {
       int rank = 0;
       for (int t = 0; t < count; ++t) rank += keys_s[t] > keys_s[s];
-      ov[rank] = qscale ? vals_s[s] * qs : vals_s[s];
+      const float v = unround ? unround_score(vals_s[s]) : vals_s[s];
+      ov[rank] = qscale ? v * qs : v;
       oi[rank] = ids_s[s];
     } else {
       ov[s] = -INFINITY;
@@ -552,10 +585,10 @@ __global__ void __launch_bounds__(MERGE_THREADS)
 inline cudaError_t launch_merge(const float* part_v, const int* part_i,
                                 int B, int m, int k, const float* qscale,
                                 float* out_v, int* out_i, float* tau,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, bool unround = false) {
   if (k > MERGE_KMAX) return cudaErrorInvalidValue;
   merge_kernel<<<B, MERGE_THREADS, 0, stream>>>(part_v, part_i, m, k, qscale,
-                                                out_v, out_i, tau);
+                                                out_v, out_i, tau, unround);
   return cudaGetLastError();
 }
 

@@ -16,7 +16,9 @@ from a_nice_rag_tpu_torch.ops.kernels.anatomy import (  # noqa: F401
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_dense_top_k,
     fused_dense_top_k_int8,
+    fused_dense_top_k_int8_rounded,
     fused_dense_top_k_int8_torch,
+    fused_dense_top_k_rounded,
     fused_dense_top_k_torch,
     split_query,
     subsample_tau,
@@ -57,7 +59,9 @@ from a_nice_rag_tpu_torch.ops.kernels.stream import (  # noqa: F401
 
 # csrc/<name>.cu
 SOURCES = ("fused_topk", "ivf_topk", "stream_sum", "anatomy", "keys", "int4")
-WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8, ivf_dense_top_k,
+WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
+            fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
+            ivf_dense_top_k,
             ivf_dense_top_k_int8, stream_sum, stream_sum_busy,
             anatomy_top_k, anatomy_top_k_int8, fused_top_k_counted,
             fused_top_k_counted_int8, xpack_keys, xpack_values,

@@ -2,15 +2,18 @@
 
 Counterpart of the JAX package's tuner (``tune_fused_blocks`` of its TPU
 kernels' ``autotune.py``). The TPU tuner searched block shapes and fold
-algorithms of a Mosaic kernel; here the kernel is one (K1,
+algorithms of a Mosaic kernel; here the exact fold is one kernel (K1,
 ``csrc/fused_topk.cu``) and only its plan varies: the query block (16 or
 64, where its block fits a CTA's shared memory) and the doc splits at
-half, one and two times ``topk_plan``'s. The plan spreads the work only,
-so every candidate must give the default plan's ids; one that does not is
-skipped with a warning, as the TPU tuner skipped a miscompiled candidate.
-The winner is tied to the batch it was tuned at (``KernelConfig.batch``),
-memoized per signature (card name, N, D, B, k, row dtype) and optionally
-kept in a JSON file.
+half, one and two times ``topk_plan``'s. ``allow_rounded`` adds the same
+plans on the rounded fold (K1r, the TPU tuner's ``ROUNDED_CANDIDATES``,
+``algo="packed"``). The plan spreads the work only, so every candidate
+must give its fold's default plan's ids (K1's, or K1r's for a rounded
+candidate); one that does not is skipped with a warning, as the TPU tuner
+skipped a miscompiled candidate. The winner's plan is tied to the batch
+it was tuned at (``KernelConfig.batch``), its fold is not; it is memoized
+per signature (card name, N, D, B, k, row dtype, and ":rounded" with
+``allow_rounded``) and optionally kept in a JSON file.
 
 On tensors off CUDA the defaults come back without measuring: the plain
 version's time says nothing about the card.
@@ -42,15 +45,21 @@ class KernelConfig(NamedTuple):
 
     ``batch``: the batch the plan was tuned at. ``splits`` is a count of
     CTAs that ``topk_plan`` sizes to a batch's query blocks, so the
-    retrievers apply a config to calls of that many queries only (None:
-    to every call); other batches keep the plan's own."""
+    retrievers apply the plan to calls of that many queries only (None:
+    to every call); other batches keep the plan's own.
+
+    ``rounded``: the rounded fold (``fused_dense_top_k(rounded=True)``,
+    the TPU kernels' ``algo="packed"``) on the retrievers' dense lists,
+    float and int8 alike, at every batch: a selection rule, not a plan."""
 
     bq: Optional[int] = None
     splits: Optional[int] = None
     batch: Optional[int] = None
+    rounded: bool = False
 
     def for_batch(self, b: int) -> Optional["KernelConfig"]:
-        """This config for a call of ``b`` queries, or None there."""
+        """This config's plan for a call of ``b`` queries, or None there
+        (``rounded`` is read apart from it)."""
         return self if self.batch in (None, b) else None
 
 
@@ -84,20 +93,32 @@ def default_candidates(n: int, b: int, d: int, k: int, sms: int,
     return tuple(out)
 
 
+def rounded_candidates(
+        candidates: Sequence[KernelConfig]) -> Tuple[KernelConfig, ...]:
+    """``candidates`` and, after them, each of their plans on the rounded
+    fold."""
+    return tuple(candidates) + tuple(c._replace(rounded=True)
+                                     for c in candidates)
+
+
 def pick_fastest(
     run: Callable[[KernelConfig], torch.Tensor],
     time_ms: Callable[[KernelConfig], float],
     candidates: Sequence[KernelConfig],
 ) -> Tuple[KernelConfig, Dict[KernelConfig, float]]:
-    """The fastest candidate whose ids (``run``) equal the default plan's;
-    (winner, ms of every candidate timed). A candidate that diverges or
-    fails is skipped; with none left, the default ``KernelConfig()``."""
-    ref = run(KernelConfig())
+    """The fastest candidate whose ids (``run``) equal its fold's default
+    plan's (``KernelConfig()``, or ``KernelConfig(rounded=True)`` for a
+    rounded candidate); (winner, ms of every candidate timed). A candidate
+    that diverges or fails is skipped; with none left, the default
+    ``KernelConfig()``."""
+    refs = {False: run(KernelConfig())}
     best, best_ms, timed = KernelConfig(), float("inf"), {}
     for cand in candidates:
         try:
+            if cand.rounded not in refs:
+                refs[cand.rounded] = run(KernelConfig(rounded=cand.rounded))
             got = run(cand)
-            if not torch.equal(got, ref):
+            if not torch.equal(got, refs[cand.rounded]):
                 logger.warning(
                     "autotune: %s ids DIVERGE from the default plan's on "
                     "this card; skipped", cand)
@@ -107,8 +128,8 @@ def pick_fastest(
             logger.info("autotune: %s failed: %s", cand, e)
             continue
         timed[cand] = ms
-        logger.info("autotune: bq=%s splits=%s -> %.4f ms", cand.bq,
-                    cand.splits, ms)
+        logger.info("autotune: bq=%s splits=%s rounded=%s -> %.4f ms",
+                    cand.bq, cand.splits, cand.rounded, ms)
         if ms < best_ms:
             best, best_ms = cand, ms
     return best, timed
@@ -122,17 +143,21 @@ def tune_fused_blocks(
     reps: int = 4,
     trials: int = 2,
     cache_path: Optional[str] = None,
+    allow_rounded: bool = False,
 ) -> KernelConfig:
     """K1's fastest plan for ``emb`` [N, D] (f32 or bf16) and ``queries``
     [B, D] on the live card: each candidate's device ms (``reps`` calls
     between one pair of CUDA events, the best of ``trials``), returned
-    with ``batch`` = B. Returns ``KernelConfig()`` without measuring when
-    ``emb`` is not on CUDA. Memoized per signature, and kept in
-    ``cache_path`` (JSON) when set."""
+    with ``batch`` = B. ``allow_rounded`` also times the default
+    candidates on the rounded fold (K1r), so the winner may select on
+    bf16-rounded scores. Returns the default (``KernelConfig(rounded=
+    allow_rounded)``) without measuring when ``emb`` is not on CUDA.
+    Memoized per signature, and kept in ``cache_path`` (JSON) when
+    set."""
     from a_nice_rag_tpu_torch.testing.timing import device_loop_ms
 
     b = queries.shape[0]
-    sig = _signature(emb, b, k)
+    sig = _signature(emb, b, k) + (":rounded" if allow_rounded else "")
     if sig in _memory_cache:
         return _memory_cache[sig]
     if cache_path and os.path.exists(cache_path):
@@ -146,15 +171,18 @@ def tune_fused_blocks(
         except (OSError, ValueError, TypeError):
             pass
     if emb.device.type != "cuda":
-        return KernelConfig()
+        return KernelConfig(rounded=allow_rounded)
 
     n, d = emb.shape
     if candidates is None:
         candidates = default_candidates(n, b, d, k, _sm_count(emb.device),
                                         _ROWS[emb.dtype])
+        if allow_rounded:
+            candidates = rounded_candidates(candidates)
 
     def call(cfg):
-        return fused_dense_top_k(emb, queries, k, plan=cfg)
+        return fused_dense_top_k(emb, queries, k, plan=cfg,
+                                 rounded=cfg.rounded)
 
     best, _ = pick_fastest(
         lambda cfg: call(cfg)[1],

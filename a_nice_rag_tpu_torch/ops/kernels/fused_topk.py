@@ -25,6 +25,19 @@ rule (score desc, doc id asc); masked documents are never candidates and
 unfilled slots hold (-inf, -1). k <= 128; B, N and D take any size (K2: D
 up to the depth whose 16-query block fits in a CTA's shared memory, about
 9,800), and rows of any alignment.
+
+``rounded=True`` selects the rounded fold, K1r / K2r
+(``fused_dense_top_k_rounded``, ``fused_dense_top_k_int8_rounded``): the
+TPU kernels' ``algo="packed"`` (bodies ``_kernel_packed``,
+fused_topk.py:359, and ``_kernel_packed_int8``, :377). The top k is taken
+on every score rounded to bf16 (to nearest, ties to even), under the same
+tie rule, and the values are those rounded scores (K2r: times the query
+scale); bf16 -0.0 ranks below +0.0, as the TPU kernel's packed key ranks
+it. As in the JAX package, the rounded fold applies to maskless calls
+whose N is a multiple of ``ROUNDED_ALIGN``: a masked or misaligned call
+gives K1 / K2's exact result. (The TPU kernel's own boundary ties follow
+its eviction order, not the lower id; its test compares the selected
+scores.)
 """
 
 from __future__ import annotations
@@ -52,6 +65,13 @@ TAU_SLACK = 1e-5
 _PLAIN_CHUNK_ELEMS = 1 << 27
 _ROWS = {torch.float32: "float32", torch.bfloat16: "bfloat16",
          torch.int8: "int8"}
+# The rounded fold's calls: maskless, N a multiple of this (the TPU
+# launchers' _N_ALIGN).
+ROUNDED_ALIGN = 1024
+# The int32 bits of -0.0, and of the negative f32 nearest zero (no bf16
+# value) that carries a rounded -0.0 below +0.0 (csrc/topk_common.cuh).
+_NEG_ZERO_BITS = -0x80000000
+_CARRIED_NEG_ZERO_BITS = -0x7FFFFFFF
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,14 +81,15 @@ _LL = ctypes.c_longlong
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_topk")
     if not hasattr(lib, "_anr_bound"):
-        # q, e, mask; B N D k bq qres splits per tau_splits tau_per;
-        # workspace, out_v, out_i, tau_out, stream.
-        floats = [_P] * 3 + [_I] * 10 + [_P] * 5
+        # q, e, mask; B N D k bq qres splits per tau_splits tau_per
+        # rounded; workspace, out_v, out_i, tau_out, stream.
+        floats = [_P] * 3 + [_I] * 11 + [_P] * 5
         lib.anr_fused_topk_f32.argtypes = floats
         lib.anr_fused_topk_bf16.argtypes = floats
         # q, q scales, values, scales, mask; B N D k bq splits per
-        # tau_splits tau_per; workspace, out_v, out_i, tau_out, stream.
-        lib.anr_fused_topk_int8.argtypes = [_P] * 5 + [_I] * 9 + [_P] * 5
+        # tau_splits tau_per rounded; workspace, out_v, out_i, tau_out,
+        # stream.
+        lib.anr_fused_topk_int8.argtypes = [_P] * 5 + [_I] * 10 + [_P] * 5
         for fn in (lib.anr_fused_topk_f32, lib.anr_fused_topk_bf16,
                    lib.anr_fused_topk_int8):
             fn.restype = _I
@@ -219,14 +240,41 @@ def _plain_top_k(
     return run_v, run_i.to(torch.int32)
 
 
+def rounded_route(n: int, mask: Optional[torch.Tensor]) -> bool:
+    """Whether a call asking for the rounded fold over ``n`` rows takes it
+    (maskless, n a multiple of ROUNDED_ALIGN), else K1 / K2's exact fold."""
+    return mask is None and n % ROUNDED_ALIGN == 0
+
+
+def round_scores(s: torch.Tensor) -> torch.Tensor:
+    """The rounded fold's selection scores: f32 ``s`` rounded to bf16 (to
+    nearest, ties to even) and back, -0.0 carried as the negative f32
+    nearest zero so that it ranks below +0.0 and above every negative
+    bf16 (csrc/topk_common.cuh's selection_score)."""
+    bits = s.to(torch.bfloat16).to(torch.float32).view(torch.int32)
+    return torch.where(bits == _NEG_ZERO_BITS, _CARRIED_NEG_ZERO_BITS,
+                       bits).view(torch.float32)
+
+
+def unround_values(v: torch.Tensor) -> torch.Tensor:
+    """Selected rounded scores as the rounded fold returns them: the
+    carried -0.0 back to -0.0."""
+    bits = v.contiguous().view(torch.int32)
+    return torch.where(bits == _CARRIED_NEG_ZERO_BITS, _NEG_ZERO_BITS,
+                       bits).view(torch.float32)
+
+
 def _float_scores(emb: torch.Tensor, queries: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None):
+                  mask: Optional[torch.Tensor] = None,
+                  rounded: bool = False):
     """K1's scores of documents [s0, s1): f32 (both operands upcast),
-    masked documents at -inf."""
+    masked documents at -inf; ``rounded``: K1r's (``round_scores``)."""
     q = queries.to(torch.float32)
 
     def scores(s0: int, s1: int) -> torch.Tensor:
         s = q @ emb[s0:s1].to(torch.float32).T
+        if rounded:
+            s = round_scores(s)
         if mask is not None:
             s = torch.where(mask[s0:s1][None, :], s, float("-inf"))
         return s
@@ -236,12 +284,16 @@ def _float_scores(emb: torch.Tensor, queries: torch.Tensor,
 
 def _int8_scores(values: torch.Tensor, scales: torch.Tensor,
                  q_values: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None):
-    """K2's selection scores float(acc) * doc_scale, masked at -inf."""
+                 mask: Optional[torch.Tensor] = None,
+                 rounded: bool = False):
+    """K2's selection scores float(acc) * doc_scale, masked at -inf;
+    ``rounded``: K2r's (``round_scores`` of them)."""
 
     def scores(s0: int, s1: int) -> torch.Tensor:
         acc = int8_dot(q_values, values[s0:s1])
         s = acc.to(torch.float32) * scales[s0:s1][None, :]
+        if rounded:
+            s = round_scores(s)
         if mask is not None:
             s = torch.where(mask[s0:s1][None, :], s, float("-inf"))
         return s
@@ -254,11 +306,17 @@ def fused_dense_top_k_torch(
     queries: torch.Tensor,
     k: int,
     mask: Optional[torch.Tensor] = None,
+    rounded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1: f32 scores (both operands upcast),
-    masked docs at -inf, stable selection."""
-    return _plain_top_k(_float_scores(emb, queries, mask), emb.shape[0],
-                        queries.shape[0], emb.shape[1], k, emb.device)
+    """Plain PyTorch version of K1 (and, ``rounded`` where
+    ``rounded_route`` takes it, of K1r): f32 scores (both operands
+    upcast; K1r: rounded to bf16), masked docs at -inf, stable
+    selection."""
+    rounded = rounded and rounded_route(emb.shape[0], mask)
+    vals, ids = _plain_top_k(_float_scores(emb, queries, mask, rounded),
+                             emb.shape[0], queries.shape[0], emb.shape[1],
+                             k, emb.device)
+    return (unround_values(vals) if rounded else vals), ids
 
 
 def split_query(queries: torch.Tensor) -> torch.Tensor:
@@ -339,8 +397,10 @@ def _check_float_call(emb, queries, k, mask):
     return n, d, b, dev
 
 
-def _float_call(emb, queries, k, mask, tau_only: bool, override=None):
-    """Launch K1 (or, ``tau_only``, its tau pass alone) on CUDA tensors."""
+def _float_call(emb, queries, k, mask, tau_only: bool, override=None,
+                rounded: bool = False):
+    """Launch K1 (``rounded``: K1r; or, ``tau_only``, its tau pass alone)
+    on CUDA tensors."""
     n, d = emb.shape
     b, dev = queries.shape[0], emb.device
     rows = _ROWS[emb.dtype]
@@ -359,7 +419,7 @@ def _float_call(emb, queries, k, mask, tau_only: bool, override=None):
     with torch.cuda.device(dev):
         _launch(fn, q.data_ptr(), emb.data_ptr(), _ptr(mask), b, n, d, k,
                 plan.bq, int(qres), splits, plan.per if not tau_only else
-                topk_plan.TN, tau_splits, tau_per, ws.data_ptr(),
+                topk_plan.TN, tau_splits, tau_per, int(rounded), ws.data_ptr(),
                 None if tau_only else out_v.data_ptr(), _ptr(out_i),
                 out_v.data_ptr() if tau_only else None, device=dev)
     return out_v if tau_only else (out_v, out_i)
@@ -371,6 +431,7 @@ def fused_dense_top_k(
     k: int,
     mask: Optional[torch.Tensor] = None,
     plan: Optional[Tuple[Optional[int], Optional[int]]] = None,
+    rounded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: streaming scoring + top-k over emb [N, D] (f32 or bf16) for
     queries [B, D] (f32, or bf16 as the two-tier BM25 tier passes;
@@ -380,8 +441,13 @@ def fused_dense_top_k(
     (the tuner's ``KernelConfig``; None in either keeps the plan's own). A
     query block that does not fit raises. It spreads the work only: the
     values and ids are the default plan's. On CPU tensors the override is
-    checked against an H100's plan and the plain version runs."""
+    checked against an H100's plan and the plain version runs.
+
+    ``rounded``: the rounded fold (``fused_dense_top_k_rounded``) where
+    ``rounded_route`` takes it; a masked or misaligned call stays K1."""
     n, d, b, dev = _check_float_call(emb, queries, k, mask)
+    if rounded and rounded_route(n, mask):
+        return fused_dense_top_k_rounded(emb, queries, k, plan=plan)
     override = _override(plan)
     if dev.type == "cpu":
         if override is not None:
@@ -394,6 +460,38 @@ def fused_dense_top_k(
 
 
 fused_dense_top_k.launches = 0
+
+
+def _check_rounded(n: int) -> None:
+    if n % ROUNDED_ALIGN:
+        raise ValueError(f"the rounded fold takes N a multiple of "
+                         f"{ROUNDED_ALIGN}, got {n}")
+
+
+def fused_dense_top_k_rounded(
+    emb: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    plan: Optional[Tuple[Optional[int], Optional[int]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1r, K1's rounded fold (no mask; N a multiple of ROUNDED_ALIGN, else
+    ValueError): the top k of bf16-rounded scores under (score desc, id
+    asc), their rounded values; ``plan`` as K1's. On CUDA tensors K1's
+    kernel with its rounding flag set; on the CPU the plain version."""
+    n, d, b, dev = _check_float_call(emb, queries, k, None)
+    _check_rounded(n)
+    override = _override(plan)
+    if dev.type == "cpu":
+        if override is not None:
+            _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override)
+        return fused_dense_top_k_torch(emb, queries, k, rounded=True)
+    out = _float_call(emb, queries, k, None, tau_only=False,
+                      override=override, rounded=True)
+    count_launch(fused_dense_top_k_rounded)
+    return out
+
+
+fused_dense_top_k_rounded.launches = 0
 
 
 def subsample_tau(emb: torch.Tensor, queries: torch.Tensor, k: int,
@@ -417,12 +515,19 @@ def fused_dense_top_k_int8_torch(
     q_scales: torch.Tensor,
     k: int,
     mask: Optional[torch.Tensor] = None,
+    rounded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K2: exact int32 dot, selection on
-    float(acc) * doc_scale, then * q_scale on the k outputs only."""
-    vals, ids = _plain_top_k(_int8_scores(values, scales, q_values, mask),
-                             values.shape[0], q_values.shape[0],
-                             values.shape[1], k, values.device)
+    """Plain PyTorch version of K2 (and, ``rounded`` where ``rounded_route``
+    takes it, of K2r): exact int32 dot, selection on float(acc) *
+    doc_scale (K2r: rounded to bf16), then * q_scale on the k outputs
+    only."""
+    rounded = rounded and rounded_route(values.shape[0], mask)
+    vals, ids = _plain_top_k(
+        _int8_scores(values, scales, q_values, mask, rounded),
+        values.shape[0], q_values.shape[0], values.shape[1], k,
+        values.device)
+    if rounded:
+        vals = unround_values(vals)
     vals = torch.where(ids < 0, float("-inf"), vals * q_scales[:, None])
     return vals, ids
 
@@ -450,8 +555,10 @@ def _check_int8_call(values, scales, q_values, q_scales, k, mask):
     return n, d, b, dev
 
 
-def _int8_call(values, scales, q_values, q_scales, k, mask, tau_only: bool):
-    """Launch K2 (or, ``tau_only``, its tau pass alone) on CUDA tensors."""
+def _int8_call(values, scales, q_values, q_scales, k, mask, tau_only: bool,
+               rounded: bool = False):
+    """Launch K2 (``rounded``: K2r; or, ``tau_only``, its tau pass alone)
+    on CUDA tensors."""
     n, d = values.shape
     b, dev = q_values.shape[0], values.device
     lib = _library()
@@ -468,7 +575,8 @@ def _int8_call(values, scales, q_values, q_scales, k, mask, tau_only: bool):
                 _ptr(q_scales), values.data_ptr(), scales.data_ptr(),
                 _ptr(mask), b, n, d, k, plan.bq, splits,
                 topk_plan.TN if tau_only else plan.per, tau_splits, tau_per,
-                ws.data_ptr(), None if tau_only else out_v.data_ptr(),
+                int(rounded), ws.data_ptr(),
+                None if tau_only else out_v.data_ptr(),
                 _ptr(out_i), out_v.data_ptr() if tau_only else None,
                 device=dev)
     return out_v if tau_only else (out_v, out_i)
@@ -481,12 +589,19 @@ def fused_dense_top_k_int8(
     q_scales: torch.Tensor,
     k: int,
     mask: Optional[torch.Tensor] = None,
+    rounded: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: streaming int8 scoring + top-k. values [N, D] int8 + scales
     [N] f32 (ops.quantized layout); q_values [B, D] int8 + q_scales [B]
     f32; mask: optional [N] bool. Row-major views of any base alignment
-    (``values[1:]``) are taken as they are."""
-    dev = _check_int8_call(values, scales, q_values, q_scales, k, mask)[3]
+    (``values[1:]``) are taken as they are. ``rounded``: the rounded fold
+    (``fused_dense_top_k_int8_rounded``) where ``rounded_route`` takes
+    it; a masked or misaligned call stays K2."""
+    n, _, _, dev = _check_int8_call(values, scales, q_values, q_scales, k,
+                                    mask)
+    if rounded and rounded_route(n, mask):
+        return fused_dense_top_k_int8_rounded(values, scales, q_values,
+                                              q_scales, k)
     if dev.type == "cpu":
         return fused_dense_top_k_int8_torch(
             values, scales, q_values, q_scales, k, mask
@@ -498,6 +613,33 @@ def fused_dense_top_k_int8(
 
 
 fused_dense_top_k_int8.launches = 0
+
+
+def fused_dense_top_k_int8_rounded(
+    values: torch.Tensor,
+    scales: torch.Tensor,
+    q_values: torch.Tensor,
+    q_scales: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2r, K2's rounded fold (no mask; N a multiple of ROUNDED_ALIGN, else
+    ValueError): the top k of bf16(float(acc) * doc_scale) under (score
+    desc, id asc), their rounded values times q_scale. On CUDA tensors
+    K2's kernel with its rounding flag set; on the CPU the plain
+    version."""
+    n, _, _, dev = _check_int8_call(values, scales, q_values, q_scales, k,
+                                    None)
+    _check_rounded(n)
+    if dev.type == "cpu":
+        return fused_dense_top_k_int8_torch(values, scales, q_values,
+                                            q_scales, k, rounded=True)
+    out = _int8_call(values, scales, q_values, q_scales, k, None,
+                     tau_only=False, rounded=True)
+    count_launch(fused_dense_top_k_int8_rounded)
+    return out
+
+
+fused_dense_top_k_int8_rounded.launches = 0
 
 
 def subsample_tau_int8(values: torch.Tensor, scales: torch.Tensor,

@@ -72,6 +72,7 @@ from a_nice_rag_tpu_torch.retrieval.engine import (
     FusedRetriever,
     _ivf_coverage,
     plan_for,
+    rounded_fold,
 )
 
 BM25_BACKENDS = ("auto", "sparse", "two_tier", "two_tier_streaming")
@@ -607,20 +608,21 @@ def _local_to_global_topk(scores: torch.Tensor, k: int, offset: int,
 
 def _dense_shard(sh: IndexShard, mat: Matrix, q: torch.Tensor,
                  mask: Optional[torch.Tensor], k_local: int,
-                 use_kernel: bool, plan=None):
+                 use_kernel: bool, plan=None, rounded: bool = False):
     """One shard's dense list: K1 (float rows, ``plan`` its query block
-    and splits) or K2 (int8) on the kernel route, materialized
-    [B, n_local] scores otherwise."""
+    and splits) or K2 (int8) on the kernel route, K1r / K2r there with
+    ``rounded``, materialized [B, n_local] scores otherwise."""
     if isinstance(mat, QuantizedDense):
         qv, qs = quantize_queries(q)
         if use_kernel:
             vals, lidx = fused_dense_top_k_int8(mat.values, mat.scales, qv,
-                                                qs, k_local, mask=mask)
+                                                qs, k_local, mask=mask,
+                                                rounded=rounded)
             return vals, _local_to_global(vals, lidx, sh.offset)
         scores = quantized_dense_scores(mat, qv, qs)
     elif use_kernel:
         vals, lidx = fused_dense_top_k(mat, q, k_local, mask=mask,
-                                       plan=plan)
+                                       plan=plan, rounded=rounded)
         return vals, _local_to_global(vals, lidx, sh.offset)
     else:
         scores = dense_scores(mat, q)
@@ -685,7 +687,12 @@ class ShardedRetriever:
 
         ``kernel_config``: K1's query block and splits on every shard, at
         the dp group's batch it was tuned at (FusedRetriever's); int8
-        shards keep K2's plan.
+        shards keep K2's plan. Its ``rounded`` puts every shard's dense
+        list on the rounded fold at every batch (FusedRetriever's; a
+        shard of n_local % 1024 != 0 rows keeps the exact fold). The merge
+        keeps (value desc, id asc) over the shards' rounded values, so
+        the lists are unsharded K1r's, but that it ranks a rounded -0.0
+        with +0.0.
         """
         if dense_backend not in DENSE_BACKENDS:
             raise ValueError(f"dense_backend must be one of "
@@ -841,7 +848,8 @@ class ShardedRetriever:
                         v, i = _dense_shard(sh, sh.dense[name], qd, masks[s],
                                             self.k_local, self.use_kernel,
                                             plan_for(self.kernel_config,
-                                                     qd.shape[0]))
+                                                     qd.shape[0]),
+                                            rounded_fold(self.kernel_config))
                 vals.append(v)
                 gidx.append(i)
             lists.append(_merge_over(self.sidx, vals, gidx, k, lead)[1])

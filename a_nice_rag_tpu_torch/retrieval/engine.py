@@ -85,6 +85,12 @@ def plan_for(kernel_config, b: int):
     return None if kernel_config is None else kernel_config.for_batch(b)
 
 
+def rounded_fold(kernel_config) -> bool:
+    """Whether the retriever's dense lists take the rounded fold
+    (``KernelConfig.rounded``): at every batch, unlike its plan."""
+    return kernel_config is not None and kernel_config.rounded
+
+
 def _finite_ids(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(vals), idx, -1).to(torch.int32)
 
@@ -196,7 +202,11 @@ class FusedRetriever:
         picks them) for the float dense lists, at the batch it was tuned
         at (``KernelConfig.for_batch``); None keeps the plan's own. int8
         matrices keep K2's plan. It spreads the work only: the lists are
-        the default plan's.
+        the default plan's. Its ``rounded`` puts every dense list of the
+        kernel route, float and int8, on the rounded fold (K1r / K2r; the
+        JAX package's ``FusedKernelConfig(..., "packed")``) at every
+        batch; a filtered call, or a matrix of N % 1024 != 0 rows, keeps
+        the exact fold, as there.
 
         On the kernel route a CSR-only BM25 list reports -1 for
         zero-score slots, while the torch scatter route fills them with
@@ -288,6 +298,7 @@ class FusedRetriever:
         fused scores [B, n] f32, per-list ids [L, B, k] i32)."""
         k = self.similarity_k
         n = self.common_sections_n
+        rounded = rounded_fold(self.kernel_config)
         lists = []
         for mat, q, iv in zip(dense_mats, q_embs, self._ivf_structs):
             if self._probe(iv, q.shape[0], mask):
@@ -297,14 +308,16 @@ class FusedRetriever:
             if self.use_kernel and quantized:
                 qv, qs = quantize_queries(q)
                 _, idx = fused_dense_top_k_int8(
-                    mat.values, mat.scales, qv, qs, k, mask=mask
+                    mat.values, mat.scales, qv, qs, k, mask=mask,
+                    rounded=rounded,
                 )
                 lists.append(idx)
                 continue
             if self.use_kernel:
                 _, idx = fused_dense_top_k(mat, q, k, mask=mask,
                                            plan=plan_for(self.kernel_config,
-                                                         q.shape[0]))
+                                                         q.shape[0]),
+                                           rounded=rounded)
                 lists.append(idx)
                 continue
             if quantized:

@@ -25,13 +25,17 @@ local`` the on-device decoder LM is attached on the index's device
 continuous-batching ``GenerationServer``, and ``/v1/generate`` and
 ``/v1/chat/completions`` serve it, with JSON guided decoding under
 ``--json-mode``; ``--lm-tp N`` serves it tensor-parallel over the first N
-cards (N slots of the CPU under ``--device cpu``). The JAX CLI's
-``-rounded`` flag, which selects the packed bf16-key fold, exits: that
-fold was not ported.
+cards (N slots of the CPU under ``--device cpu``). ``--rounded-fold``
+(or ``--pallas-rounded``, the JAX CLI's name for it) serves the one-device
+route's dense lists on the rounded fold (K1r / K2r, the JAX CLI's packed
+fold: top-k on bf16-rounded scores), or with ``--autotune`` adds its plans
+to the tuner's candidates; the sharded route stays on the exact fold, as
+in the JAX CLI.
 
 Usage:
     python -m a_nice_rag_tpu_torch.serving.serve_cli --index artifacts/nice \
-        [--port 8800] [--autotune] [--shards 4] [--device cuda] \
+        [--port 8800] [--autotune] [--rounded-fold] [--shards 4] \
+        [--device cuda] \
         [--embedder hashing [--embedder-ckpt DIR]]
         [--llm local [--llm-ckpt DIR] [--json-mode] [--lm-tp N]]
     python -m a_nice_rag_tpu_torch.serving.serve_cli --demo
@@ -59,9 +63,6 @@ from a_nice_rag_tpu_torch.serving.scheduler import (
 )
 
 logger = logging.getLogger(__name__)
-
-ROUNDED_FOLD = ("selects the packed bf16-key fold, which is not ported "
-                "(ROADMAP queue 2: only if an H100 measurement asks for it)")
 
 
 class ServeState:
@@ -161,6 +162,7 @@ def build_state(
     similarity_k: int = 25,
     common_sections_n: int = 15,
     budget: int = 16384,
+    rounded_fold: bool = False,
 ) -> ServeState:
     """Serve ``index`` on its device. ``nprobe > 0`` serves the flagship
     model through the IVF ANN route (building the IVF layout at startup
@@ -175,8 +177,20 @@ def build_state(
     devices it takes the first ``shards`` cards and raises without a GPU.
     ``autotune`` tunes K1's plan on the card for a float flagship matrix
     (``ops.kernels.autotune``) at the scheduler's widest batch; int8
-    matrices keep K2's plan. On CUDA the route's kernel libraries are
-    built before this returns."""
+    matrices keep K2's plan. ``rounded_fold`` serves the one-device
+    route's dense lists on the rounded fold (``KernelConfig(rounded=True)``:
+    K1r / K2r for maskless calls over N % 1024 == 0 rows); with
+    ``autotune`` on the card it adds the rounded plans to the tuner's
+    candidates instead (``allow_rounded``), as the JAX CLI's flag does.
+    The sharded route stays on the exact fold, as in the JAX CLI
+    (``ShardedRetriever(kernel_config=KernelConfig(rounded=True))`` takes
+    the rounded fold on every shard). On CUDA the route's kernel libraries
+    are built before this returns."""
+    from a_nice_rag_tpu_torch.ops.kernels.autotune import (
+        KernelConfig,
+        tune_fused_blocks,
+    )
+
     monitor = None
     retr_kw = dict(use_bm25=use_bm25, similarity_k=similarity_k,
                    common_sections_n=common_sections_n, budget=budget,
@@ -221,6 +235,10 @@ def build_state(
         def make_retriever(s):
             return ShardedRetriever(s, model_names, **retr_kw)
 
+        if rounded_fold:
+            logger.warning("serve: the sharded route stays on the exact "
+                           "fold; the rounded fold serves one device")
+
         retriever = make_retriever(sidx)
         state = ServeState(index, retriever, None)
 
@@ -254,13 +272,9 @@ def build_state(
             logger.info("serve: IVF built for %s (%d clusters)",
                         model_names[0],
                         index.ivf[model_names[0]].n_clusters)
-        kernel_config = None
+        kernel_config = KernelConfig(rounded=True) if rounded_fold else None
         m0 = index.dense.get(model_names[0]) if model_names else None
         if autotune and m0 is not None and m0.device.type == "cuda":
-            from a_nice_rag_tpu_torch.ops.kernels.autotune import (
-                tune_fused_blocks,
-            )
-
             # Random probe queries: an all-zero probe makes every score
             # tie, and the tuner's id-parity guard would then reject
             # every candidate for tie-order differences. Tuned at the
@@ -271,8 +285,12 @@ def build_state(
             q_probe = torch.randn((probe_b, m0.shape[1]), generator=g,
                                   device=m0.device)
             kernel_config = tune_fused_blocks(
-                m0, q_probe, min(similarity_k, index.n_docs))
+                m0, q_probe, min(similarity_k, index.n_docs),
+                allow_rounded=rounded_fold)
             logger.info("serve: autotuned K1 plan %s", kernel_config)
+        elif rounded_fold:
+            logger.info("serve: rounded fold (K1r / K2r) on the dense "
+                        "lists")
         retriever = FusedRetriever(index, model_names,
                                    kernel_config=kernel_config, **retr_kw)
         state = ServeState(index, retriever, None)
@@ -510,6 +528,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--no-bm25", action="store_true")
     p.add_argument("--autotune", action="store_true",
                    help="tune K1's query block and splits on the card")
+    p.add_argument("--rounded-fold", "--pallas-rounded", action="store_true",
+                   help="serve the dense lists on the rounded fold (K1r / "
+                        "K2r: top-k on bf16-rounded scores, ties to the "
+                        "lower id; maskless calls over N %% 1024 == 0 "
+                        "rows) on one device; the sharded route stays "
+                        "exact. With --autotune, adds its plans to the "
+                        "tuner instead of forcing it")
     p.add_argument("--shards", type=int, default=0)
     p.add_argument("--two-tier-common", type=int, default=0)
     # The retriever fixes these at startup and a /v1/search request cannot
@@ -623,10 +648,6 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO)
     parser = _parser()
     args, rest = parser.parse_known_args(argv)
-    for arg in rest:
-        # The JAX CLI's packed-fold flag (its name ends in "-rounded").
-        if arg.startswith("--") and arg.split("=")[0].endswith("-rounded"):
-            raise SystemExit(f"{arg} {ROUNDED_FOLD}")
     if rest:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.lm_tp is not None and args.llm != "local":
@@ -671,6 +692,7 @@ def main(argv=None) -> None:
         nprobe=args.nprobe, ivf_clusters=args.ivf_clusters,
         ivf_cache=args.ivf_cache, ivf_spill=args.ivf_spill,
         ivf_max_coverage=args.ivf_max_coverage, embedder=embedder,
+        rounded_fold=args.rounded_fold,
         devices=None if args.device.startswith("cuda") else
         [args.device] * max(args.shards, 1),
     )

@@ -315,6 +315,7 @@ import importlib.util
 import itertools
 import json
 import logging
+import math
 import os
 import re
 import statistics
@@ -366,6 +367,12 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "int4_scores": (INT4_SOURCE, "scripts/probe_int4.py:83"),
     "int8_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:167"),
     "int4_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:188"),
+    # K1r / K2r: the rounded fold (algo="packed"), K1's and K2's kernel
+    # with its rounding flag set.
+    "fused_dense_top_k_rounded": (
+        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:359"),
+    "fused_dense_top_k_int8_rounded": (
+        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
 }
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
@@ -725,6 +732,12 @@ class Smoke:
     INGEST_GUIDELINES, INGEST_SEED, INGEST_ENCODER = 196, 25, {}
     INGEST_BATCH, INGEST_CPU_ROWS = 100, 256
     INGEST_QUERIES, INGEST_RECALL = 256, 0.90
+    # Phase 26: the rounded fold's kernel cases (N a multiple of 1024, so
+    # maskless calls take K1r / K2r and masked ones K1 / K2), the depth
+    # of its integer grids, and the largest entry of its wide grid: scores
+    # up to 64 * 16 * 16 = 16384 are exact in f32 but not in bf16, so the
+    # rounding shows in every value above 256.
+    N_ROUNDED, ROUNDED_GRID_D, ROUNDED_GRID_WIDE = 1 << 20, 64, 16
 
     def __init__(self, port):
         self.p = port
@@ -976,6 +989,19 @@ class Smoke:
             edge_d=list(self.EDGE_D), edge_b=list(self.EDGE_B),
             edge_k=list(self.EDGE_K), ok=True,
             max_abs_err=self.max_err["fused_dense_top_k_int8"])
+
+    def compare_rounded(self, ref, got) -> None:
+        """K1r on random rows against its plain version: each value a bf16
+        (so the kernel rounded it), then ``compare`` within one bf16 ulp at
+        the largest |value| (K1r's f32 score and the plain version's may
+        straddle a rounding midpoint, which moves the value one ulp)."""
+        v = got[0]
+        torch.cuda.synchronize()
+        if not torch.equal(v, v.bfloat16().float()):
+            raise AssertionError("K1r returned a value that is not a bf16")
+        top = float(ref[0][torch.isfinite(ref[0])].abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        self.compare("fused_dense_top_k_rounded", ref, got, ulp)
 
     @staticmethod
     def equal_int8(got, ref, what) -> None:
@@ -5303,6 +5329,271 @@ class Smoke:
         del emb
         torch.cuda.empty_cache()
 
+    # -- phase 26: the rounded fold ---------------------------------------
+
+    def phase26a_rounded_kernels(self) -> None:
+        """K1r / K2r against their plain versions: phase 1 / 2's grid at
+        N_ROUNDED rows (masked calls take K1 / K2 in both), then integer
+        grids whose scores tie everywhere (ids and values torch.equal),
+        and zero queries against doc scales of both signs (-0.0 below
+        +0.0, the sign bits equal)."""
+        k = self.p.kernels
+        n, d = self.N_ROUNDED, self.D_KERNEL
+        grid = [(m, kk, b) for m in (False, True) for kk in (1, 32, 128)
+                for b in (1, 7, self.B)]
+        for dtype, atol in ((torch.float32, F32_ATOL),
+                            (torch.bfloat16, BF16_ATOL)):
+            emb, q, half, _ = self.kernel_cases(n, d, dtype)
+            for masked, kk, b in grid:
+                mask = half if masked else None
+                got = k.fused_dense_top_k(emb, q[:b], kk, mask=mask,
+                                          rounded=True)
+                ref = k.fused_dense_top_k_torch(emb, q[:b], kk, mask=mask,
+                                                rounded=True)
+                if masked:
+                    self.compare("fused_dense_top_k", ref, got, atol)
+                else:
+                    self.compare_rounded(ref, got)
+            del emb
+        emb, q, half, _ = self.kernel_cases(n, d, torch.float32)
+        qd = self.p.quantize_embeddings(emb)
+        del emb
+        qv, qs = self.p.quantize_queries(q)
+        for masked, kk, b in grid:
+            mask = half if masked else None
+            args = (qd.values, qd.scales, qv[:b], qs[:b], kk)
+            got = k.fused_dense_top_k_int8(*args, mask=mask, rounded=True)
+            ref = k.fused_dense_top_k_int8_torch(*args, mask=mask,
+                                                 rounded=True)
+            self.equal_int8(got, ref, f"K2r grid case k={kk}, B={b}, "
+                            f"mask={masked}")
+            self.compare("fused_dense_top_k_int8" if masked else
+                         "fused_dense_top_k_int8_rounded", ref, got, 0.0)
+        del qd
+        ties = self.rounded_ties()
+        log(phase="rounded_vs_plain", cases=3 * len(grid),
+            tie_cases=ties, n=n, ok=True,
+            atol="one bf16 ulp at the largest |value|",
+            max_abs_err=self.max_err["fused_dense_top_k_rounded"],
+            tie_swaps=self.swaps["fused_dense_top_k_rounded"],
+            int8_max_abs_err=self.max_err["fused_dense_top_k_int8_rounded"])
+
+    def rounded_ties(self) -> int:
+        """K1r (f32 and bf16 rows) and K2r on integer grids (a block of
+        rows repeated further on: ties across tiles and splits), each
+        torch.equal to its plain version. The narrow grid (rows of -1, 0
+        and 1, queries of +-1) makes every score an exact bf16 and ties
+        cross every boundary; the wide one (entries in [-16, 16]) gives
+        scores exact in f32 that the rounding moves, so a fold that skips
+        it differs (checked on the plain versions at B rows). Then a zero
+        query against doc scales of both signs, on the narrow grid."""
+        k, g = self.p.kernels, self.seed(126)
+        n, d, w = self.N_ROUNDED, self.ROUNDED_GRID_D, self.ROUNDED_GRID_WIDE
+        cases = 0
+        for lo, hi in ((-w, w), (-1, 1)):
+            rows = torch.randint(lo, hi + 1, (n, d), generator=g,
+                                 device=self.dev)
+            rows[n // 2:n // 2 + 512] = rows[:512]
+            if hi == 1:
+                q = 2 * torch.randint(0, 2, (self.B, d), generator=g,
+                                      device=self.dev) - 1
+            else:
+                q = torch.randint(lo, hi + 1, (self.B, d), generator=g,
+                                  device=self.dev)
+            q = q.float()
+            for kk, b in ((1, 1), (32, 7), (128, self.B)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    emb = rows.to(dtype)
+                    got = k.fused_dense_top_k_rounded(emb, q[:b], kk)
+                    ref = k.fused_dense_top_k_torch(emb, q[:b], kk,
+                                                    rounded=True)
+                    self.equal_int8(got, ref, f"K1r integer grid "
+                                    f"[{lo}, {hi}], {dtype}, k={kk}, B={b}")
+                    self.compare("fused_dense_top_k_rounded", ref, got, 0.0)
+                    if hi > 1 and b == self.B and torch.equal(
+                            k.fused_dense_top_k_torch(emb, q[:b], kk)[0],
+                            ref[0]):
+                        raise AssertionError(
+                            f"the integer grid [{lo}, {hi}] (k={kk}, B={b}) "
+                            f"does not tell the rounded fold from K1")
+                    cases += 1
+                args = (rows.to(torch.int8), torch.ones(n, device=self.dev),
+                        q[:b].to(torch.int8), torch.ones(b, device=self.dev),
+                        kk)
+                got = k.fused_dense_top_k_int8_rounded(*args)
+                ref = k.fused_dense_top_k_int8_torch(*args, rounded=True)
+                self.equal_int8(got, ref, f"K2r integer grid [{lo}, {hi}], "
+                                f"k={kk}, B={b}")
+                self.compare("fused_dense_top_k_int8_rounded", ref, got, 0.0)
+                if hi > 1 and b == self.B and torch.equal(
+                        k.fused_dense_top_k_int8_torch(*args)[0], ref[0]):
+                    raise AssertionError(
+                        f"the integer grid [{lo}, {hi}] (k={kk}, B={b}) does "
+                        f"not tell the rounded fold from K2")
+                cases += 1
+        sign = torch.where(torch.rand(n, generator=g, device=self.dev) < 0.5,
+                           -1.0, 1.0)
+        qz = q[:8].to(torch.int8)
+        qz[0] = 0
+        args = (rows.to(torch.int8), sign, qz, torch.ones(8, device=self.dev),
+                128)
+        got = k.fused_dense_top_k_int8_rounded(*args)
+        ref = k.fused_dense_top_k_int8_torch(*args, rounded=True)
+        self.equal_int8(got, ref, "K2r signed zeros")
+        if not torch.equal(torch.signbit(got[0]), torch.signbit(ref[0])):
+            raise AssertionError("K2r: a -0.0 / +0.0 differs from its plain "
+                                 "version")
+        return cases + 1
+
+    def phase26b_rounded_stage_a(self, emb, gold, q, bm25, terms) -> None:
+        """FusedRetriever with KernelConfig(rounded=True) on stage A's
+        arrays: K1r once a call, no K1, hybrid recall@10 >= 0.99, its
+        dense list K1r's, its ms beside the exact route's; then K1r timed
+        at stage A's shape beside its plain version, its yardstick and its
+        bound (K1's work)."""
+        p, k = self.p, self.p.kernels
+        index = self.make_index(emb, bm25, emb.shape[0])
+        kw = dict(similarity_k=32, common_sections_n=32, budget=1024)
+        retr = p.FusedRetriever(index, (MODEL,), use_bm25=True,
+                                kernel_config=p.KernelConfig(rounded=True),
+                                **kw)
+        exact = p.FusedRetriever(index, (MODEL,), use_bm25=True, **kw)
+        qd, w = {MODEL: q}, {MODEL: 5.0, "BM25": 1.0}
+
+        def call(r=retr):
+            return r.retrieve_device(qd, terms, w, None, 40.0)
+
+        (fids, _, lists), counts = self.main_path(call)
+        self.expect("rounded stage A", counts, fused_dense_top_k_rounded=1,
+                    fused_dense_top_k=0)
+        r10 = self.b.recall_at_10(fids, gold)
+        assert r10 >= 0.99, f"rounded 2M hybrid recall@10 {r10} below 0.99"
+        r10_exact = self.b.recall_at_10(call(exact)[0], gold)
+        got = k.fused_dense_top_k_rounded(emb, q, 32)
+        self.compare_rounded(
+            k.fused_dense_top_k_torch(emb, q, 32, rounded=True), got)
+        if not torch.equal(lists[0], got[1]):
+            raise AssertionError("the rounded retriever's dense list is not "
+                                 "K1r's")
+        t = p.cuda_event_ms
+        runs = [t(lambda: call(exact)), t(call), t(call),
+                t(lambda: call(exact))]
+        self.retrieve_ms["A_rounded"] = min(runs[1:3])
+        log(stage="A_2M_hybrid_rounded", recall10_hybrid=r10,
+            recall10_hybrid_exact=r10_exact,
+            k1r_launches=counts["fused_dense_top_k_rounded"],
+            retrieve_ms=self.retrieve_ms["A_rounded"],
+            exact_retrieve_ms=min(runs[0], runs[3]), ms_runs=runs,
+            card=self.card, method="CUDA events, median of 10 after 3 "
+            "warm-ups; exact, rounded, rounded, exact")
+        self.time_pair(
+            "fused_dense_top_k_rounded",
+            lambda: k.fused_dense_top_k_rounded(emb, q, 32),
+            lambda: k.fused_dense_top_k_torch(emb, q, 32, rounded=True),
+            "2^21 x 256 bf16, B=256, k=32, no mask")
+        self.time_library(
+            "fused_dense_top_k_rounded",
+            lambda: torch.topk((q @ emb.float().T).bfloat16().float(), 32,
+                               dim=1),
+            "torch.topk((q @ emb.float().T).bfloat16().float()): upcast, "
+            "f32 matmul, bf16 rounding, top-k")
+        (n, d), b = emb.shape, q.shape[0]
+        self.bound("fused_dense_top_k_rounded",
+                   n * d * 2 + b * d * 4 + b * 32 * 8,
+                   QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
+
+    def phase26c_rounded_served(self, q, terms, index) -> None:
+        """serve_cli's build_state(rounded_fold=True) on stage A's
+        reference index: one HTTP b64 request of B rows, its ids equal to
+        a direct retrieve_device, K1r at least once and no K1."""
+        p, b = self.p, self.b
+        w = {MODEL: 5.0, "BM25": 1.0}
+        state = p.build_state(index, (MODEL,), use_bm25=True,
+                              rounded_fold=True, similarity_k=32,
+                              common_sections_n=15, budget=1024)
+        retr = state.retriever
+        assert retr.use_kernel
+        assert retr.kernel_config == p.KernelConfig(rounded=True)
+        want = retr.retrieve_device({MODEL: q}, terms, w, None,
+                                    40.0)[0].cpu().numpy()
+        server = p.serve_state(state, w, port=0, background=True)
+        try:
+            body = b.b64_body(q.cpu().numpy(), terms.cpu().numpy(), w, "f32")
+            with b.HttpSender(server.server_address[1], body) as send:
+                rows, counts = self.main_path(send)
+        finally:
+            server.shutdown()
+        _equal_ids(rows, want, "served rounded fold (HTTP b64 f32)")
+        self.expect("served rounded fold", counts, at_least=True,
+                    fused_dense_top_k_rounded=1)
+        self.expect("served rounded fold", counts, fused_dense_top_k=0)
+        log(phase="rounded_served", rows=int(rows.shape[0]),
+            ids_equal_direct=True,
+            k1r_launches=counts["fused_dense_top_k_rounded"])
+
+    def phase26d_rounded_stage_c(self, index, q, gold) -> None:
+        """FusedRetriever with KernelConfig(rounded=True) on stage C's int8
+        matrix: K2r once, recall@10 >= 0.95, 8 queries' ids torch.equal to
+        K2r's plain version; K2r timed at stage C's shape beside its plain
+        version, its yardstick and its bound (K2's work)."""
+        p, k = self.p, self.p.kernels
+        qd = index.dense_q[MODEL]
+        values, scales = qd.values, qd.scales
+        retr = p.FusedRetriever(index, (MODEL,), use_bm25=False,
+                                similarity_k=25, common_sections_n=25,
+                                kernel_config=p.KernelConfig(rounded=True))
+        (fids, _, lists), counts = self.main_path(
+            lambda: retr.retrieve_device({MODEL: q}, None, {MODEL: 1.0},
+                                         None, 40.0))
+        self.expect("rounded stage C", counts,
+                    fused_dense_top_k_int8_rounded=1,
+                    fused_dense_top_k_int8=0)
+        r10 = self.b.recall_at_10(fids, gold)
+        assert r10 >= 0.95, f"rounded 10.5M int8 recall@10 {r10} below 0.95"
+        qv, qs = p.quantize_queries(q)
+        ref = k.fused_dense_top_k_int8_torch(values, scales, qv[:8], qs[:8],
+                                             25, rounded=True)
+        got = k.fused_dense_top_k_int8_rounded(values, scales, qv[:8],
+                                               qs[:8], 25)
+        self.equal_int8(got, ref, "K2r at stage C, 8 queries")
+        self.compare("fused_dense_top_k_int8_rounded", ref, got, 0.0)
+        if not torch.equal(lists[0][:8], ref[1]):
+            raise AssertionError("the rounded retriever's int8 list is not "
+                                 "K2r's")
+        self.time_pair(
+            "fused_dense_top_k_int8_rounded",
+            lambda: k.fused_dense_top_k_int8_rounded(values, scales, qv, qs,
+                                                     25),
+            lambda: k.fused_dense_top_k_int8_torch(values, scales, qv, qs,
+                                                   25, rounded=True),
+            "10,485,760 x 1024 int8, B=256, k=25, no mask")
+        (n, d), b = values.shape, q.shape[0]
+        step = 1 << 21
+
+        def library():
+            vs, ids = [], []
+            for s0 in range(0, n, step):
+                acc = torch._int_mm(qv, values[s0:s0 + step].T)
+                sel = acc.float() * scales[s0:s0 + step][None]
+                v, i = torch.topk(sel.bfloat16().float(), 25, dim=1)
+                vs.append(v)
+                ids.append(i + s0)
+            v, i = torch.topk(torch.cat(vs, dim=1), 25, dim=1)
+            return v * qs[:, None], torch.take_along_dim(
+                torch.cat(ids, dim=1), i, dim=1)
+
+        self.time_library(
+            "fused_dense_top_k_int8_rounded", library,
+            f"torch._int_mm, row scales, bf16 rounding, torch.topk per "
+            f"{step}-row chunk of the doc axis, torch.topk over the chunks, "
+            f"query scales")
+        self.bound("fused_dense_top_k_int8_rounded",
+                   n * d + n * 4 + b * (d + 4) + b * 25 * 8, 2 * b * n * d,
+                   INT8_OP_S)
+        log(stage="C_10.5M_int8_rounded", recall10=r10,
+            k2r_launches=counts["fused_dense_top_k_int8_rounded"],
+            ids_equal_plain_8_queries=True)
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -5324,6 +5615,7 @@ class Smoke:
         self.phase0_build()
         self.phase1_k1()
         self.phase2_k2()
+        self.phase26a_rounded_kernels()
         self.phase3_ivf_kernels()
         self.phase9_stream_kernels()
         self.phase13_14_probe_checks()
@@ -5378,9 +5670,11 @@ class Smoke:
         self.eval_part("C", self.phase24c_discrimination)
         self.eval_summary()
         self.phase25_ingest()
+        self.phase26c_rounded_served(q, terms, ref_index)
         del ref_index, tokens
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
+        self.phase26b_rounded_stage_a(emb, gold, q, bm25, terms)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
         self.time_stream(emb)
@@ -5395,12 +5689,13 @@ class Smoke:
         torch.cuda.empty_cache()
         index, q, cent, gold = self.phase7_stage_c()
         self.sharded_part("C", self.phase19c_sharded, index, q, gold)
-        del gold
         qd = index.dense_q[MODEL]
         self.phase11_floor("C", qd.values)
         torch.cuda.empty_cache()
         self.phase8_stage_e(index, cent)
         self.time_k2(qd.values, qd.scales, q)
+        self.phase26d_rounded_stage_c(index, q, gold)
+        del gold
         qv, qs = self.p.quantize_queries(q)
         self.phase13_anatomy("C", qd.values, qv, 25, qd.scales, qs)
         self.phase14_counted("C", qd.values, qv, 25, qd.scales, qs)
@@ -5459,6 +5754,7 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
         from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
         from a_nice_rag_tpu_torch.ops.kernels import int4 as int4_kernels
+        from a_nice_rag_tpu_torch.ops.kernels.autotune import KernelConfig
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
             _sm_count,
             float_smem_bytes,
@@ -5753,6 +6049,7 @@ class _Port:
         self.quantize_embeddings = quantize_embeddings
         self.quantize_queries = quantize_queries
         self.FusedRetriever = FusedRetriever
+        self.KernelConfig = KernelConfig
         self.SearchEngine = SearchEngine
         self.ivf_coverage = _ivf_coverage
         self.cuda_event_ms = cuda_event_ms

@@ -123,9 +123,11 @@ def test_scale_2m_stage_keys_on_cpu(kernel_route):
     out = bench.scale_2m_stage(CPU, 2, TIMER, SCALE_2M)
     assert out["recall@10_2m_hybrid"] >= 0.99
     assert out["kernel_route_2m"] and out["list_swaps_2m"] == 0
-    _assert_timed(out, "qps_2m", "batch_2m_true_ms", "stream_2m_ms")
+    _assert_timed(out, "qps_2m", "batch_2m_true_ms", "stream_2m_ms",
+                  "batch_2m_true_packed_ms")
+    assert out["recall@10_2m_packed"] >= 0.99
     for key in ("stream_gb_s_2m", "fused_gb_s_2m", "pct_of_floor_2m",
-                "qps_2m_true", "batch_2m_ms"):
+                "qps_2m_true", "batch_2m_ms", "qps_2m_true_packed"):
         assert out[key] > 0, key
 
 

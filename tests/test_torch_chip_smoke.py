@@ -38,7 +38,9 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (an, "fused_top_k_counted"), (an, "fused_top_k_counted_int8"),
            (ks, "xpack_keys"), (ks, "xpack_values"),
            (ks, "bf16_row_reduce"), (i4, "int4_scores"),
-           (i4, "int8_fold_max"), (i4, "int4_fold_max"))
+           (i4, "int8_fold_max"), (i4, "int4_fold_max"),
+           (ft, "fused_dense_top_k_rounded"),
+           (ft, "fused_dense_top_k_int8_rounded"))
 
 
 class TinySmoke(chip_smoke.Smoke):
@@ -121,6 +123,8 @@ class TinySmoke(chip_smoke.Smoke):
     DISCRIM_FLOORS = (0.0, 1.0)
     # Phase 25: 3 guidelines (~150 chunks), a 2-layer encoder.
     INGEST_GUIDELINES, INGEST_ENCODER = 3, dict(n_layers=2)
+    # Phase 26: the rounded fold's cases over 4 tiles of 1024 rows.
+    N_ROUNDED = 4096
 
 
 def _sweep_csv(path):
@@ -177,16 +181,23 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     from a_nice_rag_tpu_torch.ingest import tokens
     monkeypatch.setattr(tokens.TokenCounter, "_try_hf",
                         staticmethod(lambda name: None))
+    # A rounded fold's plain version is its exact kernel's with
+    # rounded=True: that call counts the rounded wrapper's launch.
+    plains = {}
     for mod, name in WRAPPED:
-        wrapper, plain = getattr(mod, name), getattr(mod, name + "_torch")
+        wrapper = getattr(mod, name)
         # Restored at teardown, so no other test sees these launches.
         monkeypatch.setattr(wrapper, "launches", wrapper.launches)
-
-        def counted(*args, _wrapper=wrapper, _plain=plain, **kwargs):
-            count_launch(_wrapper)
+        plain = name.removesuffix("_rounded") + "_torch"
+        plains.setdefault((mod, plain), {})[name.endswith("_rounded")] = \
+            wrapper
+    for (mod, plain), wrappers in plains.items():
+        def counted(*args, _wrappers=wrappers, _plain=getattr(mod, plain),
+                    **kwargs):
+            count_launch(_wrappers[bool(kwargs.get("rounded"))])
             return _plain(*args, **kwargs)
 
-        monkeypatch.setattr(mod, name + "_torch", counted)
+        monkeypatch.setattr(mod, plain, counted)
     port = chip_smoke._Port()
     monkeypatch.setattr(port.bench, "card_line", lambda: "cpu, n/a")
     port.require_cuda = lambda: torch.device("cpu")
@@ -270,6 +281,24 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             else k["library_ms"] > 0
         assert k["max_abs_err"] >= 0.0
     assert kernels[4]["replaces"] == "bench.py:226"
+    # Phase 26: K1r once on stage A's retriever and once a device batch of
+    # the served request; K2r once on stage C's.
+    rounded = {k["name"]: k for k in kernels[-2:]}
+    served26 = [r for r in records if r.get("phase") == "rounded_served"][0]
+    assert served26["ids_equal_direct"] and served26["k1r_launches"] >= 1
+    assert rounded["fused_dense_top_k_rounded"]["launches"] == \
+        1 + served26["k1r_launches"]
+    assert rounded["fused_dense_top_k_int8_rounded"]["launches"] == 1
+    assert rounded["fused_dense_top_k_rounded"]["replaces"].endswith(
+        "fused_topk.py:359")
+    assert rounded["fused_dense_top_k_int8_rounded"]["replaces"].endswith(
+        "fused_topk.py:377")
+    r26 = [r for r in records if r.get("phase") == "rounded_vs_plain"][0]
+    assert r26["ok"] and r26["cases"] == 54 and r26["tie_cases"] == 19
+    a26 = [r for r in records if r.get("stage") == "A_2M_hybrid_rounded"][0]
+    assert a26["recall10_hybrid"] >= 0.99 and a26["k1r_launches"] == 1
+    c26 = [r for r in records if r.get("stage") == "C_10.5M_int8_rounded"][0]
+    assert c26["ids_equal_plain_8_queries"] and c26["k2r_launches"] == 1
     assert kernels[6]["replaces"] == "scripts/profile_kernel_anatomy.py:138"
     probes = [r for r in records if r.get("phase") == "probes_vs_plain"]
     assert probes[0]["counted_equal_plain_and_kernel"]

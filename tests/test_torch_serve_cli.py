@@ -4,10 +4,10 @@ the JAX package's.
 Mirrors tests/test_serve_cli.py's serving cases on the CPU: single
 device, sharded over 4 "cpu" slots with a health swap (the retriever and
 its pool replaced live), an int8 index, the IVF route on both paths and
-the sharded IVF cache, and the batched base64 RPC in f32 and bf16. The
-packed fold's flag exits as unported; ``--embedder-ckpt`` serves a
-trained checkpoint and ``--lm-tp`` the LM tensor-parallel. The local-LLM
-surface (``--llm local``, ``build_local_llm_api``):
+the sharded IVF cache, and the batched base64 RPC in f32 and bf16.
+``--embedder-ckpt`` serves a trained checkpoint and ``--lm-tp`` the LM
+tensor-parallel (the rounded fold's flag: tests/test_torch_rounded_topk.py).
+The local-LLM surface (``--llm local``, ``build_local_llm_api``):
 /v1/search, /v1/generate, /v1/rag, the UI and /v1/stats on one port, the
 draft checkpoint, JSON mode on the byte and on a checkpoint's tokenizer,
 and every generation flag reaching the server; the demo LM's greedy
@@ -270,19 +270,6 @@ def test_serve_cli_batched_b64_search_bf16(corpus_index):
     direct = state.retriever.retrieve_device(
         {MODEL: qb.astype(np.float32)}, terms, W, None, 40.0)[0]
     np.testing.assert_array_equal(rows, direct.numpy())
-
-
-@pytest.mark.parametrize("argv,item", [
-    pytest.param(["--pallas-rounded"], "packed bf16-key fold",
-                 id="argv4-packed bf16-key fold"),
-    pytest.param(["--pallas-rounded=1"], "packed bf16-key fold",
-                 id="argv5-packed bf16-key fold"),
-])
-def test_unported_flags_exit_with_their_item(argv, item):
-    """The packed fold's flag is the one of the JAX CLI left unported."""
-    with pytest.raises(SystemExit) as e:
-        main(["--demo", "--device", "cpu"] + argv)
-    assert item in str(e.value) and "not ported" in str(e.value)
 
 
 @pytest.mark.parametrize("argv,message", [
