@@ -27,14 +27,21 @@
 //   col layout), the same fragments and ldmatrix addressing as the int8
 //   path's m16n8k32 (16 rows x 32 bytes). Eight warps: BQN = 64 as 4 x 2
 //   warps of 32 docs x 32 queries, BQN = 16 as 8 x 1 of 16 x 16. Each doc
-//   fragment serves the three pieces. The tensor cores' f32 accumulation
-//   truncates inside the MMA, so each 16-deep k-step's three MMAs (lo,
-//   mid, hi) sum into a zeroed fragment that is then added to the running
-//   f32 sum with an ordinary FADD: the truncation stays local to 16 * 3
-//   products.
+//   fragment serves every plane. The tensor cores' f32 accumulation
+//   truncates inside the MMA, so each 16-deep k-step's MMAs (lo, mid, hi)
+//   sum into a zeroed fragment that is then added to the running f32 sum
+//   with an ordinary FADD: the truncation stays local to 16 * 3 products.
 // * f32 rows on FFMA, in IEEE f32: each thread owns QT queries x DT docs
 //   and reads 16-byte shared vectors (4 depths) of both from the same
 //   ring, accumulating depth by depth in order.
+// * The bf16 compare fold (K1c, SCORE_COMPARE): the TPU kernel's
+//   dot_general with a bf16 result, an f32-accumulated product rounded to
+//   bf16 once; where either operand is bf16, the other is rounded to bf16
+//   first. bf16 rows take ONE plane, bf16(q), on the same MMA (one MMA a
+//   k-step where K1 takes three); f32 rows take the f32 query on FFMA,
+//   and with a bf16 query (round_rows) each row element is rounded to
+//   bf16 as it is read from the ring. The score store rounds the sum
+//   (topk_common.cuh's selection_score).
 //
 // Every document is scored by the same instruction sequence wherever it
 // sits, so duplicated rows tie bit for bit, and the tau pass's subsample
@@ -50,19 +57,21 @@
 
 namespace {
 
-// The bit type of a float row's elements and the planes of its query: bf16
-// rows take the three bf16 pieces of the f32 query, f32 rows the query.
-template <typename T>
-struct FloatKind;
-template <>
-struct FloatKind<float> {
+// The bit type of a float row's elements, whether they score on the bf16
+// tensor cores, and the planes of their query under score mode SCORE: bf16
+// rows take the three bf16 pieces of the f32 query, or in the compare fold
+// one plane, bf16(q); f32 rows the query.
+template <typename T, int SCORE = SCORE_EXACT>
+struct FloatKind {
   using U = uint32_t;
+  static constexpr bool MMA = false;
   static constexpr int PLANES = 1;
 };
-template <>
-struct FloatKind<__nv_bfloat16> {
+template <int SCORE>
+struct FloatKind<__nv_bfloat16, SCORE> {
   using U = uint16_t;
-  static constexpr int PLANES = 3;
+  static constexpr bool MMA = true;
+  static constexpr int PLANES = SCORE == SCORE_COMPARE ? 1 : 3;
 };
 
 // Dynamic shared memory of the float path for a block of bq queries: the
@@ -91,24 +100,26 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
 }
 
 // Score the tiles of ``walk`` for queries q0.. of q [PLANES][B][D]
-// against e [*, D] (T: f32 or bf16). After tile j (documents t0, t0 +
-// stride, ... < t1) has landed in sm.scores and sm.keep (column col:
-// document t0 + col * stride < t1 and, with ``mask``, mask of it), and
-// after a barrier, every thread calls on_tile(j, t0, t1); the next tile's
-// scores are written only after the next barrier. With DOT false nothing
+// against e [*, D] (T: f32 or bf16) under score mode SCORE (round_rows:
+// the compare fold's f32 rows against a bf16 query). After tile j
+// (documents t0, t0 + stride, ... < t1) has landed in sm.scores and
+// sm.keep (column col: document t0 + col * stride < t1 and, with
+// ``mask``, mask of it), and after a barrier, every thread calls
+// on_tile(j, t0, t1); the next tile's scores are written only after the
+// next barrier. With DOT false nothing
 // is scored or folded: each thread reads back the words its share of the
 // staged chunks (and of a resident query block, once) hold once they have
 // landed, and the XOR of them is returned.
-template <typename T, int BQN, bool DOT, bool ROUND, typename Walk,
+template <typename T, int BQN, bool DOT, int SCORE, typename Walk,
           typename OnTile>
 __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
                                  int B, int D, int q0, bool qres,
-                                 const Walk& walk, const SmemT<BQN>& sm,
-                                 OnTile&& on_tile) {
-  using U = typename FloatKind<T>::U;
-  constexpr int P = FloatKind<T>::PLANES;
+                                 bool round_rows, const Walk& walk,
+                                 const SmemT<BQN>& sm, OnTile&& on_tile) {
+  using U = typename FloatKind<T, SCORE>::U;
+  constexpr int P = FloatKind<T, SCORE>::PLANES;
   constexpr int ES = static_cast<int>(sizeof(T));
-  constexpr bool MMA = P == 3;
+  constexpr bool MMA = FloatKind<T, SCORE>::MMA;
   // bf16 MMA: warp tiles of WM docs x WN queries.
   constexpr int WARPS_N = BQN >= 64 ? 2 : 1;
   constexpr int WARPS_M = WARPS / WARPS_N;
@@ -221,7 +232,7 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
 #pragma unroll
             for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0.f;
 #pragma unroll
-        for (int p = P - 1; p >= 0; --p) {  // lo, mid, hi
+        for (int p = P - 1; p >= 0; --p) {  // lo, mid, hi (or bf16(q))
           unsigned b[NT][2];
 #pragma unroll
           for (int np = 0; np < NT / 2; ++np) {
@@ -257,6 +268,14 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
         for (int jj = 0; jj < DT; ++jj)
           eb[jj] = *reinterpret_cast<const float4*>(
               slot + swizzle(tx + TXN * jj, CH, 0, s));
+        if constexpr (SCORE == SCORE_COMPARE) {
+          if (round_rows) {
+#pragma unroll
+            for (int jj = 0; jj < DT; ++jj)
+              eb[jj] = make_float4(round_bf16(eb[jj].x), round_bf16(eb[jj].y),
+                                   round_bf16(eb[jj].z), round_bf16(eb[jj].w));
+          }
+        }
 #pragma unroll
         for (int i = 0; i < QT; ++i)
 #pragma unroll
@@ -295,7 +314,7 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
               for (int h = 0; h < 2; ++h) {
                 const int col = wm * WM + mt * 16 + g + 8 * h;
                 const float v =
-                    selection_score<ROUND>(acc[mt][nt][2 * h + i]);
+                    selection_score<SCORE>(acc[mt][nt][2 * h + i]);
                 sm.scores[r * (TN + 1) + col] = v;
                 hit |= v >= wv;
                 acc[mt][nt][2 * h + i] = 0.f;
@@ -310,7 +329,7 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
           bool hit = false;
 #pragma unroll
           for (int jj = 0; jj < DT; ++jj) {
-            const float v = selection_score<ROUND>(facc[i][jj]);
+            const float v = selection_score<SCORE>(facc[i][jj]);
             sm.scores[r * (TN + 1) + tx + TXN * jj] = v;
             hit |= v >= wv;
             facc[i][jj] = 0.f;
@@ -331,25 +350,29 @@ __device__ unsigned stream_float(const T* q, const T* e, const uint8_t* mask,
 }
 
 // The float rows of K1 / K3 as the split kernels of split_topk.cuh take
-// them: q [PLANES][B, D] (bf16 rows: the three pieces; f32 rows: the f32
-// query), e [*, D], an optional [N] mask, and whether the query block is
-// resident (qres) or streamed by depth chunk. ROUND: K1r's rounded
-// selection scores (topk_common.cuh's selection_score).
-template <typename T, bool ROUND = false>
+// them: q [PLANES][B, D] (bf16 rows: the three pieces, or the compare
+// fold's bf16(q); f32 rows: the f32 query), e [*, D], an optional [N]
+// mask, whether the query block is resident (qres) or streamed by depth
+// chunk, and (the compare fold on f32 rows) whether the rows are rounded
+// to bf16 as they are read. SCORE: the selection scores
+// (topk_common.cuh's selection_score): K1 / K3's exact ones, K1r's
+// rounded ones or K1c's compare fold.
+template <typename T, int SCORE = SCORE_EXACT>
 struct FloatRows {
-  static constexpr bool ROUNDED = ROUND;
+  static constexpr bool ROUNDED = SCORE == SCORE_ROUNDED;
   const T* q;
   const T* e;
   const uint8_t* mask;
   int B, D;
   bool qres;
+  bool round_rows;
   __host__ __device__ size_t smem_bytes(int bq, int k) const {
     return smem_bytes_float(bq, D, static_cast<int>(sizeof(T)),
-                            FloatKind<T>::PLANES, qres, k);
+                            FloatKind<T, SCORE>::PLANES, qres, k);
   }
   template <int BQN>
   __device__ SmemT<BQN> carve(char* base, int k) const {
-    constexpr int P = FloatKind<T>::PLANES;
+    constexpr int P = FloatKind<T, SCORE>::PLANES;
     SmemT<BQN> s;
     s.es = base;
     base += STAGES * (TN * CH + (qres ? 0 : P * BQN * CH));
@@ -365,8 +388,8 @@ struct FloatRows {
   template <int BQN, bool DOT, typename Walk, typename OnTile>
   __device__ unsigned stream(int q0, const Walk& walk, const SmemT<BQN>& sm,
                              OnTile&& on_tile) const {
-    return stream_float<T, BQN, DOT, ROUND>(q, e, mask, B, D, q0, qres,
-                                            walk, sm, on_tile);
+    return stream_float<T, BQN, DOT, SCORE>(q, e, mask, B, D, q0, qres,
+                                            round_rows, walk, sm, on_tile);
   }
 };
 

@@ -8,6 +8,8 @@
 //      (int8 rows with per-row scales, int8 queries with per-query scales)
 //   K1r, K2r: the same calls' rounded fold (algo="packed": the bodies
 //      _kernel_packed, fused_topk.py:359, and _kernel_packed_int8, :377)
+//   K1c: K1's bf16 compare fold (compare_dtype="bfloat16": the body
+//      _kernel_iterate, fused_topk.py:921, product at :945-951)
 //
 // K1r / K2r take the top k of every score rounded to bf16 (to nearest,
 // ties to even): bf16(q . e), bf16(float(acc) * doc_scale). The TPU
@@ -20,6 +22,18 @@
 // rounded scores (K2r: times the query scale, after selection), -0.0
 // below +0.0. The callers take K1 / K2 for masked calls and N % 1024 != 0,
 // as the TPU launchers did (ops/kernels/fused_topk.py).
+//
+// K1c takes the top k of the product accumulated in f32 and rounded to
+// bf16 once (to nearest, ties to even), where a bf16 operand makes both
+// bf16: f32 rows against an f32 query on FFMA as K1; bf16 rows against
+// ONE bf16 plane, bf16(q), given by the caller (one MMA a k-step); f32
+// rows against a bf16 query with each row element rounded to bf16 as it
+// is read. The same score store rounds (selection_score, SCORE_COMPARE),
+// compared as floats: +-0.0 tie and the lower id wins. Any N, masked or
+// not: the TPU launcher reached this body on masked or misaligned calls
+// (the default algo's fallback) and on algo="iterate". Its bound at 2^21
+// x 256 bf16, B = 256: the same 1.07 GB (0.32 ms) against 2*B*N*D = 275
+// GFLOP of one bf16 MMA (0.28 ms): bound by its bytes.
 //
 // Contract (both): for every query, the k best documents by
 // (score descending, doc id ascending), masked documents never being
@@ -76,21 +90,31 @@
 
 namespace {
 
-template <typename T, bool ROUND>
-int fused_float(const float* q, const T* e, const uint8_t* mask, int B,
+// q: the f32 query [B, D], but in the compare fold on bf16 rows its one
+// bf16 plane.
+template <typename T, int SCORE>
+int fused_float(const void* q, const T* e, const uint8_t* mask, int B,
                 int N, int D, int k, int bq, int qres, int splits, int per,
-                int tau_splits, int tau_per, void* ws_base, float* out_v,
-                int* out_i, float* tau_out, cudaStream_t stream) {
+                int tau_splits, int tau_per, int round_rows, void* ws_base,
+                float* out_v, int* out_i, float* tau_out,
+                cudaStream_t stream) {
   if (!split_args_ok(B, N, D, k, bq, splits, per, tau_splits, tau_per) ||
       tau_splits < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Workspace ws = carve_workspace(ws_base, B, k, splits, tau_splits, D,
-                                 FloatKind<T>::PLANES == 3);
-  cudaError_t err;
-  const T* planes = query_planes<T>(q, B, D, ws, stream, err);
+                                 FloatKind<T, SCORE>::PLANES == 3);
+  cudaError_t err = cudaSuccess;
+  const T* planes;
+  if constexpr (SCORE == SCORE_COMPARE) {
+    planes = static_cast<const T*>(q);
+  } else {
+    planes = query_planes<T>(static_cast<const float*>(q), B, D, ws, stream,
+                             err);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
-  const FloatRows<T, ROUND> rows{planes, e, mask, B, D, qres != 0};
+  const FloatRows<T, SCORE> rows{planes, e, mask, B, D, qres != 0,
+                                 round_rows != 0};
   const SplitPlan sub{N, tau_per, TAU_STRIDE};
   if (tau_out != nullptr) {  // tau alone
     ws.tau = tau_out;
@@ -100,6 +124,33 @@ int fused_float(const float* q, const T* e, const uint8_t* mask, int B,
   return static_cast<int>(run_topk(rows, SplitPlan{N, per, 1}, splits, sub,
                                    tau_splits, bq, k, nullptr, ws, out_v,
                                    out_i, stream));
+}
+
+// K1 / K1r / K1c by score mode (SCORE_EXACT, SCORE_ROUNDED,
+// SCORE_COMPARE).
+template <typename T>
+int fused_float_mode(int score, const void* q, const void* e,
+                     const uint8_t* mask, int B, int N, int D, int k, int bq,
+                     int qres, int splits, int per, int tau_splits,
+                     int tau_per, int round_rows, void* ws, float* out_v,
+                     int* out_i, float* tau_out, void* stream) {
+  decltype(&fused_float<T, SCORE_EXACT>) run;
+  switch (score) {
+    case SCORE_EXACT:
+      run = fused_float<T, SCORE_EXACT>;
+      break;
+    case SCORE_ROUNDED:
+      run = fused_float<T, SCORE_ROUNDED>;
+      break;
+    case SCORE_COMPARE:
+      run = fused_float<T, SCORE_COMPARE>;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return run(q, static_cast<const T*>(e), mask, B, N, D, k, bq, qres, splits,
+             per, tau_splits, tau_per, round_rows, ws, out_v, out_i, tau_out,
+             static_cast<cudaStream_t>(stream));
 }
 
 template <bool ROUND>
@@ -138,9 +189,10 @@ long long anr_int8_smem_bytes(int bq, int D, int k) {
   return static_cast<long long>(smem_bytes_int8(bq, D, k));
 }
 
-long long anr_float_smem_bytes(int bq, int D, int bf16, int qres, int k) {
-  return static_cast<long long>(smem_bytes_float(
-      bq, D, bf16 ? 2 : 4, bf16 ? 3 : 1, qres != 0, k));
+long long anr_float_smem_bytes(int bq, int D, int bf16, int planes, int qres,
+                               int k) {
+  return static_cast<long long>(
+      smem_bytes_float(bq, D, bf16 ? 2 : 4, planes, qres != 0, k));
 }
 
 // Bytes of the workspace a call takes (pieces: bf16 rows' query planes).
@@ -152,29 +204,29 @@ long long anr_topk_workspace_bytes(int B, int k, int walkers,
   return static_cast<long long>(bytes);
 }
 
-// K1 (rounded: K1r). tau_out null: the top-k into out_v / out_i; else tau
-// alone (the subsample pass), into tau_out [B].
-int anr_fused_topk_f32(const float* q, const float* e, const uint8_t* mask,
+// K1 over f32 rows; score: 0 K1, 1 K1r, 2 K1c (round_rows: K1c against a
+// bf16 query, given as f32). tau_out null: the top-k into out_v / out_i;
+// else tau alone (the subsample pass), into tau_out [B].
+int anr_fused_topk_f32(const void* q, const void* e, const uint8_t* mask,
                        int B, int N, int D, int k, int bq, int qres,
                        int splits, int per, int tau_splits, int tau_per,
-                       int rounded, void* ws, float* out_v, int* out_i,
-                       float* tau_out, void* stream) {
-  auto* run = rounded ? fused_float<float, true> : fused_float<float, false>;
-  return run(q, e, mask, B, N, D, k, bq, qres, splits, per, tau_splits,
-             tau_per, ws, out_v, out_i, tau_out,
-             static_cast<cudaStream_t>(stream));
+                       int score, int round_rows, void* ws, float* out_v,
+                       int* out_i, float* tau_out, void* stream) {
+  return fused_float_mode<float>(score, q, e, mask, B, N, D, k, bq, qres,
+                                 splits, per, tau_splits, tau_per, round_rows,
+                                 ws, out_v, out_i, tau_out, stream);
 }
 
-int anr_fused_topk_bf16(const float* q, const void* e, const uint8_t* mask,
+// The same over bf16 rows: q is the f32 query, but for K1c its bf16 plane
+// bf16(q) [B, D] (round_rows is not read).
+int anr_fused_topk_bf16(const void* q, const void* e, const uint8_t* mask,
                         int B, int N, int D, int k, int bq, int qres,
                         int splits, int per, int tau_splits, int tau_per,
-                        int rounded, void* ws, float* out_v, int* out_i,
-                        float* tau_out, void* stream) {
-  auto* run = rounded ? fused_float<__nv_bfloat16, true>
-                      : fused_float<__nv_bfloat16, false>;
-  return run(q, static_cast<const __nv_bfloat16*>(e), mask, B, N, D, k, bq,
-             qres, splits, per, tau_splits, tau_per, ws, out_v, out_i,
-             tau_out, static_cast<cudaStream_t>(stream));
+                        int score, int round_rows, void* ws, float* out_v,
+                        int* out_i, float* tau_out, void* stream) {
+  return fused_float_mode<__nv_bfloat16>(
+      score, q, e, mask, B, N, D, k, bq, qres, splits, per, tau_splits,
+      tau_per, 0, ws, out_v, out_i, tau_out, stream);
 }
 
 // K2 (rounded: K2r; tau_out as K1's; tau on the selection scores, before

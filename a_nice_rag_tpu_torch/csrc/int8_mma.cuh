@@ -196,8 +196,9 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               const int r = wn * WN + nt * 8 + 2 * t + i;
-              sm.scores[r * (TN + 1) + col] = selection_score<ROUND>(
-                  static_cast<float>(acc[mt][nt][2 * h + i]) * sc);
+              sm.scores[r * (TN + 1) + col] =
+                  selection_score<ROUND ? SCORE_ROUNDED : SCORE_EXACT>(
+                      static_cast<float>(acc[mt][nt][2 * h + i]) * sc);
               acc[mt][nt][2 * h + i] = 0;
             }
           }

@@ -305,9 +305,9 @@ cudaError_t run_tau(const Rows& rows, const Plan& sub, int tau_walkers,
                       nullptr, nullptr, nullptr, ws.tau, stream);
 }
 
-// K1-K4 (and K1r / K2r, whose rows round): tau, the main pass seeded with
-// it, the merge (qscale: int8's query scales, applied to the k outputs
-// only).
+// K1-K4 (and K1r / K2r / K1c, whose rows round): tau, the main pass
+// seeded with it, the merge (qscale: int8's query scales, applied to the
+// k outputs only).
 template <class Rows, class Plan>
 cudaError_t run_topk(const Rows& rows, const Plan& main, int walkers,
                      const Plan& sub, int tau_walkers, int bq, int k,

@@ -51,28 +51,41 @@ __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
 }
 
-// -- the rounded fold --------------------------------------------------------
+// -- selection scores --------------------------------------------------------
+
+// The score a kernel selects on, a compile-time mode of its rows: the
+// exact f32 score (K1-K4), the rounded fold's (K1r / K2r) or the bf16
+// compare fold's (K1c). Each is taken at the one place a score is stored,
+// so the tau pass, the hit test, the fold and the merge all see it, and
+// the running lists' rule (score desc, id asc) orders its many ties.
+enum ScoreMode : int { SCORE_EXACT = 0, SCORE_ROUNDED = 1, SCORE_COMPARE = 2 };
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // K1r / K2r (the TPU kernels' algo="packed") select on every score rounded
-// to bf16 (to nearest, ties to even) and back to f32, at the one place a
-// score is stored, so the tau pass, the fold and the merge all see the
-// rounded value and the running lists' rule (score desc, id asc) orders
-// its many ties. bf16 -0.0 orders below +0.0 there (the TPU kernel's
-// packed key maps it to -1, +0.0 to 0), where f32 compares them equal: it
-// is carried as the negative f32 nearest zero (bits 0x80000001, no bf16
-// value), which lies above every negative bf16 and below +0.0, and the
-// merge writes it out as -0.0.
+// to bf16 (to nearest, ties to even) and back to f32. bf16 -0.0 orders
+// below +0.0 there (the TPU kernel's packed key maps it to -1, +0.0 to 0),
+// where f32 compares them equal: it is carried as the negative f32
+// nearest zero (bits 0x80000001, no bf16 value), which lies above every
+// negative bf16 and below +0.0, and the merge writes it out as -0.0.
+// K1c (the TPU kernel's compare_dtype="bfloat16") selects on the same
+// rounding of its product, compared as floats: -0.0 and +0.0 tie, and the
+// lower id wins.
 constexpr unsigned ROUNDED_NEG_ZERO = 0x80000001u;
 
-template <bool ROUND>
+template <int SCORE>
 __device__ __forceinline__ float selection_score(float v) {
-  if constexpr (ROUND) {
-    const float r = __bfloat162float(__float2bfloat16_rn(v));
+  if constexpr (SCORE == SCORE_EXACT) {
+    return v;
+  } else if constexpr (SCORE == SCORE_ROUNDED) {
+    const float r = round_bf16(v);
     return __float_as_uint(r) == 0x80000000u
                ? __uint_as_float(ROUNDED_NEG_ZERO)
                : r;
   } else {
-    return v;
+    return round_bf16(v);
   }
 }
 

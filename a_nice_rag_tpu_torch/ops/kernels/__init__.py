@@ -15,6 +15,8 @@ from a_nice_rag_tpu_torch.ops.kernels.anatomy import (  # noqa: F401
 )
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_dense_top_k,
+    fused_dense_top_k_bf16_compare,
+    fused_dense_top_k_bf16_compare_torch,
     fused_dense_top_k_int8,
     fused_dense_top_k_int8_rounded,
     fused_dense_top_k_int8_torch,
@@ -65,7 +67,8 @@ WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
             ivf_dense_top_k_int8, stream_sum, stream_sum_busy,
             anatomy_top_k, anatomy_top_k_int8, fused_top_k_counted,
             fused_top_k_counted_int8, xpack_keys, xpack_values,
-            bf16_row_reduce, int4_scores, int8_fold_max, int4_fold_max)
+            bf16_row_reduce, int4_scores, int8_fold_max, int4_fold_max,
+            fused_dense_top_k_bf16_compare)
 
 
 def build_kernels() -> None:

@@ -38,6 +38,22 @@ whose N is a multiple of ``ROUNDED_ALIGN``: a masked or misaligned call
 gives K1 / K2's exact result. (The TPU kernel's own boundary ties follow
 its eviction order, not the lower id; its test compares the selected
 scores.)
+
+``compare_dtype="bfloat16"`` selects the bf16 compare fold, K1c
+(``fused_dense_top_k_bf16_compare``): the TPU body ``_kernel_iterate``
+with ``compare_dtype="bfloat16"`` (fused_topk.py:921, product at
+:945-951), whose ``dot_general`` emits bf16. The product is accumulated
+in f32 and rounded to bf16 once (to nearest, ties to even); where either
+operand is bf16, the other is rounded to bf16 first. The top k is taken
+on those scores under (score desc, id asc), compared as floats (-0.0 and
++0.0 tie), and the values are the rounded scores. ``fold_route`` copies
+the JAX launcher's routing: a maskless call over N % ROUNDED_ALIGN == 0
+rows takes K1r when ``rounded`` is set and K1 otherwise, whatever
+``compare_dtype`` says (the TPU default algo ignores it there); any other
+call takes K1c when ``compare_dtype == "bfloat16"``, else K1. On the card
+K1c is K1's kernel in its compare mode: one bf16 query plane on the bf16
+MMA for bf16 rows, FFMA for f32 rows. ``compare_dtype`` takes "float32"
+or "bfloat16" only (the JAX function takes any dtype name).
 """
 
 from __future__ import annotations
@@ -72,6 +88,10 @@ ROUNDED_ALIGN = 1024
 # value) that carries a rounded -0.0 below +0.0 (csrc/topk_common.cuh).
 _NEG_ZERO_BITS = -0x80000000
 _CARRIED_NEG_ZERO_BITS = -0x7FFFFFFF
+# The float kernels' score modes (csrc/topk_common.cuh's ScoreMode): K1,
+# K1r, K1c.
+SCORE_EXACT, SCORE_ROUNDED, SCORE_COMPARE = 0, 1, 2
+COMPARE_DTYPES = ("float32", "bfloat16")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,8 +102,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("fused_topk")
     if not hasattr(lib, "_anr_bound"):
         # q, e, mask; B N D k bq qres splits per tau_splits tau_per
-        # rounded; workspace, out_v, out_i, tau_out, stream.
-        floats = [_P] * 3 + [_I] * 11 + [_P] * 5
+        # score round_rows; workspace, out_v, out_i, tau_out, stream.
+        floats = [_P] * 3 + [_I] * 12 + [_P] * 5
         lib.anr_fused_topk_f32.argtypes = floats
         lib.anr_fused_topk_bf16.argtypes = floats
         # q, q scales, values, scales, mask; B N D k bq splits per
@@ -96,7 +116,7 @@ def _library() -> ctypes.CDLL:
         lib.anr_topk_tile_docs.argtypes = []
         lib.anr_topk_tile_docs.restype = _I
         lib.anr_int8_smem_bytes.argtypes = [_I, _I, _I]
-        lib.anr_float_smem_bytes.argtypes = [_I] * 5
+        lib.anr_float_smem_bytes.argtypes = [_I] * 6
         lib.anr_topk_workspace_bytes.argtypes = [_I] * 6
         for fn in (lib.anr_int8_smem_bytes, lib.anr_float_smem_bytes,
                    lib.anr_topk_workspace_bytes):
@@ -112,11 +132,14 @@ def int8_smem_bytes(bq: int, d: int, k: int) -> int:
 
 
 def float_smem_bytes(bq: int, d: int, k: int, rows: str,
-                     qres: bool) -> int:
+                     qres: bool, planes: Optional[int] = None) -> int:
     """The same for a K1 or K3 CTA over ``rows`` ("bfloat16" or
-    "float32"), its query block resident or streamed."""
+    "float32"), its query block (``planes`` planes, default the rows')
+    resident or streamed."""
+    if planes is None:
+        planes = topk_plan.QUERY_PLANES[rows]
     return int(_library().anr_float_smem_bytes(
-        bq, d, int(rows == "bfloat16"), int(qres), k))
+        bq, d, int(rows == "bfloat16"), planes, int(qres), k))
 
 
 def workspace_bytes_of_source(b: int, k: int, walkers: int,
@@ -145,16 +168,18 @@ def _sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=1024)
 def _fused_plans(n: int, b: int, d: int, k: int, sms: int, rows: str,
                  override: Optional[Tuple[Optional[int], Optional[int]]]
-                 = None):
+                 = None, planes: Optional[int] = None):
     """(plan, resident query block, (tau splits, tau rows per split));
     ``override`` (bq, splits), either None for the plan's own, is checked
-    by ``topk_plan.override_plan``."""
+    by ``topk_plan.override_plan``; ``planes``: the query planes, if not
+    the rows' own (K1c's one)."""
     if override is None:
-        plan = topk_plan.fused_plan(n, b, d, k, sms, rows)
+        plan = topk_plan.fused_plan(n, b, d, k, sms, rows, planes)
     else:
-        plan = topk_plan.override_plan(n, b, d, k, sms, rows, *override)
-    return (plan, topk_plan.resident(plan.bq, d, k, rows),
-            topk_plan.tau_fused_plan(n, b, d, k, sms, rows, plan.bq))
+        plan = topk_plan.override_plan(n, b, d, k, sms, rows, *override,
+                                       planes=planes)
+    return (plan, topk_plan.resident(plan.bq, d, k, rows, planes),
+            topk_plan.tau_fused_plan(n, b, d, k, sms, rows, plan.bq, planes))
 
 
 def _override(plan) -> Optional[Tuple[Optional[int], Optional[int]]]:
@@ -246,6 +271,22 @@ def rounded_route(n: int, mask: Optional[torch.Tensor]) -> bool:
     return mask is None and n % ROUNDED_ALIGN == 0
 
 
+def fold_route(n: int, mask: Optional[torch.Tensor], rounded: bool,
+               compare_dtype: str = "float32") -> int:
+    """The fold a float call over ``n`` rows takes, as the JAX launcher
+    routes it: where ``rounded_route`` holds (maskless, aligned), K1r if
+    ``rounded`` else K1, ``compare_dtype`` ignored; otherwise K1c if
+    ``compare_dtype`` is "bfloat16", else K1. One of SCORE_EXACT (K1),
+    SCORE_ROUNDED (K1r), SCORE_COMPARE (K1c); ValueError for a
+    ``compare_dtype`` outside COMPARE_DTYPES."""
+    if compare_dtype not in COMPARE_DTYPES:
+        raise ValueError(f"compare_dtype must be one of {COMPARE_DTYPES}, "
+                         f"got {compare_dtype!r}")
+    if rounded_route(n, mask):
+        return SCORE_ROUNDED if rounded else SCORE_EXACT
+    return SCORE_COMPARE if compare_dtype == "bfloat16" else SCORE_EXACT
+
+
 def round_scores(s: torch.Tensor) -> torch.Tensor:
     """The rounded fold's selection scores: f32 ``s`` rounded to bf16 (to
     nearest, ties to even) and back, -0.0 carried as the negative f32
@@ -282,6 +323,26 @@ def _float_scores(emb: torch.Tensor, queries: torch.Tensor,
     return scores
 
 
+def _compare_scores(emb: torch.Tensor, queries: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None):
+    """K1c's scores of documents [s0, s1): the f32 product of f32 rows and
+    an f32 query, else of both operands in bf16 (an f32 one rounded to
+    nearest even), accumulated in f32; then rounded to bf16 and back,
+    masked documents at -inf."""
+    bf16 = torch.bfloat16 in (emb.dtype, queries.dtype)
+    op = torch.bfloat16 if bf16 else torch.float32
+    q = queries.to(op).to(torch.float32)
+
+    def scores(s0: int, s1: int) -> torch.Tensor:
+        s = q @ emb[s0:s1].to(op).to(torch.float32).T
+        s = s.to(torch.bfloat16).to(torch.float32)
+        if mask is not None:
+            s = torch.where(mask[s0:s1][None, :], s, float("-inf"))
+        return s
+
+    return scores
+
+
 def _int8_scores(values: torch.Tensor, scales: torch.Tensor,
                  q_values: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
@@ -307,16 +368,31 @@ def fused_dense_top_k_torch(
     k: int,
     mask: Optional[torch.Tensor] = None,
     rounded: bool = False,
+    compare_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of K1 (and, ``rounded`` where
-    ``rounded_route`` takes it, of K1r): f32 scores (both operands
-    upcast; K1r: rounded to bf16), masked docs at -inf, stable
-    selection."""
-    rounded = rounded and rounded_route(emb.shape[0], mask)
+    """Plain PyTorch version of K1 (and of K1r or K1c where ``fold_route``
+    takes them): f32 scores (both operands upcast; K1r: rounded to bf16),
+    masked docs at -inf, stable selection."""
+    score = fold_route(emb.shape[0], mask, rounded, compare_dtype)
+    if score == SCORE_COMPARE:
+        return fused_dense_top_k_bf16_compare_torch(emb, queries, k, mask)
+    rounded = score == SCORE_ROUNDED
     vals, ids = _plain_top_k(_float_scores(emb, queries, mask, rounded),
                              emb.shape[0], queries.shape[0], emb.shape[1],
                              k, emb.device)
     return (unround_values(vals) if rounded else vals), ids
+
+
+def fused_dense_top_k_bf16_compare_torch(
+    emb: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1c: the stable top k of
+    ``_compare_scores`` (any N, masked or not), their values."""
+    return _plain_top_k(_compare_scores(emb, queries, mask), emb.shape[0],
+                        queries.shape[0], emb.shape[1], k, emb.device)
 
 
 def split_query(queries: torch.Tensor) -> torch.Tensor:
@@ -387,7 +463,8 @@ def _check_float_call(emb, queries, k, mask):
     b = queries.shape[0]
     dev = emb.device
     _check(emb, "emb", (torch.float32, torch.bfloat16), (n, d), dev)
-    # The queries are copied to a contiguous f32 block before the launch.
+    # The queries are copied to a contiguous f32 block (K1c on bf16 rows:
+    # bf16) before the launch.
     _check(queries, "queries", (torch.float32, torch.bfloat16), (b, d), dev,
            contiguous=False)
     if mask is not None:
@@ -398,18 +475,28 @@ def _check_float_call(emb, queries, k, mask):
 
 
 def _float_call(emb, queries, k, mask, tau_only: bool, override=None,
-                rounded: bool = False):
-    """Launch K1 (``rounded``: K1r; or, ``tau_only``, its tau pass alone)
-    on CUDA tensors."""
+                score: int = SCORE_EXACT):
+    """Launch K1 (``score``: K1r or K1c; or, ``tau_only``, its tau pass
+    alone) on CUDA tensors. K1 and K1r take the f32 query (upcast); K1c on
+    bf16 rows its one bf16 plane (a bf16 query as it is, an f32 one
+    rounded to nearest even), on f32 rows the f32 query, with the rows
+    rounded to bf16 in the kernel where the query is bf16."""
     n, d = emb.shape
     b, dev = queries.shape[0], emb.device
     rows = _ROWS[emb.dtype]
     lib = _library()
-    q = queries.to(torch.float32).contiguous()
+    compare = score == SCORE_COMPARE
+    one_plane = compare and rows == "bfloat16"
+    q = queries.to(torch.bfloat16 if one_plane else torch.float32)
+    q = q.contiguous()
+    round_rows = compare and rows == "float32" \
+        and queries.dtype == torch.bfloat16
     plan, qres, (tau_splits, tau_per) = _fused_plans(
-        n, b, d, k, _sm_count(dev), rows, override)
+        n, b, d, k, _sm_count(dev), rows, override,
+        topk_plan.COMPARE_PLANES if compare else None)
     splits = 1 if tau_only else plan.splits
-    ws = _workspace(b, k, splits, tau_splits, d, rows == "bfloat16", dev)
+    ws = _workspace(b, k, splits, tau_splits, d,
+                    rows == "bfloat16" and not compare, dev)
     if tau_only:
         out_v, out_i = torch.empty((b,), device=dev), None
     else:
@@ -419,7 +506,8 @@ def _float_call(emb, queries, k, mask, tau_only: bool, override=None,
     with torch.cuda.device(dev):
         _launch(fn, q.data_ptr(), emb.data_ptr(), _ptr(mask), b, n, d, k,
                 plan.bq, int(qres), splits, plan.per if not tau_only else
-                topk_plan.TN, tau_splits, tau_per, int(rounded), ws.data_ptr(),
+                topk_plan.TN, tau_splits, tau_per, score, int(round_rows),
+                ws.data_ptr(),
                 None if tau_only else out_v.data_ptr(), _ptr(out_i),
                 out_v.data_ptr() if tau_only else None, device=dev)
     return out_v if tau_only else (out_v, out_i)
@@ -432,6 +520,7 @@ def fused_dense_top_k(
     mask: Optional[torch.Tensor] = None,
     plan: Optional[Tuple[Optional[int], Optional[int]]] = None,
     rounded: bool = False,
+    compare_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: streaming scoring + top-k over emb [N, D] (f32 or bf16) for
     queries [B, D] (f32, or bf16 as the two-tier BM25 tier passes;
@@ -443,11 +532,17 @@ def fused_dense_top_k(
     values and ids are the default plan's. On CPU tensors the override is
     checked against an H100's plan and the plain version runs.
 
-    ``rounded``: the rounded fold (``fused_dense_top_k_rounded``) where
-    ``rounded_route`` takes it; a masked or misaligned call stays K1."""
+    ``rounded``: the rounded fold (``fused_dense_top_k_rounded``) and
+    ``compare_dtype="bfloat16"``: the bf16 compare fold
+    (``fused_dense_top_k_bf16_compare``), each where ``fold_route``
+    takes it; else K1."""
     n, d, b, dev = _check_float_call(emb, queries, k, mask)
-    if rounded and rounded_route(n, mask):
+    score = fold_route(n, mask, rounded, compare_dtype)
+    if score == SCORE_ROUNDED:
         return fused_dense_top_k_rounded(emb, queries, k, plan=plan)
+    if score == SCORE_COMPARE:
+        return fused_dense_top_k_bf16_compare(emb, queries, k, mask=mask,
+                                              plan=plan)
     override = _override(plan)
     if dev.type == "cpu":
         if override is not None:
@@ -486,7 +581,7 @@ def fused_dense_top_k_rounded(
             _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override)
         return fused_dense_top_k_torch(emb, queries, k, rounded=True)
     out = _float_call(emb, queries, k, None, tau_only=False,
-                      override=override, rounded=True)
+                      override=override, score=SCORE_ROUNDED)
     count_launch(fused_dense_top_k_rounded)
     return out
 
@@ -494,14 +589,45 @@ def fused_dense_top_k_rounded(
 fused_dense_top_k_rounded.launches = 0
 
 
+def fused_dense_top_k_bf16_compare(
+    emb: torch.Tensor,
+    queries: torch.Tensor,
+    k: int,
+    mask: Optional[torch.Tensor] = None,
+    plan: Optional[Tuple[Optional[int], Optional[int]]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1c, K1's bf16 compare fold (the JAX call ``algo="iterate",
+    compare_dtype="bfloat16"``; any N, with or without a mask): the top k
+    under (score desc, id asc) of the f32-accumulated product rounded to
+    bf16, both operands in bf16 where either is; their rounded values.
+    ``plan`` as K1's. On CUDA tensors K1's kernel in its compare mode; on
+    the CPU the plain version."""
+    n, d, b, dev = _check_float_call(emb, queries, k, mask)
+    override = _override(plan)
+    if dev.type == "cpu":
+        if override is not None:
+            _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override,
+                         topk_plan.COMPARE_PLANES)
+        return fused_dense_top_k_bf16_compare_torch(emb, queries, k, mask)
+    out = _float_call(emb, queries, k, mask, tau_only=False,
+                      override=override, score=SCORE_COMPARE)
+    count_launch(fused_dense_top_k_bf16_compare)
+    return out
+
+
+fused_dense_top_k_bf16_compare.launches = 0
+
+
 def subsample_tau(emb: torch.Tensor, queries: torch.Tensor, k: int,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1's exact warm start [B] f32: the k-th best score over rows 0, 64,
     128, ... that the mask keeps, lowered by TAU_SLACK (-inf with fewer
     than k of them): at most the k-th best candidate, so a running list
-    seeded with it keeps the same top-k. On CUDA tensors K1's own tau pass
-    (the same kernel over the strided rows, no copy of them); on the CPU
-    its plain version."""
+    seeded with it keeps the same top-k. (K1r's and K1c's tau passes take
+    the k-th best of their rounded scores, which their main passes round
+    the same way, so a tie at tau is never dropped.) On CUDA tensors K1's
+    own tau pass (the same kernel over the strided rows, no copy of
+    them); on the CPU its plain version."""
     _, _, _, dev = _check_float_call(emb, queries, k, mask)
     if dev.type == "cpu":
         return subsample_tau_torch(emb, queries, k, mask)

@@ -20,9 +20,11 @@ words):
 
 ``rows`` names the row type: "int8", "bfloat16" or "float32". bf16 rows
 take the query as three bf16 planes, so their query block is three times
-as deep in bytes. On the CPU the SM count is an H100's (132), so a plan
-made there is the card's. The plan changes only how the work is spread:
-the kernels' top-k values and ids do not depend on it.
+as deep in bytes; ``planes`` overrides that count where a kernel takes
+another (the bf16 compare fold K1c: ``COMPARE_PLANES``, one bf16 plane).
+On the CPU the SM count is an H100's (132), so a plan made there is the
+card's. The plan changes only how the work is spread: the kernels' top-k
+values and ids do not depend on it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ SMEM_PER_CTA = 232_448
 ROWS = ("int8", "bfloat16", "float32")
 ELEMENT_BYTES = {"int8": 1, "bfloat16": 2, "float32": 4}
 QUERY_PLANES = {"int8": 1, "bfloat16": 3, "float32": 1}
+COMPARE_PLANES = 1  # K1c: bf16(q), or the f32 query on f32 rows
 # The kernels' __launch_bounds__ minimum of CTAs per SM (split_topk.cuh,
 # MinCtas): their registers allow no more.
 MAX_CTAS = {"int8": {SMALL_BQ: 3, LARGE_BQ: 2},
@@ -77,46 +80,54 @@ def _tail(bq: int, k: int) -> int:
 
 
 def smem_bytes(bq: int, d: int, k: int, rows: str = "int8",
-               qres: bool = True) -> int:
+               qres: bool = True, planes: Optional[int] = None) -> int:
     """Dynamic shared memory of one CTA: the ring (doc chunks, and the
-    query chunks when the block is streamed), the resident query block,
-    the tail, and for float rows a hit flag per query. int8 rows always
-    hold their query block."""
+    query chunks when the block is streamed), the resident query block
+    (``planes`` of them, default ``QUERY_PLANES[rows]``), the tail, and
+    for float rows a hit flag per query. int8 rows always hold their
+    query block."""
     _check_rows(rows)
-    planes, es = QUERY_PLANES[rows], ELEMENT_BYTES[rows]
+    planes = QUERY_PLANES[rows] if planes is None else planes
+    es = ELEMENT_BYTES[rows]
     stage = TN * CHUNK + (0 if qres else planes * bq * CHUNK)
     qblock = planes * bq * depth_pad(d * es) if qres else 0
     hits = 0 if rows == "int8" else bq
     return STAGES * stage + qblock + _tail(bq, k) + hits
 
 
-def _fits(bq: int, d: int, k: int, rows: str, qres: bool) -> bool:
-    return smem_bytes(bq, d, k, rows, qres) + 16 * bq <= SMEM_PER_CTA
+def _fits(bq: int, d: int, k: int, rows: str, qres: bool,
+          planes: Optional[int] = None) -> bool:
+    return smem_bytes(bq, d, k, rows, qres, planes) + 16 * bq <= SMEM_PER_CTA
 
 
-def resident(bq: int, d: int, k: int, rows: str = "int8") -> bool:
+def resident(bq: int, d: int, k: int, rows: str = "int8",
+             planes: Optional[int] = None) -> bool:
     """Whether the query block stays in shared memory for the CTA's whole
     walk (always for int8 rows; float rows where it fits)."""
-    return rows == "int8" or _fits(bq, d, k, rows, True)
+    return rows == "int8" or _fits(bq, d, k, rows, True, planes)
 
 
-def query_block(b: int, d: int, k: int, rows: str = "int8") -> int:
+def query_block(b: int, d: int, k: int, rows: str = "int8",
+                planes: Optional[int] = None) -> int:
     """16 for B <= 16, else 64; 16 too where 64 rows do not fit in a CTA's
     shared memory. Raises where neither fits (int8 rows past a depth of
     about 9,800: their query block is always resident)."""
     _check_rows(rows)
     for bq in ((LARGE_BQ, SMALL_BQ) if b > SMALL_BQ else (SMALL_BQ,)):
-        if _fits(bq, d, k, rows, True) or (
-                rows != "int8" and _fits(bq, d, k, rows, False)):
+        if _fits(bq, d, k, rows, True, planes) or (
+                rows != "int8" and _fits(bq, d, k, rows, False, planes)):
             return bq
     raise ValueError(
         f"D={d} is too deep for the {rows} kernels: a CTA holds its query "
-        f"block in shared memory ({smem_bytes(SMALL_BQ, d, k, rows)} bytes "
+        f"block in shared memory "
+        f"({smem_bytes(SMALL_BQ, d, k, rows, planes=planes)} bytes "
         f"needed at 16 queries, {SMEM_PER_CTA} available)")
 
 
-def ctas_per_sm(bq: int, d: int, k: int, rows: str = "int8") -> int:
-    per_cta = (smem_bytes(bq, d, k, rows, resident(bq, d, k, rows))
+def ctas_per_sm(bq: int, d: int, k: int, rows: str = "int8",
+                planes: Optional[int] = None) -> int:
+    per_cta = (smem_bytes(bq, d, k, rows, resident(bq, d, k, rows, planes),
+                          planes)
                + 16 * bq + SMEM_RESERVED)
     return max(1, min(MAX_CTAS[rows][bq], SMEM_PER_SM // per_cta))
 
@@ -133,17 +144,19 @@ def doc_splits(n: int, b: int, bq: int, ctas: int, sms: int,
 
 
 def fused_plan(n: int, b: int, d: int, k: int, sms: int,
-               rows: str = "int8") -> FusedPlan:
+               rows: str = "int8",
+               planes: Optional[int] = None) -> FusedPlan:
     """K1/K2: doc splits x query blocks, enough to give every SM the CTAs
     it holds; each split a whole number of tiles."""
-    bq = query_block(b, d, k, rows)
-    return FusedPlan(bq, *doc_splits(n, b, bq, ctas_per_sm(bq, d, k, rows),
-                                  sms, TN))
+    bq = query_block(b, d, k, rows, planes)
+    return FusedPlan(bq, *doc_splits(
+        n, b, bq, ctas_per_sm(bq, d, k, rows, planes), sms, TN))
 
 
 def override_plan(n: int, b: int, d: int, k: int, sms: int, rows: str,
                   bq: Optional[int] = None,
-                  splits: Optional[int] = None) -> FusedPlan:
+                  splits: Optional[int] = None,
+                  planes: Optional[int] = None) -> FusedPlan:
     """K1's plan with a caller's query block and doc splits (the tuner's
     candidates; None keeps the plan's own): ``bq`` 16 or 64 where its block
     fits a CTA's shared memory, resident or streamed by depth chunk;
@@ -151,17 +164,17 @@ def override_plan(n: int, b: int, d: int, k: int, sms: int, rows: str,
     on a block that does not fit."""
     _check_rows(rows)
     if bq is None:
-        bq = query_block(b, d, k, rows)
+        bq = query_block(b, d, k, rows, planes)
     elif bq not in (SMALL_BQ, LARGE_BQ):
         raise ValueError(f"bq must be {SMALL_BQ} or {LARGE_BQ}, got {bq!r}")
-    elif not (_fits(bq, d, k, rows, True)
-              or (rows != "int8" and _fits(bq, d, k, rows, False))):
+    elif not (_fits(bq, d, k, rows, True, planes)
+              or (rows != "int8" and _fits(bq, d, k, rows, False, planes))):
         raise ValueError(
             f"a {bq}-query block of {rows} rows at D={d}, k={k} does not fit "
             f"in a CTA's shared memory ({SMEM_PER_CTA} bytes)")
     if splits is None:
         return FusedPlan(bq, *doc_splits(
-            n, b, bq, ctas_per_sm(bq, d, k, rows), sms, TN))
+            n, b, bq, ctas_per_sm(bq, d, k, rows, planes), sms, TN))
     if not isinstance(splits, int) or splits < 1:
         raise ValueError(f"splits must be an int >= 1, got {splits!r}")
     spans = -(-n // TN)
@@ -171,15 +184,16 @@ def override_plan(n: int, b: int, d: int, k: int, sms: int, rows: str,
 
 def tau_fused_plan(n: int, b: int, d: int, k: int, sms: int,
                    rows: str = "int8",
-                   bq: Optional[int] = None) -> Tuple[int, int]:
+                   bq: Optional[int] = None,
+                   planes: Optional[int] = None) -> Tuple[int, int]:
     """K1/K2's tau pass: (splits, rows per split) over the rows 0, 64,
     128, ...; each split a whole number of tiles of TN subsample rows,
     so every split starts on a multiple of TAU_STRIDE. ``bq``: the main
     pass's query block (default: the plan's own)."""
     if bq is None:
-        bq = query_block(b, d, k, rows)
-    return doc_splits(n, b, bq, ctas_per_sm(bq, d, k, rows), sms,
-                   TN * TAU_STRIDE)
+        bq = query_block(b, d, k, rows, planes)
+    return doc_splits(n, b, bq, ctas_per_sm(bq, d, k, rows, planes), sms,
+                      TN * TAU_STRIDE)
 
 
 def ivf_plan(max_tiles: int, tile_n: int, b: int, d: int, k: int,

@@ -244,6 +244,21 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      card, SearchEngine's hybrid retrieve with 256 stored chunks' contents
      as queries, recall@10 of each chunk's own id >= 0.90; then the
      ``ingest`` line;
+ 26. the rounded fold (K1r / K2r, algo="packed"): (a) after phase 2, K1r
+     and K2r against their plain versions on phase 1 / 2's grid at
+     N_ROUNDED rows, integer grids and +-0.0 torch.equal; (c) after phase
+     25, one HTTP b64 request through build_state(rounded_fold=True); (b)
+     after K1's timing, the rounded hybrid retriever on stage A and K1r's
+     timing; (d) after K2's, stage C's int8 retriever and K2r's timing;
+ 27. the bf16 compare fold (K1c, compare_dtype="bfloat16"): (a) after
+     26a, K1c against its plain version on 26a's grid, f32 and bf16 rows,
+     a misaligned N and bf16 queries on f32 rows (within one bf16 ulp),
+     integer grids and the operand rule torch.equal; (b) after 26b, on
+     stage A's rows at B = 256 under main_path: fused_dense_top_k(...,
+     mask=half, compare_dtype="bfloat16") and the direct function
+     maskless (K1c twice, no K1), the first 8 queries' ids equal to the
+     plain version's, recall@10 against K1's lists, K1c's timing, its
+     yardstick and its bound;
   6. stage D: 2^21 x 256 bf16 with a k-means IVF (bench.py's 2M IVF
      configuration): micro-batches of B = 8 through K3, B = 256 and a
      filtered call through K1, a full probe against the exact route, and
@@ -373,6 +388,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
         K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:359"),
     "fused_dense_top_k_int8_rounded": (
         K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
+    # K1c: the bf16 compare fold (compare_dtype="bfloat16"), K1's kernel in
+    # its compare mode.
+    "fused_dense_top_k_bf16_compare": (
+        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:921"),
 }
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
@@ -385,7 +404,8 @@ INT8_ATOL = 1e-6
 # One H100 SXM (NVIDIA data sheet, dense rates): HBM bytes/s, FFMA f32
 # FLOP/s (f32 rows score in IEEE f32, off the tensor cores), bf16
 # tensor-core FLOP/s (bf16 rows: three MMAs per product, one for each
-# bf16 piece of the f32 query), int8 tensor-core OP/s.
+# bf16 piece of the f32 query; K1c one, on bf16(q)), int8 tensor-core
+# OP/s.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
@@ -738,6 +758,9 @@ class Smoke:
     # up to 64 * 16 * 16 = 16384 are exact in f32 but not in bf16, so the
     # rounding shows in every value above 256.
     N_ROUNDED, ROUNDED_GRID_D, ROUNDED_GRID_WIDE = 1 << 20, 64, 16
+    # Phase 27: the bf16 compare fold's cases run on phase 26's rows, and
+    # again on a prefix that is no multiple of 1024 (K1c takes any N).
+    COMPARE_MISALIGN = 37
 
     def __init__(self, port):
         self.p = port
@@ -868,27 +891,32 @@ class Smoke:
         tau passes, at the main path's shapes and the edges' deepest."""
         plan, sms = self.p.topk_plan, self.p.sm_count(self.dev)
         shapes = []
-        for b, d, kk, rows in (
-                (self.B, self.D_A, 32, "bfloat16"),
-                (self.B_MICRO, self.D_D, self.K_D, "bfloat16"),
-                (self.B, self.V_COMMON, 32, "float32"),
-                (self.B, self.EDGE_FLOAT_D[-1], 128, "bfloat16"),
-                (self.B_MICRO, self.EDGE_FLOAT_D[-1], 256, "float32")):
-            bq = plan.query_block(b, d, kk, rows)
-            qres = plan.resident(bq, d, kk, rows)
-            smem = self.p.float_smem_bytes(bq, d, kk, rows, qres)
-            want = plan.smem_bytes(bq, d, kk, rows, qres)
+        # planes: None for the rows' own, 1 for K1c's one query plane.
+        one = plan.COMPARE_PLANES
+        for b, d, kk, rows, planes in (
+                (self.B, self.D_A, 32, "bfloat16", None),
+                (self.B_MICRO, self.D_D, self.K_D, "bfloat16", None),
+                (self.B, self.V_COMMON, 32, "float32", None),
+                (self.B, self.EDGE_FLOAT_D[-1], 128, "bfloat16", None),
+                (self.B_MICRO, self.EDGE_FLOAT_D[-1], 256, "float32", None),
+                (self.B, self.D_A, 32, "bfloat16", one),
+                (self.B, self.EDGE_FLOAT_D[-1], 128, "bfloat16", one)):
+            bq = plan.query_block(b, d, kk, rows, planes)
+            qres = plan.resident(bq, d, kk, rows, planes)
+            smem = self.p.float_smem_bytes(bq, d, kk, rows, qres, planes)
+            want = plan.smem_bytes(bq, d, kk, rows, qres, planes)
             if smem != want:
                 raise AssertionError(f"float shared memory {smem} != the "
                                      f"plan's {want}")
-            fused = plan.fused_plan(self.N_A, b, d, kk, sms, rows)
+            fused = plan.fused_plan(self.N_A, b, d, kk, sms, rows, planes)
             shapes.append({
-                "b": b, "d": d, "k": kk, "rows": rows, "bq": bq,
+                "b": b, "d": d, "k": kk, "rows": rows,
+                "planes": planes or plan.QUERY_PLANES[rows], "bq": bq,
                 "resident": qres, "smem_bytes": smem,
-                "ctas_per_sm": plan.ctas_per_sm(bq, d, kk, rows),
+                "ctas_per_sm": plan.ctas_per_sm(bq, d, kk, rows, planes),
                 "k1_splits_2m": fused.splits,
                 "k1_tau_splits_2m": plan.tau_fused_plan(
-                    self.N_A, b, d, kk, sms, rows)[0]})
+                    self.N_A, b, d, kk, sms, rows, planes=planes)[0]})
         log(phase="float_plan", shapes=shapes)
 
     def fold_plan_line(self) -> None:
@@ -990,18 +1018,21 @@ class Smoke:
             edge_k=list(self.EDGE_K), ok=True,
             max_abs_err=self.max_err["fused_dense_top_k_int8"])
 
-    def compare_rounded(self, ref, got) -> None:
-        """K1r on random rows against its plain version: each value a bf16
-        (so the kernel rounded it), then ``compare`` within one bf16 ulp at
-        the largest |value| (K1r's f32 score and the plain version's may
-        straddle a rounding midpoint, which moves the value one ulp)."""
+    def compare_rounded(self, ref, got,
+                        name="fused_dense_top_k_rounded") -> None:
+        """K1r (or K1c, ``name``) on random rows against its plain version:
+        each value a bf16 (so the kernel rounded it), then ``compare``
+        within one bf16 ulp at the largest |value| (the kernel's f32 score
+        and the plain version's may straddle a rounding midpoint, which
+        moves the value one ulp)."""
         v = got[0]
         torch.cuda.synchronize()
         if not torch.equal(v, v.bfloat16().float()):
-            raise AssertionError("K1r returned a value that is not a bf16")
+            raise AssertionError(f"{name} returned a value that is not a "
+                                 f"bf16")
         top = float(ref[0][torch.isfinite(ref[0])].abs().max())
         ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
-        self.compare("fused_dense_top_k_rounded", ref, got, ulp)
+        self.compare(name, ref, got, ulp)
 
     @staticmethod
     def equal_int8(got, ref, what) -> None:
@@ -5594,6 +5625,225 @@ class Smoke:
             k2r_launches=counts["fused_dense_top_k_int8_rounded"],
             ids_equal_plain_8_queries=True)
 
+    # -- phase 27: the bf16 compare fold -----------------------------------
+
+    def phase27a_compare_kernels(self) -> None:
+        """K1c against its plain version: phase 26a's grid (masked and
+        maskless, k 1 / 32 / 128, B 1 / 7 / B) on f32 and bf16 rows, the
+        same rows cut to a misaligned N and a bf16 query on f32 rows, each
+        within one bf16 ulp; then integer grids whose scores tie
+        everywhere and the operand rule, torch.equal (compare_ties)."""
+        k, t0 = self.p.kernels, time.perf_counter()
+        n, d = self.N_ROUNDED, self.D_KERNEL
+        cut = n - self.COMPARE_MISALIGN
+        grid = [(m, kk, b) for m in (False, True) for kk in (1, 32, 128)
+                for b in (1, 7, self.B)]
+        cases = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            emb, q, half, _ = self.kernel_cases(n, d, dtype)
+            runs = [(emb, half, q, case) for case in grid]
+            runs += [(emb[:cut], half[:cut], q, case)
+                     for case in ((False, 32, self.B), (True, 128, 7))]
+            if dtype == torch.float32:
+                runs += [(emb, half, q.bfloat16(), case)
+                         for case in ((False, 32, self.B), (True, 1, 1))]
+            for rows, mask_rows, qq, (masked, kk, b) in runs:
+                mask = mask_rows if masked else None
+                got = k.fused_dense_top_k_bf16_compare(rows, qq[:b], kk,
+                                                       mask=mask)
+                ref = k.fused_dense_top_k_bf16_compare_torch(
+                    rows, qq[:b], kk, mask=mask)
+                self.compare_rounded(ref, got,
+                                     "fused_dense_top_k_bf16_compare")
+                cases += 1
+            del emb
+        ties = self.compare_ties()
+        log(phase="compare_vs_plain", cases=cases, tie_cases=ties, n=n,
+            misaligned_n=cut, ok=True,
+            atol="one bf16 ulp at the largest |value|; integer grids and "
+            "the operand rule torch.equal",
+            max_abs_err=self.max_err["fused_dense_top_k_bf16_compare"],
+            tie_swaps=self.swaps["fused_dense_top_k_bf16_compare"],
+            seconds=time.perf_counter() - t0)
+
+    def compare_ties(self) -> int:
+        """K1c (f32 and bf16 rows, N aligned and not, masked and not) on
+        phase 26's integer grids, each torch.equal to its plain version:
+        the narrow grid's scores are exact bf16 and tie across every
+        boundary; the wide grid's are exact in f32 and moved by the
+        rounding, so a fold that skips it differs (checked on K1's plain
+        version at B rows). Then the operand rule (compare_operands)."""
+        k, g = self.p.kernels, self.seed(127)
+        n, d, w = self.N_ROUNDED, self.ROUNDED_GRID_D, self.ROUNDED_GRID_WIDE
+        cut = n - self.COMPARE_MISALIGN
+        half = torch.rand(n, generator=g, device=self.dev) < 0.5
+        cases = 0
+        for lo, hi in ((-w, w), (-1, 1)):
+            rows = torch.randint(lo, hi + 1, (n, d), generator=g,
+                                 device=self.dev)
+            rows[n // 2:n // 2 + 512] = rows[:512]
+            if hi == 1:
+                q = 2 * torch.randint(0, 2, (self.B, d), generator=g,
+                                      device=self.dev) - 1
+            else:
+                q = torch.randint(lo, hi + 1, (self.B, d), generator=g,
+                                  device=self.dev)
+            q = q.float()
+            for kk, b, m, nn in ((1, 1, None, n), (32, 7, half, cut),
+                                 (128, self.B, None, n),
+                                 (32, self.B, half, cut)):
+                mask = None if m is None else m[:nn]
+                for dtype in (torch.float32, torch.bfloat16):
+                    emb = rows[:nn].to(dtype)
+                    got = k.fused_dense_top_k_bf16_compare(emb, q[:b], kk,
+                                                           mask=mask)
+                    ref = k.fused_dense_top_k_bf16_compare_torch(
+                        emb, q[:b], kk, mask=mask)
+                    self.equal_int8(got, ref, f"K1c integer grid [{lo}, "
+                                    f"{hi}], {dtype}, N={nn}, k={kk}, B={b}")
+                    self.compare("fused_dense_top_k_bf16_compare", ref, got,
+                                 0.0)
+                    if hi > 1 and b == self.B and torch.equal(
+                            k.fused_dense_top_k_torch(emb, q[:b], kk,
+                                                      mask=mask)[0], ref[0]):
+                        raise AssertionError(
+                            f"the integer grid [{lo}, {hi}] (k={kk}, B={b}) "
+                            f"does not tell the compare fold from K1")
+                    cases += 1
+        return cases + self.compare_operands()
+
+    def compare_operands(self) -> int:
+        """The operand rule, where K1c's scores do not depend on the
+        summation order: rows of -1, 0 and 1 against queries on the bf16
+        grid +-(1 + j / 128), one row planted for each query with the
+        signs of its entries. Every product is a multiple of 2^-7 and
+        every sum below 2^8, exact in f32 in any order, so kernel and plain
+        version are torch.equal. (1) bf16 rows, f32 queries 0.45 of a bf16
+        ulp above the grid: K1c rounds them back onto it; a fold on the
+        f32 query (K1r's three pieces) adds 0.45 * 2^-7 a term to each
+        planted score, and its values differ (K1r's plain version). (2)
+        f32 rows 0.45 of an ulp off the grid, bf16 queries on it: K1c
+        rounds the rows; a fold on the f32 rows differs."""
+        k, g = self.p.kernels, self.seed(129)
+        n, d, b = self.N_ROUNDED, self.ROUNDED_GRID_D, self.B
+        rows = torch.randint(-1, 2, (n, d), generator=g,
+                             device=self.dev).float()
+        sign = (2 * torch.randint(0, 2, (b, d), generator=g,
+                                  device=self.dev) - 1).float()
+        grid = sign * (1 + torch.randint(0, 128, (b, d), generator=g,
+                                         device=self.dev) / 128)
+        planted = torch.arange(b, device=self.dev) * (n // b) + 3
+        rows[planted] = sign
+        off = 1 + 0.45 * 2.0 ** -7
+        cases = 0
+        for emb, q, what in (
+                (rows.bfloat16(), grid + sign * 0.45 * 2.0 ** -7,
+                 "bf16 rows, f32 queries"),
+                (rows * off, grid.bfloat16(), "f32 rows, bf16 queries")):
+            assert torch.equal(q.bfloat16().float(), grid)
+            for kk, bb in ((32, b), (128, 7)):
+                got = k.fused_dense_top_k_bf16_compare(emb, q[:bb], kk)
+                ref = k.fused_dense_top_k_bf16_compare_torch(emb, q[:bb], kk)
+                self.equal_int8(got, ref, f"K1c operand rule, {what}, "
+                                f"k={kk}, B={bb}")
+                self.compare("fused_dense_top_k_bf16_compare", ref, got, 0.0)
+                if bb == b:
+                    wrong = k.fused_dense_top_k_torch(emb, q[:bb], kk,
+                                                      rounded=True)
+                    if torch.equal(wrong[0], ref[0]):
+                        raise AssertionError(
+                            f"the operand case ({what}) does not tell K1c "
+                            f"from a fold that keeps the f32 operand")
+                cases += 1
+        return cases
+
+    def phase27b_compare_stage_a(self, emb, q) -> None:
+        """The slice's path at full width, on stage A's 2^21 x 256 bf16
+        rows at B = 256: fused_dense_top_k(..., mask=half,
+        compare_dtype="bfloat16") (a masked call takes K1c, as the JAX
+        launcher's takes its iterate body) and fused_dense_top_k_bf16_compare
+        maskless, under main_path: K1c twice, no K1. The first 8 queries'
+        ids torch.equal to the plain version's, their values within one
+        bf16 ulp; recall@10 against K1's exact lists; then K1c timed
+        beside its plain version, its yardstick and its bound (one bf16
+        MMA a product: bound by its bytes)."""
+        p, k, t0 = self.p, self.p.kernels, time.perf_counter()
+        half = torch.rand(emb.shape[0], generator=self.seed(128),
+                          device=self.dev) < 0.5
+
+        def path():
+            return (k.fused_dense_top_k(emb, q, 32, mask=half,
+                                        compare_dtype="bfloat16"),
+                    k.fused_dense_top_k_bf16_compare(emb, q, 32))
+
+        (masked, maskless), counts = self.main_path(path)
+        self.expect("compare stage A", counts,
+                    fused_dense_top_k_bf16_compare=2, fused_dense_top_k=0)
+        recall = {}
+        for got, mask, what in ((masked, half, "masked"),
+                                (maskless, None, "maskless")):
+            ref = k.fused_dense_top_k_bf16_compare_torch(emb, q[:8], 32,
+                                                         mask=mask)
+            self.compare_rounded(ref, (got[0][:8], got[1][:8]),
+                                 "fused_dense_top_k_bf16_compare")
+            if not torch.equal(got[1][:8], ref[1]):
+                raise AssertionError(f"K1c at stage A ({what}): the first 8 "
+                                     f"queries' ids differ from the plain "
+                                     f"version's")
+            exact = k.fused_dense_top_k(emb, q, 32, mask=mask)[1][:, :10]
+            hits = got[1][:, :10, None] == exact[:, None, :]
+            recall[what] = float(hits.any(dim=2).float().mean())
+        t = p.cuda_event_ms
+        masked_ms = min(t(lambda: k.fused_dense_top_k(
+            emb, q, 32, mask=half, compare_dtype="bfloat16")) for _ in (0, 1))
+        log(stage="A_2M_bf16_compare",
+            k1c_launches=counts["fused_dense_top_k_bf16_compare"],
+            ids_equal_plain_8_queries=True,
+            recall10_vs_k1_masked=recall["masked"],
+            recall10_vs_k1=recall["maskless"], masked_ms=masked_ms,
+            card=self.card, method="CUDA events, median of 10 after 3 "
+            "warm-ups, the better of two")
+        self.time_pair(
+            "fused_dense_top_k_bf16_compare",
+            lambda: k.fused_dense_top_k_bf16_compare(emb, q, 32),
+            lambda: k.fused_dense_top_k_bf16_compare_torch(emb, q, 32),
+            "2^21 x 256 bf16, B=256, k=32, no mask")
+        (n, d), b = emb.shape, q.shape[0]
+        step = 1 << 20
+        matmul = torch.backends.cuda.matmul
+
+        def library():
+            qb = q.bfloat16()
+            vs, ids = [], []
+            for s0 in range(0, n, step):
+                v, i = torch.topk(torch.matmul(qb, emb[s0:s0 + step].T), 32,
+                                  dim=1)
+                vs.append(v)
+                ids.append(i + s0)
+            v, i = torch.topk(torch.cat(vs, dim=1), 32, dim=1)
+            return v.float(), torch.take_along_dim(torch.cat(ids, dim=1), i,
+                                                   dim=1)
+
+        reduced = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            self.time_library(
+                "fused_dense_top_k_bf16_compare", library,
+                f"torch.matmul(q.bfloat16(), emb.T) (bf16 out, f32 "
+                f"accumulation, no reduced-precision reduction) and "
+                f"torch.topk per {step}-row chunk of the doc axis, "
+                f"torch.topk over the chunks (no mask: no fill)")
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
+        self.bound("fused_dense_top_k_bf16_compare",
+                   n * d * 2 + b * d * 4 + b * 32 * 8, 2 * b * n * d,
+                   BF16_FLOP_S)
+        log(timing="fused_dense_top_k_bf16_compare_bound",
+            bound_ms=self.bounds["fused_dense_top_k_bf16_compare"][0],
+            bound_by=self.bounds["fused_dense_top_k_bf16_compare"][1],
+            what="the rows read once at 3.35 TB/s against one bf16 MMA a "
+            "product at 989 TFLOP/s", seconds=time.perf_counter() - t0)
+
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -5616,6 +5866,7 @@ class Smoke:
         self.phase1_k1()
         self.phase2_k2()
         self.phase26a_rounded_kernels()
+        self.phase27a_compare_kernels()
         self.phase3_ivf_kernels()
         self.phase9_stream_kernels()
         self.phase13_14_probe_checks()
@@ -5675,6 +5926,7 @@ class Smoke:
         torch.cuda.empty_cache()
         self.time_k1(emb, q)
         self.phase26b_rounded_stage_a(emb, gold, q, bm25, terms)
+        self.phase27b_compare_stage_a(emb, q)
         self.phase11_floor("A", emb)
         self.phase12_overlap(emb)
         self.time_stream(emb)

@@ -40,7 +40,8 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (ks, "bf16_row_reduce"), (i4, "int4_scores"),
            (i4, "int8_fold_max"), (i4, "int4_fold_max"),
            (ft, "fused_dense_top_k_rounded"),
-           (ft, "fused_dense_top_k_int8_rounded"))
+           (ft, "fused_dense_top_k_int8_rounded"),
+           (ft, "fused_dense_top_k_bf16_compare"))
 
 
 class TinySmoke(chip_smoke.Smoke):
@@ -182,7 +183,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(tokens.TokenCounter, "_try_hf",
                         staticmethod(lambda name: None))
     # A rounded fold's plain version is its exact kernel's with
-    # rounded=True: that call counts the rounded wrapper's launch.
+    # rounded=True: that call counts the rounded wrapper's launch. K1c's
+    # is its own (fused_dense_top_k_bf16_compare_torch), which K1's plain
+    # version also calls on the compare route.
     plains = {}
     for mod, name in WRAPPED:
         wrapper = getattr(mod, name)
@@ -283,7 +286,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert kernels[4]["replaces"] == "bench.py:226"
     # Phase 26: K1r once on stage A's retriever and once a device batch of
     # the served request; K2r once on stage C's.
-    rounded = {k["name"]: k for k in kernels[-2:]}
+    rounded = {k["name"]: k for k in kernels[-3:-1]}
     served26 = [r for r in records if r.get("phase") == "rounded_served"][0]
     assert served26["ids_equal_direct"] and served26["k1r_launches"] >= 1
     assert rounded["fused_dense_top_k_rounded"]["launches"] == \
@@ -299,6 +302,22 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert a26["recall10_hybrid"] >= 0.99 and a26["k1r_launches"] == 1
     c26 = [r for r in records if r.get("stage") == "C_10.5M_int8_rounded"][0]
     assert c26["ids_equal_plain_8_queries"] and c26["k2r_launches"] == 1
+    # Phase 27: K1c twice on stage A's path (the masked routed call and
+    # the direct maskless one), none elsewhere on the main path.
+    compare = kernels[-1]
+    assert compare["name"] == "fused_dense_top_k_bf16_compare"
+    assert compare["launches"] == 2
+    assert compare["replaces"].endswith("fused_topk.py:921")
+    assert compare["bound_by"] == "bytes"
+    r27 = [r for r in records if r.get("phase") == "compare_vs_plain"][0]
+    # 2 row types x (18 grid + 2 misaligned) + 2 bf16-query cases; 2 grids
+    # x 4 cases x 2 row types + 2 x 2 operand cases.
+    assert r27["ok"] and r27["cases"] == 2 * 20 + 2
+    assert r27["tie_cases"] == 2 * 4 * 2 + 4
+    a27 = [r for r in records if r.get("stage") == "A_2M_bf16_compare"][0]
+    assert a27["ids_equal_plain_8_queries"] and a27["k1c_launches"] == 2
+    assert 0.0 < a27["recall10_vs_k1"] <= 1.0
+    assert 0.0 < a27["recall10_vs_k1_masked"] <= 1.0
     assert kernels[6]["replaces"] == "scripts/profile_kernel_anatomy.py:138"
     probes = [r for r in records if r.get("phase") == "probes_vs_plain"]
     assert probes[0]["counted_equal_plain_and_kernel"]
@@ -414,7 +433,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert all(s["ctas_per_sm"] >= 1 for s in plan[0]["shapes"])
     fplan = [r for r in records if r.get("phase") == "float_plan"]
     # B = 16 and B = 8: the small block; every tiny depth stays resident.
-    assert [s["bq"] for s in fplan[0]["shapes"]] == [16] * 5
+    # The last two shapes are K1c's, one query plane.
+    assert [s["bq"] for s in fplan[0]["shapes"]] == [16] * 7
+    assert [s["planes"] for s in fplan[0]["shapes"]] == [3, 3, 1, 3, 1, 1, 1]
     assert all(s["resident"] and s["smem_bytes"] > 0
                for s in fplan[0]["shapes"])
     edges = [r for r in records if r.get("phase") == "float_edges_vs_plain"]

@@ -27,7 +27,10 @@ their edges: depths, batches across clusters of query blocks, ragged row
 counts, extremes, all-negative products, unaligned rows); ``stream_sum``
 the same bits on two calls of every launch shape. K1 under a caller's
 plan (the tuner's query block and splits) torch.equal to its default
-plan.
+plan. K1c (the bf16 compare fold): values bf16 and within one bf16 ulp
+of the largest |value| on unit rows (the kernel's f32 sums and the plain
+version's may straddle a rounding midpoint), ids up to swaps within it;
+torch.equal on integer grids, whose scores are exact in any order.
 """
 
 import pytest
@@ -38,6 +41,8 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     bf16_row_reduce,
     bf16_row_reduce_torch,
     fused_dense_top_k,
+    fused_dense_top_k_bf16_compare,
+    fused_dense_top_k_bf16_compare_torch,
     fused_dense_top_k_int8,
     fused_dense_top_k_int8_torch,
     fused_dense_top_k_torch,
@@ -237,6 +242,10 @@ def test_cuda_float_shared_memory_matches_plan(cuda_device, rows):
                 for qres in (False, True):
                     assert float_smem_bytes(bq, d, k, rows, qres) == \
                         topk_plan.smem_bytes(bq, d, k, rows, qres)
+                    # K1c's one query plane.
+                    one = topk_plan.COMPARE_PLANES
+                    assert float_smem_bytes(bq, d, k, rows, qres, one) == \
+                        topk_plan.smem_bytes(bq, d, k, rows, qres, one)
     for args in ((256, 32, 33, 32, 256, True), (8, 16, 264, 264, 37, False),
                  (1, 1, 1, 1, 1, True)):
         assert workspace_bytes_of_source(*args) == \
@@ -315,6 +324,41 @@ def test_cuda_subsample_tau_bounds_the_kth_score(cuda_device, rows):
         assert bool(((tau - want).abs() <= 1e-4)[torch.isfinite(want)].all())
     # The query split on the card: K1's staged words hold its planes.
     assert split_query(q).shape == (3, 20, 64)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", ["bfloat16", "float32"])
+def test_cuda_bf16_compare_matches_plain(cuda_device, rows, q_dtype):
+    # K1c on unit rows (masked or not, N misaligned, B across the 16/64
+    # switch), then on an integer grid (torch.equal).
+    g = torch.Generator().manual_seed(11)
+    n, d = 70_001, 96
+    emb = _unit(torch.randn((n, d), generator=g))
+    emb[n // 2:n // 2 + 50] = emb[:50]
+    emb = emb.to(getattr(torch, rows)).to(cuda_device)
+    q = _unit(torch.randn((130, d), generator=g)).to(
+        getattr(torch, q_dtype)).to(cuda_device)
+    mask = (torch.rand(n, generator=g) < 0.5).to(cuda_device)
+    for b, k, m in ((1, 1, None), (7, 32, mask), (130, 128, None),
+                    (17, 25, mask)):
+        before = fused_dense_top_k_bf16_compare.launches
+        kv, ki = fused_dense_top_k_bf16_compare(emb, q[:b], k, mask=m)
+        torch.cuda.synchronize()
+        assert fused_dense_top_k_bf16_compare.launches == before + 1
+        pv, pi = fused_dense_top_k_bf16_compare_torch(emb, q[:b], k, mask=m)
+        assert torch.equal(kv, kv.bfloat16().float())
+        check_top_k(pv, pi, kv, ki, 2.0 ** -8)
+        assert _ties_kept_by_lower_id(kv, ki)
+    ints = torch.randint(-1, 2, (n, 64), generator=g).to(cuda_device)
+    qi = (2 * torch.randint(0, 2, (64, 64), generator=g) - 1).to(
+        cuda_device)
+    for b, k, m in ((8, 16, None), (64, 128, mask)):
+        args = (ints.to(getattr(torch, rows)), qi[:b].to(
+            getattr(torch, q_dtype)), k)
+        kv, ki = fused_dense_top_k_bf16_compare(*args, mask=m)
+        pv, pi = fused_dense_top_k_bf16_compare_torch(*args, mask=m)
+        torch.cuda.synchronize()
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
