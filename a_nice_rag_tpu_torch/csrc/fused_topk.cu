@@ -7,7 +7,9 @@
 //   K2 fused_dense_top_k_int8 (fused_topk.py:1218)
 //      (int8 rows with per-row scales, int8 queries with per-query scales)
 //   K1r, K2r: the same calls' rounded fold (algo="packed": the bodies
-//      _kernel_packed, fused_topk.py:359, and _kernel_packed_int8, :377)
+//      _kernel_packed, fused_topk.py:359, and _kernel_packed_int8, :377);
+//      here K2r only for batches that fit one 16-query block, larger ones
+//      on K2r's own kernel (cluster_topk.cu)
 //   K1c: K1's bf16 compare fold (compare_dtype="bfloat16": the body
 //      _kernel_iterate, fused_topk.py:921, product at :945-951)
 //
@@ -229,8 +231,8 @@ int anr_fused_topk_bf16(const void* q, const void* e, const uint8_t* mask,
       tau_per, 0, ws, out_v, out_i, tau_out, stream);
 }
 
-// K2 (rounded: K2r; tau_out as K1's; tau on the selection scores, before
-// the query scale).
+// K2 (rounded: K2r, for batches of one 16-query block; tau_out as K1's;
+// tau on the selection scores, before the query scale).
 int anr_fused_topk_int8(const int8_t* q_values, const float* q_scales,
                         const int8_t* values, const float* scales,
                         const uint8_t* mask, int B, int N, int D, int k,

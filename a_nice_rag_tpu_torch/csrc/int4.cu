@@ -91,7 +91,7 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "topk_common.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -146,95 +146,6 @@ struct FoldArgs {
   int* out;
 };
 
-// -- mbarriers, TMA, clusters -------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-// Arrive on the barrier at the same offset in CTA ``rank`` of the cluster.
-// The arrival orders nothing but the caller's reads of a ring slot, whose
-// values the caller has already used: relaxed, without the cluster-scope
-// release (PTX 8.6 on), which measured about 0.5 us an arrival on an H100.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    int rank) {
-  unsigned remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_addr(bar)), "r"(rank));
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 8)
-  asm volatile(
-      "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
-      : "memory");
-#else
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
-      : "memory");
-#endif
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release;\n"
-      "barrier.cluster.wait.acquire;\n" ::
-          : "memory");
-}
-
-// Box (x bytes, y rows) of the tensor map into dst, completing on bar; with
-// mask, into the same offset of every CTA of the mask.
-__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
-                                        int x, int y, uint64_t* bar,
-                                        uint16_t mask) {
-  const uint64_t m = reinterpret_cast<uint64_t>(map);
-  if (mask > 1) {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_"
-        "tx::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
-            smem_addr(dst)),
-        "l"(m), "r"(x), "r"(y), "r"(smem_addr(bar)), "h"(mask)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_"
-        "tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-        "l"(m), "r"(x), "r"(y), "r"(smem_addr(bar))
-        : "memory");
-  }
-}
-
 // -- unpack ----------------------------------------------------------------------
 
 // A packed word to its two int8 words: lo (columns p..p+3 of the row's
@@ -265,12 +176,6 @@ __device__ __forceinline__ int true_sum(int v) {
   return UNPACK == UNPACK_SHIFT ? v >> 4 : v;
 }
 
-// Byte offset of 4-byte word w (of 32) of row r in a [rows][CH] swizzled
-// chunk.
-__device__ __forceinline__ int word_at(int r, int w) {
-  return swizzle(r, CH, 0, w / 4) + (w % 4) * 4;
-}
-
 // Rows [row0, row0 + rows) x depth chunk c of src (rows of ``stride``
 // bytes, ``valid`` rows, ``len`` bytes each) into a swizzled [rows][CH]
 // chunk at dst, zero past them; by the 32 lanes of one warp. Generic
@@ -288,64 +193,6 @@ __device__ __forceinline__ void load_words(char* dst, const int8_t* src,
     }
     *reinterpret_cast<unsigned*>(dst + word_at(r, w)) = v;
   }
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// -- wgmma -------------------------------------------------------------------------
-
-// Descriptor of a K-major operand tile of 128-byte rows, 128-byte swizzle
-// (the TMA's layout; the tile 1024-byte aligned): 8-row groups 1024 bytes
-// apart. Adding 2 (32 bytes) moves to the next k-step of 32 bytes.
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// d[64 x 128] (+)= A[64 x 32] . B[128 x 32]^T, s8 x s8 -> s32, both
-// operands K-major in shared memory. Thread t of the warpgroup holds
-// rows 16 (t / 32) + (t % 32) / 4 (+ 8) and columns 8 j + 2 (t % 4)
-// (+ 1) as d[4 j + {0, 1}] (row) and d[4 j + {2, 3}] (row + 8).
-__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// Keeps the compiler from touching the accumulators across wgmma.
-__device__ __forceinline__ void pin(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
 // -- the kernel ----------------------------------------------------------------
@@ -578,76 +425,23 @@ __global__ void __launch_bounds__(FTHREADS, 1)
 
 // -- host side ------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &got);
-#endif
-    if (err == cudaSuccess && got == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
 // The rows of e as boxes of FBOX rows x CH bytes, 128-byte swizzle, zero
 // fill past N and past the row.
 cudaError_t doc_map(CUtensorMap* map, const FoldArgs& a) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.erow),
-                              static_cast<cuuint64_t>(a.N)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.erow)};
-  const cuuint32_t box[2] = {CH, FBOX};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-      const_cast<void*>(static_cast<const void*>(a.e)), dims, strides, box,
-      elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_rows(map, a.e, a.erow, a.N, a.erow, FBOX);
 }
 
 template <int UNPACK, bool SCORES, bool TMA, bool QRES>
 cudaError_t launch(const FoldArgs& a, int groups, int smem,
                    cudaStream_t stream) {
-  auto kern = fold_kernel<UNPACK, SCORES, TMA, QRES>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   CUtensorMap map{};
   if (TMA) {
-    err = doc_map(&map, a);
+    const cudaError_t err = doc_map(&map, a);
     if (err != cudaSuccess) return err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.per_group * a.cl, groups, 1);
-  cfg.blockDim = dim3(FTHREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = a.cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = TMA ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kern, map, a);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_clustered(fold_kernel<UNPACK, SCORES, TMA, QRES>,
+                          dim3(a.per_group * a.cl, groups, 1), FTHREADS, smem,
+                          TMA ? a.cl : 0, stream, map, a);
 }
 
 template <int UNPACK, bool SCORES>
@@ -673,24 +467,8 @@ int anr_fold_smem_bytes(int D, int packed, int stages, int resident) {
 // Clusters of cl CTAs with smem bytes each that the card holds at once
 // (a negative cudaError_t on failure).
 int anr_fold_active_clusters(int cl, int smem) {
-  auto kern = fold_kernel<NONE, false, true, true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl * 64, 1, 1);
-  cfg.blockDim = dim3(FTHREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kern, &cfg);
-  return err != cudaSuccess ? -static_cast<int>(err) : n;
+  return max_active_clusters(fold_kernel<NONE, false, true, true>, FTHREADS,
+                             cl, smem);
 }
 
 // kind: 0 int8 fold, 1 / 2 int4 fold (mask / shift unpack), 3 / 4 int4

@@ -219,7 +219,9 @@ __device__ unsigned stream_int8(const int8_t* q, const int8_t* e,
 // The int8 rows of K2 / K4 as the split kernels of split_topk.cuh take
 // them: q [B, D] int8 queries, e [*, D] int8 rows with scales escale, an
 // optional [N] mask. ROUND: K2r's rounded selection scores, bf16(float(acc)
-// * doc_scale) (topk_common.cuh's selection_score).
+// * doc_scale) (topk_common.cuh's selection_score), for the batches that
+// fit one 16-query block; larger ones take K2r's own kernel
+// (cluster_topk.cu).
 template <bool ROUND = false>
 struct Int8RowsT {
   static constexpr bool ROUNDED = ROUND;

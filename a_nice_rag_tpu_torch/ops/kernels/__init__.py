@@ -60,7 +60,8 @@ from a_nice_rag_tpu_torch.ops.kernels.stream import (  # noqa: F401
 )
 
 # csrc/<name>.cu
-SOURCES = ("fused_topk", "ivf_topk", "stream_sum", "anatomy", "keys", "int4")
+SOURCES = ("fused_topk", "ivf_topk", "stream_sum", "anatomy", "keys", "int4",
+           "cluster_topk")
 WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
             fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
             ivf_dense_top_k,
@@ -80,3 +81,4 @@ def build_kernels() -> None:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    fused_dense_top_k_int8_rounded.split_launches = 0

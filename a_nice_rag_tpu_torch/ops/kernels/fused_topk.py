@@ -29,7 +29,11 @@ up to the depth whose 16-query block fits in a CTA's shared memory, about
 ``rounded=True`` selects the rounded fold, K1r / K2r
 (``fused_dense_top_k_rounded``, ``fused_dense_top_k_int8_rounded``): the
 TPU kernels' ``algo="packed"`` (bodies ``_kernel_packed``,
-fused_topk.py:359, and ``_kernel_packed_int8``, :377). The top k is taken
+fused_topk.py:359, and ``_kernel_packed_int8``, :377). K1r is K1's kernel
+with its rounding flag; K2r has a kernel of its own,
+``csrc/cluster_topk.cu`` (``cluster_topk.py``), but for batches of one
+16-query block (B <= ``K2R_SPLIT_MAX_B``), which take K2's kernel with
+its rounding flag. The top k is taken
 on every score rounded to bf16 (to nearest, ties to even), under the same
 tie rule, and the values are those rounded scores (K2r: times the query
 scale); bf16 -0.0 ranks below +0.0, as the TPU kernel's packed key ranks
@@ -64,7 +68,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels import _build, cluster_topk, topk_plan
 from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.quantized import int8_dot
 
@@ -84,6 +88,11 @@ _ROWS = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 # The rounded fold's calls: maskless, N a multiple of this (the TPU
 # launchers' _N_ALIGN).
 ROUNDED_ALIGN = 1024
+# K2r's batches up to this many queries (one 16-query block) take K2's
+# kernel with its rounding flag, larger ones csrc/cluster_topk.cu: on an
+# H100 at 10.5M x 1024 int8 the cluster kernel is 5-10% slower at B = 8
+# and 16 and 1.5x faster from B = 32 on (PERF.md, K2r).
+K2R_SPLIT_MAX_B = 16
 # The int32 bits of -0.0, and of the negative f32 nearest zero (no bf16
 # value) that carries a rounded -0.0 below +0.0 (csrc/topk_common.cuh).
 _NEG_ZERO_BITS = -0x80000000
@@ -440,13 +449,16 @@ def subsample_tau_torch(emb: torch.Tensor, queries: torch.Tensor, k: int,
 
 def subsample_tau_int8_torch(values: torch.Tensor, scales: torch.Tensor,
                              q_values: torch.Tensor, k: int,
-                             mask: Optional[torch.Tensor] = None
-                             ) -> torch.Tensor:
+                             mask: Optional[torch.Tensor] = None,
+                             rounded: bool = False) -> torch.Tensor:
     """Plain version of ``subsample_tau_int8``, on the selection scores
-    float(acc) * doc scale."""
+    float(acc) * doc scale (``rounded``: K2r's, rounded to bf16, the tau
+    its kernel seeds its lists with)."""
     rows = torch.arange(0, values.shape[0], TAU_STRIDE, device=values.device)
     s = (int8_dot(q_values, values[rows]).to(torch.float32)
          * scales[rows][None, :])
+    if rounded:
+        s = round_scores(s)
     if mask is not None:
         s = torch.where(mask[rows][None, :], s, float("-inf"))
     return _tau_of(s, k)
@@ -683,8 +695,8 @@ def _check_int8_call(values, scales, q_values, q_scales, k, mask):
 
 def _int8_call(values, scales, q_values, q_scales, k, mask, tau_only: bool,
                rounded: bool = False):
-    """Launch K2 (``rounded``: K2r; or, ``tau_only``, its tau pass alone)
-    on CUDA tensors."""
+    """Launch K2 (``rounded``: with its rounding flag, K2r's small-batch
+    route; or, ``tau_only``, its tau pass alone) on CUDA tensors."""
     n, d = values.shape
     b, dev = q_values.shape[0], values.device
     lib = _library()
@@ -750,22 +762,35 @@ def fused_dense_top_k_int8_rounded(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2r, K2's rounded fold (no mask; N a multiple of ROUNDED_ALIGN, else
     ValueError): the top k of bf16(float(acc) * doc_scale) under (score
-    desc, id asc), their rounded values times q_scale. On CUDA tensors
-    K2's kernel with its rounding flag set; on the CPU the plain
-    version."""
-    n, _, _, dev = _check_int8_call(values, scales, q_values, q_scales, k,
+    desc, id asc), their rounded values times q_scale. On CUDA tensors,
+    by B: up to ``K2R_SPLIT_MAX_B`` queries (one 16-query block), K2's
+    kernel with its rounding flag, which streams the rows faster there
+    (``.split_launches`` counts these calls); past it ``csrc/
+    cluster_topk.cu`` (a cluster of query blocks on one TMA-multicast doc
+    stream, wgmma s8, a threshold epilogue; ``cluster_topk.cluster_plan``
+    gives its launch). ``.launches`` counts both. A failed build or
+    launch raises. On the CPU the plain version."""
+    n, _, b, dev = _check_int8_call(values, scales, q_values, q_scales, k,
                                     None)
     _check_rounded(n)
+    if q_scales is None:
+        raise ValueError("K2r needs q_scales [B]")
     if dev.type == "cpu":
         return fused_dense_top_k_int8_torch(values, scales, q_values,
                                             q_scales, k, rounded=True)
-    out = _int8_call(values, scales, q_values, q_scales, k, None,
-                     tau_only=False, rounded=True)
+    if b <= K2R_SPLIT_MAX_B:
+        out = _int8_call(values, scales, q_values, q_scales, k, None,
+                         tau_only=False, rounded=True)
+        count_launch(fused_dense_top_k_int8_rounded, "split_launches")
+    else:
+        out = cluster_topk.rounded_top_k_int8(values, scales, q_values,
+                                              q_scales, k, _sm_count(dev))
     count_launch(fused_dense_top_k_int8_rounded)
     return out
 
 
 fused_dense_top_k_int8_rounded.launches = 0
+fused_dense_top_k_int8_rounded.split_launches = 0
 
 
 def subsample_tau_int8(values: torch.Tensor, scales: torch.Tensor,

@@ -244,12 +244,20 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      card, SearchEngine's hybrid retrieve with 256 stored chunks' contents
      as queries, recall@10 of each chunk's own id >= 0.90; then the
      ``ingest`` line;
- 26. the rounded fold (K1r / K2r, algo="packed"): (a) after phase 2, K1r
-     and K2r against their plain versions on phase 1 / 2's grid at
-     N_ROUNDED rows, integer grids and +-0.0 torch.equal; (c) after phase
-     25, one HTTP b64 request through build_state(rounded_fold=True); (b)
-     after K1's timing, the rounded hybrid retriever on stage A and K1r's
-     timing; (d) after K2's, stage C's int8 retriever and K2r's timing;
+ 26. the rounded fold (K1r / K2r, algo="packed"; K2r on its own kernel,
+     csrc/cluster_topk.cu): (a) after phase 2, K1r and K2r against their
+     plain versions on phase 1 / 2's grid at N_ROUNDED rows, integer
+     grids and +-0.0 torch.equal, then K2r's own edges torch.equal (D in
+     {32, 33, 1024, 2048}, rows[1:] and an odd address, B from 1 to 512
+     across the query block, the cluster and its groups, k up to 128, N
+     = 1024, {-1, 0, 1} grids with signed scales and a zero query); (c)
+     after phase 25, one HTTP b64 request through
+     build_state(rounded_fold=True); (b) after K1's timing, the rounded
+     hybrid retriever on stage A and K1r's timing; (d) after K2's, stage
+     C's int8 retriever, K2r timed at B = 8, 256 and 512 beside its plain
+     version and its yardstick, with one and two query groups a CTA, and
+     its anatomy (the ring, + wgmma, + the epilogue, the main pass, the
+     whole call); phase 19 (c) also runs the rounded fold on every shard;
  27. the bf16 compare fold (K1c, compare_dtype="bfloat16"): (a) after
      26a, K1c against its plain version on 26a's grid, f32 and bf16 rows,
      a misaligned N and bf16 queries on f32 rows (within one bf16 ulp),
@@ -351,6 +359,7 @@ STREAM_SOURCE = "a_nice_rag_tpu_torch/csrc/stream_sum.cu"
 ANATOMY_SOURCE = "a_nice_rag_tpu_torch/csrc/anatomy.cu"
 KEYS_SOURCE = "a_nice_rag_tpu_torch/csrc/keys.cu"
 INT4_SOURCE = "a_nice_rag_tpu_torch/csrc/int4.cu"
+K2R_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -382,12 +391,13 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "int4_scores": (INT4_SOURCE, "scripts/probe_int4.py:83"),
     "int8_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:167"),
     "int4_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:188"),
-    # K1r / K2r: the rounded fold (algo="packed"), K1's and K2's kernel
-    # with its rounding flag set.
+    # K1r / K2r: the rounded fold (algo="packed"): K1's kernel with its
+    # rounding flag set; K2r's own kernel (a cluster of query blocks on one
+    # TMA-multicast stream, wgmma s8, a threshold epilogue).
     "fused_dense_top_k_rounded": (
         K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:359"),
     "fused_dense_top_k_int8_rounded": (
-        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
+        K2R_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
     # K1c: the bf16 compare fold (compare_dtype="bfloat16"), K1's kernel in
     # its compare mode.
     "fused_dense_top_k_bf16_compare": (
@@ -758,6 +768,15 @@ class Smoke:
     # up to 64 * 16 * 16 = 16384 are exact in f32 but not in bf16, so the
     # rounding shows in every value above 256.
     N_ROUNDED, ROUNDED_GRID_D, ROUNDED_GRID_WIDE = 1 << 20, 64, 16
+    # K2r's edges on its own kernel: rows (a multiple of 1024 but not of
+    # 256 x 30 walkers, so walks end ragged), depths (element loads at 32
+    # and 33, TMA at 1024, the query block streamed at 2048 with k = 128),
+    # batches across K2's 16-query block (K2r's route switch), the
+    # cluster's 64-query block, the cluster of four and the groups, k; the
+    # batches timed at stage C's shape.
+    N_K2R, K2R_D = 70 * 1024, (32, 33, 1024, 2048)
+    K2R_B = (1, 8, 16, 17, 64, 65, 200, 256, 257, 512)
+    K2R_K, K2R_TIMED_B = (1, 25, 128), (8, 64, 256, 512)
     # Phase 27: the bf16 compare fold's cases run on phase 26's rows, and
     # again on a prefix that is no multiple of 1024 (K1c takes any N).
     COMPARE_MISALIGN = 37
@@ -864,6 +883,7 @@ class Smoke:
             torch=torch.__version__, cuda=torch.version.cuda)
         self.int8_plan_line()
         self.fold_plan_line()
+        self.cluster_plan_line()
 
     def int8_plan_line(self) -> None:
         """The int8 kernels' query block, dynamic shared memory (the
@@ -945,6 +965,41 @@ class Smoke:
                            "active_clusters": active, "grid": plan.grid,
                            **plan._asdict()})
         log(phase="fold_plan", shapes=shapes)
+
+    def cluster_plan_line(self) -> None:
+        """K2r's launch (cluster_plan: the query blocks of a cluster, its
+        groups and walkers, TMA or element loads, the query block resident
+        or streamed, ring slots, shared memory and workspace held against
+        the source's sums) at stage C's batches, one query group a CTA at
+        B = 256 (the default takes two there), and the edges' deepest and
+        narrowest."""
+        ct, sms = self.p.cluster_topk, self.p.sm_count(self.dev)
+        index = self.dev.index if self.dev.index is not None else 0
+        shapes = []
+        for n, b, d, kk, qg in (
+                (self.N_C, 8, self.D_C, 25, None),
+                (self.N_C, self.B, self.D_C, 25, None),
+                (self.N_C, 2 * self.B, self.D_C, 25, None),
+                (self.N_C, self.B, self.D_C, 25, 1),
+                (self.N_K2R, 512, self.K2R_D[-1], 128, None),
+                (1024, 8, 33, 25, None)):
+            plan = ct.cluster_plan(n, b, d, kk, sms, qg=qg)
+            if plan.tma or plan.tau_tma:
+                plan = ct.cluster_plan(n, b, d, kk, sms, True,
+                                       self.p.cluster_active_clusters(
+                                           index, plan.qg, plan.cluster,
+                                           plan.smem_bytes), qg=plan.qg)
+            src = self.p.cluster_smem_bytes(plan.qg, d, kk, plan.stages,
+                                            plan.resident)
+            walkers = (plan.walkers, plan.tau_walkers, plan.seed_walkers)
+            ws = self.p.cluster_workspace_bytes(b, kk, *walkers)
+            if src != plan.smem_bytes or ws != ct.workspace_bytes(
+                    b, kk, *walkers):
+                raise AssertionError(f"K2r shared memory {src} / workspace "
+                                     f"{ws} != the plan's ({plan})")
+            shapes.append({"n": n, "b": b, "d": d, "k": kk,
+                           "grid": plan.grid, **plan._asdict()})
+        log(phase="cluster_plan", shapes=shapes)
 
     def kernel_cases(self, n, d, dtype):
         g = self.seed(101)
@@ -2970,7 +3025,9 @@ class Smoke:
     def phase19c_sharded(self, index, q, gold) -> None:
         """Stage C's int8 matrix over N_SLOTS slots (views, no copy): K2
         per shard against unsharded K2, each shard's list equal to its
-        plain version, and the times beside the unsharded ones."""
+        plain version, the rounded fold's (K2r per shard) merged lists
+        equal to the unsharded rounded retriever's, and the times beside
+        the unsharded ones."""
         p, b = self.p, self.b
         qd = index.dense_q[MODEL]
         sidx, secs, alloc = self.shard_timed(
@@ -3009,6 +3066,24 @@ class Smoke:
             self.equal_int8(kern.fused_dense_top_k_int8(*args),
                             kern.fused_dense_top_k_int8_torch(*args),
                             f"shard at {sh.offset}")
+        # The rounded fold on every shard (K2r once a view), its merged
+        # lists the unsharded rounded retriever's.
+        kw = dict(use_bm25=False, similarity_k=25, common_sections_n=25,
+                  kernel_config=p.KernelConfig(rounded=True))
+        (r_ids, _, r_lists), c_rounded = self.main_path(
+            lambda: p.ShardedRetriever(sidx, (MODEL,), **kw).retrieve_lists(
+                {MODEL: q}, None, w, None, 40.0))
+        self.expect("sharded C, rounded", c_rounded,
+                    fused_dense_top_k_int8_rounded=self.N_SLOTS,
+                    fused_dense_top_k_int8=0)
+        u_ids, _, u_lists = p.FusedRetriever(index, (MODEL,), **kw)(
+            {MODEL: q}, None, w, None, 40.0)
+        if not (torch.equal(torch.as_tensor(r_lists).cpu(),
+                            torch.as_tensor(u_lists).cpu())
+                and torch.equal(torch.as_tensor(r_ids).cpu(),
+                                torch.as_tensor(u_ids).cpu())):
+            raise AssertionError("sharded rounded int8 lists differ from "
+                                 "the unsharded rounded retriever's")
         flat = p.FusedRetriever(index, (MODEL,), use_bm25=False,
                                 similarity_k=25, common_sections_n=25)
         self.retrieve_ms["C_sharded"] = p.cuda_event_ms(
@@ -3026,6 +3101,8 @@ class Smoke:
         log(sharded="C", slots=self.N_SLOTS, n_local=sidx.n_local,
             shard_index_s=secs, shard_index_bytes=alloc, shards_are_views=True,
             k2_launches_per_call=counts["fused_dense_top_k_int8"],
+            k2r_launches_per_call=c_rounded["fused_dense_top_k_int8_rounded"],
+            rounded_lists_equal_unsharded=True,
             recall10=recall, vs_unsharded_k2_swaps=swaps,
             vs_unsharded_atol=INT8_ATOL, shard_lists_equal_plain_b8=True,
             retrieve_ms=self.retrieve_ms["C_sharded"],
@@ -5402,8 +5479,9 @@ class Smoke:
                          "fused_dense_top_k_int8_rounded", ref, got, 0.0)
         del qd
         ties = self.rounded_ties()
+        edges = self.k2r_edges()
         log(phase="rounded_vs_plain", cases=3 * len(grid),
-            tie_cases=ties, n=n, ok=True,
+            tie_cases=ties, k2r_edge_cases=edges, n=n, ok=True,
             atol="one bf16 ulp at the largest |value|",
             max_abs_err=self.max_err["fused_dense_top_k_rounded"],
             tie_swaps=self.swaps["fused_dense_top_k_rounded"],
@@ -5475,6 +5553,90 @@ class Smoke:
             raise AssertionError("K2r: a -0.0 / +0.0 differs from its plain "
                                  "version")
         return cases + 1
+
+    def k2r_rows(self, n, d, lo=-128, hi=128):
+        """n + 1 int8 rows of depth d in [lo, hi) (rows[1:] are n rows
+        whose base is not 16-byte aligned), their scales, 512 queries and
+        theirs: rows 0-31 copies of queries 0-7, copied again across
+        tiles, CTAs and walkers (64, 300, n // 3, n // 2, n - 40), scales
+        with them, so ties top the lists; all-127 and all--128 rows and
+        queries when the range holds them."""
+        g = self.seed(191 + d + hi)
+        i8 = dict(device=self.dev, dtype=torch.int8)
+        values = torch.randint(lo, hi, (n + 1, d), generator=g, **i8)
+        qv = torch.randint(lo, hi, (512, d), generator=g, **i8)
+        if hi > 127:
+            qv[8], qv[9] = 127, -128
+            values[40], values[41] = 127, -128
+        scales = torch.rand(n + 1, generator=g, device=self.dev) + 0.5
+        values[:32] = qv[torch.arange(32, device=self.dev) % 8]
+        for start in (64, 300, n // 3, n // 2, n - 40):
+            values[start:start + 32] = values[:32]
+            scales[start:start + 32] = scales[:32]
+        qs = torch.rand(512, generator=g, device=self.dev) + 0.5
+        return values, scales, qv, qs
+
+    def k2r_edges(self) -> int:
+        """K2r torch.equal to its plain version at its own kernel's edges:
+        every depth of K2R_D and view (N_K2R rows, rows[1:] and a copy at
+        an odd address) over K2R_B, k cycling through K2R_K (batches the
+        wrapper sends to K2's kernel also straight through the cluster
+        kernel); N = 1024 (tau = -inf past k = 16) at B 1, 65 and 257 and
+        each k; then a {-1, 0, 1} grid at D = 1024 (the TMA route) whose
+        rounded scores tie across tiles, CTAs, clusters and walkers, with
+        doc scales of both signs and a zero query (+-0.0), at B 256, 257
+        and 512 and each k."""
+        k, n = self.p.kernels, self.N_K2R
+        cases = 0
+
+        def check(rows, scl, qv, qs, kk, what):
+            nonlocal cases
+            args = (rows, scl, qv, qs, kk)
+            got = k.fused_dense_top_k_int8_rounded(*args)
+            ref = k.fused_dense_top_k_int8_torch(*args, rounded=True)
+            self.equal_int8(got, ref, f"K2r, {what}, B={qv.shape[0]}, "
+                            f"k={kk}")
+            self.compare("fused_dense_top_k_int8_rounded", ref, got, 0.0)
+            cases += 1
+
+        def direct(rows, scl, qv, qs, kk, what):
+            # The cluster kernel itself where the wrapper takes K2's (B <=
+            # K2R_SPLIT_MAX_B).
+            nonlocal cases
+            args = (rows, scl, qv, qs, kk)
+            self.equal_int8(self.p.k2r_call(*args, self.p.sm_count(self.dev)),
+                            k.fused_dense_top_k_int8_torch(*args,
+                                                           rounded=True),
+                            f"K2r's kernel, {what}, B={qv.shape[0]}, k={kk}")
+            cases += 1
+
+        for d in self.K2R_D:
+            values, scales, qv, qs = self.k2r_rows(n, d)
+            views = [(values[:n], scales[:n], f"D={d}"),
+                     (values[1:], scales[1:], f"D={d}, rows[1:]"),
+                     (self.odd_address(values[:n]), scales[:n],
+                      f"D={d}, odd address")]
+            for rows, scl, what in views:
+                for i, b in enumerate(self.K2R_B):
+                    kk = self.K2R_K[i % len(self.K2R_K)]
+                    check(rows, scl, qv[:b], qs[:b], kk, what)
+                    if b <= self.p.k2r_split_max_b:
+                        direct(rows, scl, qv[:b], qs[:b], kk, what)
+            del values, scales, views
+        values, scales, qv, qs = self.k2r_rows(1024, self.D_C)
+        for b in (1, 65, 257):
+            for kk in self.K2R_K:
+                check(values[:1024], scales[:1024], qv[:b], qs[:b], kk,
+                      "N=1024")
+        values, _, qv, qs = self.k2r_rows(n, self.D_C, -1, 2)
+        sign = torch.where(torch.rand(n, generator=self.seed(193),
+                                      device=self.dev) < 0.5, -1.0, 1.0)
+        qv[0] = 0
+        for b in (self.B, self.B + 1, 2 * self.B):
+            for kk in self.K2R_K:
+                check(values[:n], sign, qv[:b], qs[:b], kk,
+                      "{-1, 0, 1} grid, signed scales")
+        return cases
 
     def phase26b_rounded_stage_a(self, emb, gold, q, bm25, terms) -> None:
         """FusedRetriever with KernelConfig(rounded=True) on stage A's
@@ -5566,7 +5728,9 @@ class Smoke:
         """FusedRetriever with KernelConfig(rounded=True) on stage C's int8
         matrix: K2r once, recall@10 >= 0.95, 8 queries' ids torch.equal to
         K2r's plain version; K2r timed at stage C's shape beside its plain
-        version, its yardstick and its bound (K2's work)."""
+        version, its yardstick and its bound (K2's work), then at each of
+        K2R_TIMED_B (``k2r_batches``) and its anatomy
+        (``k2r_anatomy``)."""
         p, k = self.p, self.p.kernels
         qd = index.dense_q[MODEL]
         values, scales = qd.values, qd.scales
@@ -5599,12 +5763,33 @@ class Smoke:
                                                    25, rounded=True),
             "10,485,760 x 1024 int8, B=256, k=25, no mask")
         (n, d), b = values.shape, q.shape[0]
-        step = 1 << 21
+        self.library["fused_dense_top_k_int8_rounded"] = self.k2r_library(
+            values, scales, qv, qs, f"B={b}")
+        self.bound("fused_dense_top_k_int8_rounded",
+                   n * d + n * 4 + b * (d + 4) + b * 25 * 8, 2 * b * n * d,
+                   INT8_OP_S)
+        batches = self.k2r_batches(values, scales, q)
+        anatomy = self.k2r_anatomy(values, scales, qv, qs)
+        log(stage="C_10.5M_int8_rounded", recall10=r10,
+            k2r_launches=counts["fused_dense_top_k_int8_rounded"],
+            ids_equal_plain_8_queries=True, batches=batches,
+            k2r_anatomy=anatomy, card=self.card)
+
+    def k2r_library(self, values, scales, qv, qs, what) -> float:
+        """The yardstick of K2r: torch._int_mm, the row scales, bf16
+        rounding and torch.topk per 2^21-row chunk of the doc axis,
+        torch.topk over the chunks, the query scales. torch._int_mm takes
+        more than 16 rows: fewer queries are padded with zero rows to 32,
+        whose results are dropped."""
+        n, step, b = values.shape[0], 1 << 21, qv.shape[0]
+        if b <= 16:
+            qv = torch.cat([qv, qv.new_zeros((32 - b, qv.shape[1]))])
+            what += " (queries padded to 32 rows)"
 
         def library():
             vs, ids = [], []
             for s0 in range(0, n, step):
-                acc = torch._int_mm(qv, values[s0:s0 + step].T)
+                acc = torch._int_mm(qv, values[s0:s0 + step].T)[:b]
                 sel = acc.float() * scales[s0:s0 + step][None]
                 v, i = torch.topk(sel.bfloat16().float(), 25, dim=1)
                 vs.append(v)
@@ -5613,17 +5798,81 @@ class Smoke:
             return v * qs[:, None], torch.take_along_dim(
                 torch.cat(ids, dim=1), i, dim=1)
 
-        self.time_library(
-            "fused_dense_top_k_int8_rounded", library,
-            f"torch._int_mm, row scales, bf16 rounding, torch.topk per "
-            f"{step}-row chunk of the doc axis, torch.topk over the chunks, "
-            f"query scales")
-        self.bound("fused_dense_top_k_int8_rounded",
-                   n * d + n * 4 + b * (d + 4) + b * 25 * 8, 2 * b * n * d,
-                   INT8_OP_S)
-        log(stage="C_10.5M_int8_rounded", recall10=r10,
-            k2r_launches=counts["fused_dense_top_k_int8_rounded"],
-            ids_equal_plain_8_queries=True)
+        runs = [self.p.cuda_event_ms(library) for _ in range(2)]
+        log(timing="fused_dense_top_k_int8_rounded_library", what=(
+            f"{what}: torch._int_mm, row scales, bf16 rounding, torch.topk "
+            f"per {step}-row chunk of the doc axis, torch.topk over the "
+            f"chunks, query scales"), ms=min(runs), ms_runs=runs,
+            card=self.card)
+        return min(runs)
+
+    def k2r_batches(self, values, scales, q) -> dict:
+        """K2r at stage C's shape at each of K2R_TIMED_B (B > 256: the 256
+        queries repeated): the route the wrapper took (K2's kernel up to
+        K2R_SPLIT_MAX_B, its split_launches count; else cluster_topk), its
+        ms, its plain version's (median of 2 after one warm-up at B !=
+        256, which time_pair times) and its yardstick's; then the cluster
+        kernel with one and two query groups a CTA in turns (1, 2, 2, 1),
+        each output torch.equal to the wrapper's."""
+        p, k = self.p, self.p.kernels
+        sms, out = p.sm_count(self.dev), {}
+        wrapper = k.fused_dense_top_k_int8_rounded
+        for b in self.K2R_TIMED_B:
+            qv, qs = p.quantize_queries(q.repeat(-(-b // self.B), 1)[:b])
+            split0 = wrapper.split_launches
+            got = k.fused_dense_top_k_int8_rounded(values, scales, qv, qs, 25)
+            row = {"route": "K2's kernel" if wrapper.split_launches > split0
+                   else "cluster_topk"}
+            if (row["route"] == "cluster_topk") != (b > p.k2r_split_max_b):
+                raise AssertionError(f"K2r at B={b} took {row['route']}")
+            if b == self.B:
+                row["ms"], row["plain_ms"] = self.times[
+                    "fused_dense_top_k_int8_rounded"]
+                row["library_ms"] = self.library[
+                    "fused_dense_top_k_int8_rounded"]
+            else:
+                row["ms"] = p.cuda_event_ms(
+                    lambda: k.fused_dense_top_k_int8_rounded(
+                        values, scales, qv, qs, 25))
+                row["plain_ms"] = p.cuda_event_ms(
+                    lambda: k.fused_dense_top_k_int8_torch(
+                        values, scales, qv, qs, 25, rounded=True),
+                    n=2, warmup=1)
+                row["library_ms"] = self.k2r_library(values, scales, qv, qs,
+                                                     f"B={b}")
+            for qg in (1, 2):
+                self.equal_int8(p.k2r_call(values, scales, qv, qs, 25, sms,
+                                           qg), got,
+                                f"K2r with {qg} query groups, B={b}")
+            runs = {qg: [] for qg in (1, 2)}
+            for qg in (1, 2, 2, 1):
+                runs[qg].append(p.cuda_event_ms(
+                    lambda: p.k2r_call(values, scales, qv, qs, 25, sms, qg)))
+            row["ms_by_query_groups"] = {str(qg): min(r)
+                                         for qg, r in runs.items()}
+            row["plan"] = p.cluster_topk.cluster_plan(
+                values.shape[0], b, values.shape[1], 25, sms)._asdict()
+            out[str(b)] = row
+        return out
+
+    def k2r_anatomy(self, values, scales, qv, qs) -> dict:
+        """K2r's kernel at stage C's shape, one main pass at a time (its
+        main-path launch, each mode doing less): the ring alone, + the
+        wgmma multiply, + the epilogue's threshold test of every score
+        against the rounded tau (nothing offered), the full pass seeded
+        with that tau, and the whole call (+ the seed and tau passes and
+        the merges)."""
+        p = self.p
+        sms = p.sm_count(self.dev)
+        tau = p.kernels.subsample_tau_int8_torch(values, scales, qv, 25,
+                                                 rounded=True)
+        ms = {}
+        for mode in ("stream", "mma", "epilogue", "full"):
+            ms[mode] = p.cuda_event_ms(lambda: p.k2r_pass(
+                mode, values, scales, qv, 25, sms, tau))
+        ms["whole"] = self.times["fused_dense_top_k_int8_rounded"][0]
+        return {"ms": ms, "method": "CUDA events, median of 10 after 3 "
+                "warm-ups"}
 
     # -- phase 27: the bf16 compare fold -----------------------------------
 
@@ -6006,6 +6255,10 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
         from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
         from a_nice_rag_tpu_torch.ops.kernels import int4 as int4_kernels
+        from a_nice_rag_tpu_torch.ops.kernels import cluster_topk
+        from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+            K2R_SPLIT_MAX_B,
+        )
         from a_nice_rag_tpu_torch.ops.kernels.autotune import KernelConfig
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
             _sm_count,
@@ -6280,6 +6533,13 @@ class _Port:
         self.int4_kernels = int4_kernels
         self.fold_smem_bytes = int4_kernels.source_smem_bytes
         self.fold_active_clusters = int4_kernels.active_clusters
+        self.cluster_topk = cluster_topk
+        self.cluster_smem_bytes = cluster_topk.source_smem_bytes
+        self.cluster_active_clusters = cluster_topk.active_clusters
+        self.cluster_workspace_bytes = cluster_topk.source_workspace_bytes
+        self.k2r_call = cluster_topk.rounded_top_k_int8
+        self.k2r_split_max_b = K2R_SPLIT_MAX_B
+        self.k2r_pass = cluster_topk.cluster_pass
         self.topk_plan, self.int8_smem_bytes = topk_plan, int8_smem_bytes
         self.float_smem_bytes, self.sm_count = float_smem_bytes, _sm_count
         self.row_plan = row_plan

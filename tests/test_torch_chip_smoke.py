@@ -22,6 +22,7 @@ import torch
 
 import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
+from a_nice_rag_tpu_torch.ops.kernels import cluster_topk as ct
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
 from a_nice_rag_tpu_torch.ops.kernels import int4 as i4
 from a_nice_rag_tpu_torch.ops.kernels import ivf_topk as it
@@ -124,8 +125,13 @@ class TinySmoke(chip_smoke.Smoke):
     DISCRIM_FLOORS = (0.0, 1.0)
     # Phase 25: 3 guidelines (~150 chunks), a 2-layer encoder.
     INGEST_GUIDELINES, INGEST_ENCODER = 3, dict(n_layers=2)
-    # Phase 26: the rounded fold's cases over 4 tiles of 1024 rows.
+    # Phase 26: the rounded fold's cases over 4 tiles of 1024 rows; K2r's
+    # edges over 3 of them (both element-load depths and the TMA one),
+    # batches across the 64-query block and the cluster's groups; its
+    # timed batches around B.
     N_ROUNDED = 4096
+    N_K2R, K2R_D, K2R_B, K2R_TIMED_B = 3072, (32, 33, 1024), (1, 17, 65, 257), \
+        (8, 16, 32)
 
 
 def _sweep_csv(path):
@@ -183,9 +189,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(tokens.TokenCounter, "_try_hf",
                         staticmethod(lambda name: None))
     # A rounded fold's plain version is its exact kernel's with
-    # rounded=True: that call counts the rounded wrapper's launch. K1c's
-    # is its own (fused_dense_top_k_bf16_compare_torch), which K1's plain
-    # version also calls on the compare route.
+    # rounded=True: that call counts the rounded wrapper's launch (K2r's
+    # of up to K2R_SPLIT_MAX_B queries also its split route's, as K2's
+    # kernel takes them on the card). K1c's is its own
+    # (fused_dense_top_k_bf16_compare_torch), which K1's plain version
+    # also calls on the compare route.
+    k2r = ft.fused_dense_top_k_int8_rounded
+    monkeypatch.setattr(k2r, "split_launches", k2r.split_launches)
     plains = {}
     for mod, name in WRAPPED:
         wrapper = getattr(mod, name)
@@ -197,7 +207,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     for (mod, plain), wrappers in plains.items():
         def counted(*args, _wrappers=wrappers, _plain=getattr(mod, plain),
                     **kwargs):
-            count_launch(_wrappers[bool(kwargs.get("rounded"))])
+            wrapper = _wrappers[bool(kwargs.get("rounded"))]
+            count_launch(wrapper)
+            if wrapper is k2r and args[2].shape[0] <= ft.K2R_SPLIT_MAX_B:
+                count_launch(k2r, "split_launches")
             return _plain(*args, **kwargs)
 
         monkeypatch.setattr(mod, plain, counted)
@@ -217,6 +230,16 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     port.float_smem_bytes = topk_plan.smem_bytes
     port.fold_smem_bytes = i4.fold_smem_bytes
     port.fold_active_clusters = lambda index, cl, smem: 132 // cl
+    # K2r's plan sums are the plan's own; its direct calls (one or two
+    # query groups) its plain version; its anatomy's passes run only on
+    # the card.
+    port.cluster_smem_bytes = ct.cluster_smem_bytes
+    port.cluster_active_clusters = lambda index, qg, cl, smem: 132 // cl
+    port.cluster_workspace_bytes = ct.workspace_bytes
+    port.k2r_call = (lambda values, scales, qv, qs, k, sms, qg=None:
+                     ft.fused_dense_top_k_int8_torch(values, scales, qv, qs,
+                                                     k, rounded=True))
+    port.k2r_pass = lambda *args, **kwargs: None
     # The folds' stream alone runs only on the card.
     monkeypatch.setattr(i4, "fold_stream", lambda q8, rows, packed: None)
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
@@ -291,17 +314,38 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert served26["ids_equal_direct"] and served26["k1r_launches"] >= 1
     assert rounded["fused_dense_top_k_rounded"]["launches"] == \
         1 + served26["k1r_launches"]
-    assert rounded["fused_dense_top_k_int8_rounded"]["launches"] == 1
+    # K2r: once on stage C's retriever, once a view on phase 19 (c)'s
+    # rounded sharded route; its own source.
+    sharded_c = [r for r in records if r.get("sharded") == "C"][0]
+    assert sharded_c["k2r_launches_per_call"] == 4
+    assert sharded_c["rounded_lists_equal_unsharded"]
+    k2r = rounded["fused_dense_top_k_int8_rounded"]
+    assert k2r["launches"] == 1 + 4
+    assert k2r["source"] == "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
     assert rounded["fused_dense_top_k_rounded"]["replaces"].endswith(
         "fused_topk.py:359")
-    assert rounded["fused_dense_top_k_int8_rounded"]["replaces"].endswith(
-        "fused_topk.py:377")
+    assert k2r["replaces"].endswith("fused_topk.py:377")
     r26 = [r for r in records if r.get("phase") == "rounded_vs_plain"][0]
     assert r26["ok"] and r26["cases"] == 54 and r26["tie_cases"] == 19
+    # 3 depths x 3 views x (4 batches + B = 1 straight through the cluster
+    # kernel), N = 1024 at 3 batches x 3 k, the grid at 3 batches x 3 k.
+    assert r26["k2r_edge_cases"] == 3 * 3 * 5 + 9 + 9
+    plans = [r for r in records if r.get("phase") == "cluster_plan"][0]
+    assert len(plans["shapes"]) == 6
+    assert all(sh["smem_bytes"] <= ct.SMEM_LIMIT for sh in plans["shapes"])
     a26 = [r for r in records if r.get("stage") == "A_2M_hybrid_rounded"][0]
     assert a26["recall10_hybrid"] >= 0.99 and a26["k1r_launches"] == 1
     c26 = [r for r in records if r.get("stage") == "C_10.5M_int8_rounded"][0]
     assert c26["ids_equal_plain_8_queries"] and c26["k2r_launches"] == 1
+    assert sorted(c26["batches"], key=int) == ["8", "16", "32"]
+    assert [c26["batches"][b]["route"] for b in ("8", "16", "32")] == [
+        "K2's kernel", "K2's kernel", "cluster_topk"]
+    for row in c26["batches"].values():
+        assert row["ms"] > 0 and row["plain_ms"] > 0 and \
+            row["library_ms"] > 0
+        assert set(row["ms_by_query_groups"]) == {"1", "2"}
+    assert set(c26["k2r_anatomy"]["ms"]) == {"stream", "mma", "epilogue",
+                                             "full", "whole"}
     # Phase 27: K1c twice on stage A's path (the masked routed call and
     # the direct maskless one), none elsewhere on the main path.
     compare = kernels[-1]

@@ -31,6 +31,14 @@ plan. K1c (the bf16 compare fold): values bf16 and within one bf16 ulp
 of the largest |value| on unit rows (the kernel's f32 sums and the plain
 version's may straddle a rounding midpoint), ids up to swaps within it;
 torch.equal on integer grids, whose scores are exact in any order.
+K2r (the rounded int8 fold: its own kernel ``csrc/cluster_topk.cu``
+past one 16-query block, K2's kernel with its rounding flag up to it)
+torch.equal at its edges: depths on element loads and TMA and a streamed
+query block, rows[1:] and a copy at an odd address, B across the query
+block, the cluster and its groups, k up to 128, N = 1024 (tau = -inf),
+{-1, 0, 1} grids with signed scales and a zero query, one and two query
+groups a CTA; its plan's shared memory and workspace equal to the
+source's; a failed build or launch raises.
 """
 
 import pytest
@@ -63,8 +71,10 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     xpack_keys_torch,
     xpack_values,
 )
-from a_nice_rag_tpu_torch.ops.kernels import topk_plan
+from a_nice_rag_tpu_torch.ops.kernels import cluster_topk, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels import fused_dense_top_k_int8_rounded
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+    K2R_SPLIT_MAX_B,
     float_smem_bytes,
     int8_smem_bytes,
     split_query,
@@ -790,3 +800,121 @@ def test_cuda_probe_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):  # D % 8 != 0
         int4_fold_max(q8, torch.zeros((5, 6), dtype=torch.int8,
                                       device=cuda_device))
+
+
+def _k2r_rows(n, d, dev, lo=-128, hi=128):
+    """n + 1 int8 rows in [lo, hi) (rows[1:] start one row past a 16-byte
+    boundary), scales, 512 queries and scales: rows 0-31 copies of queries
+    0-7, copied again across tiles, CTAs and walkers; all-127 and all--128
+    rows and queries where the range holds them."""
+    g = torch.Generator().manual_seed(d + hi)
+    values = torch.randint(lo, hi, (n + 1, d), generator=g, dtype=torch.int8)
+    qv = torch.randint(lo, hi, (512, d), generator=g, dtype=torch.int8)
+    if hi > 127:
+        qv[8], qv[9] = 127, -128
+        values[40], values[41] = 127, -128
+    scales = torch.rand(n + 1, generator=g) + 0.5
+    values[:32] = qv[torch.arange(32) % 8]
+    for start in (64, 300, n // 3, n // 2, n - 40):
+        values[start:start + 32] = values[:32]
+        scales[start:start + 32] = scales[:32]
+    qs = torch.rand(512, generator=g) + 0.5
+    return [t.to(dev) for t in (values, scales, qv, qs)]
+
+
+K2R_B = (1, 8, 16, 17, 64, 65, 200, 256, 257, 512)
+K2R_K = (1, 25, 128)
+
+
+@pytest.mark.parametrize("d", [32, 33, 1024, 2048])
+@pytest.mark.parametrize("view", ["as_is", "rows_from_1", "odd_address"])
+def test_cuda_k2r_edges_match_plain(cuda_device, d, view):
+    n = 20 * 1024
+    values, scales, qv, qs = _k2r_rows(n, d, cuda_device)
+    if view == "rows_from_1":
+        values, scales = values[1:], scales[1:]
+    else:
+        values, scales = values[:n], scales[:n]
+        if view == "odd_address":
+            values = _odd_address(values)
+    wrapper = fused_dense_top_k_int8_rounded
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for i, b in enumerate(K2R_B):
+        k = K2R_K[i % len(K2R_K)]
+        args = (values, scales, qv[:b], qs[:b], k)
+        before = (wrapper.launches, wrapper.split_launches)
+        kv, ki = wrapper(*args)
+        pv, pi = fused_dense_top_k_int8_torch(*args, rounded=True)
+        torch.cuda.synchronize()
+        # B <= K2R_SPLIT_MAX_B: K2's kernel with its rounding flag.
+        split = int(b <= K2R_SPLIT_MAX_B)
+        assert (wrapper.launches, wrapper.split_launches) == (
+            before[0] + 1, before[1] + split)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+        if split:  # the cluster kernel itself there too
+            kv, ki = cluster_topk.rounded_top_k_int8(*args, sms)
+            torch.cuda.synchronize()
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+
+
+@pytest.mark.parametrize("qg", [1, 2])
+@pytest.mark.parametrize("n", [1024, 65_536])
+def test_cuda_k2r_ties_and_query_groups(cuda_device, qg, n):
+    """{-1, 0, 1} rows at D = 1024 (the TMA route): rounded scores tie
+    across tiles, CTAs, clusters and walkers; doc scales of both signs and
+    a zero query (+-0.0); N = 1024 leaves tau at -inf past k = 16."""
+    values, _, qv, qs = _k2r_rows(n, 1024, cuda_device, -1, 2)
+    values = values[:n]
+    g = torch.Generator().manual_seed(n + qg)
+    sign = torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0).to(
+        cuda_device)
+    qv[0] = 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for b in (1, 64, 256, 257, 512):
+        for k in K2R_K:
+            args = (values, sign, qv[:b], qs[:b], k)
+            kv, ki = cluster_topk.rounded_top_k_int8(*args, sms, qg=qg)
+            pv, pi = fused_dense_top_k_int8_torch(*args, rounded=True)
+            torch.cuda.synchronize()
+            assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+            assert torch.equal(torch.signbit(kv), torch.signbit(pv))
+
+
+@pytest.mark.parametrize("b", [1, 256, 512])
+@pytest.mark.parametrize("d", [33, 1024, 2048])
+@pytest.mark.parametrize("k", [1, 128])
+def test_cuda_k2r_plan_matches_source(cuda_device, b, d, k):
+    plan = cluster_topk.cluster_plan(10_485_760, b, d, k)
+    assert cluster_topk.source_smem_bytes(
+        plan.qg, d, k, plan.stages, plan.resident) == plan.smem_bytes
+    walkers = (plan.walkers, plan.tau_walkers, plan.seed_walkers)
+    assert cluster_topk.source_workspace_bytes(b, k, *walkers) == \
+        cluster_topk.workspace_bytes(b, k, *walkers)
+    if plan.tma:
+        index = torch.cuda.current_device()
+        assert cluster_topk.active_clusters(
+            index, plan.qg, plan.cluster, plan.smem_bytes) >= 1
+
+
+def test_cuda_k2r_raises_instead_of_falling_back(cuda_device, monkeypatch):
+    values = torch.zeros((1024, 64), dtype=torch.int8, device=cuda_device)
+    scales = torch.ones(1024, device=cuda_device)
+    qv = torch.zeros((2, 64), dtype=torch.int8, device=cuda_device)
+    qs = torch.ones(2, device=cuda_device)
+    before = fused_dense_top_k_int8_rounded.launches
+    # A launch the source refuses (no shared memory) raises.
+    lib = cluster_topk._library()
+    with pytest.raises(RuntimeError, match="anr_cluster_topk"):
+        cluster_topk._launch(
+            lib.anr_cluster_topk, qv.data_ptr(), qs.data_ptr(),
+            values.data_ptr(), scales.data_ptr(), 2, 1024, 64, 4, 1, 1, 1, 1,
+            1, 0, 0, 1, 0, 1, 0, 1, None, None, None, device=cuda_device)
+
+    # A build that fails raises too, and nothing runs the plain version.
+    def broken():
+        raise RuntimeError("nvcc failed building cluster_topk.cu")
+
+    monkeypatch.setattr(cluster_topk, "_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fused_dense_top_k_int8_rounded(values, scales, qv, qs, 4)
+    assert fused_dense_top_k_int8_rounded.launches == before
