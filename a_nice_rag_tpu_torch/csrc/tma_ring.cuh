@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels that stream rows through a
 // TMA-fed mbarrier ring into wgmma (int4.cu: P7's folds; cluster_topk.cu:
-// K2r): mbarriers, thread-block cluster barriers and remote arrivals, TMA
-// boxes with .multicast::cluster, the 2-D tensor map over a matrix's rows,
-// the 128-byte swizzled K-major layout and wgmma s8 on it.
+// K2r, K1r, K1c): mbarriers, thread-block cluster barriers and remote
+// arrivals, TMA boxes with .multicast::cluster, the 2-D tensor map over a
+// matrix's rows, the 128-byte swizzled K-major layout and wgmma s8 and
+// bf16 on it.
 
 #pragma once
 
@@ -159,10 +160,34 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 x bf16 -> f32, both
+// operands K-major in shared memory (16 bf16 = 32 bytes a k-step, the
+// same descriptors and the same accumulator layout as wgmma_s8).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // Keeps the compiler from touching the accumulators across wgmma.
 __device__ __forceinline__ void pin(int (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // The 128 threads of warpgroup wg (named barrier 2 + wg).

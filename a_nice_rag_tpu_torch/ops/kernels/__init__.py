@@ -81,4 +81,6 @@ def build_kernels() -> None:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
-    fused_dense_top_k_int8_rounded.split_launches = 0
+    for fn in (fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
+               fused_dense_top_k_bf16_compare):
+        fn.split_launches = 0

@@ -5,9 +5,12 @@ kernels' ``autotune.py``). The TPU tuner searched block shapes and fold
 algorithms of a Mosaic kernel; here the exact fold is one kernel (K1,
 ``csrc/fused_topk.cu``) and only its plan varies: the query block (16 or
 64, where its block fits a CTA's shared memory) and the doc splits at
-half, one and two times ``topk_plan``'s. ``allow_rounded`` adds the same
-plans on the rounded fold (K1r, the TPU tuner's ``ROUNDED_CANDIDATES``,
-``algo="packed"``). The plan spreads the work only, so every candidate
+half, one and two times ``topk_plan``'s. ``allow_rounded`` adds the
+rounded fold (K1r, the TPU tuner's ``ROUNDED_CANDIDATES``,
+``algo="packed"``) as it runs at the call's shape: where
+``fused_topk.bf16_cluster_route`` sends it to the cluster kernel, which
+has no K1 plan, once (``KernelConfig(rounded=True)``); where it runs K1's
+kernel, the same plans on it. The plan spreads the work only, so every candidate
 must give its fold's default plan's ids (K1's, or K1r's for a rounded
 candidate); one that does not is skipped with a warning, as the TPU tuner
 skipped a miscompiled candidate. The winner's plan is tied to the batch
@@ -31,7 +34,10 @@ import torch
 from a_nice_rag_tpu_torch.ops.kernels import topk_plan
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     _ROWS,
+    ROUNDED_ALIGN,
+    SCORE_ROUNDED,
     _sm_count,
+    bf16_cluster_route,
     fused_dense_top_k,
 )
 
@@ -93,12 +99,26 @@ def default_candidates(n: int, b: int, d: int, k: int, sms: int,
     return tuple(out)
 
 
-def rounded_candidates(
-        candidates: Sequence[KernelConfig]) -> Tuple[KernelConfig, ...]:
-    """``candidates`` and, after them, each of their plans on the rounded
-    fold."""
+def rounded_candidates(candidates: Sequence[KernelConfig],
+                       cluster: bool = False) -> Tuple[KernelConfig, ...]:
+    """``candidates`` and, after them, the rounded fold: each of their
+    plans on it where it runs K1's kernel, or (``cluster``: the call takes
+    the cluster kernel, which K1's plan does not steer) its one route,
+    ``KernelConfig(rounded=True)``."""
+    if cluster:
+        return tuple(candidates) + (KernelConfig(rounded=True),)
     return tuple(candidates) + tuple(c._replace(rounded=True)
                                      for c in candidates)
+
+
+def rounded_takes_cluster(emb: torch.Tensor, b: int, k: int) -> bool:
+    """Whether the rounded fold over ``emb`` at B = ``b`` runs the cluster
+    kernel (``fused_topk.bf16_cluster_route``; N a multiple of
+    ``ROUNDED_ALIGN``, else the call is K1's exact fold), which K1's plan
+    does not steer."""
+    n, d = emb.shape
+    return n % ROUNDED_ALIGN == 0 and bf16_cluster_route(
+        n, b, d, k, _ROWS[emb.dtype], SCORE_ROUNDED, emb.data_ptr() % 16 == 0)
 
 
 def pick_fastest(
@@ -148,9 +168,9 @@ def tune_fused_blocks(
     """K1's fastest plan for ``emb`` [N, D] (f32 or bf16) and ``queries``
     [B, D] on the live card: each candidate's device ms (``reps`` calls
     between one pair of CUDA events, the best of ``trials``), returned
-    with ``batch`` = B. ``allow_rounded`` also times the default
-    candidates on the rounded fold (K1r), so the winner may select on
-    bf16-rounded scores. Returns the default (``KernelConfig(rounded=
+    with ``batch`` = B. ``allow_rounded`` also times the rounded fold
+    (K1r) on its route (``rounded_candidates``), so the winner may select
+    on bf16-rounded scores. Returns the default (``KernelConfig(rounded=
     allow_rounded)``) without measuring when ``emb`` is not on CUDA.
     Memoized per signature, and kept in ``cache_path`` (JSON) when
     set."""
@@ -178,7 +198,8 @@ def tune_fused_blocks(
         candidates = default_candidates(n, b, d, k, _sm_count(emb.device),
                                         _ROWS[emb.dtype])
         if allow_rounded:
-            candidates = rounded_candidates(candidates)
+            candidates = rounded_candidates(
+                candidates, rounded_takes_cluster(emb, b, k))
 
     def call(cfg):
         return fused_dense_top_k(emb, queries, k, plan=cfg,

@@ -29,11 +29,15 @@ up to the depth whose 16-query block fits in a CTA's shared memory, about
 ``rounded=True`` selects the rounded fold, K1r / K2r
 (``fused_dense_top_k_rounded``, ``fused_dense_top_k_int8_rounded``): the
 TPU kernels' ``algo="packed"`` (bodies ``_kernel_packed``,
-fused_topk.py:359, and ``_kernel_packed_int8``, :377). K1r is K1's kernel
-with its rounding flag; K2r has a kernel of its own,
-``csrc/cluster_topk.cu`` (``cluster_topk.py``), but for batches of one
-16-query block (B <= ``K2R_SPLIT_MAX_B``), which take K2's kernel with
-its rounding flag. The top k is taken
+fused_topk.py:359, and ``_kernel_packed_int8``, :377). Both run on the
+cluster kernel, ``csrc/cluster_topk.cu`` (``cluster_topk.py``: a cluster
+of query blocks on one TMA-multicast doc stream, wgmma, a threshold
+epilogue), K1r on bf16 rows, K2r on int8 rows; calls it does not suit
+take K1's / K2's kernel with its rounding flag, counted by the wrapper's
+``.split_launches``: K2r's batches of one 16-query block (B <=
+``K2R_SPLIT_MAX_B``); K1r's f32 rows, batches up to
+``BF16_SPLIT_MAX_B`` and depths whose three query planes do not stay
+resident in a CTA (``bf16_cluster_route``). The top k is taken
 on every score rounded to bf16 (to nearest, ties to even), under the same
 tie rule, and the values are those rounded scores (K2r: times the query
 scale); bf16 -0.0 ranks below +0.0, as the TPU kernel's packed key ranks
@@ -55,9 +59,14 @@ the JAX launcher's routing: a maskless call over N % ROUNDED_ALIGN == 0
 rows takes K1r when ``rounded`` is set and K1 otherwise, whatever
 ``compare_dtype`` says (the TPU default algo ignores it there); any other
 call takes K1c when ``compare_dtype == "bfloat16"``, else K1. On the card
-K1c is K1's kernel in its compare mode: one bf16 query plane on the bf16
-MMA for bf16 rows, FFMA for f32 rows. ``compare_dtype`` takes "float32"
+K1c on bf16 rows runs the cluster kernel with one bf16 query plane, the
+mask read a tile at a time, any N; f32 rows (FFMA), small batches and
+wide depths take K1's kernel in its compare mode (``.split_launches``),
+as ``bf16_cluster_route`` decides. ``compare_dtype`` takes "float32"
 or "bfloat16" only (the JAX function takes any dtype name).
+
+K1's ``plan=`` (query block, splits) is read only by K1's kernel: on the
+cluster route it is checked as K1's route checks it, and not applied.
 """
 
 from __future__ import annotations
@@ -101,6 +110,13 @@ _CARRIED_NEG_ZERO_BITS = -0x7FFFFFFF
 # K1r, K1c.
 SCORE_EXACT, SCORE_ROUNDED, SCORE_COMPARE = 0, 1, 2
 COMPARE_DTYPES = ("float32", "bfloat16")
+# K1r's and K1c's batches on bf16 rows up to this many queries (K1's
+# 16-query block) take K1's kernel in the fold's score mode, larger ones
+# csrc/cluster_topk.cu: on an H100 at 2^21 x 256 the cluster kernel is
+# slower at B = 8 and 16 and faster from B = 24 on (PERF.md, K1r, K1c).
+BF16_SPLIT_MAX_B = 16
+# The cluster kernel's row kind for each float fold.
+CLUSTER_KINDS = {SCORE_ROUNDED: "rounded", SCORE_COMPARE: "compare"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -294,6 +310,22 @@ def fold_route(n: int, mask: Optional[torch.Tensor], rounded: bool,
     if rounded_route(n, mask):
         return SCORE_ROUNDED if rounded else SCORE_EXACT
     return SCORE_COMPARE if compare_dtype == "bfloat16" else SCORE_EXACT
+
+
+def bf16_cluster_route(n: int, b: int, d: int, k: int, rows: str,
+                       score: int, aligned: bool = True) -> bool:
+    """Whether a K1r (``score`` SCORE_ROUNDED) or K1c (SCORE_COMPARE) call
+    over ``n`` rows ``rows`` of depth ``d`` takes ``csrc/cluster_topk.cu``:
+    bf16 rows, B past ``BF16_SPLIT_MAX_B``, and a plan whose query planes
+    stay resident in a CTA with the doc chunks on TMA (``aligned``: the
+    rows' base is 16-byte aligned). Otherwise K1's kernel in the fold's
+    score mode: f32 rows (FFMA), small batches, depths whose planes do
+    not stay resident (K1r at D = 1024), rows the TMA cannot take."""
+    if rows != "bfloat16" or b <= BF16_SPLIT_MAX_B:
+        return False
+    plan = cluster_topk.cluster_plan(n, b, d, k, aligned=aligned,
+                                     kind=CLUSTER_KINDS[score])
+    return plan.resident and plan.tma
 
 
 def round_scores(s: torch.Tensor) -> torch.Tensor:
@@ -525,6 +557,42 @@ def _float_call(emb, queries, k, mask, tau_only: bool, override=None,
     return out_v if tau_only else (out_v, out_i)
 
 
+def _fold_call(wrapper, emb, queries, k, mask, override, score: int):
+    """K1r or K1c (``score``) on CUDA tensors, on the route
+    ``bf16_cluster_route`` picks; counted on ``wrapper``. ``override``, K1's
+    plan, is checked on either route and applied on K1's."""
+    n, d = emb.shape
+    b, dev, rows = queries.shape[0], emb.device, _ROWS[emb.dtype]
+    if bf16_cluster_route(n, b, d, k, rows, score, emb.data_ptr() % 16 == 0):
+        if override is not None:
+            _fused_plans(n, b, d, k, _sm_count(dev), rows, override,
+                         topk_plan.COMPARE_PLANES
+                         if score == SCORE_COMPARE else None)
+        out = cluster_topk.bf16_top_k(emb, queries, k, _sm_count(dev),
+                                      CLUSTER_KINDS[score], mask)
+    else:
+        out = _float_call(emb, queries, k, mask, tau_only=False,
+                          override=override, score=score)
+        count_launch(wrapper, "split_launches")
+    count_launch(wrapper)
+    return out
+
+
+def split_route_top_k(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                      score: int, mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's kernel in score mode ``score`` (K1, K1r or K1c) on CUDA
+    tensors, whatever ``bf16_cluster_route`` says: the split route, timed
+    beside the cluster kernel in one call. Counts no launch."""
+    n, _, _, dev = _check_float_call(emb, queries, k, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"split_route_top_k runs K1's kernel: {dev} is not "
+                         f"a CUDA device")
+    if score == SCORE_ROUNDED:
+        _check_rounded(n)
+    return _float_call(emb, queries, k, mask, tau_only=False, score=score)
+
+
 def fused_dense_top_k(
     emb: torch.Tensor,
     queries: torch.Tensor,
@@ -583,8 +651,13 @@ def fused_dense_top_k_rounded(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1r, K1's rounded fold (no mask; N a multiple of ROUNDED_ALIGN, else
     ValueError): the top k of bf16-rounded scores under (score desc, id
-    asc), their rounded values; ``plan`` as K1's. On CUDA tensors K1's
-    kernel with its rounding flag set; on the CPU the plain version."""
+    asc), their rounded values; ``plan`` as K1's (read only by K1's
+    kernel). On CUDA tensors, as ``bf16_cluster_route`` decides,
+    ``csrc/cluster_topk.cu`` on bf16 rows (the f32 query's three bf16
+    planes on wgmma, a threshold epilogue) or K1's kernel with its
+    rounding flag (``.split_launches`` counts these calls); ``.launches``
+    counts both. A failed build or launch raises. On the CPU the plain
+    version."""
     n, d, b, dev = _check_float_call(emb, queries, k, None)
     _check_rounded(n)
     override = _override(plan)
@@ -592,13 +665,12 @@ def fused_dense_top_k_rounded(
         if override is not None:
             _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override)
         return fused_dense_top_k_torch(emb, queries, k, rounded=True)
-    out = _float_call(emb, queries, k, None, tau_only=False,
-                      override=override, score=SCORE_ROUNDED)
-    count_launch(fused_dense_top_k_rounded)
-    return out
+    return _fold_call(fused_dense_top_k_rounded, emb, queries, k, None,
+                      override, SCORE_ROUNDED)
 
 
 fused_dense_top_k_rounded.launches = 0
+fused_dense_top_k_rounded.split_launches = 0
 
 
 def fused_dense_top_k_bf16_compare(
@@ -612,7 +684,11 @@ def fused_dense_top_k_bf16_compare(
     compare_dtype="bfloat16"``; any N, with or without a mask): the top k
     under (score desc, id asc) of the f32-accumulated product rounded to
     bf16, both operands in bf16 where either is; their rounded values.
-    ``plan`` as K1's. On CUDA tensors K1's kernel in its compare mode; on
+    ``plan`` as K1's (read only by K1's kernel). On CUDA tensors, as
+    ``bf16_cluster_route`` decides, ``csrc/cluster_topk.cu`` on bf16 rows
+    (one bf16 query plane on wgmma, the mask read a tile at a time) or
+    K1's kernel in its compare mode (``.split_launches`` counts these
+    calls); ``.launches`` counts both. A failed build or launch raises. On
     the CPU the plain version."""
     n, d, b, dev = _check_float_call(emb, queries, k, mask)
     override = _override(plan)
@@ -621,13 +697,12 @@ def fused_dense_top_k_bf16_compare(
             _fused_plans(n, b, d, k, H100_SMS, _ROWS[emb.dtype], override,
                          topk_plan.COMPARE_PLANES)
         return fused_dense_top_k_bf16_compare_torch(emb, queries, k, mask)
-    out = _float_call(emb, queries, k, mask, tau_only=False,
-                      override=override, score=SCORE_COMPARE)
-    count_launch(fused_dense_top_k_bf16_compare)
-    return out
+    return _fold_call(fused_dense_top_k_bf16_compare, emb, queries, k, mask,
+                      override, SCORE_COMPARE)
 
 
 fused_dense_top_k_bf16_compare.launches = 0
+fused_dense_top_k_bf16_compare.split_launches = 0
 
 
 def subsample_tau(emb: torch.Tensor, queries: torch.Tensor, k: int,

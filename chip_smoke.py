@@ -359,7 +359,7 @@ STREAM_SOURCE = "a_nice_rag_tpu_torch/csrc/stream_sum.cu"
 ANATOMY_SOURCE = "a_nice_rag_tpu_torch/csrc/anatomy.cu"
 KEYS_SOURCE = "a_nice_rag_tpu_torch/csrc/keys.cu"
 INT4_SOURCE = "a_nice_rag_tpu_torch/csrc/int4.cu"
-K2R_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
+CLUSTER_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -391,17 +391,17 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "int4_scores": (INT4_SOURCE, "scripts/probe_int4.py:83"),
     "int8_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:167"),
     "int4_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:188"),
-    # K1r / K2r: the rounded fold (algo="packed"): K1's kernel with its
-    # rounding flag set; K2r's own kernel (a cluster of query blocks on one
-    # TMA-multicast stream, wgmma s8, a threshold epilogue).
+    # K1r / K2r: the rounded fold (algo="packed"), and K1c: the bf16
+    # compare fold (compare_dtype="bfloat16"), on the cluster kernel (a
+    # cluster of query blocks on one TMA-multicast stream, wgmma bf16 on
+    # three query planes or one, wgmma s8, a threshold epilogue); their
+    # split routes on K1's / K2's kernel in the fold's score mode.
     "fused_dense_top_k_rounded": (
-        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:359"),
+        CLUSTER_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:359"),
     "fused_dense_top_k_int8_rounded": (
-        K2R_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
-    # K1c: the bf16 compare fold (compare_dtype="bfloat16"), K1's kernel in
-    # its compare mode.
+        CLUSTER_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:377"),
     "fused_dense_top_k_bf16_compare": (
-        K1_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:921"),
+        CLUSTER_SOURCE, "a_nice_rag_tpu/ops/pallas/fused_topk.py:921"),
 }
 F32_ATOL = 1e-5
 BF16_ATOL = 1e-4
@@ -780,6 +780,13 @@ class Smoke:
     # Phase 27: the bf16 compare fold's cases run on phase 26's rows, and
     # again on a prefix that is no multiple of 1024 (K1c takes any N).
     COMPARE_MISALIGN = 37
+    # K1r's and K1c's edges on bf16 rows (phases 26 (a), 27 (a)): depths
+    # on element loads (32: a 64-byte row, under one chunk; 33: 66 bytes)
+    # and TMA (256, stage A's; 1024: K1r's three planes not resident,
+    # K1c's one resident), N_K2R rows, K2R_B, k cycling through K2R_K; the
+    # batches timed at stage A's shape (phases 26 (b), 27 (b)), 16 the
+    # largest on K1's kernel.
+    BF16_D, BF16_TIMED_B = (32, 33, 256, 1024), (8, 16, 64, 256, 512)
 
     def __init__(self, port):
         self.p = port
@@ -967,37 +974,45 @@ class Smoke:
         log(phase="fold_plan", shapes=shapes)
 
     def cluster_plan_line(self) -> None:
-        """K2r's launch (cluster_plan: the query blocks of a cluster, its
-        groups and walkers, TMA or element loads, the query block resident
-        or streamed, ring slots, shared memory and workspace held against
-        the source's sums) at stage C's batches, one query group a CTA at
-        B = 256 (the default takes two there), and the edges' deepest and
-        narrowest."""
+        """The cluster kernel's launches (cluster_plan: the query blocks of
+        a cluster, its groups and walkers, TMA or element loads, the query
+        planes resident or streamed, ring slots, shared memory and
+        workspace held against the source's sums): K2r at stage C's
+        batches, one query group a CTA at B = 256 (the default takes two
+        there), and its edges' deepest and narrowest; K1r and K1c on
+        stage A's rows at B = 8, 256 and 512, and the bf16 edges' deepest
+        and narrowest."""
         ct, sms = self.p.cluster_topk, self.p.sm_count(self.dev)
         index = self.dev.index if self.dev.index is not None else 0
         shapes = []
-        for n, b, d, kk, qg in (
-                (self.N_C, 8, self.D_C, 25, None),
-                (self.N_C, self.B, self.D_C, 25, None),
-                (self.N_C, 2 * self.B, self.D_C, 25, None),
-                (self.N_C, self.B, self.D_C, 25, 1),
-                (self.N_K2R, 512, self.K2R_D[-1], 128, None),
-                (1024, 8, 33, 25, None)):
-            plan = ct.cluster_plan(n, b, d, kk, sms, qg=qg)
+        for n, b, d, kk, qg, kind in (
+                (self.N_C, 8, self.D_C, 25, None, "int8"),
+                (self.N_C, self.B, self.D_C, 25, None, "int8"),
+                (self.N_C, 2 * self.B, self.D_C, 25, None, "int8"),
+                (self.N_C, self.B, self.D_C, 25, 1, "int8"),
+                (self.N_K2R, 512, self.K2R_D[-1], 128, None, "int8"),
+                (1024, 8, 33, 25, None, "int8"),
+                *((self.N_A, b, self.D_A, 32, None, kind)
+                  for kind in ("rounded", "compare")
+                  for b in (8, self.B, 2 * self.B)),
+                (self.N_K2R, 512, self.BF16_D[-1], 128, None, "compare"),
+                (1024, 8, self.BF16_D[1], 32, None, "rounded")):
+            plan = ct.cluster_plan(n, b, d, kk, sms, qg=qg, kind=kind)
             if plan.tma or plan.tau_tma:
                 plan = ct.cluster_plan(n, b, d, kk, sms, True,
                                        self.p.cluster_active_clusters(
                                            index, plan.qg, plan.cluster,
-                                           plan.smem_bytes), qg=plan.qg)
+                                           plan.smem_bytes, kind),
+                                       qg=plan.qg, kind=kind)
             src = self.p.cluster_smem_bytes(plan.qg, d, kk, plan.stages,
-                                            plan.resident)
+                                            plan.resident, kind)
             walkers = (plan.walkers, plan.tau_walkers, plan.seed_walkers)
-            ws = self.p.cluster_workspace_bytes(b, kk, *walkers)
+            ws = self.p.cluster_workspace_bytes(b, kk, *walkers, d, kind)
             if src != plan.smem_bytes or ws != ct.workspace_bytes(
-                    b, kk, *walkers):
-                raise AssertionError(f"K2r shared memory {src} / workspace "
-                                     f"{ws} != the plan's ({plan})")
-            shapes.append({"n": n, "b": b, "d": d, "k": kk,
+                    b, kk, *walkers, d, kind):
+                raise AssertionError(f"{kind} shared memory {src} / "
+                                     f"workspace {ws} != the plan's ({plan})")
+            shapes.append({"kind": kind, "n": n, "b": b, "d": d, "k": kk,
                            "grid": plan.grid, **plan._asdict()})
         log(phase="cluster_plan", shapes=shapes)
 
@@ -5480,8 +5495,10 @@ class Smoke:
         del qd
         ties = self.rounded_ties()
         edges = self.k2r_edges()
+        k1r_edges = self.bf16_edges("rounded")
         log(phase="rounded_vs_plain", cases=3 * len(grid),
-            tie_cases=ties, k2r_edge_cases=edges, n=n, ok=True,
+            tie_cases=ties, k2r_edge_cases=edges, k1r_edge_cases=k1r_edges,
+            n=n, ok=True,
             atol="one bf16 ulp at the largest |value|",
             max_abs_err=self.max_err["fused_dense_top_k_rounded"],
             tie_swaps=self.swaps["fused_dense_top_k_rounded"],
@@ -5638,6 +5655,105 @@ class Smoke:
                       "{-1, 0, 1} grid, signed scales")
         return cases
 
+    def bf16_rows(self, n, d, grid):
+        """n + 1 bf16 rows of depth d (rows[1:] start one row in), 512 f32
+        queries and a half mask: {-1, 0, 1} rows and +-1 queries (``grid``:
+        every score exact in f32, ties everywhere) or unit rows; rows 0-31
+        copies of queries 0-7, copied again across tiles, CTAs and walkers
+        (64, 300, n // 3, n // 2, n - 40); row 40 all -0.0 and query 1 zero
+        (+-0.0 products)."""
+        g = self.seed(211 + d + int(grid))
+        dev = self.dev
+        if grid:
+            rows = torch.randint(-1, 2, (n + 1, d), generator=g,
+                                 device=dev).float()
+            q = (2 * torch.randint(0, 2, (512, d), generator=g, device=dev)
+                 - 1).float()
+        else:
+            rows = self.b.unit(torch.randn((n + 1, d), generator=g,
+                                           device=dev))
+            q = self.b.unit(torch.randn((512, d), generator=g, device=dev))
+        rows[:32] = q[torch.arange(32, device=dev) % 8]
+        for start in (64, 300, n // 3, n // 2, n - 40):
+            rows[start:start + 32] = rows[:32]
+        rows[40] = -0.0
+        q[1] = 0.0
+        half = torch.rand(n + 1, generator=g, device=dev) < 0.5
+        return rows.bfloat16(), q, half
+
+    def bf16_edges(self, kind) -> dict:
+        """K1r (``kind`` "rounded") or K1c ("compare") against its plain
+        version at the cluster kernel's edges on bf16 rows: every depth of
+        BF16_D and view (N_K2R rows, rows[1:], a copy at an odd address;
+        K1c also a prefix of N_K2R - COMPARE_MISALIGN rows) over K2R_B, k
+        cycling through K2R_K (K1c half masked on every other batch), on
+        {-1, 0, 1} grids torch.equal and on unit rows within one bf16 ulp;
+        each call's route (``.split_launches``) as bf16_cluster_route
+        says, and where the route keeps K1's kernel but the planes stay
+        resident, the cluster kernel itself on the grids too; then N =
+        1024 at B 1, 65 and 257 and each k. Every grid holds a row of -0.0
+        and a zero query. Returns the counts of wrapper calls and of the
+        cluster kernel's direct ones."""
+        p, k = self.p, self.p.kernels
+        score = p.fold_scores[kind]
+        wrapper = {"rounded": k.fused_dense_top_k_rounded,
+                   "compare": k.fused_dense_top_k_bf16_compare}[kind]
+        name, sms, n = wrapper.__name__, p.sm_count(self.dev), self.N_K2R
+        cases = {"wrapper": 0, "cluster_direct": 0}
+
+        def check(rows, q, kk, mask, grid, what):
+            what = f"{kind}, {what}, B={q.shape[0]}, k={kk}" + (
+                "" if mask is None else ", half mask")
+            split0 = wrapper.split_launches
+            if kind == "rounded":
+                got = wrapper(rows, q, kk)
+                ref = k.fused_dense_top_k_torch(rows, q, kk, rounded=True)
+            else:
+                got = wrapper(rows, q, kk, mask=mask)
+                ref = k.fused_dense_top_k_bf16_compare_torch(rows, q, kk,
+                                                             mask=mask)
+            (nn, d), b = rows.shape, q.shape[0]
+            cluster = p.bf16_cluster_route(nn, b, d, kk, "bfloat16", score,
+                                           rows.data_ptr() % 16 == 0)
+            if (wrapper.split_launches == split0) != cluster:
+                raise AssertionError(f"{what}: took the "
+                                     f"{'split' if cluster else 'cluster'} "
+                                     f"route")
+            if grid:
+                self.equal_int8(got, ref, what)
+                self.compare(name, ref, got, 0.0)
+            else:
+                self.compare_rounded(ref, got, name)
+            cases["wrapper"] += 1
+            plan = p.cluster_topk.cluster_plan(nn, b, d, kk, kind=kind)
+            if grid and not cluster and plan.resident:
+                self.equal_int8(p.bf16_call(rows, q, kk, sms, kind, mask),
+                                ref, f"the cluster kernel itself, {what}")
+                cases["cluster_direct"] += 1
+
+        for d in self.BF16_D:
+            for grid in (True, False):
+                rows, q, half = self.bf16_rows(n, d, grid)
+                views = [(rows[:n], half[:n], f"D={d}"),
+                         (rows[1:], half[1:], f"D={d}, rows[1:]"),
+                         (self.odd_address(rows[:n]), half[:n],
+                          f"D={d}, odd address")]
+                if kind == "compare":
+                    cut = n - self.COMPARE_MISALIGN
+                    views.append((rows[:cut], half[:cut], f"D={d}, N={cut}"))
+                for view, mask, what in views:
+                    for i, b in enumerate(self.K2R_B):
+                        kk = self.K2R_K[i % len(self.K2R_K)]
+                        m = mask if kind == "compare" and i % 2 else None
+                        check(view, q[:b], kk, m, grid, what)
+                del rows, views
+        rows, q, half = self.bf16_rows(1024, self.D_A, True)
+        for b in (1, 65, 257):
+            for kk in self.K2R_K:
+                m = half[:1024] if kind == "compare" and b == 65 else None
+                check(rows[:1024], q[:b], kk, m, True, "N=1024")
+        return cases
+
     def phase26b_rounded_stage_a(self, emb, gold, q, bm25, terms) -> None:
         """FusedRetriever with KernelConfig(rounded=True) on stage A's
         arrays: K1r once a call, no K1, hybrid recall@10 >= 0.99, its
@@ -5659,6 +5775,9 @@ class Smoke:
         (fids, _, lists), counts = self.main_path(call)
         self.expect("rounded stage A", counts, fused_dense_top_k_rounded=1,
                     fused_dense_top_k=0)
+        if k.fused_dense_top_k_rounded.split_launches:
+            raise AssertionError("rounded stage A: K1r took K1's kernel, "
+                                 "not the cluster kernel")
         r10 = self.b.recall_at_10(fids, gold)
         assert r10 >= 0.99, f"rounded 2M hybrid recall@10 {r10} below 0.99"
         r10_exact = self.b.recall_at_10(call(exact)[0], gold)
@@ -5694,6 +5813,9 @@ class Smoke:
         self.bound("fused_dense_top_k_rounded",
                    n * d * 2 + b * d * 4 + b * 32 * 8,
                    QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
+        log(stage="A_2M_k1r_batches",
+            batches=self.bf16_batches("rounded", emb, q),
+            k1r_anatomy=self.bf16_anatomy("rounded", emb, q), card=self.card)
 
     def phase26c_rounded_served(self, q, terms, index) -> None:
         """serve_cli's build_state(rounded_fold=True) on stage A's
@@ -5716,13 +5838,15 @@ class Smoke:
                 rows, counts = self.main_path(send)
         finally:
             server.shutdown()
+        split = self.p.kernels.fused_dense_top_k_rounded.split_launches
         _equal_ids(rows, want, "served rounded fold (HTTP b64 f32)")
         self.expect("served rounded fold", counts, at_least=True,
                     fused_dense_top_k_rounded=1)
         self.expect("served rounded fold", counts, fused_dense_top_k=0)
         log(phase="rounded_served", rows=int(rows.shape[0]),
             ids_equal_direct=True,
-            k1r_launches=counts["fused_dense_top_k_rounded"])
+            k1r_launches=counts["fused_dense_top_k_rounded"],
+            k1r_split_launches=split)
 
     def phase26d_rounded_stage_c(self, index, q, gold) -> None:
         """FusedRetriever with KernelConfig(rounded=True) on stage C's int8
@@ -5907,8 +6031,9 @@ class Smoke:
                 cases += 1
             del emb
         ties = self.compare_ties()
-        log(phase="compare_vs_plain", cases=cases, tie_cases=ties, n=n,
-            misaligned_n=cut, ok=True,
+        edges = self.bf16_edges("compare")
+        log(phase="compare_vs_plain", cases=cases, tie_cases=ties,
+            k1c_edge_cases=edges, n=n, misaligned_n=cut, ok=True,
             atol="one bf16 ulp at the largest |value|; integer grids and "
             "the operand rule torch.equal",
             max_abs_err=self.max_err["fused_dense_top_k_bf16_compare"],
@@ -6028,6 +6153,9 @@ class Smoke:
         (masked, maskless), counts = self.main_path(path)
         self.expect("compare stage A", counts,
                     fused_dense_top_k_bf16_compare=2, fused_dense_top_k=0)
+        if k.fused_dense_top_k_bf16_compare.split_launches:
+            raise AssertionError("compare stage A: K1c took K1's kernel, not "
+                                 "the cluster kernel")
         recall = {}
         for got, mask, what in ((masked, half, "masked"),
                                 (maskless, None, "maskless")):
@@ -6058,32 +6186,12 @@ class Smoke:
             lambda: k.fused_dense_top_k_bf16_compare_torch(emb, q, 32),
             "2^21 x 256 bf16, B=256, k=32, no mask")
         (n, d), b = emb.shape, q.shape[0]
-        step = 1 << 20
-        matmul = torch.backends.cuda.matmul
-
-        def library():
-            qb = q.bfloat16()
-            vs, ids = [], []
-            for s0 in range(0, n, step):
-                v, i = torch.topk(torch.matmul(qb, emb[s0:s0 + step].T), 32,
-                                  dim=1)
-                vs.append(v)
-                ids.append(i + s0)
-            v, i = torch.topk(torch.cat(vs, dim=1), 32, dim=1)
-            return v.float(), torch.take_along_dim(torch.cat(ids, dim=1), i,
-                                                   dim=1)
-
-        reduced = matmul.allow_bf16_reduced_precision_reduction
-        matmul.allow_bf16_reduced_precision_reduction = False
-        try:
-            self.time_library(
-                "fused_dense_top_k_bf16_compare", library,
-                f"torch.matmul(q.bfloat16(), emb.T) (bf16 out, f32 "
-                f"accumulation, no reduced-precision reduction) and "
-                f"torch.topk per {step}-row chunk of the doc axis, "
-                f"torch.topk over the chunks (no mask: no fill)")
-        finally:
-            matmul.allow_bf16_reduced_precision_reduction = reduced
+        self.time_library(
+            "fused_dense_top_k_bf16_compare", self.k1c_library(emb, q),
+            f"torch.matmul(q.bfloat16(), emb.T) (bf16 out, f32 "
+            f"accumulation, no reduced-precision reduction) and "
+            f"torch.topk per {self.K1C_LIBRARY_STEP}-row chunk of the doc "
+            f"axis, torch.topk over the chunks (no mask: no fill)")
         self.bound("fused_dense_top_k_bf16_compare",
                    n * d * 2 + b * d * 4 + b * 32 * 8, 2 * b * n * d,
                    BF16_FLOP_S)
@@ -6092,6 +6200,143 @@ class Smoke:
             bound_by=self.bounds["fused_dense_top_k_bf16_compare"][1],
             what="the rows read once at 3.35 TB/s against one bf16 MMA a "
             "product at 989 TFLOP/s", seconds=time.perf_counter() - t0)
+        log(stage="A_2M_k1c_batches",
+            batches=self.bf16_batches("compare", emb, q),
+            k1c_anatomy=self.bf16_anatomy("compare", emb, q), card=self.card)
+
+    K1C_LIBRARY_STEP = 1 << 20
+
+    def k1c_library(self, emb, q):
+        """K1c's yardstick: torch.matmul(q.bfloat16(), emb.T) (bf16 out,
+        f32 accumulation, no reduced-precision reduction) and torch.topk
+        per K1C_LIBRARY_STEP rows, torch.topk over the chunks."""
+        n, step = emb.shape[0], self.K1C_LIBRARY_STEP
+        matmul = torch.backends.cuda.matmul
+
+        def library():
+            qb = q.bfloat16()
+            vs, ids = [], []
+            reduced = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+            try:
+                for s0 in range(0, n, step):
+                    v, i = torch.topk(torch.matmul(qb, emb[s0:s0 + step].T),
+                                      32, dim=1)
+                    vs.append(v)
+                    ids.append(i + s0)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = reduced
+            v, i = torch.topk(torch.cat(vs, dim=1), 32, dim=1)
+            return v.float(), torch.take_along_dim(torch.cat(ids, dim=1), i,
+                                                   dim=1)
+
+        return library
+
+    def bf16_batches(self, kind, emb, q) -> dict:
+        """K1r (``kind`` "rounded") or K1c ("compare") at stage A's shape,
+        maskless, k = 32, at each of BF16_TIMED_B (B > 256: the 256 queries
+        repeated): the route the wrapper took (its split_launches) as
+        bf16_cluster_route says; the wrapper, K1's kernel in the fold's
+        score mode (the split route) and the cluster kernel with one and
+        two query groups a CTA (where the planes stay resident) in turns
+        (route, split, qg..., qg..., split, route), CUDA events, median of
+        10 after 3 warm-ups, the best of two; the cluster kernel's output
+        at the route's shape torch.equal to the wrapper's, each within one
+        bf16 ulp of the split route's (and whether bit for bit); the plain
+        version's ms (B = 256: time_pair's; else median of 2 after one
+        warm-up), the library call's and the bound."""
+        p, k = self.p, self.p.kernels
+        score, t = p.fold_scores[kind], p.cuda_event_ms
+        wrapper = {"rounded": k.fused_dense_top_k_rounded,
+                   "compare": k.fused_dense_top_k_bf16_compare}[kind]
+        name = wrapper.__name__
+        (n, d), sms, out = emb.shape, p.sm_count(self.dev), {}
+        for b in self.BF16_TIMED_B:
+            qb = q.repeat(-(-b // q.shape[0]), 1)[:b].contiguous()
+            split0 = wrapper.split_launches
+            got = wrapper(emb, qb, 32)
+            cluster = wrapper.split_launches == split0
+            if cluster != p.bf16_cluster_route(n, b, d, 32, "bfloat16",
+                                               score,
+                                               emb.data_ptr() % 16 == 0):
+                raise AssertionError(f"{name} at B={b} took the wrong route")
+            split = p.split_route_call(emb, qb, 32, score)
+            qgs = [qg for qg in (1, 2) if p.cluster_topk.cluster_plan(
+                n, b, d, 32, qg=qg, kind=kind).resident]
+            own = p.cluster_topk.default_query_groups(b, d, 32, kind)
+            row = {"route": "cluster_topk" if cluster else "K1's kernel",
+                   "query_groups": own}
+            top = float(split[0][torch.isfinite(split[0])].abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+            for qg in qgs:
+                mine = p.bf16_call(emb, qb, 32, sms, kind, qg=qg)
+                if cluster and qg == own:
+                    self.equal_int8(mine, got, f"{name} at B={b}: the "
+                                    f"cluster kernel against its route")
+                p.check_top_k(split[0], split[1], mine[0], mine[1], ulp)
+                row[f"qg{qg}_equal_split"] = bool(
+                    torch.equal(mine[0], split[0])
+                    and torch.equal(mine[1], split[1]))
+            fns = {"route": lambda: wrapper(emb, qb, 32),
+                   "split": lambda: p.split_route_call(emb, qb, 32, score)}
+            for qg in qgs:
+                fns[f"qg{qg}"] = (lambda qg=qg: p.bf16_call(
+                    emb, qb, 32, sms, kind, qg=qg))
+            runs = {x: [] for x in fns}
+            for x in list(fns) + list(fns)[::-1]:
+                runs[x].append(t(fns[x]))
+            row["ms"] = {x: min(r) for x, r in runs.items()}
+            row["ms_runs"] = runs
+            row["routed_not_slower_than_split"] = \
+                row["ms"]["route"] <= row["ms"]["split"]
+            if b == self.B:
+                row["plain_ms"] = self.times[name][1]
+                row["library_ms"] = self.library[name]
+            else:
+                if kind == "rounded":
+                    plain = (lambda: k.fused_dense_top_k_torch(
+                        emb, qb, 32, rounded=True))
+                    library = (lambda: torch.topk(
+                        (qb @ emb.float().T).bfloat16().float(), 32, dim=1))
+                else:
+                    plain = (lambda: k.fused_dense_top_k_bf16_compare_torch(
+                        emb, qb, 32))
+                    library = self.k1c_library(emb, qb)
+                row["plain_ms"] = t(plain, n=2, warmup=1)
+                row["library_ms"] = min(t(library), t(library))
+            planes = QUERY_PIECES if kind == "rounded" else 1
+            t_bytes = (n * d * 2 + b * d * 4 + b * 32 * 8) / HBM_BYTES_S * 1e3
+            t_ops = planes * 2 * b * n * d / BF16_FLOP_S * 1e3
+            row["bound_ms"] = max(t_bytes, t_ops)
+            row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            row["plan"] = p.cluster_topk.cluster_plan(
+                n, b, d, 32, sms, kind=kind)._asdict()
+            out[str(b)] = row
+            del qb, got, split
+        return out
+
+    def bf16_anatomy(self, kind, emb, q) -> dict:
+        """The cluster kernel's main pass for K1r or K1c at stage A's shape
+        (B = 256, k = 32), one pass at a time (each mode doing less): the
+        ring alone, + the wgmma multiply, + the epilogue's threshold test
+        of every score against the fold's rounded subsample tau (nothing
+        offered), the full pass seeded with that tau, and the whole call
+        (+ the seed and tau passes and the merges)."""
+        p, ft = self.p, self.p.kernels.fused_topk
+        sms, t = p.sm_count(self.dev), p.cuda_event_ms
+        sub = emb[::ft.TAU_STRIDE].float()
+        if kind == "rounded":
+            s = ft.round_scores(q.float() @ sub.T)
+        else:
+            s = (q.bfloat16().float() @ sub.T).bfloat16().float()
+        tau = ft._tau_of(s, 32)
+        ms = {}
+        for mode in ("stream", "mma", "epilogue", "full"):
+            ms[mode] = t(lambda: p.cluster_pass(mode, emb, None, q, 32, sms,
+                                                tau, kind=kind))
+        ms["whole"] = t(lambda: p.bf16_call(emb, q, 32, sms, kind))
+        return {"ms": ms, "method": "CUDA events, median of 10 after 3 "
+                "warm-ups"}
 
     def kernels_line(self) -> None:
         rows = []
@@ -6258,6 +6503,10 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.kernels import cluster_topk
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
             K2R_SPLIT_MAX_B,
+            SCORE_COMPARE,
+            SCORE_ROUNDED,
+            bf16_cluster_route,
+            split_route_top_k,
         )
         from a_nice_rag_tpu_torch.ops.kernels.autotune import KernelConfig
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
@@ -6540,6 +6789,12 @@ class _Port:
         self.k2r_call = cluster_topk.rounded_top_k_int8
         self.k2r_split_max_b = K2R_SPLIT_MAX_B
         self.k2r_pass = cluster_topk.cluster_pass
+        self.cluster_pass = cluster_topk.cluster_pass
+        self.bf16_call = cluster_topk.bf16_top_k
+        self.bf16_cluster_route = bf16_cluster_route
+        self.split_route_call = split_route_top_k
+        self.fold_scores = {"rounded": SCORE_ROUNDED,
+                            "compare": SCORE_COMPARE}
         self.topk_plan, self.int8_smem_bytes = topk_plan, int8_smem_bytes
         self.float_smem_bytes, self.sm_count = float_smem_bytes, _sm_count
         self.row_plan = row_plan

@@ -132,6 +132,38 @@ class TinySmoke(chip_smoke.Smoke):
     N_ROUNDED = 4096
     N_K2R, K2R_D, K2R_B, K2R_TIMED_B = 3072, (32, 33, 1024), (1, 17, 65, 257), \
         (8, 16, 32)
+    # K1r's and K1c's edges over the same rows at depths on both sides of
+    # the rehearsal's route (_tiny_bf16_route), and their timed batches
+    # around B.
+    BF16_D, BF16_TIMED_B = (32, 33, 64), (8, 16, 32)
+
+
+def _tiny_bf16_route(n, b, d, k, rows, score, aligned=True):
+    """The rehearsal's K1r / K1c route: the card's rule (bf16 rows, aligned
+    rows of a multiple of 16 bytes, B past a threshold) with stage A's
+    tiny depth (64-byte rows) and B = 16 on the cluster side, so both
+    routes run."""
+    return rows == "bfloat16" and b > 8 and aligned and (2 * d) % 16 == 0
+
+
+def _bf16_edge_calls(kind):
+    """The wrapper calls of chip_smoke's bf16_edges at TinySmoke's sizes,
+    and the cluster kernel's direct ones (grids on the split route)."""
+    n, calls, direct = TinySmoke.N_K2R, 0, 0
+    for d in TinySmoke.BF16_D:
+        views = [(n, True), (n, (2 * d) % 16 == 0), (n, False)]
+        if kind == "compare":
+            views.append((n - TinySmoke.COMPARE_MISALIGN, True))
+        for grid in (True, False):
+            for nn, aligned in views:
+                for b in TinySmoke.K2R_B:
+                    calls += 1
+                    split = not _tiny_bf16_route(nn, b, d, 1, "bfloat16", 0,
+                                                 aligned)
+                    direct += grid and split
+    calls += 9
+    direct += 3  # N = 1024 at B = 1, each k
+    return calls, direct
 
 
 def _sweep_csv(path):
@@ -195,7 +227,11 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # (fused_dense_top_k_bf16_compare_torch), which K1's plain version
     # also calls on the compare route.
     k2r = ft.fused_dense_top_k_int8_rounded
-    monkeypatch.setattr(k2r, "split_launches", k2r.split_launches)
+    k1r, k1c = ft.fused_dense_top_k_rounded, ft.fused_dense_top_k_bf16_compare
+    folds = {k1r: ft.SCORE_ROUNDED, k1c: ft.SCORE_COMPARE}
+    for wrapper in (k2r, k1r, k1c):
+        monkeypatch.setattr(wrapper, "split_launches", wrapper.split_launches)
+    monkeypatch.setattr(ft, "bf16_cluster_route", _tiny_bf16_route)
     plains = {}
     for mod, name in WRAPPED:
         wrapper = getattr(mod, name)
@@ -211,6 +247,13 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             count_launch(wrapper)
             if wrapper is k2r and args[2].shape[0] <= ft.K2R_SPLIT_MAX_B:
                 count_launch(k2r, "split_launches")
+            if wrapper in folds:
+                emb, q, k = args[:3]
+                if not ft.bf16_cluster_route(
+                        emb.shape[0], q.shape[0], emb.shape[1], k,
+                        ft._ROWS[emb.dtype], folds[wrapper],
+                        emb.data_ptr() % 16 == 0):
+                    count_launch(wrapper, "split_launches")
             return _plain(*args, **kwargs)
 
         monkeypatch.setattr(mod, plain, counted)
@@ -234,12 +277,26 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # query groups) its plain version; its anatomy's passes run only on
     # the card.
     port.cluster_smem_bytes = ct.cluster_smem_bytes
-    port.cluster_active_clusters = lambda index, qg, cl, smem: 132 // cl
+    port.cluster_active_clusters = (lambda index, qg, cl, smem, kind="int8":
+                                    132 // cl)
     port.cluster_workspace_bytes = ct.workspace_bytes
     port.k2r_call = (lambda values, scales, qv, qs, k, sms, qg=None:
                      ft.fused_dense_top_k_int8_torch(values, scales, qv, qs,
                                                      k, rounded=True))
     port.k2r_pass = lambda *args, **kwargs: None
+    # K1r's and K1c's: the cluster kernel and K1's kernel in the fold's
+    # score mode are their plain versions here.
+    plain_fold = {
+        "rounded": lambda e, q, k, mask=None: ft.fused_dense_top_k_torch(
+            e, q, k, rounded=True),
+        "compare": ft.fused_dense_top_k_bf16_compare_torch}
+    port.bf16_call = (lambda e, q, k, sms, kind, mask=None, qg=None:
+                      plain_fold[kind](e, q, k, mask=mask))
+    port.split_route_call = (
+        lambda e, q, k, score, mask=None: plain_fold[
+            "rounded" if score == ft.SCORE_ROUNDED else "compare"](
+                e, q, k, mask=mask))
+    port.cluster_pass = lambda *args, **kwargs: None
     # The folds' stream alone runs only on the card.
     monkeypatch.setattr(i4, "fold_stream", lambda q8, rows, packed: None)
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
@@ -321,7 +378,10 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert sharded_c["rounded_lists_equal_unsharded"]
     k2r = rounded["fused_dense_top_k_int8_rounded"]
     assert k2r["launches"] == 1 + 4
-    assert k2r["source"] == "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
+    # K1r, K2r and K1c on the cluster kernel's source.
+    for k in kernels[-3:]:
+        assert k["source"] == "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
+    assert served26["k1r_split_launches"] == 0
     assert rounded["fused_dense_top_k_rounded"]["replaces"].endswith(
         "fused_topk.py:359")
     assert k2r["replaces"].endswith("fused_topk.py:377")
@@ -330,11 +390,29 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # 3 depths x 3 views x (4 batches + B = 1 straight through the cluster
     # kernel), N = 1024 at 3 batches x 3 k, the grid at 3 batches x 3 k.
     assert r26["k2r_edge_cases"] == 3 * 3 * 5 + 9 + 9
+    calls, direct = _bf16_edge_calls("rounded")
+    assert r26["k1r_edge_cases"] == {"wrapper": calls,
+                                     "cluster_direct": direct}
     plans = [r for r in records if r.get("phase") == "cluster_plan"][0]
-    assert len(plans["shapes"]) == 6
+    assert [sh["kind"] for sh in plans["shapes"]] == \
+        ["int8"] * 6 + ["rounded"] * 3 + ["compare"] * 4 + ["rounded"]
     assert all(sh["smem_bytes"] <= ct.SMEM_LIMIT for sh in plans["shapes"])
     a26 = [r for r in records if r.get("stage") == "A_2M_hybrid_rounded"][0]
     assert a26["recall10_hybrid"] >= 0.99 and a26["k1r_launches"] == 1
+    # K1r and K1c at each timed batch: the route, K1's kernel beside it, the
+    # cluster kernel by CTA shape, plain, library and bound; the anatomy.
+    for stage, kind in (("A_2M_k1r_batches", "k1r"),
+                        ("A_2M_k1c_batches", "k1c")):
+        line = [r for r in records if r.get("stage") == stage][0]
+        assert sorted(line["batches"], key=int) == ["8", "16", "32"]
+        assert [line["batches"][b]["route"] for b in ("8", "16", "32")] == [
+            "K1's kernel", "cluster_topk", "cluster_topk"]
+        for row in line["batches"].values():
+            assert {"route", "split", "qg1"} <= set(row["ms"])
+            assert row["plain_ms"] > 0 and row["library_ms"] > 0
+            assert row["bound_ms"] > 0 and row["qg1_equal_split"]
+        assert set(line[f"{kind}_anatomy"]["ms"]) == {
+            "stream", "mma", "epilogue", "full", "whole"}
     c26 = [r for r in records if r.get("stage") == "C_10.5M_int8_rounded"][0]
     assert c26["ids_equal_plain_8_queries"] and c26["k2r_launches"] == 1
     assert sorted(c26["batches"], key=int) == ["8", "16", "32"]
@@ -358,6 +436,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     # x 4 cases x 2 row types + 2 x 2 operand cases.
     assert r27["ok"] and r27["cases"] == 2 * 20 + 2
     assert r27["tie_cases"] == 2 * 4 * 2 + 4
+    calls, direct = _bf16_edge_calls("compare")
+    assert r27["k1c_edge_cases"] == {"wrapper": calls,
+                                     "cluster_direct": direct}
     a27 = [r for r in records if r.get("stage") == "A_2M_bf16_compare"][0]
     assert a27["ids_equal_plain_8_queries"] and a27["k1c_launches"] == 2
     assert 0.0 < a27["recall10_vs_k1"] <= 1.0

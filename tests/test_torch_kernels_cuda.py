@@ -38,7 +38,16 @@ query block, rows[1:] and a copy at an odd address, B across the query
 block, the cluster and its groups, k up to 128, N = 1024 (tau = -inf),
 {-1, 0, 1} grids with signed scales and a zero query, one and two query
 groups a CTA; its plan's shared memory and workspace equal to the
-source's; a failed build or launch raises.
+source's; a failed build or launch raises. K1r and K1c on bf16 rows (the
+same kernel, wgmma bf16 on three query planes or one; K1's kernel in the
+fold's score mode on the split route): torch.equal to their plain
+versions on {-1, 0, 1} grids at depths on element loads and TMA, rows[1:]
+and a copy at an odd address, B across the split route's 16, the query
+block, the cluster and its groups, k up to 128, N = 1024, a zero query
+(K1c: half masks and a misaligned N too), one and two query groups a
+CTA; within one bf16 ulp of the largest |value| on unit rows; the route
+(``.split_launches``) as ``bf16_cluster_route`` says; the plan against
+the source; a failed build or launch raises.
 """
 
 import pytest
@@ -73,7 +82,11 @@ from a_nice_rag_tpu_torch.ops.kernels import (
 )
 from a_nice_rag_tpu_torch.ops.kernels import cluster_topk, topk_plan
 from a_nice_rag_tpu_torch.ops.kernels import fused_dense_top_k_int8_rounded
+from a_nice_rag_tpu_torch.ops.kernels import fused_dense_top_k_rounded
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
+    SCORE_COMPARE,
+    SCORE_ROUNDED,
+    bf16_cluster_route,
     K2R_SPLIT_MAX_B,
     float_smem_bytes,
     int8_smem_bytes,
@@ -910,11 +923,184 @@ def test_cuda_k2r_raises_instead_of_falling_back(cuda_device, monkeypatch):
             values.data_ptr(), scales.data_ptr(), 2, 1024, 64, 4, 1, 1, 1, 1,
             1, 0, 0, 1, 0, 1, 0, 1, None, None, None, device=cuda_device)
 
-    # A build that fails raises too, and nothing runs the plain version.
+    # A build that fails raises too, and nothing runs the plain version
+    # (B past K2R_SPLIT_MAX_B: the cluster route).
     def broken():
         raise RuntimeError("nvcc failed building cluster_topk.cu")
 
     monkeypatch.setattr(cluster_topk, "_library", broken)
+    qv = torch.zeros((K2R_SPLIT_MAX_B + 1, 64), dtype=torch.int8,
+                     device=cuda_device)
+    qs = torch.ones(K2R_SPLIT_MAX_B + 1, device=cuda_device)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fused_dense_top_k_int8_rounded(values, scales, qv, qs, 4)
     assert fused_dense_top_k_int8_rounded.launches == before
+
+
+# -- K1r / K1c on bf16 rows: the cluster kernel and its route -------------
+
+BF16_B = (1, 16, 17, 64, 65, 200, 256, 257, 512)
+BF16_K = (1, 32, 128)
+BF16_FOLDS = {
+    "rounded": (fused_dense_top_k_rounded, SCORE_ROUNDED,
+                lambda e, q, k, mask=None: fused_dense_top_k_torch(
+                    e, q, k, rounded=True)),
+    "compare": (fused_dense_top_k_bf16_compare, SCORE_COMPARE,
+                fused_dense_top_k_bf16_compare_torch),
+}
+
+
+def _bf16_rows(n, d, dev, grid):
+    """n + 1 bf16 rows (rows[1:] start one row in), 512 f32 queries:
+    {-1, 0, 1} rows and +-1 queries (``grid``: every score exact, ties
+    everywhere), else unit rows; rows 0-31 copies of queries 0-7, copied
+    again across tiles, CTAs and walkers; query 1 zero."""
+    g = torch.Generator().manual_seed(d + n + grid)
+    if grid:
+        rows = torch.randint(-1, 2, (n + 1, d), generator=g).float()
+        q = (2 * torch.randint(0, 2, (512, d), generator=g) - 1).float()
+    else:
+        rows = _unit(torch.randn((n + 1, d), generator=g))
+        q = _unit(torch.randn((512, d), generator=g))
+    rows[:32] = q[torch.arange(32) % 8]
+    for start in (64, 300, n // 3, n // 2, n - 40):
+        rows[start:start + 32] = rows[:32]
+    q[1] = 0.0
+    mask = torch.rand(n + 1, generator=g) < 0.5
+    return rows.bfloat16().to(dev), q.to(dev), mask.to(dev)
+
+
+def _bf16_odd(t):
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
+@pytest.mark.parametrize("kind", ["rounded", "compare"])
+@pytest.mark.parametrize("d", [32, 33, 256, 1024])
+@pytest.mark.parametrize("view", ["as_is", "rows_from_1", "odd_address"])
+def test_cuda_bf16_fold_edges_match_plain(cuda_device, kind, d, view):
+    wrapper, score, plain = BF16_FOLDS[kind]
+    n = 20 * 1024
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for grid in (True, False):
+        rows, q, mask = _bf16_rows(n, d, cuda_device, grid)
+        rows, mask = (rows[1:], mask[1:]) if view == "rows_from_1" else \
+            (rows[:n], mask[:n])
+        if view == "odd_address":
+            rows = _bf16_odd(rows)
+        for i, b in enumerate(BF16_B):
+            k = BF16_K[i % len(BF16_K)]
+            m = mask if kind == "compare" and i % 2 else None
+            before = (wrapper.launches, wrapper.split_launches)
+            kv, ki = wrapper(rows, q[:b], k, **({} if m is None else
+                                               {"mask": m}))
+            pv, pi = plain(rows, q[:b], k, mask=m)
+            torch.cuda.synchronize()
+            cluster = bf16_cluster_route(n, b, d, k, "bfloat16", score,
+                                         rows.data_ptr() % 16 == 0)
+            assert (wrapper.launches, wrapper.split_launches) == (
+                before[0] + 1, before[1] + (not cluster)), (b, k)
+            assert torch.equal(kv, kv.bfloat16().float())
+            if grid:
+                assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+            else:
+                top = float(pv[torch.isfinite(pv)].abs().max())
+                check_top_k(pv, pi, kv, ki, 2.0 ** (int(
+                    torch.tensor(top).log2().floor()) - 7))
+                assert _ties_kept_by_lower_id(kv, ki)
+            plan = cluster_topk.cluster_plan(n, b, d, k, kind=kind)
+            if grid and plan.resident and not cluster:
+                # The cluster kernel itself where the route keeps K1's.
+                kv, ki = cluster_topk.bf16_top_k(rows, q[:b], k, sms, kind,
+                                                 m)
+                torch.cuda.synchronize()
+                assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+
+
+@pytest.mark.parametrize("kind", ["rounded", "compare"])
+@pytest.mark.parametrize("qg", [1, 2])
+@pytest.mark.parametrize("n", [1024, 65_536 - 37])
+def test_cuda_bf16_fold_ties_and_query_groups(cuda_device, kind, qg, n):
+    """{-1, 0, 1} rows at D = 64 (the TMA route; K1r's three planes stay
+    resident in 128-query CTAs there): rounded scores tie across tiles,
+    CTAs, clusters and walkers; a zero query (+0.0 everywhere); N = 1024
+    leaves tau at -inf past k = 16; K1c also masked over a misaligned N."""
+    _, score, plain = BF16_FOLDS[kind]
+    if kind == "rounded" and n % 1024:
+        n -= n % 1024
+    rows, q, mask = _bf16_rows(n, 64, cuda_device, True)
+    rows, mask = rows[:n], mask[:n]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for b in (1, 64, 256, 257, 512):
+        for k in BF16_K:
+            for m in (None, mask) if kind == "compare" else (None,):
+                kv, ki = cluster_topk.bf16_top_k(rows, q[:b], k, sms, kind,
+                                                 m, qg=qg)
+                pv, pi = plain(rows, q[:b], k, mask=m)
+                torch.cuda.synchronize()
+                assert torch.equal(ki, pi) and torch.equal(kv, pv), (b, k)
+                assert torch.equal(torch.signbit(kv), torch.signbit(pv))
+
+
+@pytest.mark.parametrize("kind", ["rounded", "compare"])
+@pytest.mark.parametrize("b", [17, 256, 512])
+@pytest.mark.parametrize("d", [33, 256, 1024])
+@pytest.mark.parametrize("k", [1, 128])
+def test_cuda_bf16_cluster_plan_matches_source(cuda_device, kind, b, d, k):
+    plan = cluster_topk.cluster_plan(1 << 21, b, d, k, kind=kind)
+    assert cluster_topk.source_smem_bytes(
+        plan.qg, d, k, plan.stages, plan.resident, kind) == plan.smem_bytes
+    walkers = (plan.walkers, plan.tau_walkers, plan.seed_walkers)
+    assert cluster_topk.source_workspace_bytes(b, k, *walkers, d, kind) == \
+        cluster_topk.workspace_bytes(b, k, *walkers, d, kind)
+    if plan.tma:
+        index = torch.cuda.current_device()
+        assert cluster_topk.active_clusters(
+            index, plan.qg, plan.cluster, plan.smem_bytes, kind) >= 1
+
+
+def test_cuda_bf16_cluster_raises_instead_of_falling_back(cuda_device,
+                                                          monkeypatch):
+    rows = torch.zeros((1024, 128), dtype=torch.bfloat16, device=cuda_device)
+    q = torch.zeros((64, 128), device=cuda_device)
+    assert bf16_cluster_route(1024, 64, 128, 4, "bfloat16", SCORE_COMPARE)
+    before = fused_dense_top_k_bf16_compare.launches
+    # A launch the source refuses (no shared memory) raises.
+    lib = cluster_topk._library()
+    with pytest.raises(RuntimeError, match="anr_cluster_topk_bf16"):
+        cluster_topk._launch(
+            lib.anr_cluster_topk_bf16, 2, q.bfloat16().data_ptr(),
+            rows.data_ptr(), None, 64, 1024, 128, 4, 1, 1, 1, 1, 1, 0, 0, 1,
+            0, 1, 0, 1, None, None, None, device=cuda_device)
+
+    # A build that fails raises too, and nothing runs the plain version or
+    # K1's kernel.
+    def broken():
+        raise RuntimeError("nvcc failed building cluster_topk.cu")
+
+    monkeypatch.setattr(cluster_topk, "_library", broken)
+    for fn in (fused_dense_top_k_bf16_compare, fused_dense_top_k_rounded):
+        n0 = (fn.launches, fn.split_launches)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(rows, q, 4)
+        assert (fn.launches, fn.split_launches) == n0
+    assert fused_dense_top_k_bf16_compare.launches == before
+
+
+def test_cuda_bf16_cluster_route_reads_no_plan(cuda_device):
+    # K1's (bq, splits) steer only K1's kernel: on the cluster route a
+    # valid plan= changes nothing, and the call stays there.
+    n = 20 * 1024
+    rows, q, _ = _bf16_rows(n, 256, cuda_device, False)
+    rows, q = rows[:n], q[:64]
+    for kind, (wrapper, score, _) in BF16_FOLDS.items():
+        assert bf16_cluster_route(n, 64, 256, 32, "bfloat16", score)
+        want = wrapper(rows, q, 32)
+        split0 = wrapper.split_launches
+        got = wrapper(rows, q, 32, plan=(16, 7))
+        torch.cuda.synchronize()
+        assert wrapper.split_launches == split0, kind
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
