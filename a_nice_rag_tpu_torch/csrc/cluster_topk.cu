@@ -128,957 +128,62 @@
 //   two ring slots streams through the ring with each doc chunk (element
 //   loads). bf16 rows keep their query planes resident.
 //
+// The kernel, its launchers and a whole call's passes are in
+// cluster_topk.cuh, shared with the probes of this design
+// (cluster_probe.cu), which also run it on K1's and K2's exact scores.
+//
 // Plain C interface; each entry point returns the cudaError_t of its
 // launches (0 on success). The caller allocates the workspace
 // (anr_cluster_workspace_bytes).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "tma_ring.cuh"
+#include "cluster_topk.cuh"
 
 namespace {
 
-constexpr int QB = 64;        // queries a warpgroup multiplies (wgmma M)
-constexpr int WG_DOCS = 128;  // docs a warpgroup multiplies (wgmma N)
-constexpr int CWARPS = 8;     // consumer warps: two warpgroups
-constexpr int CTHREADS = CWARPS * 32;
-constexpr int KTHREADS = CTHREADS + 32;  // + one producer warp
-constexpr int BOX_ROWS = 64;
-constexpr int MAX_CLUSTER = 4;
-constexpr int MAX_STAGES = 6;
-constexpr int MAX_K = 128;
-constexpr int ALIGN = 1024;  // the 128-byte swizzle's period
-constexpr int SMEM_LIMIT = 232448;
-constexpr int CONSUMERS_BAR = 1;  // named barrier of the consumer warps
-
-// MODE_FULL: the fold's pass. The probe's anatomy runs the same launch
-// with less work: MODE_STREAM the ring alone (each chunk handed back
-// unread), MODE_MMA + the multiply, MODE_EPILOGUE + the epilogue's
-// threshold test, counting into probe the tiles where a thread's scores
-// passed a bound instead of offering them.
-enum Mode : int {
-  MODE_FULL = 0,
-  MODE_STREAM = 1,
-  MODE_MMA = 2,
-  MODE_EPILOGUE = 3
-};
-
-// The rows a call multiplies: int8 with per-row scales (K2r), or bf16
-// against the f32 query's three planes (K1r) or against bf16(q) (K1c).
-enum RowKind : int {
-  ROWS_INT8 = 0,
-  ROWS_BF16_ROUNDED = 1,
-  ROWS_BF16_COMPARE = 2
-};
-
-template <int R>
-struct RowT {
-  using Acc = int;
-  static constexpr int PLANES = 1;
-  static constexpr int SCORE = SCORE_ROUNDED;
-};
-template <>
-struct RowT<ROWS_BF16_ROUNDED> {
-  using Acc = float;
-  static constexpr int PLANES = 3;
-  static constexpr int SCORE = SCORE_ROUNDED;
-};
-template <>
-struct RowT<ROWS_BF16_COMPARE> {
-  using Acc = float;
-  static constexpr int PLANES = 1;
-  static constexpr int SCORE = SCORE_COMPARE;
-};
-
-__host__ __device__ constexpr int planes_of(int kind) {
-  return kind == ROWS_BF16_ROUNDED ? 3 : 1;
-}
-__host__ __device__ constexpr int elem_bytes(int kind) {
-  return kind == ROWS_INT8 ? 1 : 2;
-}
-
-__host__ __device__ constexpr int cta_queries(int qg) { return QB * qg; }
-// Entries from one row's list to the next: k rounded up to an odd count,
-// so the eight rows a warp's lanes offer to at once sit in distinct
-// shared-memory banks (k = 32 would put all eight in one).
-__host__ __device__ constexpr int list_stride(int k) { return k | 1; }
-__host__ __device__ constexpr int tile_docs(int qg) {
-  return 2 * WG_DOCS / qg;
-}
-
-// Bytes of one ring slot and of the whole dynamic shared memory: alignment
-// slack, ring, resident query planes, barriers, two tiles' doc
-// multipliers, each row's published worst score and lock, the running
-// lists. ops/kernels/cluster_topk.py's cluster_smem_bytes computes the
-// same number.
-__host__ __device__ inline int slot_bytes(int qg, int planes,
-                                          bool resident) {
-  return tile_docs(qg) * CH + (resident ? 0 : planes * cta_queries(qg) * CH);
-}
-__host__ __device__ inline long long smem_bytes(int qg, int nck, int planes,
-                                                int k, int stages,
-                                                bool resident) {
-  const long long q = cta_queries(qg);
-  return ALIGN +
-         static_cast<long long>(stages) * slot_bytes(qg, planes, resident) +
-         (resident ? static_cast<long long>(nck) * planes * q * CH : 0) +
-         16LL * stages + 8LL * tile_docs(qg) + q * (8 + 8LL * list_stride(k));
-}
-
-struct Args {
-  const int8_t* q;       // [PLANES][B] query rows of rowb bytes
-  const int8_t* e;       // the pass's row r at e + r * stride
-  const float* escale;   // int8 rows: row r's scale at escale[r * sstride]
-  const uint8_t* mask;   // bf16 rows: row r kept iff mask[r * sstride]
-                         // (null: every row)
-  const float* seed;     // [B] tau, or null: lists start at -inf
-  // Or (bf16 rows' main pass) the tau pass's top k [B][k], ids in its
-  // rows, every list_every-th of these: see seed_lists.
-  const float* list_v;
-  const int* list_i;
-  int list_every;
-  long long stride;      // bytes from one row to the next
-  int sstride;
-  int B, rows, rowb, k;  // rows: the pass's row count (ids 0..rows - 1);
-                         // rowb: bytes of a row and of a query row
-  int nck, stages, cl, tiles, per_group;
-  float* part_v;         // [B][per_group][k] (MODE_FULL)
-  int* part_i;
-  int* probe;            // MODE_EPILOGUE: tests passed, added
-};
-
-// The running lists of a CTA's rows, in shared memory: each row's k
-// entries as a binary heap with the worst entry under (score desc, id
-// asc) on top, so the threshold is entry 0; its score published for the
-// other warpgroup's threshold.
-struct Lists {
-  float* run_v;    // [rows][stride]: entries 0..k-1 of each
-  int* run_i;      // [rows][stride]
-  float* worst_v;  // [rows]: entry 0's score
-  int* lock;       // [rows]: 0 free, 1 held (rows two warps share)
-  int k, stride;
-};
-
-// Put (cv, ci), which beats the top of the heap hv / hi of k entries, in
-// place of it and sift it down: at each level the worse child moves up
-// while the candidate beats it. By one thread.
-__device__ __forceinline__ void heap_replace_top(float* hv, int* hi, int k,
-                                                 float cv, int ci) {
-  int x = 0;
-  for (;;) {
-    int c = 2 * x + 1;
-    if (c >= k) break;
-    float v = hv[c];
-    int id = hi[c];
-    if (c + 1 < k) {
-      const float v2 = hv[c + 1];
-      const int id2 = hi[c + 1];
-      if (better(v, id, v2, id2)) {
-        c += 1;
-        v = v2;
-        id = id2;
-      }
-    }
-    if (!better(cv, ci, v, id)) break;
-    hv[x] = v;
-    hi[x] = id;
-    x = c;
-  }
-  hv[x] = cv;
-  hi[x] = ci;
-}
-
-// A bound below which an unrounded score x cannot round to a selection
-// score at least t: bf16 rounding moves x by at most half an ulp, 2^-8 |x|
-// (2^-134 among the denormals). (t = -inf: -inf; t = +inf, a row past B:
-// NaN, which no x reaches.)
-__device__ __forceinline__ float prefilter_bound(float t) {
-  return t - fabsf(t) * 0.0078125f - 1.0e-40f;
-}
-
-// Offer the selection score v of doc to row r's heap, by one thread:
-// under the row's lock where two warps share it (LOCKED); the top read
-// afresh, as another lane or warp may have raised it.
-template <bool LOCKED>
-__device__ __forceinline__ void offer(const Lists& L, int r, float v,
-                                      int doc) {
-  float* hv = L.run_v + r * L.stride;
-  int* hid = L.run_i + r * L.stride;
-  if constexpr (LOCKED) {
-    while (atomicCAS(L.lock + r, 0, 1) != 0) {
-    }
-    __threadfence_block();
-  }
-  // The top read afresh; the sift below reads the heap with plain loads,
-  // which the compiler may issue together: the row is this thread's alone
-  // until it lets go (the lock, or its turn among the lanes of the row).
-  if (better(v, doc, *reinterpret_cast<volatile float*>(hv),
-             *reinterpret_cast<volatile int*>(hid))) {
-    heap_replace_top(hv, hid, L.k, v, doc);
-    *reinterpret_cast<volatile float*>(L.worst_v + r) = hv[0];
-  }
-  if constexpr (LOCKED) {
-    __threadfence_block();
-    atomicExch(L.lock + r, 0);
-  }
-}
-
-// The warp's hits of a tile into the rows' heaps. hm has bit i set where
-// the thread's accumulator acc[i] (i = 4 j + 2 h + e: row r0 + 8 h, doc d0
-// + 8 j + e, multiplier sc[8 j + e]) passed its row's bound as the tile's
-// test ran. Each round every lane takes its lowest hit (its accumulator
-// picked out by an unrolled select, so the array stays in registers);
-// the four lanes that hold a row offer in turn, the warp's eight rows
-// side by side; then every lane takes its rows' tops as thresholds (a
-// shared row's top score alone, with the largest id: a read without the
-// lock may be torn). Rounds run while any lane has a hit left: one or two
-// a tile on the main pass, where the old loop stepped through all 16
-// column pairs of every tile with a hit.
-template <int SCORE, bool LOCKED, typename Acc>
-__device__ __forceinline__ void insert_hits(const Acc (&acc)[64],
-                                            unsigned long long hm,
-                                            const float* sc, int d0, int r0,
-                                            const Args& a, const Lists& L,
-                                            int lane, float (&tv)[2],
-                                            int (&ti)[2]) {
-  while (__any_sync(FULL, hm != 0ull)) {
-    const int i = hm != 0ull ? __ffsll(static_cast<long long>(hm)) - 1 : -1;
-    hm &= hm - 1ull;
-    float x = 0.f;
-#pragma unroll
-    for (int c = 0; c < 64; ++c) {
-      if (c == i) x = static_cast<float>(acc[c]);
-    }
-    const int j = i >> 2, h = (i >> 1) & 1, e = i & 1;
-    const int doc = d0 + 8 * j + e;
-    if (i >= 0) x *= sc[8 * j + e];
-    for (int g = 0; g < 4; ++g) {
-      if (lane % 4 == g && i >= 0 && doc < a.rows &&
-          x >= prefilter_bound(tv[h])) {
-        offer<LOCKED>(L, r0 + 8 * h, selection_score<SCORE>(x), doc);
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = r0 + 8 * hh;
-      if constexpr (LOCKED) {
-        const float w = *reinterpret_cast<volatile float*>(L.worst_v + r);
-        if (w > tv[hh]) {
-          tv[hh] = w;
-          ti[hh] = EMPTY_ID;
-        }
-      } else {
-        tv[hh] = *reinterpret_cast<volatile float*>(L.run_v + r * L.stride);
-        ti[hh] = *reinterpret_cast<volatile int*>(L.run_i + r * L.stride);
-      }
-    }
-  }
-}
-
-// The main pass's lists seeded from the tau pass's top k of its rows
-// (bf16 rows): the listed docs outside this walker's docs [d_lo, d_hi),
-// each as (its score lowered, EMPTY_ID), the other slots (tau, EMPTY_ID)
-// with tau the k-th score lowered, in ascending order: a heap with the
-// worst on top. Its k entries stand for k distinct docs, each scoring at
-// least its entry (the walker meets its own listed docs itself and counts
-// them then), so the top stays at most the k-th best of all docs while
-// rising with every doc the walker takes in, where k copies of tau stay
-// put until k docs have come in. Rows past B hold (inf, EMPTY_ID).
-__device__ void seed_lists(const Args& a, const Lists& L, int Q, int q0,
-                           long long d_lo, long long d_hi, int tid,
-                           int threads) {
-  for (int r = tid; r < Q; r += threads) {
-    const int row = q0 + r;
-    float* hv = L.run_v + r * L.stride;
-    int* hid = L.run_i + r * L.stride;
-    L.lock[r] = 0;
-    if (row >= a.B) {
-      for (int x = 0; x < a.k; ++x) {
-        hv[x] = INFINITY;
-        hid[x] = EMPTY_ID;
-      }
-      L.worst_v[r] = INFINITY;
-      continue;
-    }
-    const float* lv = a.list_v + static_cast<size_t>(row) * a.k;
-    const int* li = a.list_i + static_cast<size_t>(row) * a.k;
-    auto outside = [&](int j) {
-      const long long doc = static_cast<long long>(li[j]) * a.list_every;
-      return li[j] >= 0 && (doc < d_lo || doc >= d_hi);
-    };
-    int kept = 0;
-    for (int j = 0; j < a.k; ++j) kept += outside(j);
-    const float tau = lowered(lv[a.k - 1]);
-    int x = 0;
-    for (; x < a.k - kept; ++x) {
-      hv[x] = tau;
-      hid[x] = EMPTY_ID;
-    }
-    for (int j = a.k - 1; j >= 0; --j) {
-      if (outside(j)) {
-        hv[x] = lowered(lv[j]);
-        hid[x] = EMPTY_ID;
-        ++x;
-      }
-    }
-    L.worst_v[r] = hv[0];
-  }
-}
-
-// Bytes [off, off + 4) of a row of len bytes at p (zero past len), at any
-// alignment.
-__device__ __forceinline__ unsigned load_word(const int8_t* p, int off,
-                                              int len) {
-  const int8_t* at = p + off;
-  if (off + 4 <= len && (reinterpret_cast<uintptr_t>(at) & 3u) == 0u) {
-    return *reinterpret_cast<const unsigned*>(at);
-  }
-  unsigned v = 0u;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (off + b < len) {
-      v |= static_cast<unsigned>(static_cast<uint8_t>(at[b])) << (8 * b);
-    }
-  }
-  return v;
-}
-
-// Rows [row0, row0 + rows) x depth chunk c of src (rows ``stride`` bytes
-// apart, ``valid`` rows, ``len`` bytes each) into a swizzled [rows][CH]
-// chunk at dst, zero past them; by the 32 lanes of one warp. Generic
-// stores: the caller fences them into the async proxy that wgmma reads.
-__device__ __forceinline__ void load_rows(char* dst, const int8_t* src,
-                                          long long stride, int row0,
-                                          int rows, int valid, int len, int c,
-                                          int lane) {
-  for (int x = lane; x < rows * (CH / 4); x += 32) {
-    const int r = x / (CH / 4), w = x % (CH / 4), row = row0 + r;
-    const int off = c * CH + 4 * w;
-    unsigned v = 0u;
-    if (row < valid && off < len) v = load_word(src + row * stride, off, len);
-    *reinterpret_cast<unsigned*>(dst + word_at(r, w)) = v;
-  }
-}
-
-// grid = (clusters per group x cl, groups); block = KTHREADS. CTA rank r
-// of cluster i in group g owns queries Q (g cl + r).. and walks the i-th
-// of per_group contiguous ranges of tiles. R: the rows (RowKind). TMA:
-// the doc chunks through the tensor map, shared by the cluster; else the
-// producer warp's element loads, per CTA. QRES: the query planes
-// resident; else each slot carries its query chunk.
-template <int R, int QG, bool TMA, bool QRES, int MODE>
-__global__ void __launch_bounds__(KTHREADS, 1)
-    cluster_topk_kernel(const __grid_constant__ CUtensorMap map,
-                        const Args a) {
-  using Acc = typename RowT<R>::Acc;
-  constexpr int P = RowT<R>::PLANES, SCORE = RowT<R>::SCORE;
-  constexpr bool INT8 = R == ROWS_INT8;
-  static_assert(!TMA || QRES, "TMA runs with the query block resident");
-  static_assert(INT8 || QRES, "bf16 rows keep their query planes resident");
-  constexpr int Q = cta_queries(QG), T = tile_docs(QG);
-  // One query group: both warpgroups hold every row (each for half the
-  // tile's docs), so a row's heap is taken under its lock.
-  constexpr bool LOCKED = QG == 1;
-  extern __shared__ char smem_raw[];
-  char* base = smem_raw + (ALIGN - smem_addr(smem_raw) % ALIGN) % ALIGN;
-  const int slot_b = slot_bytes(QG, P, QRES);
-  char* ring = base;
-  char* qblk = ring + a.stages * slot_b;
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(qblk + (QRES ? a.nck * P * Q * CH : 0));
-  uint64_t* empty = full + a.stages;
-  // The doc multipliers of a tile, by tile parity: [2][T].
-  float* tile_sc = reinterpret_cast<float*>(empty + a.stages);
-  Lists L;
-  L.worst_v = tile_sc + 2 * T;
-  L.lock = reinterpret_cast<int*>(L.worst_v + Q);
-  L.run_v = reinterpret_cast<float*>(L.lock + Q);
-  L.k = a.k;
-  L.stride = list_stride(a.k);
-  L.run_i = reinterpret_cast<int*>(L.run_v + Q * L.stride);
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int rank = blockIdx.x % a.cl, cid = blockIdx.x / a.cl;
-  const int q0 = (blockIdx.y * a.cl + rank) * Q;
-  // The cluster's walk: a contiguous range of tiles.
-  const int per = (a.tiles + a.per_group - 1) / a.per_group;
-  const int t_begin = cid * per, t_end = min(a.tiles, t_begin + per);
-
-  if (tid == 0) {
-    for (int s = 0; s < a.stages; ++s) {
-      mbar_init(full + s, TMA ? 1 : 32);
-      mbar_init(empty + s, 2 * (TMA ? a.cl : 1));
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (a.list_v != nullptr) {
-    seed_lists(a, L, Q, q0, static_cast<long long>(t_begin) * T,
-               static_cast<long long>(t_end) * T, tid, KTHREADS);
-  } else {
-    // Every slot (seed, EMPTY_ID): only a doc scoring at least the seed
-    // enters. Rows past B hold (inf, EMPTY_ID), which nothing beats.
-    for (int x = tid; x < Q * L.stride; x += KTHREADS) {
-      const int row = q0 + x / L.stride;
-      L.run_v[x] = row >= a.B            ? INFINITY
-                   : a.seed != nullptr ? a.seed[row]
-                                       : -INFINITY;
-      L.run_i[x] = EMPTY_ID;
-    }
-    for (int r = tid; r < Q; r += KTHREADS) {
-      const int row = q0 + r;
-      L.worst_v[r] = row >= a.B ? INFINITY
-                     : a.seed != nullptr ? a.seed[row]
-                                         : -INFINITY;
-      L.lock[r] = 0;
-    }
-  }
-  if constexpr (QRES) {
-    // [chunk][plane][Q][CH], zero past B and past the row.
-    const int words = a.nck * (CH / 4);
-    for (int x = tid; x < P * Q * words; x += KTHREADS) {
-      const int pr = x / words, w = x % words;
-      const int p = pr / Q, r = pr % Q, row = q0 + r;
-      unsigned v = 0u;
-      if (row < a.B && 4 * w < a.rowb) {
-        v = load_word(a.q + (static_cast<long long>(p) * a.B + row) * a.rowb,
-                      4 * w, a.rowb);
-      }
-      *reinterpret_cast<unsigned*>(qblk + ((w / (CH / 4)) * P + p) * Q * CH +
-                                   word_at(r, w % (CH / 4))) = v;
-    }
-    fence_async_smem();
-  }
-  __syncthreads();
-  if constexpr (TMA) cluster_sync();
-
-  if (warp == CWARPS) {
-    // The producer: chunk f of this CTA's walk into slot f % stages once
-    // every consumer of the slot (cluster-wide with TMA) let it go.
-    int f = 0;
-    for (int t = t_begin; t < t_end; ++t) {
-      for (int c = 0; c < a.nck; ++c, ++f) {
-        const int s = f % a.stages;
-        const unsigned parity = ((f / a.stages) & 1) ^ 1;
-        char* slot = ring + s * slot_b;
-        if constexpr (TMA) {
-          if (lane == 0) {
-            mbar_wait(empty + s, parity);
-            mbar_expect_tx(full + s, T * CH);
-            const uint16_t mask = static_cast<uint16_t>((1u << a.cl) - 1u);
-            for (int box = rank; box < T / BOX_ROWS; box += a.cl) {
-              tma_box(slot + box * BOX_ROWS * CH, &map, c * CH,
-                      t * T + box * BOX_ROWS, full + s, mask);
-            }
-          }
-        } else {
-          mbar_wait(empty + s, parity);
-          load_rows(slot, a.e, a.stride, t * T, T, a.rows, a.rowb, c, lane);
-          if constexpr (!QRES) {
-#pragma unroll
-            for (int p = 0; p < P; ++p) {
-              load_rows(slot + (T + p * Q) * CH,
-                        a.q + static_cast<long long>(p) * a.B * a.rowb,
-                        a.rowb, q0, Q, a.B, a.rowb, c, lane);
-            }
-          }
-          fence_async_smem();
-          mbar_arrive(full + s);
-        }
-      }
-    }
-  } else {
-    const int wg = warp / 4, wt = tid % 128;
-    // This thread's accumulator rows r0, r0 + 8 (of the CTA's Q) and
-    // columns dcol + 8 j + {0, 1} (of the tile's T docs).
-    const int rbase = (QG == 2 ? QB * wg : 0) + 16 * (warp % 4);
-    const int r0 = rbase + lane / 4;
-    const int wdocs = QG == 1 ? WG_DOCS * wg : 0;
-    const int dcol = wdocs + 2 * (lane % 4);
-    Acc acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0;
-    // Running thresholds, at most the row's worst entry; rows past B take
-    // nothing ((inf, -1) is beaten by no finite score).
-    float tv[2];
-    int ti[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tv[h] = L.worst_v[r0 + 8 * h];
-      ti[h] = q0 + r0 + 8 * h < a.B ? EMPTY_ID : -1;
-    }
-    int hits = 0;
-
-    // The warpgroup hands slot s back: thread r releases it in CTA r,
-    // once every warp of the warpgroup is done with it.
-    auto release = [&](int s) {
-      wg_sync(wg);
-      if constexpr (TMA) {
-        if (wt < a.cl) mbar_arrive_cluster(empty + s, wt);
-      } else {
-        if (wt == 0) mbar_arrive(empty + s);
-      }
-    };
-    int f = 0;
-    for (int t = t_begin; t < t_end; ++t) {
-      const int d0 = t * T + dcol;
-      // The tile's doc multipliers, one a consumer thread, loaded as the
-      // tile starts and stored to shared memory once its chunks are
-      // multiplied: int8 rows their scales (0 past the rows, which the
-      // row test drops), bf16 rows 1 for a kept row, NaN for a masked one
-      // or one past the rows.
-      float my_sc = INT8 ? 0.f : __int_as_float(0x7fc00000);
-      const int sdoc = t * T + tid;
-      if constexpr (MODE != MODE_STREAM && MODE != MODE_MMA) {
-        if (tid < T && sdoc < a.rows) {
-          const long long at = static_cast<long long>(sdoc) * a.sstride;
-          if constexpr (INT8) {
-            my_sc = __ldg(a.escale + at);
-          } else if (a.mask == nullptr || __ldg(a.mask + at) != 0) {
-            my_sc = 1.f;
-          }
-        }
-      }
-      if constexpr (!INT8) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-      }
-      int prev = 0;  // bf16 rows: the slot whose products are in flight
-      for (int c = 0; c < a.nck; ++c, ++f) {
-        const int s = f % a.stages;
-        mbar_wait(full + s, (f / a.stages) & 1);
-        if constexpr (MODE != MODE_STREAM) {
-          const char* slot = ring + s * slot_b;
-          // This chunk's query planes [P][Q][CH]: the resident block's
-          // chunk c, or the slot's own; this warpgroup's 64 rows of them.
-          const char* qc =
-              (QRES ? qblk + c * P * Q * CH : slot + T * CH) +
-              (QG == 2 ? wg * QB * CH : 0);
-          const uint64_t db = sw128_desc(slot + wdocs * CH);
-          if constexpr (INT8) {
-            const uint64_t da = sw128_desc(qc);
-            wgmma_fence();
-#pragma unroll
-            for (int ks = 0; ks < CH / 32; ++ks) {
-              wgmma_s8(acc, da + 2 * ks, db + 2 * ks, c > 0 || ks > 0);
-            }
-            wgmma_commit();
-            wgmma_wait<0>();
-            pin(acc);
-          } else {
-            // Onto the tile's running sums (zeroed as it starts): each
-            // k-step's planes lo, mid, hi (or bf16(q)) in turn.
-            wgmma_fence();
-#pragma unroll
-            for (int ks = 0; ks < CH / 32; ++ks) {
-#pragma unroll
-              for (int p = P - 1; p >= 0; --p) {
-                wgmma_bf16(acc, sw128_desc(qc + p * Q * CH) + 2 * ks,
-                           db + 2 * ks, 1);
-              }
-            }
-            wgmma_commit();
-            // This chunk's products stay in flight while the next slot is
-            // waited on; the previous chunk's are done, and its slot goes
-            // back.
-            wgmma_wait<1>();
-          }
-        }
-        if constexpr (INT8 || MODE == MODE_STREAM) {
-          release(s);
-        } else {
-          if (c > 0) release(prev);
-          prev = s;
-        }
-      }
-      if constexpr (!INT8 && MODE != MODE_STREAM) {
-        wgmma_wait<0>();
-        pin(acc);
-        release(prev);
-      }
-      if constexpr (MODE != MODE_STREAM && MODE != MODE_MMA) {
-        // The multipliers to shared memory, by tile parity: a warp that
-        // runs a tile ahead writes the other half, and none runs two ahead
-        // past this barrier.
-        float* sc_all = tile_sc + (t & 1) * T;
-        if (tid < T) sc_all[tid] = my_sc;
-        asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMERS_BAR), "n"(CTHREADS)
-                     : "memory");
-        const float* sc = sc_all + dcol;
-        // The other warpgroup may have raised a shared row's worst score:
-        // (that score, the largest id) is still at most its worst entry.
-        if constexpr (LOCKED) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float w =
-                *reinterpret_cast<volatile float*>(L.worst_v + r0 + 8 * h);
-            if (w > tv[h]) {
-              tv[h] = w;
-              ti[h] = EMPTY_ID;
-            }
-          }
-        }
-        // Every score against its row's bound, unrounded; the rounded
-        // test only where one passes.
-        const float lo[2] = {prefilter_bound(tv[0]), prefilter_bound(tv[1])};
-        unsigned long long hm = 0ull;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int c = 4 * j + 2 * h + i;
-              if (static_cast<float>(acc[c]) * sc[8 * j + i] >= lo[h]) {
-                hm |= 1ull << c;
-              }
-            }
-          }
-        }
-        if constexpr (MODE == MODE_EPILOGUE) hits += hm != 0ull;
-        if constexpr (MODE == MODE_FULL) {
-          insert_hits<SCORE, LOCKED>(acc, hm, sc, d0, r0, a, L, lane, tv,
-                                     ti);
-        }
-      }
-    }
-    if constexpr (MODE == MODE_MMA && !INT8) {
-      // The sums reach a register the compiler cannot drop.
-      float x = 0.f;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) x += acc[i];
-      if (x == 1.2345e-38f && a.probe != nullptr) atomicAdd(a.probe, 1);
-    }
-    if constexpr (MODE == MODE_EPILOGUE) {
-      const int n = __reduce_add_sync(FULL, hits);
-      if (lane == 0 && n != 0) atomicAdd(a.probe, n);
-    }
-    if constexpr (MODE == MODE_FULL) {
-      // Every insertion of the CTA done: the lists to the walker's slot.
-      asm volatile("bar.sync %0, %1;\n" ::"n"(CONSUMERS_BAR), "n"(CTHREADS)
-                   : "memory");
-      for (int x = tid; x < Q * a.k; x += CTHREADS) {
-        const int r = x / a.k, row = q0 + r;
-        if (row < a.B) {
-          const size_t o =
-              (static_cast<size_t>(row) * a.per_group + cid) * a.k + x % a.k;
-          a.part_v[o] = L.run_v[r * L.stride + x % a.k];
-          a.part_i[o] = L.run_i[r * L.stride + x % a.k];
-        }
-      }
-    }
-  }
-  // No CTA leaves while a peer may still arrive on its barriers.
-  if constexpr (TMA) cluster_sync();
-}
-
-// -- host side ------------------------------------------------------------------
-
-template <int R, int QG, bool TMA, bool QRES, int MODE>
-cudaError_t launch_kernel(const Args& a, int groups, int smem,
-                          cudaStream_t stream) {
-  CUtensorMap map{};
-  if (TMA) {
-    const cudaError_t err =
-        encode_rows(&map, a.e, a.rowb, a.rows, a.stride, BOX_ROWS);
-    if (err != cudaSuccess) return err;
-  }
-  return launch_clustered(cluster_topk_kernel<R, QG, TMA, QRES, MODE>,
-                          dim3(a.per_group * a.cl, groups, 1), KTHREADS, smem,
-                          TMA ? a.cl : 0, stream, map, a);
-}
-
-// One pass: MODE_FULL on any route (bf16 rows: query planes resident); the
-// probe's modes on TMA only.
-template <int R, int QG>
-cudaError_t launch_qg(const Args& a, int mode, int tma, int resident,
-                      int groups, int smem, cudaStream_t s) {
-  if (mode == MODE_FULL) {
-    if (tma) {
-      return launch_kernel<R, QG, true, true, MODE_FULL>(a, groups, smem, s);
-    }
-    if (resident) {
-      return launch_kernel<R, QG, false, true, MODE_FULL>(a, groups, smem, s);
-    }
-    if constexpr (R == ROWS_INT8) {
-      return launch_kernel<R, QG, false, false, MODE_FULL>(a, groups, smem,
-                                                           s);
-    } else {
-      return cudaErrorInvalidValue;
-    }
-  }
-  if (!tma) return cudaErrorInvalidValue;
-  switch (mode) {
-    case MODE_STREAM:
-      return launch_kernel<R, QG, true, true, MODE_STREAM>(a, groups, smem, s);
-    case MODE_MMA:
-      return launch_kernel<R, QG, true, true, MODE_MMA>(a, groups, smem, s);
-    case MODE_EPILOGUE:
-      return launch_kernel<R, QG, true, true, MODE_EPILOGUE>(a, groups, smem,
-                                                             s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// The launch shape of one call (cluster_plan's).
-struct Shape {
-  int qg, cl, groups, stages, resident, smem;
-};
-
-bool kind_ok(int kind) {
-  return kind == ROWS_INT8 || kind == ROWS_BF16_ROUNDED ||
-         kind == ROWS_BF16_COMPARE;
-}
-
-int chunks(int kind, int D) {
-  return static_cast<int>(
-      (static_cast<long long>(D) * elem_bytes(kind) + CH - 1) / CH);
-}
-
-bool shape_ok(int kind, const Shape& p, int B, int D, int k) {
-  return kind_ok(kind) && B >= 1 && D >= 1 && k >= 1 && k <= MAX_K &&
-         (p.qg == 1 || p.qg == 2) && p.cl >= 1 && p.cl <= MAX_CLUSTER &&
-         p.groups >= 1 &&
-         static_cast<long long>(p.groups) * p.cl * cta_queries(p.qg) >= B &&
-         p.stages >= 1 && p.stages <= MAX_STAGES &&
-         (kind == ROWS_INT8 || p.resident) &&
-         p.smem >= smem_bytes(p.qg, chunks(kind, D), planes_of(kind), k,
-                              p.stages, p.resident != 0) &&
-         p.smem <= SMEM_LIMIT;
-}
-
-// TMA takes rows of a 16-byte aligned base and stride, a whole chunk deep,
-// at least one box of them, the query block resident.
-bool tma_ok(const Args& a, int resident) {
-  return resident && a.rowb % 16 == 0 && a.rowb >= CH && a.stride % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(a.e) % 16 == 0 && a.rows >= BOX_ROWS;
-}
-
-template <int R>
-cudaError_t run_pass(const Shape& p, const Args& a, int mode, int tma,
-                     cudaStream_t s) {
-  if (a.per_group < 1 || (tma && !tma_ok(a, p.resident))) {
-    return cudaErrorInvalidValue;
-  }
-  return p.qg == 1
-             ? launch_qg<R, 1>(a, mode, tma, p.resident, p.groups, p.smem, s)
-             : launch_qg<R, 2>(a, mode, tma, p.resident, p.groups, p.smem, s);
-}
-
-cudaError_t run_pass_kind(int kind, const Shape& p, const Args& a, int mode,
-                          int tma, cudaStream_t s) {
+// The folds' MODE_FULL passes: the rounded and compare kinds.
+cudaError_t fold_pass(int kind, const Shape& p, const Args& a, int tma,
+                      cudaStream_t s) {
   switch (kind) {
     case ROWS_INT8:
-      return run_pass<ROWS_INT8>(p, a, mode, tma, s);
+      return run_full<ROWS_INT8>(p, a, tma, s);
     case ROWS_BF16_ROUNDED:
-      return run_pass<ROWS_BF16_ROUNDED>(p, a, mode, tma, s);
+      return run_full<ROWS_BF16_ROUNDED>(p, a, tma, s);
     case ROWS_BF16_COMPARE:
-      return run_pass<ROWS_BF16_COMPARE>(p, a, mode, tma, s);
+      return run_full<ROWS_BF16_COMPARE>(p, a, tma, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// Rows every ``every``-th of them: 1 (the main pass), TAU_STRIDE (the tau
-// pass) or SEED_STRIDE (the seed pass).
-constexpr int SEED_STRIDE = TAU_STRIDE * TAU_STRIDE;
-
-// The pass over every ``every``-th row of e (rows rowb bytes apart).
-Args pass_args(const Shape& p, const int8_t* q, const int8_t* e,
-               const float* scales, const uint8_t* mask, int B, int N,
-               int rowb, int k, int every, int per_group) {
-  Args a{};
-  a.q = q;
-  a.e = e;
-  a.escale = scales;
-  a.mask = mask;
-  a.stride = static_cast<long long>(rowb) * every;
-  a.sstride = every;
-  a.B = B;
-  a.rows = (N + every - 1) / every;
-  a.rowb = rowb;
-  a.k = k;
-  a.nck = (rowb + CH - 1) / CH;
-  a.stages = p.stages;
-  a.cl = p.cl;
-  a.tiles = (a.rows + tile_docs(p.qg) - 1) / tile_docs(p.qg);
-  a.per_group = per_group;
-  return a;
-}
-
-// The workspace of one call: the main pass's lists [B][walkers][k], the
-// tau pass's [B][tau_walkers][k], the seed pass's [B][seed_walkers][k],
-// tau [B], the seed pass's tau [B], (K1r) the query's three bf16 planes
-// [3][B][D] and (bf16 rows) the tau and seed passes' top k [B][k]
-// (values and ids); each piece on a 256-byte boundary. With base null
-// only *bytes is filled.
-struct Workspace {
-  float* part_v;
-  int* part_i;
-  float* tau_v;
-  int* tau_i;
-  float* seed_v;
-  int* seed_i;
-  float* tau;
-  float* seed;
-  uint16_t* pieces;
-  float* top_v;  // bf16 rows: the tau pass's top k [B][k]
-  int* top_i;
-  float* seed_top_v;  // bf16 rows: the seed pass's top k [B][k]
-  int* seed_top_i;
-};
-
-Workspace carve(void* base, int B, int k, int walkers, int tau_walkers,
-                int seed_walkers, size_t piece_bytes, bool top,
-                size_t* bytes = nullptr) {
-  char* p = static_cast<char*>(base);
-  size_t off = 0;
-  auto take = [&](size_t n) {
-    char* at = p == nullptr ? nullptr : p + off;
-    off += (n + 255) / 256 * 256;
-    return at;
-  };
-  const size_t main = static_cast<size_t>(B) * walkers * k;
-  const size_t sub = static_cast<size_t>(B) * tau_walkers * k;
-  const size_t seed = static_cast<size_t>(B) * seed_walkers * k;
-  Workspace ws;
-  ws.part_v = reinterpret_cast<float*>(take(4 * main));
-  ws.part_i = reinterpret_cast<int*>(take(4 * main));
-  ws.tau_v = reinterpret_cast<float*>(take(4 * sub));
-  ws.tau_i = reinterpret_cast<int*>(take(4 * sub));
-  ws.seed_v = reinterpret_cast<float*>(take(4 * seed));
-  ws.seed_i = reinterpret_cast<int*>(take(4 * seed));
-  ws.tau = reinterpret_cast<float*>(take(4 * static_cast<size_t>(B)));
-  ws.seed = reinterpret_cast<float*>(take(4 * static_cast<size_t>(B)));
-  ws.pieces = reinterpret_cast<uint16_t*>(take(piece_bytes));
-  const size_t list = top ? static_cast<size_t>(B) * k : 0;
-  ws.top_v = reinterpret_cast<float*>(take(4 * list));
-  ws.top_i = reinterpret_cast<int*>(take(4 * list));
-  ws.seed_top_v = reinterpret_cast<float*>(take(4 * list));
-  ws.seed_top_i = reinterpret_cast<int*>(take(4 * list));
-  if (bytes != nullptr) *bytes = off;
-  return ws;
-}
-
-size_t piece_bytes(int kind, int B, int D) {
-  return kind == ROWS_BF16_ROUNDED ? 6 * static_cast<size_t>(B) * D : 0;
-}
-
-// One pass (MODE_FULL) and the merge of its walkers' lists in the merge's
-// tau mode: tau_out[b] = the k-th best of the pass's rows, lowered (-inf
-// with fewer than k candidates).
-cudaError_t tau_of(int kind, const Shape& p, Args a, int tma, float* part_v,
-                   int* part_i, float* tau_out, cudaStream_t s) {
-  a.part_v = part_v;
-  a.part_i = part_i;
-  const cudaError_t err = run_pass_kind(kind, p, a, MODE_FULL, tma, s);
-  if (err != cudaSuccess) return err;
-  return launch_merge(part_v, part_i, a.B, a.per_group * a.k, a.k, nullptr,
-                      nullptr, nullptr, tau_out, s);
-}
-
-// One pass (MODE_FULL) and the merge of its walkers' lists into its top k
-// (top_v / top_i [B][k], the pass's row ids; no rounding undone).
-cudaError_t top_of(int kind, const Shape& p, Args a, int tma, float* part_v,
-                   int* part_i, float* top_v, int* top_i, cudaStream_t s) {
-  a.part_v = part_v;
-  a.part_i = part_i;
-  const cudaError_t err = run_pass_kind(kind, p, a, MODE_FULL, tma, s);
-  if (err != cudaSuccess) return err;
-  return launch_merge(part_v, part_i, a.B, a.per_group * a.k, a.k, nullptr,
-                      top_v, top_i, nullptr, s);
-}
-
-// The seed pass over every SEED_STRIDE-th row and the merge in its tau
-// mode; the tau pass over every TAU_STRIDE-th row, its lists seeded with
-// the seed pass's tau (those rows are among its own, so its k-th best is
-// the same), and the merge in its tau mode; the main pass seeded with
-// tau; the merge of the walkers' lists (times q_scales where given; the
-// rounded -0.0 written back). bf16 rows hand each pass's top k on
-// instead of its tau (seed_lists). Each pass takes TMA or element loads
-// (*tma) and walkers of its own.
-cudaError_t run_call(int kind, const Shape& p, const int8_t* q,
-                     const float* q_scales, const int8_t* e,
-                     const float* scales, const uint8_t* mask, int B, int N,
-                     int D, int k, int tma, int walkers, int tau_tma,
-                     int tau_walkers, int seed_tma, int seed_walkers,
-                     const Workspace& ws, float* out_v, int* out_i,
-                     cudaStream_t s) {
-  const int rowb = D * elem_bytes(kind);
-  Args seed = pass_args(p, q, e, scales, mask, B, N, rowb, k, SEED_STRIDE,
-                        seed_walkers);
-  Args sub = pass_args(p, q, e, scales, mask, B, N, rowb, k, TAU_STRIDE,
-                       tau_walkers);
-  Args main = pass_args(p, q, e, scales, mask, B, N, rowb, k, 1, walkers);
-  cudaError_t err;
-  if (kind == ROWS_INT8) {
-    err = tau_of(kind, p, seed, seed_tma, ws.seed_v, ws.seed_i, ws.seed, s);
-    if (err != cudaSuccess) return err;
-    sub.seed = ws.seed;
-    err = tau_of(kind, p, sub, tau_tma, ws.tau_v, ws.tau_i, ws.tau, s);
-    main.seed = ws.tau;
-  } else {
-    // bf16 rows: each pass's top k itself (the merge in list mode) seeds
-    // the next pass's lists (seed_lists); a seed pass row is every
-    // (SEED_STRIDE / TAU_STRIDE)-th tau pass row.
-    err = top_of(kind, p, seed, seed_tma, ws.seed_v, ws.seed_i,
-                 ws.seed_top_v, ws.seed_top_i, s);
-    if (err != cudaSuccess) return err;
-    sub.list_v = ws.seed_top_v;
-    sub.list_i = ws.seed_top_i;
-    sub.list_every = SEED_STRIDE / TAU_STRIDE;
-    err = top_of(kind, p, sub, tau_tma, ws.tau_v, ws.tau_i, ws.top_v,
-                 ws.top_i, s);
-    main.list_v = ws.top_v;
-    main.list_i = ws.top_i;
-    main.list_every = TAU_STRIDE;
-  }
-  if (err != cudaSuccess) return err;
-  main.part_v = ws.part_v;
-  main.part_i = ws.part_i;
-  err = run_pass_kind(kind, p, main, MODE_FULL, tma, s);
-  if (err != cudaSuccess) return err;
-  return launch_merge(ws.part_v, ws.part_i, B, walkers * k, k, q_scales,
-                      out_v, out_i, nullptr, s,
-                      kind != ROWS_BF16_COMPARE);
-}
-
-template <int R>
-int active_clusters_of(int qg, int cl, int smem) {
-  return qg == 1 ? max_active_clusters(
-                       cluster_topk_kernel<R, 1, true, true, MODE_FULL>,
-                       KTHREADS, cl, smem)
-                 : max_active_clusters(
-                       cluster_topk_kernel<R, 2, true, true, MODE_FULL>,
-                       KTHREADS, cl, smem);
+bool fold_kind(int kind) {
+  return kind == ROWS_INT8 || kind == ROWS_BF16_ROUNDED ||
+         kind == ROWS_BF16_COMPARE;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of a CTA of rows ``kind`` (RowKind) at depth D.
+// Dynamic shared memory of a CTA of rows ``kind`` (RowKind) at depth D;
+// ``counted``: with MODE_COUNTED's counters.
 long long anr_cluster_smem_bytes(int kind, int qg, int D, int k, int stages,
-                                 int resident) {
+                                 int resident, int counted) {
   if (!kind_ok(kind)) return -1;
   return smem_bytes(qg, chunks(kind, D), planes_of(kind), k, stages,
-                    resident != 0);
+                    resident != 0, counted != 0);
 }
 
-// Clusters of cl CTAs of rows ``kind`` (qg query groups, smem bytes each)
-// that the card holds at once (a negative cudaError_t on failure).
+// Clusters of cl CTAs of a fold's rows ``kind`` (qg query groups, smem
+// bytes each) that the card holds at once (a negative cudaError_t on
+// failure).
 int anr_cluster_active_clusters(int kind, int qg, int cl, int smem) {
   switch (kind) {
     case ROWS_INT8:
-      return active_clusters_of<ROWS_INT8>(qg, cl, smem);
+      return active_clusters_of<ROWS_INT8, MODE_FULL>(qg, cl, smem);
     case ROWS_BF16_ROUNDED:
-      return active_clusters_of<ROWS_BF16_ROUNDED>(qg, cl, smem);
+      return active_clusters_of<ROWS_BF16_ROUNDED, MODE_FULL>(qg, cl, smem);
     case ROWS_BF16_COMPARE:
-      return active_clusters_of<ROWS_BF16_COMPARE>(qg, cl, smem);
+      return active_clusters_of<ROWS_BF16_COMPARE, MODE_FULL>(qg, cl, smem);
     default:
       return -static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1087,10 +192,9 @@ int anr_cluster_active_clusters(int kind, int qg, int cl, int smem) {
 long long anr_cluster_workspace_bytes(int kind, int B, int D, int k,
                                       int walkers, int tau_walkers,
                                       int seed_walkers) {
-  size_t bytes = 0;
-  carve(nullptr, B, k, walkers, tau_walkers, seed_walkers,
-        piece_bytes(kind, B, D), kind != ROWS_INT8, &bytes);
-  return static_cast<long long>(bytes);
+  if (!kind_ok(kind)) return -1;
+  return static_cast<long long>(workspace_bytes(
+      kind, B, D, k, walkers, tau_walkers, seed_walkers));
 }
 
 // K2r over int8 rows with their scales, the query scales applied after
@@ -1110,8 +214,8 @@ int anr_cluster_topk(const int8_t* q, const float* q_scales,
   const Workspace ws =
       carve(ws_base, B, k, walkers, tau_walkers, seed_walkers, 0, false);
   return static_cast<int>(run_call(
-      ROWS_INT8, p, q, q_scales, e, scales, nullptr, B, N, D, k, tma,
-      walkers, tau_tma, tau_walkers, seed_tma, seed_walkers, ws, out_v,
+      fold_pass, ROWS_INT8, p, q, q_scales, e, scales, nullptr, B, N, D, k,
+      tma, walkers, tau_tma, tau_walkers, seed_tma, seed_walkers, ws, out_v,
       out_i, static_cast<cudaStream_t>(stream)));
 }
 
@@ -1127,56 +231,20 @@ int anr_cluster_topk_bf16(int kind, const void* q, const void* e,
                           int seed_walkers, void* ws_base, float* out_v,
                           int* out_i, void* stream) {
   const Shape p{qg, cl, groups, stages, resident, smem};
-  if (kind == ROWS_INT8 || !shape_ok(kind, p, B, D, k) || N < 1 ||
-      walkers < 1 || tau_walkers < 1 || seed_walkers < 1) {
+  if (!fold_kind(kind) || is_int8(kind) || !shape_ok(kind, p, B, D, k) ||
+      N < 1 || walkers < 1 || tau_walkers < 1 || seed_walkers < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto s = static_cast<cudaStream_t>(stream);
   const Workspace ws = carve(ws_base, B, k, walkers, tau_walkers,
                              seed_walkers, piece_bytes(kind, B, D), true);
-  const int8_t* planes = static_cast<const int8_t*>(q);
-  if (kind == ROWS_BF16_ROUNDED) {
-    const cudaError_t err = launch_split_query(
-        static_cast<const float*>(q), static_cast<long long>(B) * D,
-        ws.pieces, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    planes = reinterpret_cast<const int8_t*>(ws.pieces);
-  }
+  const int8_t* planes;
+  const cudaError_t err = bf16_planes(kind, q, B, D, ws, s, &planes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(run_call(
-      kind, p, planes, nullptr, static_cast<const int8_t*>(e), nullptr,
-      mask, B, N, D, k, tma, walkers, tau_tma, tau_walkers, seed_tma,
-      seed_walkers, ws, out_v, out_i, s));
-}
-
-// One pass alone, for the probe's anatomy: over every row, or (tau) the
-// tau pass's every TAU_STRIDE-th; rows ``kind`` (q: int8 queries, or the
-// bf16 planes [PLANES][B][D]; scales: int8 rows' scales; mask: bf16 rows'
-// optional mask); mode MODE_FULL (lists seeded with seed, or -inf, into
-// part [B][walkers][k]), MODE_STREAM, MODE_MMA or MODE_EPILOGUE (the
-// threshold test against seed; the tiles where a thread passed it added
-// to probe).
-int anr_cluster_pass(int kind, int mode, const void* q, const void* e,
-                     const float* scales, const uint8_t* mask,
-                     const float* seed, int B, int N, int D, int k, int qg,
-                     int cl, int groups, int stages, int resident, int smem,
-                     int tma, int walkers, int tau, float* part_v,
-                     int* part_i, int* probe, void* stream) {
-  const Shape p{qg, cl, groups, stages, resident, smem};
-  if (!shape_ok(kind, p, B, D, k) || N < 1 || mode < MODE_FULL ||
-      mode > MODE_EPILOGUE || (mode == MODE_EPILOGUE && probe == nullptr) ||
-      (kind == ROWS_INT8 && scales == nullptr) ||
-      (mode == MODE_FULL && (part_v == nullptr || part_i == nullptr))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Args a = pass_args(p, static_cast<const int8_t*>(q),
-                     static_cast<const int8_t*>(e), scales, mask, B, N,
-                     D * elem_bytes(kind), k, tau ? TAU_STRIDE : 1, walkers);
-  a.seed = seed;
-  a.part_v = part_v;
-  a.part_i = part_i;
-  a.probe = probe;
-  return static_cast<int>(run_pass_kind(kind, p, a, mode, tma,
-                                        static_cast<cudaStream_t>(stream)));
+      fold_pass, kind, p, planes, nullptr, static_cast<const int8_t*>(e),
+      nullptr, mask, B, N, D, k, tma, walkers, tau_tma, tau_walkers,
+      seed_tma, seed_walkers, ws, out_v, out_i, s));
 }
 
 }  // extern "C"

@@ -5,11 +5,19 @@ and the probes of the fused top-k, with their plain PyTorch versions
 from a_nice_rag_tpu_torch.ops.kernels import _build
 from a_nice_rag_tpu_torch.ops.kernels.anatomy import (  # noqa: F401
     anatomy_top_k,
+    anatomy_top_k_cluster,
+    anatomy_top_k_cluster_torch,
     anatomy_top_k_int8,
+    anatomy_top_k_int8_cluster,
+    anatomy_top_k_int8_cluster_torch,
     anatomy_top_k_int8_torch,
     anatomy_top_k_torch,
     fused_top_k_counted,
+    fused_top_k_counted_cluster,
+    fused_top_k_counted_cluster_torch,
     fused_top_k_counted_int8,
+    fused_top_k_counted_int8_cluster,
+    fused_top_k_counted_int8_cluster_torch,
     fused_top_k_counted_int8_torch,
     fused_top_k_counted_torch,
 )
@@ -61,13 +69,15 @@ from a_nice_rag_tpu_torch.ops.kernels.stream import (  # noqa: F401
 
 # csrc/<name>.cu
 SOURCES = ("fused_topk", "ivf_topk", "stream_sum", "anatomy", "keys", "int4",
-           "cluster_topk")
+           "cluster_topk", "cluster_probe")
 WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
             fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
             ivf_dense_top_k,
             ivf_dense_top_k_int8, stream_sum, stream_sum_busy,
             anatomy_top_k, anatomy_top_k_int8, fused_top_k_counted,
-            fused_top_k_counted_int8, xpack_keys, xpack_values,
+            fused_top_k_counted_int8, anatomy_top_k_cluster,
+            anatomy_top_k_int8_cluster, fused_top_k_counted_cluster,
+            fused_top_k_counted_int8_cluster, xpack_keys, xpack_values,
             bf16_row_reduce, int4_scores, int8_fold_max, int4_fold_max,
             fused_dense_top_k_bf16_compare)
 

@@ -1,8 +1,15 @@
 """Probes of K1/K2: the kernel's anatomy (P4) and its insertion counts (P5).
 
-Both run the split kernel of K1/K2 (``csrc/split_topk.cuh``) from
-``csrc/anatomy.cu``, on K1/K2's grid, block and shared-memory layout for
-the given k, and replace the TPU probes of the repository:
+Each probe has two designs. ``design="split"`` (the default) runs the
+split kernel of K1/K2 (``csrc/split_topk.cuh``) from ``csrc/anatomy.cu``,
+on K1/K2's grid, block and shared-memory layout for the given k: K1's and
+K2's own anatomy for as long as they run there. ``design="cluster"`` runs
+the cluster kernel (``csrc/cluster_probe.cu``, ``ops/kernels/
+cluster_probe.py``) on the score ``kind`` ("exact": K1's or K2's
+function; "rounded": K1r / K2r; "compare": K1c), bf16 or int8 rows and B
+past 16, where its plan takes the TMA route with the query planes
+resident; a call that plan refuses raises (on CUDA it never falls back
+to the split design). Both replace the TPU probes of the repository:
 
 - ``anatomy_top_k`` / ``anatomy_top_k_int8`` (P4,
   ``scripts/profile_kernel_anatomy.py:138``): K1/K2 with part of the
@@ -40,13 +47,26 @@ the given k, and replace the TPU probes of the repository:
   probe runs no tau pass of its own: without ``tau`` it counts the cold
   fold.
 
+The cluster design's outputs (``cluster_probe``'s docstring): "stage"
+int32 [query blocks, walkers], "score" f32 [B] (the kind's selection
+score), "compare" int32 [B], "full" the kind's whole call on the cluster
+kernel (K1's / K2's lists for "exact"); the counted fold returns (values,
+ids, counts [B, walkers, 4]: entries early and late, tiles with an
+entry, tiles seen, heap [B, walkers]: the kernel's insertions, or the
+plain version's survivors) and takes ``tau`` [B] or ``lists`` (an
+earlier pass's top k, ``cluster_probe.subsample_seeds``) as its seed.
+
 On CUDA tensors each wrapper launches its kernel or raises; it takes its
 plain PyTorch version only for tensors on the CPU, where the split plan
 is an H100's (132 SMs): ``split_plan`` for K1's query block and splits,
-``split_plan_int8`` for K2's (``topk_plan.fused_plan``).
-``.launches`` counts kernel launches. The plain versions compute each
-output directly: the XOR over the words, the max and the count over the
-score matrix, and the counts by replaying each split's running list
+``split_plan_int8`` for K2's (``topk_plan.fused_plan``); the cluster
+plan likewise (the card's active clusters passed in on CUDA).
+``.launches`` counts kernel launches, the split design's on
+``anatomy_top_k`` and the others, the cluster design's on
+``anatomy_top_k_cluster`` and the others of that name. The split
+design's plain versions compute each output directly: the XOR over the
+words, the max and the count over the score matrix, and the counts by
+replaying each split's running list
 window by window (document j of a split enters iff fewer than k earlier
 documents of the split beat it under (score desc, id asc) and, with tau,
 it scores at least tau; a window fires iff its best document enters).
@@ -61,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from a_nice_rag_tpu_torch.ops.kernels import _build, topk_plan
+from a_nice_rag_tpu_torch.ops.kernels import cluster_probe as CP
 from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     TAU_SLACK,
@@ -88,6 +109,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
 )
 
 MODES = ("stage", "score", "compare", "full")
+DESIGNS = ("split", "cluster")
 _MODE_CODES = {"stage": 1, "score": 2, "compare": 3}
 _COUNTED = 4
 TILE_DOCS = topk_plan.TN
@@ -143,6 +165,11 @@ def _check_vector(t: Optional[torch.Tensor], name: str, b: int,
 def _check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def _check_design(design: str) -> None:
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
 
 
 def _check_rows(emb: torch.Tensor, queries: torch.Tensor, k: int):
@@ -301,25 +328,15 @@ def _counted_plain(scores: ScoreChunk, n: int, b: int, d: int, k: int,
         counts[..., 0 if w0 < EARLY_TILES * TILE_DOCS else 1] += \
             entered.sum(dim=-1)
         counts[..., 2] += cand.any(dim=-1)
-        run_v, run_i = _top_k_by_rule(
+        run_v, run_i = CP.top_k_by_rule(
             torch.cat([run_v, torch.where(valid, s, float("-inf"))], dim=-1),
             torch.cat([run_i, torch.where(valid, ids, _EMPTY_ID)], dim=-1),
             k)
-    vals, ids = _top_k_by_rule(run_v.reshape(b, -1), run_i.reshape(b, -1), k)
+    vals, ids = CP.top_k_by_rule(run_v.reshape(b, -1), run_i.reshape(b, -1), k)
     empty = ids == _EMPTY_ID
     vals = torch.where(empty, float("-inf"), vals)
     ids = torch.where(empty, -1, ids).to(torch.int32)
     return vals, ids, counts.to(torch.int32)
-
-
-def _top_k_by_rule(v: torch.Tensor, i: torch.Tensor, k: int):
-    """The k best of each row's (value, id) pairs under (value desc, id
-    asc), in that order."""
-    i, pos = torch.sort(i, dim=-1, stable=True)
-    v = torch.take_along_dim(v, pos, dim=-1)
-    v, pos = torch.sort(v, dim=-1, descending=True, stable=True)
-    i = torch.take_along_dim(i, pos, dim=-1)
-    return v[..., :k], i[..., :k]
 
 
 # -- P4: anatomy -----------------------------------------------------------
@@ -327,9 +344,14 @@ def _top_k_by_rule(v: torch.Tensor, i: torch.Tensor, k: int):
 
 def anatomy_top_k_torch(emb: torch.Tensor, queries: torch.Tensor, k: int,
                         mode: str,
-                        threshold: Optional[torch.Tensor] = None):
+                        threshold: Optional[torch.Tensor] = None,
+                        design: str = "split", kind: str = "exact"):
     """Plain version of ``anatomy_top_k`` (direct computations)."""
     _check_mode(mode)
+    _check_design(design)
+    if design == "cluster":
+        return anatomy_top_k_cluster_torch(emb, queries, k, mode, threshold,
+                                           kind)
     n, d, b, dev = _check_rows(emb, queries, k)
     if mode == "full":
         return fused_dense_top_k_torch(emb, queries, k)
@@ -347,9 +369,15 @@ def anatomy_top_k_torch(emb: torch.Tensor, queries: torch.Tensor, k: int,
 def anatomy_top_k_int8_torch(values: torch.Tensor, scales: torch.Tensor,
                              q_values: torch.Tensor, q_scales: torch.Tensor,
                              k: int, mode: str,
-                             threshold: Optional[torch.Tensor] = None):
+                             threshold: Optional[torch.Tensor] = None,
+                             design: str = "split", kind: str = "exact"):
     """Plain version of ``anatomy_top_k_int8`` (direct computations)."""
     _check_mode(mode)
+    _check_design(design)
+    if design == "cluster":
+        return anatomy_top_k_int8_cluster_torch(values, scales, q_values,
+                                                q_scales, k, mode, threshold,
+                                                kind)
     n, d, b, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
     if mode == "full":
         return fused_dense_top_k_int8_torch(values, scales, q_values,
@@ -379,11 +407,16 @@ def _probe_buffers(mode: str, b: int, splits: int, dev: torch.device,
 
 
 def anatomy_top_k(emb: torch.Tensor, queries: torch.Tensor, k: int,
-                  mode: str, threshold: Optional[torch.Tensor] = None):
+                  mode: str, threshold: Optional[torch.Tensor] = None,
+                  design: str = "split", kind: str = "exact"):
     """K1 (emb [N, D] f32 or bf16, queries [B, D]) with part of its work
-    taken away; see the module docstring for ``mode`` and the outputs.
-    ``threshold`` [B] f32 is needed by "compare" only."""
+    taken away; see the module docstring for ``mode``, ``design``,
+    ``kind`` (the cluster design's) and the outputs. ``threshold`` [B]
+    f32 is needed by "compare" only."""
     _check_mode(mode)
+    _check_design(design)
+    if design == "cluster":
+        return anatomy_top_k_cluster(emb, queries, k, mode, threshold, kind)
     n, d, b, dev = _check_rows(emb, queries, k)
     _check_vector(threshold, "threshold", b, dev, mode == "compare")
     if mode == "full":
@@ -416,11 +449,17 @@ anatomy_top_k.launches = 0
 def anatomy_top_k_int8(values: torch.Tensor, scales: torch.Tensor,
                        q_values: torch.Tensor, q_scales: torch.Tensor,
                        k: int, mode: str,
-                       threshold: Optional[torch.Tensor] = None):
+                       threshold: Optional[torch.Tensor] = None,
+                       design: str = "split", kind: str = "exact"):
     """K2 (int8 rows, ops.quantized layout) with part of its work taken
     away; the outputs as ``anatomy_top_k``'s, on selection scores
-    float(q8 . e8) * doc scale."""
+    float(q8 . e8) * doc scale (the cluster design's "rounded" kind: K2r's,
+    rounded to bf16)."""
     _check_mode(mode)
+    _check_design(design)
+    if design == "cluster":
+        return anatomy_top_k_int8_cluster(values, scales, q_values, q_scales,
+                                          k, mode, threshold, kind)
     n, d, b, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
     _check_vector(threshold, "threshold", b, dev, mode == "compare")
     if mode == "full":
@@ -452,8 +491,14 @@ anatomy_top_k_int8.launches = 0
 
 
 def fused_top_k_counted_torch(emb: torch.Tensor, queries: torch.Tensor,
-                              k: int, tau: Optional[torch.Tensor] = None):
+                              k: int, tau: Optional[torch.Tensor] = None,
+                              design: str = "split", kind: str = "exact",
+                              lists=None):
     """Plain version of ``fused_top_k_counted``."""
+    _check_design(design)
+    if design == "cluster":
+        return fused_top_k_counted_cluster_torch(emb, queries, k, tau, lists,
+                                                 kind)
     n, d, b, dev = _check_rows(emb, queries, k)
     _check_vector(tau, "tau", b, dev, False)
     return _counted_plain(_float_scores(emb, queries), n, b, d, k,
@@ -465,8 +510,14 @@ def fused_top_k_counted_int8_torch(values: torch.Tensor,
                                    scales: torch.Tensor,
                                    q_values: torch.Tensor,
                                    q_scales: torch.Tensor, k: int,
-                                   tau: Optional[torch.Tensor] = None):
+                                   tau: Optional[torch.Tensor] = None,
+                                   design: str = "split",
+                                   kind: str = "exact", lists=None):
     """Plain version of ``fused_top_k_counted_int8``."""
+    _check_design(design)
+    if design == "cluster":
+        return fused_top_k_counted_int8_cluster_torch(
+            values, scales, q_values, q_scales, k, tau, lists, kind)
     n, d, b, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
     _check_vector(tau, "tau", b, dev, False)
     vals, ids, counts = _counted_plain(
@@ -494,9 +545,15 @@ def _counted_launch(fn, head, b: int, n: int, d: int, k: int,
 
 
 def fused_top_k_counted(emb: torch.Tensor, queries: torch.Tensor, k: int,
-                        tau: Optional[torch.Tensor] = None):
+                        tau: Optional[torch.Tensor] = None,
+                        design: str = "split", kind: str = "exact",
+                        lists=None):
     """K1 with insertion counters: (values [B, k], ids [B, k], counts
-    [B, splits, 4] int32); ``tau`` [B] f32 seeds every slot."""
+    [B, splits, 4] int32); ``tau`` [B] f32 seeds every slot. The cluster
+    design: see the module docstring."""
+    _check_design(design)
+    if design == "cluster":
+        return fused_top_k_counted_cluster(emb, queries, k, tau, lists, kind)
     n, d, b, dev = _check_rows(emb, queries, k)
     _check_vector(tau, "tau", b, dev, False)
     if dev.type == "cpu":
@@ -521,9 +578,15 @@ fused_top_k_counted.launches = 0
 
 def fused_top_k_counted_int8(values: torch.Tensor, scales: torch.Tensor,
                              q_values: torch.Tensor, q_scales: torch.Tensor,
-                             k: int, tau: Optional[torch.Tensor] = None):
+                             k: int, tau: Optional[torch.Tensor] = None,
+                             design: str = "split", kind: str = "exact",
+                             lists=None):
     """K2 with insertion counters; ``tau`` [B] f32 is on the selection
     scores float(q8 . e8) * doc scale (before the query scale)."""
+    _check_design(design)
+    if design == "cluster":
+        return fused_top_k_counted_int8_cluster(values, scales, q_values,
+                                                q_scales, k, tau, lists, kind)
     n, d, b, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
     _check_vector(tau, "tau", b, dev, False)
     if dev.type == "cpu":
@@ -542,3 +605,213 @@ def fused_top_k_counted_int8(values: torch.Tensor, scales: torch.Tensor,
 
 
 fused_top_k_counted_int8.launches = 0
+
+
+# -- the cluster design ------------------------------------------------------
+
+
+def _check_bf16_cluster(emb, queries, k):
+    n, d, b, dev = _check_rows(emb, queries, k)
+    if emb.dtype != torch.bfloat16:
+        raise ValueError("the cluster design takes bf16 or int8 rows; f32 "
+                         "rows are the split design's")
+    return n, d, b, dev
+
+
+def _check_seed(tau, lists, b, k, dev) -> None:
+    _check_vector(tau, "tau", b, dev, False)
+    if lists is None:
+        return
+    if tau is not None:
+        raise ValueError("give tau or lists, not both")
+    lv, li, every = lists
+    _check(lv, "list values", (torch.float32,), (b, k), dev)
+    _check(li, "list ids", (torch.int32,), (b, k), dev)
+    if every < 1:
+        raise ValueError(f"lists' row stride must be >= 1, got {every}")
+
+
+def cluster_active_clusters(rows: torch.Tensor, b: int, k: int,
+                            kind: str = "exact", mode: str = "counted"
+                            ) -> Optional[int]:
+    """The active clusters a cluster-design probe over ``rows`` (bf16 or
+    int8) takes its walkers from on their CUDA device, for the plain
+    versions' ``active``; None on the CPU (an H100's SMs)."""
+    if rows.device.type != "cuda":
+        return None
+    return CP.active_clusters(rows, b, k,
+                              CP.source_kind(rows.dtype == torch.int8, kind),
+                              mode)
+
+
+def _anatomy_cluster(rows, queries, k, mode, threshold, kind, scales,
+                     q_scales, plain: bool, active=None):
+    b, dev = queries.shape[0], rows.device
+    _check_vector(threshold, "threshold", b, dev, mode == "compare")
+    if mode == "full":
+        fn = CP.top_k_torch if plain else CP.top_k
+        return fn(rows, queries, k, kind, scales, q_scales)
+    if plain:
+        return CP.cluster_probe_torch(mode, rows, queries, k, kind, scales,
+                                      q_scales, threshold=threshold,
+                                      active=active)
+    return CP.cluster_probe(mode, rows, queries, k, kind, scales, q_scales,
+                            threshold=threshold)
+
+
+def _launching(dev: torch.device) -> bool:
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return True
+
+
+def anatomy_top_k_cluster_torch(emb, queries, k, mode, threshold=None,
+                                kind="exact", active=None):
+    """Plain version of ``anatomy_top_k_cluster`` (``active``: the card's
+    clusters, for its walkers; None: an H100's SMs)."""
+    _check_mode(mode)
+    _check_bf16_cluster(emb, queries, k)
+    return _anatomy_cluster(emb, queries, k, mode, threshold,
+                            CP.source_kind(False, kind), None, None, True,
+                            active)
+
+
+def anatomy_top_k_cluster(emb: torch.Tensor, queries: torch.Tensor, k: int,
+                          mode: str, threshold: Optional[torch.Tensor] = None,
+                          kind: str = "exact"):
+    """P4 on the cluster kernel over bf16 rows (``anatomy_top_k(...,
+    design="cluster")``)."""
+    _check_mode(mode)
+    _, _, _, dev = _check_bf16_cluster(emb, queries, k)
+    if not _launching(dev):
+        return anatomy_top_k_cluster_torch(emb, queries, k, mode, threshold,
+                                           kind)
+    out = _anatomy_cluster(emb, queries, k, mode, threshold,
+                           CP.source_kind(False, kind), None, None, False)
+    count_launch(anatomy_top_k_cluster)
+    return out
+
+
+anatomy_top_k_cluster.launches = 0
+
+
+def anatomy_top_k_int8_cluster_torch(values, scales, q_values, q_scales, k,
+                                     mode, threshold=None, kind="exact",
+                                     active=None):
+    """Plain version of ``anatomy_top_k_int8_cluster``."""
+    _check_mode(mode)
+    _check_int8_rows(values, scales, q_values, q_scales, k)
+    return _anatomy_cluster(values, q_values, k, mode, threshold,
+                            CP.source_kind(True, kind), scales, q_scales,
+                            True, active)
+
+
+def anatomy_top_k_int8_cluster(values: torch.Tensor, scales: torch.Tensor,
+                               q_values: torch.Tensor,
+                               q_scales: torch.Tensor, k: int, mode: str,
+                               threshold: Optional[torch.Tensor] = None,
+                               kind: str = "exact"):
+    """P4 on the cluster kernel over int8 rows (``anatomy_top_k_int8(...,
+    design="cluster")``)."""
+    _check_mode(mode)
+    _, _, _, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
+    if not _launching(dev):
+        return anatomy_top_k_int8_cluster_torch(
+            values, scales, q_values, q_scales, k, mode, threshold, kind)
+    out = _anatomy_cluster(values, q_values, k, mode, threshold,
+                           CP.source_kind(True, kind), scales, q_scales,
+                           False)
+    count_launch(anatomy_top_k_int8_cluster)
+    return out
+
+
+anatomy_top_k_int8_cluster.launches = 0
+
+
+def _counted_cluster(rows, queries, k, tau, lists, kind, scales, q_scales,
+                     plain: bool, active=None):
+    _check_seed(tau, lists, queries.shape[0], k, rows.device)
+    if plain:
+        return CP.cluster_probe_torch("counted", rows, queries, k, kind,
+                                      scales, q_scales, tau=tau, lists=lists,
+                                      active=active)
+    return CP.cluster_probe("counted", rows, queries, k, kind, scales,
+                            q_scales, tau=tau, lists=lists)
+
+
+def fused_top_k_counted_cluster_torch(emb, queries, k, tau=None, lists=None,
+                                      kind="exact", active=None):
+    """Plain version of ``fused_top_k_counted_cluster``: its last output
+    is the tiles' survivors, the least the kernel's insertions can be."""
+    _check_bf16_cluster(emb, queries, k)
+    return _counted_cluster(emb, queries, k, tau, lists,
+                            CP.source_kind(False, kind), None, None, True,
+                            active)
+
+
+def fused_top_k_counted_cluster(emb: torch.Tensor, queries: torch.Tensor,
+                                k: int, tau: Optional[torch.Tensor] = None,
+                                lists=None, kind: str = "exact"):
+    """P5 on the cluster kernel over bf16 rows (``fused_top_k_counted(...,
+    design="cluster")``): (values, ids, counts [B, walkers, 4], heap
+    insertions [B, walkers])."""
+    _, _, _, dev = _check_bf16_cluster(emb, queries, k)
+    if not _launching(dev):
+        return fused_top_k_counted_cluster_torch(emb, queries, k, tau, lists,
+                                                 kind)
+    out = _counted_cluster(emb, queries, k, tau, lists,
+                           CP.source_kind(False, kind), None, None, False)
+    count_launch(fused_top_k_counted_cluster)
+    return out
+
+
+fused_top_k_counted_cluster.launches = 0
+
+
+def fused_top_k_counted_int8_cluster_torch(values, scales, q_values,
+                                           q_scales, k, tau=None,
+                                           lists=None, kind="exact",
+                                           active=None):
+    """Plain version of ``fused_top_k_counted_int8_cluster``."""
+    _check_int8_rows(values, scales, q_values, q_scales, k)
+    return _counted_cluster(values, q_values, k, tau, lists,
+                            CP.source_kind(True, kind), scales, q_scales,
+                            True, active)
+
+
+def fused_top_k_counted_int8_cluster(values: torch.Tensor,
+                                     scales: torch.Tensor,
+                                     q_values: torch.Tensor,
+                                     q_scales: torch.Tensor, k: int,
+                                     tau: Optional[torch.Tensor] = None,
+                                     lists=None, kind: str = "exact"):
+    """P5 on the cluster kernel over int8 rows; tau and the lists on the
+    selection scores (before the query scale)."""
+    _, _, _, dev = _check_int8_rows(values, scales, q_values, q_scales, k)
+    if not _launching(dev):
+        return fused_top_k_counted_int8_cluster_torch(
+            values, scales, q_values, q_scales, k, tau, lists, kind)
+    out = _counted_cluster(values, q_values, k, tau, lists,
+                           CP.source_kind(True, kind), scales, q_scales,
+                           False)
+    count_launch(fused_top_k_counted_int8_cluster)
+    return out
+
+
+fused_top_k_counted_int8_cluster.launches = 0
+
+
+def check_counted(got, want, what: str = "counted fold") -> None:
+    """A cluster counted fold's run against its plain version: values,
+    ids and the four counters equal, and the kernel's heap insertions
+    between the plain version's survivors and the entries."""
+    for a, b, name in zip(got[:3], want[:3], ("values", "ids", "counters")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differ from the plain "
+                                 f"version's")
+    entries = got[2][..., 0] + got[2][..., 1]
+    if not bool(((want[3] <= got[3]) & (got[3] <= entries)).all()):
+        raise AssertionError(f"{what}: heap insertions outside [survivors, "
+                             f"entries]")

@@ -14,7 +14,9 @@ both the launchers and the CPU tests read.
 The rows are the kernel's compile-time ``kind``: "int8" (K2r: int8 rows
 with per-row scales, one int8 query plane, wgmma s8), "rounded" (K1r:
 bf16 rows against the f32 query's three bf16 planes, wgmma bf16) and
-"compare" (K1c: bf16 rows against one plane, bf16(q)).
+"compare" (K1c: bf16 rows against one plane, bf16(q)); "int8_exact" and
+"exact" select on K2's and K1's unrounded scores, for the probes of this
+design (``cluster_probe.py``, ``csrc/cluster_probe.cu``).
 
 ``cluster_plan`` gives a call's launch: the CTAs of a thread-block cluster
 (query blocks of ``64 * qg`` queries that share one TMA-multicast doc
@@ -25,7 +27,8 @@ resident or streamed through the ring (int8 only: bf16 rows run with
 their planes resident), the ring slots and the shared memory, for the
 main pass, the tau pass (every ``TAU_STRIDE``-th row) and the seed pass
 that seeds it (every ``SEED_STRIDE``-th). ``cluster_smem_bytes`` is the
-source's ``smem_bytes``.
+source's ``smem_bytes`` (``counted``: with the counted probe's
+counters).
 """
 
 from __future__ import annotations
@@ -55,13 +58,16 @@ TAU_STRIDE = 64
 SEED_STRIDE = TAU_STRIDE * TAU_STRIDE
 H100_SMS = 132
 QUERY_GROUPS = (1, 2)
-# The anatomy's modes (the source's Mode): the whole pass, the ring alone,
-# + the multiply, + the epilogue's threshold test.
-MODES = {"full": 0, "stream": 1, "mma": 2, "epilogue": 3}
-# The rows (the source's RowKind), their element bytes and query planes.
-KINDS = {"int8": 0, "rounded": 1, "compare": 2}
-ELEMENT_BYTES = {"int8": 1, "rounded": 2, "compare": 2}
-PLANES = {"int8": 1, "rounded": 3, "compare": 1}
+# The rows (the source's RowKind), their element bytes and query planes;
+# the kinds the folds launch (cluster_topk.cu), the others the probes'.
+KINDS = {"int8": 0, "rounded": 1, "compare": 2, "int8_exact": 3, "exact": 4}
+FOLD_KINDS = ("int8", "rounded", "compare")
+ELEMENT_BYTES = {"int8": 1, "rounded": 2, "compare": 2, "int8_exact": 1,
+                 "exact": 2}
+PLANES = {"int8": 1, "rounded": 3, "compare": 1, "int8_exact": 1,
+          "exact": 3}
+# The counted probe's counters a row (the source's CLUSTER_COUNTERS).
+CLUSTER_COUNTERS = 5
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,15 +86,11 @@ def _library() -> ctypes.CDLL:
         # out_v, out_i, stream.
         lib.anr_cluster_topk_bf16.argtypes = [_I] + [_P] * 3 + [_I] * 16 \
             + [_P] * 4
-        # kind, mode; q, e, scales, mask, seed; B N D k qg cl groups stages
-        # resident smem tma walkers tau; part_v, part_i, probe, stream.
-        lib.anr_cluster_pass.argtypes = [_I] * 2 + [_P] * 5 + [_I] * 13 \
-            + [_P] * 4
         lib.anr_cluster_active_clusters.argtypes = [_I] * 4
         for fn in (lib.anr_cluster_topk, lib.anr_cluster_topk_bf16,
-                   lib.anr_cluster_pass, lib.anr_cluster_active_clusters):
+                   lib.anr_cluster_active_clusters):
             fn.restype = _I
-        lib.anr_cluster_smem_bytes.argtypes = [_I] * 6
+        lib.anr_cluster_smem_bytes.argtypes = [_I] * 7
         lib.anr_cluster_workspace_bytes.argtypes = [_I] * 7
         for fn in (lib.anr_cluster_smem_bytes,
                    lib.anr_cluster_workspace_bytes):
@@ -124,26 +126,30 @@ def list_stride(k: int) -> int:
 
 
 def cluster_smem_bytes(qg: int, d: int, k: int, stages: int,
-                       resident: bool, kind: str = "int8") -> int:
+                       resident: bool, kind: str = "int8",
+                       counted: bool = False) -> int:
     """Dynamic shared memory of a CTA over rows ``kind``: alignment slack,
     ring slots (a doc chunk, plus the query planes' chunk when they are
     streamed), the resident query planes, two barriers a slot, two tiles'
     doc multipliers (4 bytes a doc), each row's published worst score and
     lock (8 bytes), each row's running list (8 bytes an entry,
-    ``list_stride(k)`` entries)."""
+    ``list_stride(k)`` entries) and, ``counted``, its ``CLUSTER_COUNTERS``
+    counters (4 bytes each)."""
     _check_kind(kind)
     q, t, planes = cta_queries(qg), tile_docs(qg), PLANES[kind]
     nck = -(-row_bytes(d, kind) // CHUNK_BYTES)
     slot = t * CHUNK_BYTES + (0 if resident else planes * q * CHUNK_BYTES)
     qbytes = nck * planes * q * CHUNK_BYTES if resident else 0
     return (_ALIGN + stages * (slot + 16) + qbytes + 8 * t
-            + q * (8 + 8 * list_stride(k)))
+            + q * (8 + 8 * list_stride(k))
+            + (4 * CLUSTER_COUNTERS * q if counted else 0))
 
 
-def _fits_resident(qg: int, d: int, k: int, kind: str) -> bool:
+def _fits_resident(qg: int, d: int, k: int, kind: str,
+                   counted: bool = False) -> bool:
     """The query planes stay resident where two ring slots fit beside
     them."""
-    return cluster_smem_bytes(qg, d, k, 2, True, kind) <= SMEM_LIMIT
+    return cluster_smem_bytes(qg, d, k, 2, True, kind, counted) <= SMEM_LIMIT
 
 
 def default_query_groups(b: int, d: int = 1, k: int = 1,
@@ -155,13 +161,13 @@ def default_query_groups(b: int, d: int = 1, k: int = 1,
     beside two ring slots (K1r's three planes at D = 256 do not: 64)."""
     if b <= QUERY_GROUP:
         return 1
-    if kind == "int8" or _fits_resident(2, d, k, kind):
+    if ELEMENT_BYTES[kind] == 1 or _fits_resident(2, d, k, kind):
         return 2
     return 1
 
 
 @functools.lru_cache(maxsize=256)
-def _shape(b: int, d: int, k: int, qg: int, kind: str):
+def _shape(b: int, d: int, k: int, qg: int, kind: str, counted: bool):
     """(cluster, groups, resident, stages, smem bytes): the part of the
     plan that depends neither on N nor on the card."""
     if not 1 <= k <= K_MAX:
@@ -171,14 +177,14 @@ def _shape(b: int, d: int, k: int, qg: int, kind: str):
     blocks = -(-b // cta_queries(qg))
     groups = -(-blocks // MAX_CLUSTER)
     cl = -(-blocks // groups)
-    resident = _fits_resident(qg, d, k, kind)
-    fixed = cluster_smem_bytes(qg, d, k, 0, resident, kind)
-    slot = cluster_smem_bytes(qg, d, k, 1, resident, kind) - fixed
+    resident = _fits_resident(qg, d, k, kind, counted)
+    fixed = cluster_smem_bytes(qg, d, k, 0, resident, kind, counted)
+    slot = cluster_smem_bytes(qg, d, k, 1, resident, kind, counted) - fixed
     stages = min(MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
     if stages < 1:
         raise ValueError(f"D = {d}, k = {k} leave no room for a ring slot")
     return cl, groups, resident, stages, cluster_smem_bytes(
-        qg, d, k, stages, resident, kind)
+        qg, d, k, stages, resident, kind, counted)
 
 
 class ClusterPlan(NamedTuple):
@@ -211,9 +217,11 @@ def _tma(rows: int, rowb: int, aligned: bool, resident: bool) -> bool:
 
 def cluster_plan(n: int, b: int, d: int, k: int, sms: int = H100_SMS,
                  aligned: bool = True, active_clusters: Optional[int] = None,
-                 qg: Optional[int] = None, kind: str = "int8") -> ClusterPlan:
-    """The launch for N rows ``kind`` ("int8", "rounded" or "compare"), B
-    queries of depth D, top k. ``aligned``: the rows' base is 16-byte
+                 qg: Optional[int] = None, kind: str = "int8",
+                 counted: bool = False) -> ClusterPlan:
+    """The launch for N rows ``kind`` (one of ``KINDS``), B queries of
+    depth D, top k (``counted``: the counted probe's, with its counters in
+    shared memory). ``aligned``: the rows' base is 16-byte
     aligned; with rows of a multiple of 16 bytes, at least one 128-byte
     chunk deep, the query planes resident and a box of rows, the doc
     chunks go through TMA, else through the producer's element loads.
@@ -226,7 +234,7 @@ def cluster_plan(n: int, b: int, d: int, k: int, sms: int = H100_SMS,
     if n < 1 or b < 1 or d < 1:
         raise ValueError(f"need N, B, D >= 1, got {n}, {b}, {d}")
     qg = default_query_groups(b, d, k, kind) if qg is None else qg
-    cl, groups, resident, stages, smem = _shape(b, d, k, qg, kind)
+    cl, groups, resident, stages, smem = _shape(b, d, k, qg, kind, counted)
     t, rowb = tile_docs(qg), row_bytes(d, kind)
 
     def walk(every: int) -> Tuple[int, bool, int]:
@@ -247,25 +255,26 @@ def workspace_bytes(b: int, k: int, walkers: int, tau_walkers: int,
                     kind: str = "int8") -> int:
     """A call's scratch as the source carves it: the main, tau and seed
     passes' lists [B][walkers][k] (values and ids), tau and the seed
-    pass's tau [B], (K1r, ``kind`` "rounded") the query's three bf16
-    planes [3][B][D] and (bf16 rows) the tau and seed passes' top k
+    pass's tau [B], (three-plane kinds, K1r's and K1's) the query's three
+    bf16 planes [3][B][D] and (bf16 rows) the tau and seed passes' top k
     [B][k] (values and ids), each piece rounded up to 256 bytes."""
     def up(nbytes: int) -> int:
         return -(-nbytes // 256) * 256
-    pieces = 6 * b * d if kind == "rounded" else 0
-    top = 0 if kind == "int8" else 4 * up(4 * b * k)
+    pieces = 6 * b * d if PLANES[kind] == 3 else 0
+    top = 0 if ELEMENT_BYTES[kind] == 1 else 4 * up(4 * b * k)
     return sum(2 * up(4 * b * w * k)
                for w in (walkers, tau_walkers, seed_walkers)) \
         + 2 * up(4 * b) + up(pieces) + top
 
 
 def source_smem_bytes(qg: int, d: int, k: int, stages: int,
-                      resident: bool, kind: str = "int8") -> int:
-    """``cluster_smem_bytes`` as csrc/cluster_topk.cu computes it (builds
+                      resident: bool, kind: str = "int8",
+                      counted: bool = False) -> int:
+    """``cluster_smem_bytes`` as csrc/cluster_topk.cuh computes it (builds
     the library)."""
     _check_kind(kind)
-    return int(_library().anr_cluster_smem_bytes(KINDS[kind], qg, d, k,
-                                                 stages, int(resident)))
+    return int(_library().anr_cluster_smem_bytes(
+        KINDS[kind], qg, d, k, stages, int(resident), int(counted)))
 
 
 def source_workspace_bytes(b: int, k: int, walkers: int, tau_walkers: int,
@@ -279,10 +288,11 @@ def source_workspace_bytes(b: int, k: int, walkers: int, tau_walkers: int,
 @functools.lru_cache(maxsize=64)
 def active_clusters(index: int, qg: int, cl: int, smem: int,
                     kind: str = "int8") -> int:
-    """Clusters of ``cl`` CTAs over rows ``kind`` with ``smem`` bytes each
-    that CUDA device ``index`` holds at once
-    (cudaOccupancyMaxActiveClusters)."""
-    _check_kind(kind)
+    """Clusters of ``cl`` CTAs of a fold over rows ``kind`` (one of
+    ``FOLD_KINDS``) with ``smem`` bytes each that CUDA device ``index``
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    if kind not in FOLD_KINDS:
+        raise ValueError(f"kind must be one of {FOLD_KINDS}, got {kind!r}")
     with torch.cuda.device(index):
         n = _library().anr_cluster_active_clusters(KINDS[kind], qg, cl, smem)
     if n < 1:
@@ -382,58 +392,3 @@ def bf16_top_k(emb: torch.Tensor, queries: torch.Tensor, k: int, sms: int,
             int(plan.seed_tma), plan.seed_walkers, ws.data_ptr(),
             out_v.data_ptr(), out_i.data_ptr(), device=dev)
     return out_v, out_i
-
-
-def _query_planes(queries: torch.Tensor, kind: str) -> torch.Tensor:
-    """The kernel's query planes for one pass alone: K2r's int8 queries as
-    they are; K1r's three bf16 planes [3, B, D] (``split_query``); K1c's
-    bf16(q)."""
-    if kind == "int8":
-        return queries
-    if kind == "compare":
-        return _bf16_query(queries, kind)
-    from a_nice_rag_tpu_torch.ops.kernels.fused_topk import split_query
-
-    return split_query(queries).contiguous()
-
-
-def cluster_pass(mode: str, values: torch.Tensor,
-                 scales: Optional[torch.Tensor], q_values: torch.Tensor,
-                 k: int, sms: int, seed: Optional[torch.Tensor] = None,
-                 qg: Optional[int] = None, tau: bool = False,
-                 kind: str = "int8", mask: Optional[torch.Tensor] = None):
-    """One pass of the kernel alone, for the probe's anatomy (CUDA
-    tensors, the TMA route; no merge): the main pass, or (``tau``) the tau
-    pass over every TAU_STRIDE-th row, over rows ``kind`` (int8 rows with
-    ``scales`` and int8 queries; bf16 rows with the f32 or bf16 query and
-    an optional ``mask``, scales None). ``mode``: "stream" (the ring
-    alone), "mma" (+ the multiply), "epilogue" (+ the threshold test of
-    every score against its row's bound from ``seed`` [B], nothing
-    offered: returns the int32 count of a thread's tiles where a score
-    passed it) or "full" (the pass, lists seeded with ``seed`` or -inf:
-    returns the walkers' lists [B, walkers, k])."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {tuple(MODES)}, got {mode!r}")
-    _check_kind(kind)
-    (n, d), b, dev = values.shape, q_values.shape[0], values.device
-    plan = device_plan(values, b, k, sms, qg, kind)
-    if not (plan.tau_tma if tau else plan.tma):
-        raise ValueError("the anatomy runs on the TMA route")
-    walkers = plan.tau_walkers if tau else plan.walkers
-    part_v = part_i = probe = None
-    if mode == "full":
-        part_v = torch.empty((b, walkers, k), dtype=torch.float32,
-                             device=dev)
-        part_i = torch.empty((b, walkers, k), dtype=torch.int32,
-                             device=dev)
-    if mode == "epilogue":
-        probe = torch.zeros(1, dtype=torch.int32, device=dev)
-    q = _query_planes(q_values, kind)
-    _launch(_library().anr_cluster_pass, KINDS[kind], MODES[mode],
-            q.data_ptr(), values.data_ptr(), _ptr(scales), _ptr(mask),
-            _ptr(seed), b, n, d, k, plan.qg, plan.cluster, plan.groups,
-            plan.stages, int(plan.resident), plan.smem_bytes, 1, walkers,
-            int(tau), _ptr(part_v), _ptr(part_i), _ptr(probe), device=dev)
-    if mode == "full":
-        return part_v, part_i
-    return probe

@@ -15,12 +15,15 @@ CUDA events, median of 10 after 3 warm-ups. The wrapper's output is held
 torch.equal to the cluster kernel's at its CTA shape on the cluster
 route, and whether each cluster output equals the split route's bit for
 bit is reported. Then the cluster kernel's anatomy at
-``--anatomy-batch`` (``cluster_topk.cluster_pass``: the ring alone, +
-wgmma, + the epilogue's threshold test against the rounded subsample
-tau, the full main pass seeded with it, the whole call), its output
-against the split route's and the first 8 queries' against the plain
-version's, and each kernel of one whole call from ``torch.profiler``
-(device us and the gap before it). Before the
+``--anatomy-batch`` through the cluster design's checked modes
+(``probes.kernel_anatomy.check_cluster`` / ``run_cluster``, each mode
+first held against its plain version: the ring alone, + wgmma, + the
+epilogue's threshold test at +inf, the whole call, and the main pass
+alone seeded with the fold's subsample tau), the docs at or above that
+tau (the "compare" mode, held to its plain version), the whole call's
+output against the split route's and the first 8 queries' against the
+plain version's, and each kernel of one whole call from
+``torch.profiler`` (device us and the gap before it). Before the
 timings, small checks: each fold on integer grids torch.equal to its
 plain version through the cluster kernel. One JSON line, also appended to
 ``--out``; needs a CUDA card.
@@ -70,14 +73,16 @@ def main(argv=None) -> int:
     from a_nice_rag_tpu_torch import bench
     from a_nice_rag_tpu_torch.ops import kernels
     from a_nice_rag_tpu_torch.ops.kernels import _build, cluster_topk
+    from a_nice_rag_tpu_torch.ops.kernels import cluster_probe
     from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
+    from a_nice_rag_tpu_torch.probes import kernel_anatomy
 
     if not torch.cuda.is_available():
         print("no CUDA GPU visible", file=sys.stderr)
         return 3
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.load_all(["fused_topk", "cluster_topk"])
+    _build.load_all(["fused_topk", "cluster_topk", "cluster_probe"])
     sms = ft._sm_count(dev)
     out = {"card": bench.card_line(), "k": K,
            "build_s": {n: round(s, 1) for n, (s, _) in
@@ -170,23 +175,19 @@ def main(argv=None) -> int:
             row["plan"] = cluster_topk.cluster_plan(
                 emb.shape[0], b, emb.shape[1], K, sms, kind=kind)._asdict()
             rows[str(b)] = row
-        # The anatomy of the cluster route at one batch.
+        # The anatomy of the cluster route at one batch, through the
+        # checked modes.
         b = args.anatomy_batch
         qb = q.repeat(-(-b // q.shape[0]), 1)[:b].contiguous()
-        sub = emb[::ft.TAU_STRIDE]
-        s = qb @ sub.float().T if kind == "rounded" else \
-            qb.bfloat16().float() @ sub.float().T
-        s = ft.round_scores(s) if kind == "rounded" else \
-            s.bfloat16().float()
-        tau = ft._tau_of(s, K)
         split = ft.split_route_top_k(emb, qb, K, score)
         ref8 = plain(emb, qb[:8], K)
-        ana = {}
-        for mode in ("stream", "mma", "epilogue", "full"):
-            ana[mode] = _ms(torch, lambda: cluster_topk.cluster_pass(
-                mode, emb, None, qb, K, sms, tau, kind=kind))
-        ana["whole"] = _ms(torch, lambda: cluster_topk.bf16_top_k(
-            emb, qb, K, sms, kind))
+        err = kernel_anatomy.check_cluster(emb, qb, K, kind)
+        line = kernel_anatomy.run_cluster(emb, qb, K, lambda fn, n: _ms(
+            torch, fn), kind)
+        ana = dict(line["ms"])
+        ana["plan"] = line["plan"]
+        ana["modes_equal_plain"] = True
+        ana["score_max_abs_err"] = err
         got = cluster_topk.bf16_top_k(emb, qb, K, sms, kind)
         torch.cuda.synchronize()
         ana["equal_split"] = bool(torch.equal(got[0], split[0])
@@ -197,9 +198,17 @@ def main(argv=None) -> int:
                                                          ref8[1]))
         ana["first8_max_abs_diff_plain"] = float(
             (got[0][:8] - ref8[0]).abs().max())
-        hits = cluster_topk.cluster_pass("epilogue", emb, None, qb, K, sms,
-                                         tau, kind=kind)
-        ana["tiles_past_the_bound"] = int(hits.item())
+        tau, _ = cluster_probe.subsample_seeds(emb, qb, K, kind)
+        at_tau = kernels.anatomy_top_k_cluster(emb, qb, K, "compare", tau,
+                                               kind)
+        want = kernels.anatomy_top_k_cluster_torch(
+            emb, qb, K, "compare", tau, kind,
+            kernels.anatomy.cluster_active_clusters(emb, b, K, kind,
+                                                    "compare"))
+        if not torch.equal(at_tau, want):
+            raise AssertionError(f"{kind}: compare at tau differs from its "
+                                 f"plain version")
+        ana["docs_at_or_above_tau_per_row"] = float(at_tau.double().mean())
         ana["split_first8_ids_equal_plain"] = bool(torch.equal(split[1][:8],
                                                                ref8[1]))
         # Each kernel of one whole call, in order (device us, start gap).

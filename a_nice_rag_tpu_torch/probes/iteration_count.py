@@ -1,6 +1,7 @@
 """How often does the fused top-k kernel's running list take a document?
 
     python -m a_nice_rag_tpu_torch.probes.iteration_count [bf16|int8] [N]
+        [--design split|cluster] [--kind exact|rounded|compare]
 
 Counterpart of ``scripts/probe_iteration_count.py``, which counted the
 TPU fold's extraction iterations to decide whether a warm start of the
@@ -19,6 +20,18 @@ values and ids up to ties within ``FLOAT_RTOL`` of the largest |value|
 (``check_top_k``), and the counters up to ``COUNT_SLACK`` of their
 total (a near-tie of two scores can flip one insertion).
 
+``--design cluster`` counts the cluster kernel's fold instead
+(``fused_top_k_counted(..., design="cluster", kind=...)``): per row and
+walker, the docs that enter (beat the walker's list as their tile began)
+in its first 16 tiles and after, the tiles with an entry, the tiles seen,
+and the heap's own insertions, under three seeds: none, the subsample's
+tau, and its top k as the kernel's ``seed_lists`` takes them (K1r's main
+pass gets them so; K2r seeds with tau). Each run's lists must equal the
+kind's whole call on the cluster kernel, its counters the plain
+version's (exactly on int8 rows and integer grids; float rows as above),
+and its insertions lie between the plain version's survivors and its
+entries.
+
 Default: the TPU probe's shape, 4,005,888 x 256 bf16 rows (randn), B =
 256, k = 32; ``int8``: 10,485,760 x 1024, B = 256, k = 25 (the rows of
 ``kernel_anatomy.make_rows``). One JSON line per run, with the card.
@@ -26,6 +39,7 @@ Default: the TPU probe's shape, 4,005,888 x 256 bf16 rows (randn), B =
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from typing import Callable, List, Optional
@@ -34,6 +48,7 @@ import torch
 
 from a_nice_rag_tpu_torch.device import require_cuda
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as A
+from a_nice_rag_tpu_torch.ops.kernels import cluster_probe as CP
 from a_nice_rag_tpu_torch.ops.kernels import (
     fused_dense_top_k,
     fused_dense_top_k_int8,
@@ -125,23 +140,128 @@ def run(rows: torch.Tensor, queries: torch.Tensor, k: int, time_ms: TimeFn,
     return lines
 
 
+SEEDS = ("none", "tau", "lists")
+
+
+def check_cluster_plain(got, want, exact: bool, tol: float = 0.0) -> int:
+    """Raise unless a cluster counted run matches its plain version:
+    exactly (``anatomy.check_counted``), or for float rows the lists
+    through check_top_k at ``tol``, the counters within COUNT_SLACK of
+    their total and the heap's insertions within that of its bounds;
+    returns the counters' total absolute difference."""
+    if exact:
+        A.check_counted(got, want)
+        return 0
+    check_top_k(want[0], want[1], got[0], got[1], tol)
+    diff = int((got[2].long() - want[2].long()).abs().sum())
+    slack = COUNT_SLACK * max(1, int(want[2].long().sum()))
+    entries = got[2][..., 0] + got[2][..., 1]
+    low = int((want[3] - got[3]).clamp(min=0).sum())
+    if diff > slack or low > slack or bool((got[3] > entries).any()):
+        raise AssertionError(f"cluster counted fold: counters off by {diff}"
+                             f", insertions under survivors by {low}")
+    return diff
+
+
+def run_cluster(rows: torch.Tensor, queries: torch.Tensor, k: int,
+                time_ms: Optional[TimeFn], kind: str = "exact",
+                scales: Optional[torch.Tensor] = None,
+                q_scales: Optional[torch.Tensor] = None,
+                exact: Optional[bool] = None) -> List[dict]:
+    """One line per seed (none, tau, lists) of the cluster kernel's counted
+    fold over ``kind``: counts per row (summed over walkers), the share of
+    tiles with an entry, the heap's insertions beside the plain version's
+    survivors, device ms (``time_ms`` None: not timed). Raises unless each
+    run's lists equal the kind's whole call and its outputs the plain
+    version's (``exact``: int8 rows and integer grids; the default for
+    int8 rows only)."""
+    from a_nice_rag_tpu_torch.probes.kernel_anatomy import CLUSTER_TOL
+
+    exact = scales is not None if exact is None else exact
+    b = queries.shape[0]
+    src = CP.source_kind(scales is not None, kind)
+    tau, lists = CP.subsample_seeds(rows, queries, k, src, scales)
+    active = A.cluster_active_clusters(rows, b, k, kind, "counted")
+    if scales is None:
+        ref = A.anatomy_top_k_cluster(rows, queries, k, "full", kind=kind)
+
+        def counted(**seed):
+            return A.fused_top_k_counted_cluster(rows, queries, k, kind=kind,
+                                                 **seed)
+
+        def counted_plain(**seed):
+            return A.fused_top_k_counted_cluster_torch(
+                rows, queries, k, kind=kind, active=active, **seed)
+    else:
+        args = (rows, scales, queries, q_scales, k)
+        ref = A.anatomy_top_k_int8_cluster(*args, "full", kind=kind)
+
+        def counted(**seed):
+            return A.fused_top_k_counted_int8_cluster(*args, kind=kind,
+                                                      **seed)
+
+        def counted_plain(**seed):
+            return A.fused_top_k_counted_int8_cluster_torch(
+                *args, kind=kind, active=active, **seed)
+    finite = ref[0][torch.isfinite(ref[0])]
+    big = max(1.0, float(finite.abs().max())) if finite.numel() else 1.0
+    tol = CLUSTER_TOL[kind] * big
+    lines = []
+    for name, seed in zip(SEEDS, ({}, {"tau": tau}, {"lists": lists})):
+        out = counted(**seed)
+        if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])):
+            raise AssertionError(f"cluster counted fold ({kind}, seed "
+                                 f"{name}) differs from the whole call")
+        want = counted_plain(**seed)
+        off = check_cluster_plain(out, want, exact, tol)
+        ms = None if time_ms is None else time_ms(
+            lambda sd=seed: counted(**sd), N_LOOP)
+        per_row = out[2].to(torch.float64).sum(dim=1).mean(dim=0).tolist()
+        early, late, tiles, seen = per_row
+        lines.append({
+            "design": "cluster", "kind": kind, "seed": name, "ms": ms,
+            "walkers": out[2].shape[1], "k": k, "b": b,
+            "entries_per_row": early + late,
+            "entries_early_per_row": early, "entries_late_per_row": late,
+            "tiles_entered_per_row": tiles, "tiles_per_row": seen,
+            "tiles_entered_share": tiles / seen if seen else 0.0,
+            "insertions_per_row": float(out[3].double().sum(1).mean()),
+            "survivors_per_row": float(want[3].double().sum(1).mean()),
+            "counters_off_plain": off,
+        })
+    return lines
+
+
+def _args(argv):
+    from a_nice_rag_tpu_torch.probes.kernel_anatomy import SHAPES
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("rows", nargs="?", default="bf16", choices=list(SHAPES))
+    ap.add_argument("n", nargs="?", type=int, default=None)
+    ap.add_argument("--design", default="split", choices=list(A.DESIGNS))
+    ap.add_argument("--kind", default="exact", choices=list(CP.KINDS))
+    return ap.parse_args(argv)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     from a_nice_rag_tpu_torch.bench import card_line
     from a_nice_rag_tpu_torch.ops.kernels import build_kernels
     from a_nice_rag_tpu_torch.probes.kernel_anatomy import SHAPES, make_rows
     from a_nice_rag_tpu_torch.testing.timing import cuda_event_ms
 
-    argv = sys.argv[1:] if argv is None else argv
-    kind = argv[0] if argv else "bf16"
-    n = int(argv[1]) if len(argv) > 1 else SHAPES[kind][0]
+    args = _args(sys.argv[1:] if argv is None else argv)
+    n = args.n if args.n is not None else SHAPES[args.rows][0]
     device = require_cuda()
     build_kernels()
     card = card_line()
     print(card, flush=True)
-    rows, q, k, scales, q_scales = make_rows(kind, n, device)
-    for line in run(rows, q, k, lambda fn, m: cuda_event_ms(fn, n=m),
-                    scales, q_scales):
-        print(json.dumps({**line, "rows": kind, "n": n, "card": card}),
+    rows, q, k, scales, q_scales = make_rows(args.rows, n, device)
+    time_ms = lambda fn, m: cuda_event_ms(fn, n=m)  # noqa: E731
+    lines = (run_cluster(rows, q, k, time_ms, args.kind, scales, q_scales)
+             if args.design == "cluster" else
+             run(rows, q, k, time_ms, scales, q_scales))
+    for line in lines:
+        print(json.dumps({**line, "rows": args.rows, "n": n, "card": card}),
               flush=True)
     return 0
 

@@ -11,13 +11,22 @@ Per-query dispatch overhead is amortized B-ways.
 bf16 rows travel as ``uint16`` numpy views of their bits: they are
 uploaded as they are and reinterpreted as bf16 on the device, then
 upcast (exactly) to f32 there.
+
+Callers on other threads (the HTTP handlers) submit through
+``submit_threadsafe``. Where the loop would ship their entry alone and
+at once (nothing queued, the adaptive wait 0, a batch slot free), the
+caller's thread runs that batch itself, with no hand-off to the loop or
+a worker; otherwise the entry joins the loop's queue and the worker
+thread that runs its batch resolves the caller's future.
 """
 
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import dataclasses
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -31,7 +40,10 @@ DEFAULT_MAX_BATCH = 256
 class _Pending:
     q_embs: Dict[str, np.ndarray]  # model -> [D] (or [rows, D])
     q_terms: Optional[np.ndarray]  # [T] or None (or [rows, T])
-    future: asyncio.Future
+    # An asyncio future of the loop, or (threadsafe) a
+    # concurrent.futures.Future that the thread running the batch
+    # resolves.
+    future: object
     # batched marks a CLIENT-BATCHED submission (submit_many): the whole
     # row block rides one queue entry and one future, not one asyncio
     # future per row. Its result keeps the leading rows axis even at
@@ -39,6 +51,7 @@ class _Pending:
     # 1-D form).
     rows: int = 1
     batched: bool = False
+    threadsafe: bool = False
 
 
 def retriever_device(retriever) -> torch.device:
@@ -74,7 +87,8 @@ class BatchScheduler:
         dispatch immediately); under heavy load it waits only as long as
         filling ``max_batch`` is expected to take. ``max_wait_ms`` stays
         the hard upper bound either way. Up to ``max_inflight`` batches
-        run at once, each on a worker thread."""
+        run at once, each on a worker thread (or on the thread of a
+        ``submit_threadsafe`` caller that runs its entry alone)."""
         self.retriever = retriever
         self.weights = weights
         self.filename_type_filter = filename_type_filter
@@ -85,17 +99,28 @@ class BatchScheduler:
         self.adaptive = adaptive
         self._queue: asyncio.Queue = asyncio.Queue()
         self._task: Optional[asyncio.Task] = None
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._batch_tasks: set = set()
         self._inflight = asyncio.Semaphore(max_inflight)
+        # Batches running on any thread: the loop's workers take a slot
+        # (waiting for one if need be), a caller's direct run only a free
+        # one.
+        self._slots = threading.BoundedSemaphore(max_inflight)
+        self._arrival_mu = threading.Lock()  # arrivals come from threads
         self._last_arrival: Optional[float] = None
         self._inter_ewma_s: Optional[float] = None  # mean inter-arrival
         self.batches_run = 0
         self.queries_served = 0
         self._count_mu = threading.Lock()  # batches finish on worker threads
 
+    @property
+    def running(self) -> bool:
+        return self._task is not None and not self._task.done()
+
     async def start(self) -> None:
         if self._task is None:
-            self._task = asyncio.create_task(self._loop())
+            self._loop = asyncio.get_running_loop()
+            self._task = asyncio.create_task(self._collect_loop())
 
     async def stop(self) -> None:
         if self._task is not None:
@@ -118,18 +143,8 @@ class BatchScheduler:
         q_terms: Optional[np.ndarray] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """One query in, (fused doc rows [n], fused scores [n]) out."""
-        loop = asyncio.get_running_loop()
-        now = loop.time()
-        if self._last_arrival is not None:
-            dt = max(now - self._last_arrival, 1e-7)
-            self._inter_ewma_s = (
-                dt
-                if self._inter_ewma_s is None
-                else 0.9 * self._inter_ewma_s + 0.1 * dt
-            )
-        self._last_arrival = now
-        future: asyncio.Future = loop.create_future()
-        await self._queue.put(_Pending(q_embs, q_terms, future))
+        future: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._enqueue(_Pending(q_embs, q_terms, future))
         return await future
 
     async def submit_many(
@@ -143,13 +158,61 @@ class BatchScheduler:
         rows, so single-query submitters share the same device batches.
         Returns (doc rows [rows, n], scores [rows, n])."""
         rows = next(iter(q_embs.values())).shape[0]
-        loop = asyncio.get_running_loop()
-        self._last_arrival = loop.time()
-        future: asyncio.Future = loop.create_future()
-        await self._queue.put(
-            _Pending(q_embs, q_terms, future, rows, batched=True)
-        )
+        future: asyncio.Future = asyncio.get_running_loop().create_future()
+        self._enqueue(_Pending(q_embs, q_terms, future, rows, batched=True))
         return await future
+
+    def submit_threadsafe(
+        self,
+        q_embs: Dict[str, np.ndarray],
+        q_terms: Optional[np.ndarray] = None,
+        batched: bool = False,
+    ) -> concurrent.futures.Future:
+        """``submit`` (or, ``batched``, ``submit_many``) from a thread
+        other than the loop's, on a started scheduler. Returns a
+        ``concurrent.futures.Future`` holding what the coroutine returns.
+        Where the loop would ship the entry alone and at once, this
+        thread runs the batch and the future is done on return; else a
+        worker thread resolves it."""
+        if self._loop is None:
+            raise RuntimeError("submit_threadsafe needs a started scheduler")
+        rows = next(iter(q_embs.values())).shape[0] if batched else 1
+        future: concurrent.futures.Future = concurrent.futures.Future()
+        pending = _Pending(q_embs, q_terms, future, rows, batched,
+                           threadsafe=True)
+        self._note_arrival(pending)
+        if (self._adaptive_wait_s() == 0.0 and self._queue.empty()
+                and self._slots.acquire(blocking=False)):
+            try:
+                out = self._run_batch([pending])[0]
+            except Exception as e:  # noqa: BLE001 — the caller reads it
+                _resolve(future, e)
+            else:
+                _resolve(future, out)
+            finally:
+                self._slots.release()
+            return future
+        self._loop.call_soon_threadsafe(self._queue.put_nowait, pending)
+        return future
+
+    def _enqueue(self, pending: _Pending) -> None:
+        """On the loop: note the arrival, queue the entry."""
+        self._note_arrival(pending)
+        self._queue.put_nowait(pending)
+
+    def _note_arrival(self, pending: _Pending) -> None:
+        """A single query updates the arrival-rate estimate; a client
+        batch marks the arrival only."""
+        with self._arrival_mu:
+            now = time.monotonic()
+            if not pending.batched and self._last_arrival is not None:
+                dt = max(now - self._last_arrival, 1e-7)
+                self._inter_ewma_s = (
+                    dt
+                    if self._inter_ewma_s is None
+                    else 0.9 * self._inter_ewma_s + 0.1 * dt
+                )
+            self._last_arrival = now
 
     # ------------------------------------------------------------------
 
@@ -202,21 +265,20 @@ class BatchScheduler:
             rows += p.rows
         return batch
 
-    async def _loop(self) -> None:
+    async def _collect_loop(self) -> None:
         # Batches overlap up to max_inflight: while one batch's results
         # download, the next one launches (device execution serializes,
         # host<->device copies pipeline behind it).
         async def run_one(batch):
             async with self._inflight:
                 try:
-                    results = await asyncio.to_thread(self._run_batch, batch)
-                    for pending, (ids, scores) in zip(batch, results):
-                        if not pending.future.done():
-                            pending.future.set_result((ids, scores))
+                    results = await asyncio.to_thread(self._run_in_slot,
+                                                      batch)
                 except Exception as e:  # noqa: BLE001 — propagate
-                    for pending in batch:
-                        if not pending.future.done():
-                            pending.future.set_exception(e)
+                    results = [e] * len(batch)
+                for pending, out in zip(batch, results):
+                    if not pending.threadsafe:
+                        _resolve(pending.future, out)
 
         # The event loop keeps only a WEAK reference to tasks; without a
         # strong reference here a pending batch task can be GC'd
@@ -228,6 +290,25 @@ class BatchScheduler:
             t = asyncio.create_task(run_one(batch))
             tasks.add(t)
             t.add_done_callback(tasks.discard)
+
+    def _run_in_slot(self, batch: List[_Pending]):
+        with self._slots:
+            return self._run_and_resolve(batch)
+
+    def _run_and_resolve(self, batch: List[_Pending]):
+        """On a worker: run the batch, then resolve its thread-safe
+        entries here (the loop resolves the others)."""
+        try:
+            results = self._run_batch(batch)
+        except Exception as e:  # noqa: BLE001 — propagate
+            for pending in batch:
+                if pending.threadsafe:
+                    _resolve(pending.future, e)
+            raise
+        for pending, out in zip(batch, results):
+            if pending.threadsafe:
+                _resolve(pending.future, out)
+        return results
 
     def _run_batch(self, batch: List[_Pending]):
         models = self.retriever.model_names
@@ -282,6 +363,21 @@ class BatchScheduler:
                 out.append((fids[i:i + p.rows], fvals[i:i + p.rows]))
             i += p.rows
         return out
+
+
+def _resolve(future, out) -> None:
+    """Set a result, or an exception, on a future that is not done
+    (a caller may have cancelled or timed out)."""
+    if future.done():
+        return
+    try:
+        if isinstance(out, BaseException):
+            future.set_exception(out)
+        else:
+            future.set_result(out)
+    except (asyncio.InvalidStateError,
+            concurrent.futures.InvalidStateError):
+        pass  # cancelled since the check
 
 
 class SchedulerPool:
@@ -353,6 +449,31 @@ class SchedulerPool:
             raise ValueError("SchedulerPool.submit_many requires weights")
         sched = await self.get(weights, filename_type_filter, wrrf_k)
         return await sched.submit_many(q_embs, q_terms)
+
+    def submit_threadsafe(
+        self,
+        loop: asyncio.AbstractEventLoop,
+        q_embs,
+        q_terms=None,
+        weights: Optional[Dict[str, float]] = None,
+        filename_type_filter: Optional[str] = None,
+        wrrf_k: float = 40.0,
+        batched: bool = False,
+    ) -> concurrent.futures.Future:
+        """``submit`` (``batched``: ``submit_many``) from a thread other
+        than ``loop``'s, where the pool's schedulers run. A running
+        scheduler takes the entry at once; a configuration's first call
+        starts its scheduler on ``loop`` and waits for that."""
+        if weights is None:
+            raise ValueError("SchedulerPool.submit_threadsafe requires "
+                             "weights")
+        sched = self._pool.get(
+            self._key(weights, filename_type_filter, wrrf_k))
+        if sched is None or not sched.running:
+            sched = asyncio.run_coroutine_threadsafe(
+                self.get(weights, filename_type_filter, wrrf_k), loop
+            ).result()
+        return sched.submit_threadsafe(q_embs, q_terms, batched)
 
     async def stop(self) -> None:
         # Entries stay for post-mortem stats; their loops are stopped

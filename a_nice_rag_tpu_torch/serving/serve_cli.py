@@ -11,8 +11,9 @@ stack end to end:
   over survivors and swaps the retriever and its pool live;
 * a ``SchedulerPool`` micro-batching every configuration;
 * the stdlib HTTP surface: ``/v1/search`` (scheduler-batched; a single
-  JSON query or a base64 batch in f32 or bf16), ``/v1/stats``
-  (scheduler counters + health events), ``/v1/health``;
+  JSON query or a base64 batch in f32 or bf16; HTTP/1.1, a client's
+  connection kept), ``/v1/stats`` (scheduler counters + health events),
+  ``/v1/health``;
 * with ``--native-port``, the binary C++ front beside it.
 
 With ``--embedder hashing``, ``/v1/search`` also takes raw text: the
@@ -100,11 +101,9 @@ class ServeState:
 
     def submit_sync(self, q_emb: Dict[str, np.ndarray], q_terms, weights,
                     filt, wrrf_k, timeout_s: float = 30.0):
-        fut = asyncio.run_coroutine_threadsafe(
-            self.pool.submit(q_emb, q_terms, weights=weights,
-                             filename_type_filter=filt, wrrf_k=wrrf_k),
-            self.loop,
-        )
+        fut = self.pool.submit_threadsafe(
+            self.loop, q_emb, q_terms, weights=weights,
+            filename_type_filter=filt, wrrf_k=wrrf_k)
         return fut.result(timeout=timeout_s)
 
     def submit_batch_sync(self, model: str, q_mat: np.ndarray, terms,
@@ -118,15 +117,11 @@ class ServeState:
         q_arr = np.asarray(q_mat)
         if q_arr.dtype != np.uint16:
             q_arr = q_arr.astype(np.float32, copy=False)
-        fut = asyncio.run_coroutine_threadsafe(
-            self.pool.submit_many(
-                {model: q_arr},
-                None if terms is None else np.asarray(terms, np.int32),
-                weights=weights, filename_type_filter=filt,
-                wrrf_k=wrrf_k,
-            ),
-            self.loop,
-        )
+        fut = self.pool.submit_threadsafe(
+            self.loop, {model: q_arr},
+            None if terms is None else np.asarray(terms, np.int32),
+            weights=weights, filename_type_filter=filt, wrrf_k=wrrf_k,
+            batched=True)
         rows, scores = fut.result(timeout=timeout_s)
         return np.asarray(rows), np.asarray(scores)
 
@@ -336,8 +331,22 @@ def _make_handler(state: ServeState, default_weights: Dict[str, float],
         base = BaseHTTPRequestHandler
 
     class Handler(base):
+        # HTTP/1.1: a client's connection, and its handler thread, serve
+        # its next request too, so a query pays no connect, accept or
+        # thread start. A reply keeps the connection only where its
+        # request was read whole (keep_alive); any other reply, the RAG
+        # surface's POSTs among them, says "Connection: close".
+        protocol_version = "HTTP/1.1"
+        timeout = 300  # seconds an idle connection holds its thread
+        keep_alive = False
+
         def log_message(self, fmt, *args):
             logger.debug(fmt, *args)
+
+        def end_headers(self):
+            if not (self.keep_alive or self.close_connection):
+                self.send_header("Connection", "close")
+            super().end_headers()
 
         def _reply(self, code, payload):
             body = json.dumps(payload).encode()
@@ -348,6 +357,7 @@ def _make_handler(state: ServeState, default_weights: Dict[str, float],
             self.wfile.write(body)
 
         def do_GET(self):
+            self.keep_alive = True  # a GET has no body to leave unread
             if self.path == "/v1/health":
                 self._reply(200, {
                     "status": "ok",
@@ -370,6 +380,7 @@ def _make_handler(state: ServeState, default_weights: Dict[str, float],
                 self._reply(404, {"error": "unknown endpoint"})
 
         def do_POST(self):
+            self.keep_alive = False
             if self.path != "/v1/search":
                 if api is not None:
                     # RAG / feedback surface (reads rfile itself).
@@ -383,6 +394,7 @@ def _make_handler(state: ServeState, default_weights: Dict[str, float],
             except (ValueError, json.JSONDecodeError) as e:
                 self._reply(400, {"error": f"bad JSON: {e}"})
                 return
+            self.keep_alive = True
             try:
                 model = payload.get("model", state.retriever.model_names[0])
                 weights = payload.get("model_weights") or default_weights
@@ -468,8 +480,9 @@ def serve_state(
     monitor, the scheduler pool and the loop."""
     loop = asyncio.new_event_loop()
     state.loop = loop
-    threading.Thread(target=loop.run_forever, daemon=True,
-                     name="scheduler-loop").start()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True,
+                                   name="scheduler-loop")
+    loop_thread.start()
     if state.monitor is not None:
         state.monitor.start()
     gen_server = getattr(api, "gen_server", None)
@@ -483,7 +496,7 @@ def serve_state(
         """Stop everything the serve started: the monitor, the
         generation server, the scheduler pool's loop tasks (so no asyncio
         task is left pending when the loop thread dies), then the
-        loop."""
+        loop, which is closed once its thread has ended."""
         if state.monitor is not None:
             state.monitor.stop()
         if gen_server is not None:
@@ -494,6 +507,9 @@ def serve_state(
         except Exception:  # noqa: BLE001 — best-effort teardown
             logger.exception("serve: stopping the scheduler pool failed")
         loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(timeout=10)
+        if not loop_thread.is_alive():
+            loop.close()
 
     if background:
         threading.Thread(target=server.serve_forever, daemon=True).start()

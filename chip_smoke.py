@@ -256,8 +256,10 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      hybrid retriever on stage A and K1r's timing; (d) after K2's, stage
      C's int8 retriever, K2r timed at B = 8, 256 and 512 beside its plain
      version and its yardstick, with one and two query groups a CTA, and
-     its anatomy (the ring, + wgmma, + the epilogue, the main pass, the
-     whole call); phase 19 (c) also runs the rounded fold on every shard;
+     its anatomy through the cluster design's checked modes (the ring, +
+     wgmma, + the epilogue's test, the whole call, the main pass), each
+     held against its plain version; phase 19 (c) also runs the rounded
+     fold on every shard;
  27. the bf16 compare fold (K1c, compare_dtype="bfloat16"): (a) after
      26a, K1c against its plain version on 26a's grid, f32 and bf16 rows,
      a misaligned N and bf16 queries on f32 rows (within one bf16 ulp),
@@ -293,11 +295,24 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      + scoring, + the compare pass, + insertions and merge), each mode
      first held against its plain version at N_KERNEL on integer-valued
      rows (exact scores), then held again and timed on stage A's and
-     stage C's matrices;
+     stage C's matrices; then the same four modes on the cluster kernel
+     (design="cluster": the TMA-multicast ring alone, + wgmma, + the
+     epilogue's test, the whole call), first at N_KERNEL for every kind
+     (bf16 rows: exact, rounded, compare; int8 rows: exact, rounded),
+     each mode torch.equal to its plain version over the card's walks and
+     the exact kinds' lists torch.equal to K1's / K2's plain versions,
+     then on stages A and C for the exact kinds (float rows within their
+     stated tolerance, int8 exactly) and timed beside the split design;
  14. the counted fold (probes.iteration_count) at N_KERNEL against its
      plain version (ids, values and every counter), then on stage A's
      and stage C's matrices with and without a subsample tau, again
-     equal to its plain version there and its ids to K1's / K2's;
+     equal to its plain version there and its ids to K1's / K2's; then
+     the cluster kernel's counted fold for every kind under no seed, the
+     subsample's tau and its top-k lists, at N_KERNEL torch.equal to its
+     plain version (values, ids, counters; the heap's insertions between
+     the tiles' survivors and the entries) and its lists to the kind's
+     whole call, then on stages A and C, its counters logged and the
+     exact kind's cold fold timed beside the split design's;
  15. the keys: xpack_keys / xpack_values over the 13 special values of
      the JAX package's key test plus 2^24 normals, bit for bit, and
      bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384],
@@ -360,6 +375,7 @@ ANATOMY_SOURCE = "a_nice_rag_tpu_torch/csrc/anatomy.cu"
 KEYS_SOURCE = "a_nice_rag_tpu_torch/csrc/keys.cu"
 INT4_SOURCE = "a_nice_rag_tpu_torch/csrc/int4.cu"
 CLUSTER_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
+CLUSTER_PROBE_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_probe.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -382,6 +398,16 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
                             "scripts/probe_iteration_count.py:160"),
     "fused_top_k_counted_int8": (ANATOMY_SOURCE,
                                  "scripts/probe_iteration_count.py:160"),
+    # P4 and P5 on the cluster kernel (design="cluster"; timed on the
+    # exact kinds, K1's and K2's functions).
+    "anatomy_top_k_cluster": (CLUSTER_PROBE_SOURCE,
+                              "scripts/profile_kernel_anatomy.py:138"),
+    "anatomy_top_k_int8_cluster": (CLUSTER_PROBE_SOURCE,
+                                   "scripts/profile_kernel_anatomy.py:138"),
+    "fused_top_k_counted_cluster": (CLUSTER_PROBE_SOURCE,
+                                    "scripts/probe_iteration_count.py:160"),
+    "fused_top_k_counted_int8_cluster": (
+        CLUSTER_PROBE_SOURCE, "scripts/probe_iteration_count.py:160"),
     # T1: the key map and its inverse.
     "xpack_keys": (KEYS_SOURCE, "tests/test_pallas_fused.py:433"),
     "xpack_values": (KEYS_SOURCE, "tests/test_pallas_fused.py:433"),
@@ -1014,6 +1040,31 @@ class Smoke:
                                      f"workspace {ws} != the plan's ({plan})")
             shapes.append({"kind": kind, "n": n, "b": b, "d": d, "k": kk,
                            "grid": plan.grid, **plan._asdict()})
+        # The probes' plans at stages A and C (P4, P5 on this design): each
+        # kind's fold and its counted probe, whose counters take shared
+        # memory from the ring (the stage count each runs with).
+        cp = self.p.cluster_probe
+        for n, d, kk, kinds in (
+                (self.N_A, self.D_A, 32, ("exact", "rounded", "compare")),
+                (self.N_C, self.D_C, 25, ("int8_exact", "int8"))):
+            for kind in kinds:
+                for mode in ("full", "counted"):
+                    plan = cp.probe_plan(n, self.B, d, kk, kind,
+                                         mode == "counted", sms)
+                    plan = cp.probe_plan(
+                        n, self.B, d, kk, kind, mode == "counted", sms, True,
+                        self.p.probe_active_clusters(
+                            index, kind, mode, plan.qg, plan.cluster,
+                            plan.smem_bytes))
+                    src = self.p.cluster_smem_bytes(
+                        plan.qg, d, kk, plan.stages, plan.resident, kind,
+                        mode == "counted")
+                    if src != plan.smem_bytes:
+                        raise AssertionError(f"{kind} {mode} shared memory "
+                                             f"{src} != the plan's ({plan})")
+                    shapes.append({"probe": mode, "kind": kind, "n": n,
+                                   "b": self.B, "d": d, "k": kk,
+                                   "grid": plan.grid, **plan._asdict()})
         log(phase="cluster_plan", shapes=shapes)
 
     def kernel_cases(self, n, d, dtype):
@@ -2543,6 +2594,151 @@ class Smoke:
             self.bound(name, n * d * rows.element_size() + b * d * 4
                        + b * lines[0]["splits"] * 16 + b * kk * 8,
                        QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
+        self.no_library(name, "no PyTorch call counts a top-k's insertions")
+
+    def phase13_14_cluster_checks(self) -> None:
+        """P4's and P5's cluster design at N_KERNEL on exact rows: for
+        every kind, each anatomy mode and the counted fold under each seed
+        torch.equal to its plain version over the card's walks (the
+        heap's insertions between the survivors and the entries), the
+        counted lists the kind's whole call, and the exact kinds' lists
+        torch.equal to K1's / K2's plain versions."""
+        t0 = time.perf_counter()
+        k, ka, ic = self.p.kernels, self.p.kernel_anatomy, \
+            self.p.iteration_count
+        emb, q, (values, scales, qv, qs) = self.exact_rows(self.N_KERNEL,
+                                                           self.D_KERNEL)
+        counters = {}
+        for kind in ("exact", "rounded", "compare"):
+            ka.check_cluster(emb, q, 32, kind, exact=True)
+            counters[f"bf16_{kind}"] = ic.run_cluster(emb, q, 32, None, kind,
+                                                      exact=True)
+        for kind in ("exact", "rounded"):
+            ka.check_cluster(values, qv, 25, kind, scales, qs)
+            counters[f"int8_{kind}"] = ic.run_cluster(values, qv, 25, None,
+                                                      kind, scales, qs)
+        pairs = ((k.anatomy_top_k(emb, q, 32, "full", design="cluster"),
+                  k.fused_dense_top_k_torch(emb, q, 32)),
+                 (k.anatomy_top_k_int8(values, scales, qv, qs, 25, "full",
+                                       design="cluster"),
+                  k.fused_dense_top_k_int8_torch(values, scales, qv, qs,
+                                                 25)))
+        torch.cuda.synchronize()
+        for (gv, gi), (wv, wi) in pairs:
+            if not (torch.equal(gv, wv) and torch.equal(gi, wi)):
+                raise AssertionError("an exact cluster kind's lists differ "
+                                     "from K1's / K2's plain version")
+        log(phase="cluster_probes_vs_plain", n=self.N_KERNEL,
+            d=self.D_KERNEL, b=self.B,
+            anatomy_modes=["stage", "score", "compare", "full"],
+            seeds=list(ic.SEEDS), exact_lists_equal_k1_k2=True,
+            counters={name: [{key: line[key] for key in (
+                "seed", "walkers", "entries_per_row", "tiles_entered_share",
+                "insertions_per_row", "survivors_per_row")} for line in lines]
+                for name, lines in counters.items()}, ok=True,
+            seconds=time.perf_counter() - t0)
+
+    def phase13_cluster(self, label, rows, q, kk, scales=None,
+                        q_scales=None) -> None:
+        """P4 on the cluster kernel at a stage's shape, the exact kind:
+        every mode held against its plain version, the four modes' times
+        and the main pass alone under main_path (no K1 / K2 launch), and
+        the "score" mode timed beside its plain version, the split
+        design's yardstick and bound."""
+        t0 = time.perf_counter()
+        int8 = scales is not None
+        name = "anatomy_top_k_int8_cluster" if int8 else \
+            "anatomy_top_k_cluster"
+        ka, k = self.p.kernel_anatomy, self.p.kernels
+        err = ka.check_cluster(rows, q, kk, "exact", scales, q_scales)
+        self.max_err[name] = max(self.max_err[name], err)
+        line, counts = self.main_path(lambda: ka.run_cluster(
+            rows, q, kk, self.probe_ms, "exact", scales, q_scales))
+        self.expect(f"cluster anatomy {label}", counts, at_least=True,
+                    **{name: 4})
+        self.expect(f"cluster anatomy {label}", counts, fused_dense_top_k=0,
+                    fused_dense_top_k_int8=0)
+        (n, d), b = rows.shape, q.shape[0]
+        shape = (f"{n} x {d} {line['rows']}, B={b}, k={kk}, cluster "
+                 f"{line['plan']}")
+        log(anatomy_cluster=label, shape=shape, kind="exact", **{
+            key: line[key] for key in (
+                "ms", "loads_ms", "scoring_ms", "compare_ms",
+                "insert_merge_ms", "main_pass_offers_ms", "stage_gb_s",
+                "byte_floor_ms", "plan")}, modes_equal_plain=True,
+            score_max_abs_err=err, launches=counts[name], card=self.card,
+            seconds=time.perf_counter() - t0)
+        active = self.p.anatomy.cluster_active_clusters(rows, b, kk, "exact",
+                                                   "score")
+        if int8:
+            args = (rows, scales, q, q_scales, kk, "score")
+            self.time_pair(
+                name, lambda: k.anatomy_top_k_int8_cluster(*args),
+                lambda: k.anatomy_top_k_int8_cluster_torch(
+                    *args, active=active), shape + ", mode score, exact",
+                plain_n=2)
+            self.library[name] = self.library["anatomy_top_k_int8"]
+            self.bounds[name] = self.bounds["anatomy_top_k_int8"]
+        else:
+            args = (rows, q, kk, "score")
+            self.time_pair(
+                name, lambda: k.anatomy_top_k_cluster(*args),
+                lambda: k.anatomy_top_k_cluster_torch(*args, active=active),
+                shape + ", mode score, exact")
+            self.library[name] = self.library["anatomy_top_k"]
+            self.bounds[name] = self.bounds["anatomy_top_k"]
+
+    def phase14_cluster(self, label, rows, q, kk, scales=None,
+                        q_scales=None) -> None:
+        """P5 on the cluster kernel at a stage's shape: for every kind the
+        counted fold under no seed, tau and the subsample's lists, each
+        run's lists the kind's whole call and its outputs its plain
+        version's (int8 exactly, float rows within their tolerance), the
+        counters logged; the exact kind's cold fold timed beside its plain
+        version and the split design's bound."""
+        t0 = time.perf_counter()
+        int8 = scales is not None
+        name = "fused_top_k_counted_int8_cluster" if int8 else \
+            "fused_top_k_counted_cluster"
+        ic, k = self.p.iteration_count, self.p.kernels
+        kinds = ("exact", "rounded") if int8 else ("exact", "rounded",
+                                                    "compare")
+        lines = {}
+        for kind in kinds:
+            lines[kind], counts = self.main_path(lambda kd=kind: (
+                ic.run_cluster(rows, q, kk, self.probe_ms, kd, scales,
+                               q_scales)))
+            self.expect(f"cluster counted {label} {kind}", counts,
+                        at_least=True, **{name: 3})
+            self.expect(f"cluster counted {label} {kind}", counts,
+                        fused_dense_top_k=0, fused_dense_top_k_int8=0)
+        (n, d), b = rows.shape, q.shape[0]
+        shape = (f"{n} x {d} {'int8' if int8 else str(rows.dtype)[6:]}, "
+                 f"B={b}, k={kk}, {lines['exact'][0]['walkers']} walkers")
+        keys = ("seed", "ms", "entries_per_row", "entries_early_per_row",
+                "entries_late_per_row", "tiles_entered_per_row",
+                "tiles_per_row", "tiles_entered_share", "insertions_per_row",
+                "survivors_per_row", "counters_off_plain")
+        log(counted_cluster=label, shape=shape, lists_equal_whole_call=True,
+            equal_plain=True, kinds={kind: [{key: line[key] for key in keys}
+                                            for line in kl]
+                                     for kind, kl in lines.items()},
+            card=self.card, seconds=time.perf_counter() - t0)
+        active = self.p.anatomy.cluster_active_clusters(rows, b, kk, "exact",
+                                                   "counted")
+        if int8:
+            args = (rows, scales, q, q_scales, kk)
+            kernel = lambda: k.fused_top_k_counted_int8_cluster(*args)  # noqa
+            plain = lambda: k.fused_top_k_counted_int8_cluster_torch(  # noqa
+                *args, active=active)
+        else:
+            kernel = lambda: k.fused_top_k_counted_cluster(rows, q, kk)  # noqa
+            plain = lambda: k.fused_top_k_counted_cluster_torch(  # noqa
+                rows, q, kk, active=active)
+        self.time_pair(name, kernel, plain, shape + ", exact, no seed",
+                       plain_n=1)
+        split = "fused_top_k_counted_int8" if int8 else "fused_top_k_counted"
+        self.bounds[name] = self.bounds[split]
         self.no_library(name, "no PyTorch call counts a top-k's insertions")
 
     def phase15_keys(self) -> None:
@@ -5815,7 +6011,8 @@ class Smoke:
                    QUERY_PIECES * 2 * b * n * d, BF16_FLOP_S)
         log(stage="A_2M_k1r_batches",
             batches=self.bf16_batches("rounded", emb, q),
-            k1r_anatomy=self.bf16_anatomy("rounded", emb, q), card=self.card)
+            k1r_anatomy=self.cluster_anatomy("rounded", emb, q, 32),
+            card=self.card)
 
     def phase26c_rounded_served(self, q, terms, index) -> None:
         """serve_cli's build_state(rounded_fold=True) on stage A's
@@ -5854,7 +6051,7 @@ class Smoke:
         K2r's plain version; K2r timed at stage C's shape beside its plain
         version, its yardstick and its bound (K2's work), then at each of
         K2R_TIMED_B (``k2r_batches``) and its anatomy
-        (``k2r_anatomy``)."""
+        (``cluster_anatomy``)."""
         p, k = self.p, self.p.kernels
         qd = index.dense_q[MODEL]
         values, scales = qd.values, qd.scales
@@ -5893,7 +6090,7 @@ class Smoke:
                    n * d + n * 4 + b * (d + 4) + b * 25 * 8, 2 * b * n * d,
                    INT8_OP_S)
         batches = self.k2r_batches(values, scales, q)
-        anatomy = self.k2r_anatomy(values, scales, qv, qs)
+        anatomy = self.cluster_anatomy("rounded", values, qv, 25, scales, qs)
         log(stage="C_10.5M_int8_rounded", recall10=r10,
             k2r_launches=counts["fused_dense_top_k_int8_rounded"],
             ids_equal_plain_8_queries=True, batches=batches,
@@ -5979,24 +6176,22 @@ class Smoke:
             out[str(b)] = row
         return out
 
-    def k2r_anatomy(self, values, scales, qv, qs) -> dict:
-        """K2r's kernel at stage C's shape, one main pass at a time (its
-        main-path launch, each mode doing less): the ring alone, + the
-        wgmma multiply, + the epilogue's threshold test of every score
-        against the rounded tau (nothing offered), the full pass seeded
-        with that tau, and the whole call (+ the seed and tau passes and
-        the merges)."""
-        p = self.p
-        sms = p.sm_count(self.dev)
-        tau = p.kernels.subsample_tau_int8_torch(values, scales, qv, 25,
-                                                 rounded=True)
-        ms = {}
-        for mode in ("stream", "mma", "epilogue", "full"):
-            ms[mode] = p.cuda_event_ms(lambda: p.k2r_pass(
-                mode, values, scales, qv, 25, sms, tau))
-        ms["whole"] = self.times["fused_dense_top_k_int8_rounded"][0]
-        return {"ms": ms, "method": "CUDA events, median of 10 after 3 "
-                "warm-ups"}
+    def cluster_anatomy(self, kind, rows, q, kk, scales=None,
+                        q_scales=None) -> dict:
+        """A fold's cluster kernel at a stage's shape through the cluster
+        design's checked modes (probes.kernel_anatomy), each held against
+        its plain version first (K2r's int8 rows exactly, K1r's and K1c's
+        within one bf16 ulp of the largest |score|): the ring alone, +
+        wgmma, + the epilogue's test (at +inf: nothing offered), the
+        whole call, and the main pass alone seeded with the fold's
+        subsample tau."""
+        ka = self.p.kernel_anatomy
+        err = ka.check_cluster(rows, q, kk, kind, scales, q_scales)
+        line = ka.run_cluster(rows, q, kk, self.probe_ms, kind, scales,
+                              q_scales)
+        return {"ms": line["ms"], "plan": line["plan"],
+                "modes_equal_plain": True, "score_max_abs_err": err,
+                "method": "CUDA events, median of 5 after 1 warm-up"}
 
     # -- phase 27: the bf16 compare fold -----------------------------------
 
@@ -6202,7 +6397,8 @@ class Smoke:
             "product at 989 TFLOP/s", seconds=time.perf_counter() - t0)
         log(stage="A_2M_k1c_batches",
             batches=self.bf16_batches("compare", emb, q),
-            k1c_anatomy=self.bf16_anatomy("compare", emb, q), card=self.card)
+            k1c_anatomy=self.cluster_anatomy("compare", emb, q, 32),
+            card=self.card)
 
     K1C_LIBRARY_STEP = 1 << 20
 
@@ -6315,29 +6511,6 @@ class Smoke:
             del qb, got, split
         return out
 
-    def bf16_anatomy(self, kind, emb, q) -> dict:
-        """The cluster kernel's main pass for K1r or K1c at stage A's shape
-        (B = 256, k = 32), one pass at a time (each mode doing less): the
-        ring alone, + the wgmma multiply, + the epilogue's threshold test
-        of every score against the fold's rounded subsample tau (nothing
-        offered), the full pass seeded with that tau, and the whole call
-        (+ the seed and tau passes and the merges)."""
-        p, ft = self.p, self.p.kernels.fused_topk
-        sms, t = p.sm_count(self.dev), p.cuda_event_ms
-        sub = emb[::ft.TAU_STRIDE].float()
-        if kind == "rounded":
-            s = ft.round_scores(q.float() @ sub.T)
-        else:
-            s = (q.bfloat16().float() @ sub.T).bfloat16().float()
-        tau = ft._tau_of(s, 32)
-        ms = {}
-        for mode in ("stream", "mma", "epilogue", "full"):
-            ms[mode] = t(lambda: p.cluster_pass(mode, emb, None, q, 32, sms,
-                                                tau, kind=kind))
-        ms["whole"] = t(lambda: p.bf16_call(emb, q, 32, sms, kind))
-        return {"ms": ms, "method": "CUDA events, median of 10 after 3 "
-                "warm-ups"}
-
     def kernels_line(self) -> None:
         rows = []
         for name, (source, replaces) in KERNELS.items():
@@ -6364,6 +6537,7 @@ class Smoke:
         self.phase3_ivf_kernels()
         self.phase9_stream_kernels()
         self.phase13_14_probe_checks()
+        self.phase13_14_cluster_checks()
         self.phase15_keys()
         self.phase16_int4_exact()
         torch.cuda.empty_cache()
@@ -6425,7 +6599,9 @@ class Smoke:
         self.phase12_overlap(emb)
         self.time_stream(emb)
         self.phase13_anatomy("A", emb, q, 32)
+        self.phase13_cluster("A", emb, q, 32)
         self.phase14_counted("A", emb, q, 32)
+        self.phase14_cluster("A", emb, q, 32)
         del emb, gold, q, bm25, terms
         torch.cuda.empty_cache()
         index, q, gold = self.phase6_stage_d()
@@ -6444,7 +6620,9 @@ class Smoke:
         del gold
         qv, qs = self.p.quantize_queries(q)
         self.phase13_anatomy("C", qd.values, qv, 25, qd.scales, qs)
+        self.phase13_cluster("C", qd.values, qv, 25, qd.scales, qs)
         self.phase14_counted("C", qd.values, qv, 25, qd.scales, qs)
+        self.phase14_cluster("C", qd.values, qv, 25, qd.scales, qs)
         self.phase16_int4_stage2(qd.values)
         self.phase19_summary()
         self.served_summary()
@@ -6500,6 +6678,7 @@ class _Port:
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
         from a_nice_rag_tpu_torch.ops.kernels import anatomy, topk_plan
         from a_nice_rag_tpu_torch.ops.kernels import int4 as int4_kernels
+        from a_nice_rag_tpu_torch.ops.kernels import cluster_probe
         from a_nice_rag_tpu_torch.ops.kernels import cluster_topk
         from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
             K2R_SPLIT_MAX_B,
@@ -6788,8 +6967,8 @@ class _Port:
         self.cluster_workspace_bytes = cluster_topk.source_workspace_bytes
         self.k2r_call = cluster_topk.rounded_top_k_int8
         self.k2r_split_max_b = K2R_SPLIT_MAX_B
-        self.k2r_pass = cluster_topk.cluster_pass
-        self.cluster_pass = cluster_topk.cluster_pass
+        self.cluster_probe = cluster_probe
+        self.probe_active_clusters = cluster_probe.device_active_clusters
         self.bf16_call = cluster_topk.bf16_top_k
         self.bf16_cluster_route = bf16_cluster_route
         self.split_route_call = split_route_top_k

@@ -1,12 +1,14 @@
 """chip_smoke.py's phases, rehearsed on the CPU at tiny sizes.
 
 The smoke run itself needs a GPU. Here its phases run on CPU tensors,
-where the kernel wrappers take their plain versions, with four fakes:
+where the kernel wrappers take their plain versions, with five fakes:
 each plain-version call through a wrapper counts as a launch (and the
 sources' shared-memory sums are topk_plan's), the
 retriever's route to the kernels is forced at the stages' sizes (stage
-F's reference-scale corpus stays below it, as on the card), CUDA
-synchronisation is a no-op, and the CUDA timers are a host clock. The
+F's reference-scale corpus stays below it, as on the card), the cluster
+probes' plan takes the tiny stages' batches and depths (below the B >
+16 and 128-byte rows the card's design needs), CUDA synchronisation is a
+no-op, and the CUDA timers are a host clock. The
 tiny stage D and E sizes keep the IVF coverage rule's routes (IVF at
 B = 8, exact at B = 256). This keeps the script's control flow, shapes and checks working
 between chip runs; what it says about the kernels themselves comes only
@@ -22,6 +24,7 @@ import torch
 
 import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
+from a_nice_rag_tpu_torch.ops.kernels import cluster_probe as cp
 from a_nice_rag_tpu_torch.ops.kernels import cluster_topk as ct
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
 from a_nice_rag_tpu_torch.ops.kernels import int4 as i4
@@ -37,6 +40,9 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (st, "stream_sum"), (st, "stream_sum_busy"),
            (an, "anatomy_top_k"), (an, "anatomy_top_k_int8"),
            (an, "fused_top_k_counted"), (an, "fused_top_k_counted_int8"),
+           (an, "anatomy_top_k_cluster"), (an, "anatomy_top_k_int8_cluster"),
+           (an, "fused_top_k_counted_cluster"),
+           (an, "fused_top_k_counted_int8_cluster"),
            (ks, "xpack_keys"), (ks, "xpack_values"),
            (ks, "bf16_row_reduce"), (i4, "int4_scores"),
            (i4, "int8_fold_max"), (i4, "int4_fold_max"),
@@ -283,7 +289,16 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     port.k2r_call = (lambda values, scales, qv, qs, k, sms, qg=None:
                      ft.fused_dense_top_k_int8_torch(values, scales, qv, qs,
                                                      k, rounded=True))
-    port.k2r_pass = lambda *args, **kwargs: None
+    # The cluster probes' plan without the card's refusals (the tiny
+    # stages' B = 16 and 32-wide rows), its active clusters an H100's.
+    monkeypatch.setattr(
+        cp, "probe_plan",
+        lambda n, b, d, k, kind, counted=False, sms=132, aligned=True,
+        active_clusters=None, qg=None: ct.cluster_plan(
+            n, b, d, k, sms, aligned, active_clusters, qg=qg, kind=kind,
+            counted=counted))
+    port.probe_active_clusters = (lambda index, kind, mode, qg, cl, smem:
+                                  132 // cl)
     # K1r's and K1c's: the cluster kernel and K1's kernel in the fold's
     # score mode are their plain versions here.
     plain_fold = {
@@ -296,7 +311,6 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         lambda e, q, k, score, mask=None: plain_fold[
             "rounded" if score == ft.SCORE_ROUNDED else "compare"](
                 e, q, k, mask=mask))
-    port.cluster_pass = lambda *args, **kwargs: None
     # The folds' stream alone runs only on the card.
     monkeypatch.setattr(i4, "fold_stream", lambda q8, rows, packed: None)
     monkeypatch.setattr(port.kernels, "build_kernels", lambda: None)
@@ -353,7 +367,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         325 + 64, 288]
     assert all(k["launches"] >= 1 for k in kernels[4:])
     no_library = {"stream_sum_busy", "fused_top_k_counted",
-                  "fused_top_k_counted_int8", "xpack_keys", "xpack_values",
+                  "fused_top_k_counted_int8", "fused_top_k_counted_cluster",
+                  "fused_top_k_counted_int8_cluster", "xpack_keys",
+                  "xpack_values",
                   "bf16_row_reduce", "int4_scores", "int4_fold_max"}
     for k in kernels:
         assert k["bound_by"] in ("bytes", "operations")
@@ -395,7 +411,17 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                                      "cluster_direct": direct}
     plans = [r for r in records if r.get("phase") == "cluster_plan"][0]
     assert [sh["kind"] for sh in plans["shapes"]] == \
-        ["int8"] * 6 + ["rounded"] * 3 + ["compare"] * 4 + ["rounded"]
+        ["int8"] * 6 + ["rounded"] * 3 + ["compare"] * 4 + ["rounded"] + [
+            kind for kind in ("exact", "rounded", "compare", "int8_exact",
+                              "int8") for _ in range(2)]
+    # Each probe's fold and its counted plan: the counters' shared memory
+    # leaves the counted probe at most the fold's ring slots.
+    probe_plans = [sh for sh in plans["shapes"] if "probe" in sh]
+    assert [sh["probe"] for sh in probe_plans] == ["full", "counted"] * 5
+    for fold, counted_plan in zip(probe_plans[::2], probe_plans[1::2]):
+        assert counted_plan["stages"] <= fold["stages"]
+        assert counted_plan["smem_bytes"] > fold["smem_bytes"] or \
+            counted_plan["stages"] < fold["stages"]
     assert all(sh["smem_bytes"] <= ct.SMEM_LIMIT for sh in plans["shapes"])
     a26 = [r for r in records if r.get("stage") == "A_2M_hybrid_rounded"][0]
     assert a26["recall10_hybrid"] >= 0.99 and a26["k1r_launches"] == 1
@@ -412,7 +438,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
             assert row["plain_ms"] > 0 and row["library_ms"] > 0
             assert row["bound_ms"] > 0 and row["qg1_equal_split"]
         assert set(line[f"{kind}_anatomy"]["ms"]) == {
-            "stream", "mma", "epilogue", "full", "whole"}
+            "stage", "score", "compare", "full", "main_pass"}
+        assert line[f"{kind}_anatomy"]["modes_equal_plain"]
     c26 = [r for r in records if r.get("stage") == "C_10.5M_int8_rounded"][0]
     assert c26["ids_equal_plain_8_queries"] and c26["k2r_launches"] == 1
     assert sorted(c26["batches"], key=int) == ["8", "16", "32"]
@@ -422,8 +449,9 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         assert row["ms"] > 0 and row["plain_ms"] > 0 and \
             row["library_ms"] > 0
         assert set(row["ms_by_query_groups"]) == {"1", "2"}
-    assert set(c26["k2r_anatomy"]["ms"]) == {"stream", "mma", "epilogue",
-                                             "full", "whole"}
+    assert set(c26["k2r_anatomy"]["ms"]) == {"stage", "score", "compare",
+                                             "full", "main_pass"}
+    assert c26["k2r_anatomy"]["modes_equal_plain"]
     # Phase 27: K1c twice on stage A's path (the masked routed call and
     # the direct maskless one), none elsewhere on the main path.
     compare = kernels[-1]
@@ -464,6 +492,46 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
         # The warm start can only remove insertions.
         assert c["insertions_per_row"][1] <= c["insertions_per_row"][0]
         assert 0 < c["fired_share"][0] <= 1
+    # P4 and P5 on the cluster kernel: every kind at N_KERNEL, the exact
+    # kind's anatomy and every kind's counted fold at stages A and C.
+    cluster = [r for r in records
+               if r.get("phase") == "cluster_probes_vs_plain"][0]
+    assert cluster["ok"] and cluster["exact_lists_equal_k1_k2"]
+    assert set(cluster["counters"]) == {"bf16_exact", "bf16_rounded",
+                                        "bf16_compare", "int8_exact",
+                                        "int8_rounded"}
+    for seeds in cluster["counters"].values():
+        assert [s["seed"] for s in seeds] == ["none", "tau", "lists"]
+        # A warm start only takes entries away.
+        assert seeds[1]["entries_per_row"] <= seeds[0]["entries_per_row"]
+    anatomy_c = [r for r in records if "anatomy_cluster" in r]
+    assert [a["anatomy_cluster"] for a in anatomy_c] == ["A", "C"]
+    for a in anatomy_c:
+        assert set(a["ms"]) == {"stage", "score", "compare", "full",
+                                "main_pass"}
+        assert a["modes_equal_plain"] and a["kind"] == "exact"
+        # Four modes, each a warm-up and 5 timed calls.
+        assert a["launches"] == 4 * 6
+    counted_c = [r for r in records if "counted_cluster" in r]
+    assert [c["counted_cluster"] for c in counted_c] == ["A", "C"]
+    assert set(counted_c[0]["kinds"]) == {"exact", "rounded", "compare"}
+    assert set(counted_c[1]["kinds"]) == {"exact", "rounded"}
+    for c in counted_c:
+        assert c["lists_equal_whole_call"] and c["equal_plain"]
+        for seeds in c["kinds"].values():
+            assert [s["seed"] for s in seeds] == ["none", "tau", "lists"]
+            for s in seeds:
+                assert s["survivors_per_row"] <= \
+                    s["insertions_per_row"] <= s["entries_per_row"]
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("anatomy_top_k_cluster", "anatomy_top_k_int8_cluster",
+                 "fused_top_k_counted_cluster",
+                 "fused_top_k_counted_int8_cluster"):
+        assert by_name[name]["source"] == \
+            "a_nice_rag_tpu_torch/csrc/cluster_probe.cu"
+        split = name.removesuffix("_cluster")
+        assert by_name[name]["replaces"] == by_name[split]["replaces"]
+        assert by_name[name]["bound_ms"] == by_name[split]["bound_ms"]
     keys = [r for r in records if r.get("probe") == "keys"]
     assert keys[0]["bit_equal_plain"] and keys[0]["special_values"] == 13
     assert [f["packed_argmax_agreement"] for f in keys[0]["bf16_fold"]] \

@@ -80,6 +80,7 @@ from a_nice_rag_tpu_torch.ops.kernels import (
     xpack_keys_torch,
     xpack_values,
 )
+from a_nice_rag_tpu_torch.ops.kernels import cluster_probe
 from a_nice_rag_tpu_torch.ops.kernels import cluster_topk, topk_plan
 from a_nice_rag_tpu_torch.ops.kernels import fused_dense_top_k_int8_rounded
 from a_nice_rag_tpu_torch.ops.kernels import fused_dense_top_k_rounded
@@ -1104,3 +1105,236 @@ def test_cuda_bf16_cluster_route_reads_no_plan(cuda_device):
         torch.cuda.synchronize()
         assert wrapper.split_launches == split0, kind
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# -- P4 / P5 on the cluster kernel (csrc/cluster_probe.cu) -----------------
+
+# (row dtype, kind): the cluster kernel's probe kinds.
+CLUSTER_PROBE_KINDS = [("bfloat16", "exact"), ("bfloat16", "rounded"),
+                       ("bfloat16", "compare"), ("int8", "exact"),
+                       ("int8", "rounded")]
+
+
+def _cluster_probe_rows(rows_dtype, n, d, b, dev, grid=True):
+    """(rows, queries, scales, q_scales) on the card: int8 rows and
+    queries with scales, or bf16 rows ({-1, 0, 1} with ``grid``: every
+    score exact in any order, else unit rows) with f32 queries; rows 0-63
+    copied again past the middle (ties across walkers), query 1 zero
+    (+-0.0 everywhere)."""
+    g = torch.Generator().manual_seed(n + d + b)
+    if rows_dtype == "int8":
+        rows = torch.randint(-128, 128, (n, d), generator=g, dtype=torch.int8)
+        q = torch.randint(-128, 128, (b, d), generator=g, dtype=torch.int8)
+        scales = torch.rand(n, generator=g) + 0.5
+        q_scales = torch.rand(b, generator=g) + 0.5
+        scales[n // 2:n // 2 + 64] = scales[:64]
+    elif grid:
+        rows = torch.randint(-1, 2, (n, d), generator=g).float()
+        q = torch.randint(-1, 2, (b, d), generator=g).float()
+        scales = q_scales = None
+    else:
+        rows = _unit(torch.randn((n, d), generator=g))
+        q = _unit(torch.randn((b, d), generator=g))
+        scales = q_scales = None
+    rows[n // 2:n // 2 + 64] = rows[:64]
+    q[1] = 0
+    if rows_dtype != "int8":
+        rows = rows.bfloat16()
+    return [None if t is None else t.to(dev)
+            for t in (rows, q, scales, q_scales)]
+
+
+def _cluster_calls(rows, q, scales, q_scales):
+    """(P4, P5) wrappers and their plain versions for the rows' dtype."""
+    if scales is None:
+        return (lambda *a, **kw: anatomy.anatomy_top_k_cluster(rows, q, *a,
+                                                               **kw),
+                lambda *a, **kw: anatomy.anatomy_top_k_cluster_torch(
+                    rows, q, *a, **kw),
+                lambda *a, **kw: anatomy.fused_top_k_counted_cluster(
+                    rows, q, *a, **kw),
+                lambda *a, **kw: anatomy.fused_top_k_counted_cluster_torch(
+                    rows, q, *a, **kw))
+    args = (rows, scales, q, q_scales)
+    return (lambda *a, **kw: anatomy.anatomy_top_k_int8_cluster(*args, *a,
+                                                                **kw),
+            lambda *a, **kw: anatomy.anatomy_top_k_int8_cluster_torch(
+                *args, *a, **kw),
+            lambda *a, **kw: anatomy.fused_top_k_counted_int8_cluster(
+                *args, *a, **kw),
+            lambda *a, **kw: anatomy.fused_top_k_counted_int8_cluster_torch(
+                *args, *a, **kw))
+
+
+@pytest.mark.parametrize("rows_dtype,kind", CLUSTER_PROBE_KINDS)
+@pytest.mark.parametrize("n,b,k", [(40_000 - 37, 40, 32),
+                                   (40_000 - 37, 200, 128),
+                                   (600_000 + 5, 70, 1)])
+def test_cuda_cluster_probe_modes_match_plain(cuda_device, rows_dtype, kind,
+                                              n, b, k):
+    # Every mode torch.equal to its plain version over the card's walks:
+    # stage, score, compare at a listed subsample score, full and the
+    # counted fold under each seed (counters equal, heap insertions
+    # between the survivors and the entries); full's lists equal the
+    # kind's whole call. 600,005 rows give walkers past 16 tiles.
+    d = 128 if rows_dtype == "bfloat16" else 256
+    rows, q, scales, q_scales = _cluster_probe_rows(rows_dtype, n, d, b,
+                                                    cuda_device)
+    p4, p4_plain, p5, p5_plain = _cluster_calls(rows, q, scales, q_scales)
+    before = (anatomy.anatomy_top_k_cluster.launches
+              + anatomy.anatomy_top_k_int8_cluster.launches)
+    src = cluster_probe.source_kind(rows_dtype == "int8", kind)
+    for mode in ("stage", "score"):
+        active = anatomy.cluster_active_clusters(rows, b, k, kind, mode)
+        got, want = p4(k, mode, kind=kind), p4_plain(k, mode, kind=kind,
+                                                     active=active)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), mode
+    tau, lists = cluster_probe.subsample_seeds(rows, q, k, src, scales)
+    thr = lists[0][:, k // 2].contiguous()
+    active = anatomy.cluster_active_clusters(rows, b, k, kind, "compare")
+    got = p4(k, "compare", thr, kind=kind)
+    assert torch.equal(got, p4_plain(k, "compare", thr, kind=kind,
+                                     active=active))
+    whole = p4(k, "full", kind=kind)
+    want = cluster_probe.top_k_torch(rows, q, k, src, scales, q_scales)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[0], want[0]) and torch.equal(whole[1], want[1])
+    assert (anatomy.anatomy_top_k_cluster.launches
+            + anatomy.anatomy_top_k_int8_cluster.launches) == before + 4
+    active = anatomy.cluster_active_clusters(rows, b, k, kind, "counted")
+    for seed in ({}, {"tau": tau}, {"lists": lists}):
+        got = p5(k, kind=kind, **seed)
+        want = p5_plain(k, kind=kind, active=active, **seed)
+        torch.cuda.synchronize()
+        anatomy.check_counted(got, want, f"{kind} {sorted(seed)}")
+        assert torch.equal(got[0], whole[0]) and torch.equal(got[1],
+                                                             whole[1])
+        full = cluster_probe.cluster_probe("full", rows, q, k, src, scales,
+                                           q_scales, **seed)
+        assert torch.equal(full[0], whole[0]) and torch.equal(full[1],
+                                                              whole[1])
+
+
+@pytest.mark.parametrize("rows_dtype,kind", CLUSTER_PROBE_KINDS)
+@pytest.mark.parametrize("qg", [1, 2])
+def test_cuda_cluster_probe_query_groups(cuda_device, rows_dtype, kind, qg):
+    # One and two query groups a CTA at B = 200: both warpgroups on every
+    # row (its heap under a lock) or a warpgroup each.
+    d = 64 if rows_dtype == "bfloat16" else 128
+    n, b, k = 70_000 + 11, 200, 25
+    rows, q, scales, q_scales = _cluster_probe_rows(rows_dtype, n, d, b,
+                                                    cuda_device)
+    src = cluster_probe.source_kind(rows_dtype == "int8", kind)
+    tau, lists = cluster_probe.subsample_seeds(rows, q, k, src, scales)
+    for mode, seed in (("stage", {}), ("score", {}), ("counted", {}),
+                       ("counted", {"lists": lists})):
+        active = cluster_probe.active_clusters(rows, b, k, src, mode, qg=qg)
+        got = cluster_probe.cluster_probe(mode, rows, q, k, src, scales,
+                                          q_scales, qg=qg, **seed)
+        want = cluster_probe.cluster_probe_torch(
+            mode, rows, q, k, src, scales, q_scales, qg=qg, active=active,
+            **seed)
+        torch.cuda.synchronize()
+        if mode == "counted":
+            anatomy.check_counted(got, want, f"{kind} qg={qg}")
+        else:
+            assert torch.equal(got, want), (mode, qg)
+
+
+@pytest.mark.parametrize("rows_dtype", ["bfloat16", "int8"])
+def test_cuda_cluster_exact_is_k1_or_k2(cuda_device, rows_dtype):
+    # The exact kinds' whole call: K2's lists torch.equal (one rounding of
+    # an exact int32); K1's within F32 tolerance on unit rows (the planes'
+    # sums chained in the accumulator) and torch.equal on integer grids.
+    n, b, k = 300_000 + 7, 256, 32
+    for grid in ((True,) if rows_dtype == "int8" else (True, False)):
+        d = 256
+        rows, q, scales, q_scales = _cluster_probe_rows(
+            rows_dtype, n, d, b, cuda_device, grid)
+        if rows_dtype == "int8":
+            got = anatomy.anatomy_top_k_int8(rows, scales, q, q_scales, k,
+                                             "full", design="cluster")
+            want = fused_dense_top_k_int8_torch(rows, scales, q, q_scales, k)
+            kernel = fused_dense_top_k_int8(rows, scales, q, q_scales, k)
+        else:
+            got = anatomy.anatomy_top_k(rows, q, k, "full",
+                                        design="cluster")
+            want = fused_dense_top_k_torch(rows, q, k)
+            kernel = fused_dense_top_k(rows, q, k)
+        torch.cuda.synchronize()
+        if rows_dtype == "int8" or grid:
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+            assert torch.equal(got[1], kernel[1])
+        else:
+            check_top_k(want[0], want[1], got[0], got[1], 1e-5)
+            check_top_k(kernel[0], kernel[1], got[0], got[1], 1e-5)
+        assert _ties_kept_by_lower_id(*got)
+
+
+@pytest.mark.parametrize("rows_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("b", [64, 200])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_cuda_cluster_probe_plan_matches_source(cuda_device, rows_dtype, b,
+                                                d):
+    for kind in cluster_probe.KINDS[:2]:
+        src = cluster_probe.source_kind(rows_dtype == "int8", kind)
+        for counted in (False, True):
+            plan = cluster_topk.cluster_plan(2_000_000, b, d, 32, kind=src,
+                                             counted=counted)
+            assert cluster_topk.source_smem_bytes(
+                plan.qg, d, 32, plan.stages, plan.resident, src,
+                counted) == plan.smem_bytes
+        walkers = (plan.walkers, plan.tau_walkers, plan.seed_walkers)
+        assert cluster_topk.source_workspace_bytes(b, 32, *walkers, d, src) \
+            == cluster_topk.workspace_bytes(b, 32, *walkers, d, src)
+
+
+def test_cuda_cluster_probe_raises_instead_of_falling_back(cuda_device,
+                                                           monkeypatch):
+    n, d = 4096, 128
+    rows, q, _, _ = _cluster_probe_rows("bfloat16", n, d, 40, cuda_device)
+    before = (anatomy.anatomy_top_k_cluster.launches,
+              anatomy.anatomy_top_k.launches,
+              fused_dense_top_k.launches,
+              anatomy.fused_top_k_counted_cluster.launches)
+    # Calls the cluster plan refuses: B <= 16, f32 rows, rows the TMA
+    # cannot take (an odd address), planes not resident (D = 4096).
+    with pytest.raises(ValueError, match="B = 16"):
+        anatomy.anatomy_top_k(rows, q[:16], 8, "score", design="cluster")
+    with pytest.raises(ValueError, match="f32 rows"):
+        anatomy.anatomy_top_k(rows.float(), q, 8, "score", design="cluster")
+    with pytest.raises(ValueError, match="TMA"):
+        anatomy.fused_top_k_counted(_bf16_odd(rows), q, 8, design="cluster")
+    wide = torch.zeros((n, 4096), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="resident"):
+        anatomy.anatomy_top_k(wide, torch.zeros((40, 4096),
+                                                device=cuda_device), 8,
+                              "full", design="cluster")
+    assert (anatomy.anatomy_top_k_cluster.launches,
+            anatomy.anatomy_top_k.launches,
+            fused_dense_top_k.launches,
+            anatomy.fused_top_k_counted_cluster.launches) == before
+
+    # A launch the source refuses ("score" with no output) raises.
+    lib = cluster_probe._library()
+    with pytest.raises(RuntimeError, match="anr_cluster_probe"):
+        cluster_probe._launch(
+            lib.anr_cluster_probe, 4, 2, q.data_ptr(), None, rows.data_ptr(),
+            None, None, None, None, None, 0, 40, n, d, 8, 1, 1, 1, 3, 1,
+            220_000, 16, None, None, None, None, None, None, None,
+            device=cuda_device)
+
+    # A build that fails raises too, and nothing runs the plain version.
+    def broken():
+        raise RuntimeError("nvcc failed building cluster_probe.cu")
+
+    monkeypatch.setattr(cluster_probe, "_library", broken)
+    cluster_probe.device_active_clusters.cache_clear()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        anatomy.anatomy_top_k(rows, q, 8, "stage", design="cluster")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        anatomy.fused_top_k_counted(rows, q, 8, design="cluster")
+    assert anatomy.anatomy_top_k_cluster.launches == before[0]
+    assert anatomy.fused_top_k_counted_cluster.launches == before[3]

@@ -39,7 +39,8 @@ assert not missing, missing
 # slice's, the serving slice's, the models slice's, the generation
 # slice's, the training and tensor-parallel slice's, the evaluation
 # slice's modules (the judge framework on its pydantic-free model base)
-# and the ingestion slice's, beside the earlier slices'.
+# and the ingestion slice's, and the cluster kernel's folds and probes,
+# beside the earlier slices'.
 SLICE_MODULES = [
     "a_nice_rag_tpu_torch." + m for m in (
         "config", "text", "text.preprocess", "text.stopwords_en",
@@ -94,7 +95,8 @@ SLICE_MODULES = [
         "evals.ragas.testset", "evals.ragas.validation", "ingest.tokens",
         "ingest.xml_to_md", "ingest.chunker", "ingest.embed_db",
         "ingest.nice_api", "ingest.run_pipeline", "utils.corpus_stats",
-        "testing.guidelines")
+        "testing.guidelines", "ops.kernels.cluster_topk",
+        "ops.kernels.cluster_probe")
 ]
 
 
@@ -153,6 +155,10 @@ names = ["chip_smoke", "a_nice_rag_tpu_torch.bench",
          "a_nice_rag_tpu_torch.testing.synth",
          "a_nice_rag_tpu_torch.ops.kernels.stream",
          "a_nice_rag_tpu_torch.ops.kernels.anatomy",
+         "a_nice_rag_tpu_torch.ops.kernels.cluster_probe",
+         "a_nice_rag_tpu_torch.probes.bf16_cluster",
+         "a_nice_rag_tpu_torch.probes.rounded_int8",
+         "a_nice_rag_tpu_torch.probes.served_tail",
          "a_nice_rag_tpu_torch.ops.kernels.keys",
          "a_nice_rag_tpu_torch.ops.kernels.int4",
          "a_nice_rag_tpu_torch.evals",
@@ -188,4 +194,4 @@ def test_bench_probes_and_smoke_import_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["29"]
+    assert proc.stdout.split() == ["33"]

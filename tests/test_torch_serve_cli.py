@@ -4,7 +4,8 @@ the JAX package's.
 Mirrors tests/test_serve_cli.py's serving cases on the CPU: single
 device, sharded over 4 "cpu" slots with a health swap (the retriever and
 its pool replaced live), an int8 index, the IVF route on both paths and
-the sharded IVF cache, and the batched base64 RPC in f32 and bf16.
+the sharded IVF cache, the batched base64 RPC in f32 and bf16, and
+one HTTP/1.1 connection carrying query after query.
 ``--embedder-ckpt`` serves a trained checkpoint and ``--lm-tp`` the LM
 tensor-parallel (the rounded fold's flag: tests/test_torch_rounded_topk.py).
 The local-LLM surface (``--llm local``, ``build_local_llm_api``):
@@ -250,6 +251,57 @@ def test_serve_cli_batched_b64_search(corpus_index):
     direct = state.retriever.retrieve_device({MODEL: q}, terms, W, None,
                                              40.0)[0]
     np.testing.assert_array_equal(rows, direct.numpy())
+
+
+def test_serve_cli_keeps_search_connections(corpus_index):
+    """/v1/search over HTTP/1.1: one client connection carries query after
+    query (JSON and b64), each reply equal to a fresh connection's. A
+    reply whose request was not taken whole (an unknown endpoint, bad
+    JSON) says "Connection: close", and the client's next request opens a
+    new connection that is served."""
+    import http.client
+
+    c, idx = corpus_index
+    state = build_state(idx, (MODEL,), use_bm25=True)
+    q, terms = _block(c, idx)
+    with _Served(state) as s:
+        conn = http.client.HTTPConnection("127.0.0.1", s.port, timeout=60)
+
+        def post(path, body):
+            conn.request("POST", path, body,
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r, r.read()
+
+        try:
+            local = set()
+            for i in range(4):
+                r, data = post("/v1/search", json.dumps(_one(c, idx, i)))
+                assert r.status == 200 and r.version == 11
+                assert not r.will_close
+                local.add(conn.sock.getsockname())
+                assert json.loads(data) == _search(s.port, _one(c, idx, i))
+            r, data = post("/v1/search", json.dumps(_b64(q, terms)))
+            assert r.status == 200 and not r.will_close
+            np.testing.assert_array_equal(
+                _rows(json.loads(data)), _rows(_search(s.port,
+                                                       _b64(q, terms))))
+            conn.request("GET", "/v1/health")
+            r = conn.getresponse()
+            assert json.loads(r.read())["status"] == "ok"
+            assert not r.will_close
+            local.add(conn.sock.getsockname())
+            assert len(local) == 1
+            for path, body, status in (("/v1/nowhere", "{}", 404),
+                                       ("/v1/search", "{not json", 400)):
+                r, _ = post(path, body)
+                assert r.status == status and r.will_close
+                assert r.getheader("Connection") == "close"
+                r, data = post("/v1/search", json.dumps(_one(c, idx, 0)))
+                assert r.status == 200
+                assert json.loads(data) == _search(s.port, _one(c, idx, 0))
+        finally:
+            conn.close()
 
 
 def test_serve_cli_batched_b64_search_bf16(corpus_index):

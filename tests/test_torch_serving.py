@@ -2,7 +2,9 @@
 log, the debug trap and the terminal app, against the JAX package's.
 
 Mirrors tests/test_serving.py on the CPU (the port's index on "cpu", its
-sharded case on an 8-slot "cpu" mesh), then holds the port's scheduler
+sharded case on an 8-slot "cpu" mesh), checks the submissions of other
+threads (``submit_threadsafe``, the HTTP handlers' path) against the
+loop's own, then holds the port's scheduler
 against the JAX package's on one synth_corpus: equal fused ids and fused
 scores within 1e-6, for single and submit_many traffic and for bf16 rows
 (the port carries them as uint16 bits, the JAX package as ml_dtypes
@@ -322,6 +324,273 @@ def test_submit_many_single_row_keeps_batch_axis(retriever):
         np.testing.assert_array_equal(rows[0], r1)
 
     _run(go, sched)
+
+
+def _loop_thread():
+    """An event loop running on its own thread, as serve_state runs the
+    scheduler pool's; ``_close`` ends both."""
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    return loop, thread
+
+
+def _close(loop, thread):
+    loop.call_soon_threadsafe(loop.stop)
+    thread.join(timeout=10)
+    assert not thread.is_alive()
+    loop.close()
+
+
+def _on(loop, coro, timeout=60):
+    return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+
+def test_submit_threadsafe_matches_submit(retriever):
+    """Entries submitted from another thread (the HTTP handlers' path)
+    in a burst coalesce into shared batches, and the futures the worker
+    thread resolves hold what submit / submit_many return: a single
+    query's 1-D rows, a client batch's leading rows axis, even at one
+    row."""
+    c, idx, fr = retriever
+    q = c.query_embeddings[MODEL]
+    terms = np.asarray(idx.pad_term_ids(c.query_tokens, 16))
+    loop, loop_t = _loop_thread()
+    sched = BatchScheduler(fr, W, max_batch=64, max_wait_ms=20.0, t_max=16)
+    _on(loop, sched.start())
+    try:
+        singles = [sched.submit_threadsafe({MODEL: q[i]}, terms[i])
+                   for i in range(6)]
+        block = sched.submit_threadsafe({MODEL: q[6:10]}, terms[6:10],
+                                        batched=True)
+        one_row = sched.submit_threadsafe({MODEL: q[:1]}, terms[:1],
+                                          batched=True)
+        got = [f.result(60) for f in singles]
+        rows_b, scores_b = block.result(60)
+        rows_1, scores_1 = one_row.result(60)
+        assert sched.queries_served == 11 and sched.batches_run < 8
+
+        async def serial():
+            return [await sched.submit({MODEL: q[i]}, terms[i])
+                    for i in range(10)]
+
+        want = _on(loop, serial())
+    finally:
+        _on(loop, sched.stop())
+        _close(loop, loop_t)
+    for i in range(6):
+        assert got[i][0].ndim == 1
+        np.testing.assert_array_equal(got[i][0], want[i][0])
+        np.testing.assert_allclose(got[i][1], want[i][1], rtol=1e-5)
+    assert rows_b.shape[0] == 4
+    for j, i in enumerate(range(6, 10)):
+        np.testing.assert_array_equal(rows_b[j], want[i][0])
+        np.testing.assert_allclose(scores_b[j], want[i][1], rtol=1e-5)
+    assert rows_1.ndim == 2 and rows_1.shape[0] == 1
+    np.testing.assert_array_equal(rows_1[0], want[0][0])
+    np.testing.assert_allclose(scores_1[0], want[0][1], rtol=1e-5)
+
+
+class _Recording:
+    """A retriever that notes the thread of each device call."""
+
+    def __init__(self, fr):
+        self.fr, self.threads = fr, []
+        self.model_names, self.use_bm25 = fr.model_names, fr.use_bm25
+        self.device = fr.device
+
+    def retrieve_device(self, *args):
+        self.threads.append(threading.get_ident())
+        return self.fr.retrieve_device(*args)
+
+
+def test_submit_threadsafe_runs_a_lone_entry_on_the_callers_thread(
+        retriever):
+    """Under light load (the adaptive wait 0), an entry with nothing
+    queued and a batch slot free runs on the caller's thread: its future
+    is done on return. With every slot taken, or with a collect wait, it
+    goes through the loop to a worker thread instead."""
+    c, idx, fr = retriever
+    q = c.query_embeddings[MODEL]
+    terms = np.asarray(idx.pad_term_ids(c.query_tokens, 16))
+    rec = _Recording(fr)
+    loop, loop_t = _loop_thread()
+    sched = BatchScheduler(rec, W, max_wait_ms=2.0, t_max=16,
+                           max_inflight=2)
+    _on(loop, sched.start())
+    me = threading.get_ident()
+    try:
+        sched._inter_ewma_s = 0.1  # one query a 100 ms
+        fut = sched.submit_threadsafe({MODEL: q[0]}, terms[0])
+        assert fut.done() and rec.threads == [me]
+        block = sched.submit_threadsafe({MODEL: q[:3]}, terms[:3],
+                                        batched=True)
+        assert block.done() and rec.threads == [me, me]
+        for _ in range(2):
+            assert sched._slots.acquire(blocking=False)
+        sched._inter_ewma_s = 0.1
+        queued = sched.submit_threadsafe({MODEL: q[1]}, terms[1])
+        assert not queued.done()
+        sched._slots.release()
+        sched._slots.release()
+        ids_q, _ = queued.result(60)
+        assert rec.threads[-1] != me
+        sched.adaptive = False  # a collect wait: the loop takes it
+        waited = sched.submit_threadsafe({MODEL: q[2]}, terms[2])
+        waited.result(60)
+        assert rec.threads[-1] != me and len(rec.threads) == 4
+
+        async def serial():
+            return [await sched.submit({MODEL: q[i]}, terms[i])
+                    for i in range(3)]
+
+        want = _on(loop, serial())
+    finally:
+        _on(loop, sched.stop())
+        _close(loop, loop_t)
+    np.testing.assert_array_equal(fut.result()[0], want[0][0])
+    np.testing.assert_array_equal(block.result()[0],
+                                  np.stack([w[0] for w in want]))
+    np.testing.assert_array_equal(ids_q, want[1][0])
+    np.testing.assert_array_equal(waited.result()[0], want[2][0])
+    assert sched.batches_run == 7 and sched.queries_served == 9
+
+
+def test_submit_threadsafe_under_many_threads(retriever):
+    """16 threads submit through submit_threadsafe, single queries and
+    client batches, while the interpreter switches threads every
+    microsecond: the lone-entry runs and the loop's batches share the
+    slots. Every reply equals a serial call's, no query is lost from the
+    counters and every batch slot comes back."""
+    c, idx, fr = retriever
+    q = c.query_embeddings[MODEL]
+    terms = np.asarray(idx.pad_term_ids(c.query_tokens, 16))
+    loop, loop_t = _loop_thread()
+    sched = BatchScheduler(fr, W, max_batch=16, max_wait_ms=1.0, t_max=16,
+                           max_inflight=2)
+    _on(loop, sched.start())
+
+    async def serial():
+        return [await sched.submit({MODEL: q[i]}, terms[i])
+                for i in range(8)]
+
+    want = _on(loop, serial())
+    base = sched.queries_served
+    errors = []
+
+    def worker(w_id):
+        try:
+            for i in range(12):
+                r = (w_id + i) % 8
+                if i % 3 == 2:
+                    rows, _ = sched.submit_threadsafe(
+                        {MODEL: q[r:r + 1]}, terms[r:r + 1],
+                        batched=True).result(60)
+                    rows = rows[0]
+                else:
+                    rows, _ = sched.submit_threadsafe(
+                        {MODEL: q[r]}, terms[r]).result(60)
+                np.testing.assert_array_equal(rows, want[r][0])
+                if i % 4 == 3:
+                    sched._inter_ewma_s = 0.1  # light load: run it here
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True)
+                   for w in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+        _on(loop, sched.stop())
+        _close(loop, loop_t)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert sched.queries_served - base == 16 * 12
+    for _ in range(2):
+        assert sched._slots.acquire(blocking=False)
+
+
+class _FailingRetriever:
+    model_names = (MODEL,)
+    use_bm25 = True
+    device = torch.device("cpu")
+
+    def retrieve_device(self, *args):
+        raise RuntimeError("device call failed")
+
+
+def test_submit_threadsafe_raises_the_batch_error(retriever):
+    """A batch that fails raises its error from every entry's future: the
+    worker-resolved, the loop-resolved and one the caller ran alone,
+    whose batch slot comes back; a scheduler that was never started
+    refuses the entry."""
+    c, idx, _ = retriever
+    q = c.query_embeddings[MODEL]
+    terms = np.asarray(idx.pad_term_ids(c.query_tokens, 16))
+    sched = BatchScheduler(_FailingRetriever(), W, max_wait_ms=20.0,
+                           t_max=16)
+    with pytest.raises(RuntimeError, match="started scheduler"):
+        sched.submit_threadsafe({MODEL: q[0]}, terms[0])
+    loop, loop_t = _loop_thread()
+    _on(loop, sched.start())
+    try:
+        fut = sched.submit_threadsafe({MODEL: q[0]}, terms[0])
+        coro = asyncio.run_coroutine_threadsafe(
+            sched.submit({MODEL: q[1]}, terms[1]), loop)
+        for f in (fut, coro):
+            with pytest.raises(RuntimeError, match="device call failed"):
+                f.result(60)
+        sched._inter_ewma_s = 0.1  # light load: the caller runs it
+        lone = sched.submit_threadsafe({MODEL: q[2]}, terms[2])
+        assert lone.done()
+        with pytest.raises(RuntimeError, match="device call failed"):
+            lone.result()
+        assert sched._slots.acquire(blocking=False)  # the slot came back
+        sched._slots.release()
+    finally:
+        _on(loop, sched.stop())
+        _close(loop, loop_t)
+
+
+def test_pool_submit_threadsafe_starts_each_configuration(retriever):
+    """SchedulerPool.submit_threadsafe starts a configuration's scheduler
+    on the loop at its first call, reuses it after, and restarts it once
+    the pool was stopped; the rows equal a direct call's."""
+    from a_nice_rag_tpu_torch.serving import SchedulerPool
+
+    c, idx, fr = retriever
+    q = {MODEL: c.query_embeddings[MODEL][0]}
+    terms = idx.pad_term_ids([c.query_tokens[0]], 16)
+    loop, loop_t = _loop_thread()
+    pool = SchedulerPool(fr, max_wait_ms=2.0, t_max=16)
+    try:
+        ids_h, _ = pool.submit_threadsafe(loop, q, terms[0],
+                                          weights=W).result(60)
+        sched = next(iter(pool._pool.values()))
+        pool.submit_threadsafe(loop, q, terms[0],
+                               weights={"BM25": 1.0, MODEL: 5.0}).result(60)
+        pool.submit_threadsafe(loop, q, terms[0],
+                               weights={MODEL: 1.0}).result(60)
+        assert len(pool.stats) == 2
+        assert next(iter(pool._pool.values())) is sched
+        assert sched.queries_served == 2
+        _on(loop, pool.stop())
+        assert not sched.running
+        pool.submit_threadsafe(loop, q, terms[0], weights=W).result(60)
+        assert sched.running and sched.queries_served == 3
+        with pytest.raises(ValueError, match="requires weights"):
+            pool.submit_threadsafe(loop, q, terms[0])
+    finally:
+        _on(loop, pool.stop())
+        _close(loop, loop_t)
+    f_ids, _, _ = fr({MODEL: c.query_embeddings[MODEL][:1]}, terms, W)
+    np.testing.assert_array_equal(ids_h, f_ids[0])
 
 
 # -- parity with the JAX package's scheduler --------------------------------
