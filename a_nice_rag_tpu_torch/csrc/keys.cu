@@ -14,10 +14,15 @@
 //
 // Contract.
 //   anr_xpack_keys / anr_xpack_values: out[i] = w ^ 0x7fffffff where the
-//     32-bit word w = in[i] is negative as an i32, else w. On f32 bits
-//     this is the sign-flip key: keys order as the floats do (-0.0 just
-//     below +0.0), and the map is its own inverse, so the same kernel
-//     takes keys back to the exact f32 bits.
+//     32-bit word w = in[i] is negative as an i32, else w, for i < n. On
+//     f32 bits this is the sign-flip key: keys order as the floats do
+//     (-0.0 just below +0.0), and the map is its own inverse, so the same
+//     kernel takes keys back to the exact f32 bits. One launch for any
+//     n >= 1 and any 4-byte-aligned, non-overlapping in and out that lie
+//     on the same 16-byte phase (the wrapper allocates out so); n == 0
+//     launches nothing. The caller gives the launch (ops/kernels/keys.py's
+//     key_plan): head = the words before in's first 16-byte boundary
+//     (at most n), the 16-byte loads a thread keeps in flight, the grid.
 //   anr_bf16_row_reduce: for each row r of x [R, W] (W <= 65536), with
 //     s = bf16(x) (round to nearest even), four int32 rows of out [4, R]
 //     (row_max and second as their f32 bits):
@@ -32,19 +37,34 @@
 //                    positive score would order below every negative one.
 //
 // What bounds them on an H100: bytes. The keys read and write 4 bytes per
-// element (2^24 elements: 0.04 ms at 3.35 TB/s); the row reduction reads
-// each element once and writes 16 bytes per row ([256, 16384]: 16.8 MB,
-// 0.005 ms), so at the probe's shapes its launch and the host's call
-// around it weigh as much as the stream.
+// element (2^24 + 13 elements: 0.040 ms at 3.35 TB/s); the row reduction
+// reads each element once and writes 16 bytes per row ([256, 16384]:
+// 16.8 MB, 0.005 ms), so at the probe's shapes its launch and the host's
+// call around it weigh as much as the stream.
 //
-// Design. The keys are a grid-stride loop over 16-byte vectors (a scalar
-// loop when either pointer is not 16-byte aligned). The row reduction is
-// one pass: each thread keeps a RowPart (the max with its lowest column,
-// the largest value strictly below the max, the lowest column of +0.0),
-// about a dozen instructions a value; the masked max is max(below,
-// bf16(-3e38)): the re-max with every column equal to the max replaced
-// by the mask value, without reading the row again; the packed-key
-// argmax is the max's column but where the max is 0 and +0.0 occurs.
+// Design. The keys are stream_sum.cu's stream: one grid-stride launch, a
+// few CTAs on each SM, each thread issuing `unroll` independent 16-byte
+// loads (__ldcs: read once, evict first) before it flips and stores the
+// first (__stcs: the 2 x 67 MB of the timed case pass the 50 MB L2 once);
+// the last batch is predicated, so every batch keeps its loads in flight.
+// (On an H100 neither other cache hints, 16 loads in flight, nor runs of
+// contiguous vectors a CTA moved the stream by more than the placement of
+// the output in memory does.)
+// The vectors follow in's 16-byte grid, which is out's too: thread t of
+// the grid also takes head word t and tail word t (the words after the
+// last whole vector). For a view such as x[1:] the wrapper allocates out
+// that many words past its buffer's start, so every load and store of
+// the body moves 16 bytes (four 4-byte stores a vector into an aligned
+// out measured 0.055-0.058 ms at 2^24 + 12 words on an H100, against
+// 0.048 for an aligned input of that size).
+//
+// The row reduction is one pass: each thread keeps a RowPart (the max
+// with its lowest column, the largest value strictly below the max, the
+// lowest column of +0.0), about a dozen instructions a value; the masked
+// max is max(below, bf16(-3e38)): the re-max with every column equal to
+// the max replaced by the mask value, without reading the row again; the
+// packed-key argmax is the max's column but where the max is 0 and +0.0
+// occurs.
 // A row is one CTA of 256 or 512 threads (ops/kernels/keys.py's
 // row_plan, by W), each issuing 8 16-byte loads (__ldg: a matrix that
 // fits the 50 MB L2 stays there for its next reader) before it uses the
@@ -71,45 +91,62 @@ __device__ __forceinline__ unsigned flip(unsigned w) {
   return static_cast<int>(w) < 0 ? w ^ 0x7fffffffu : w;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    flip_vec_kernel(const uint4* in, uint4* out, long long n_vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < n_vec; i += stride) {
-    uint4 v = in[i];
-    out[i] = make_uint4(flip(v.x), flip(v.y), flip(v.z), flip(v.w));
-  }
+__device__ __forceinline__ uint4 flip4(uint4 v) {
+  return make_uint4(flip(v.x), flip(v.y), flip(v.z), flip(v.w));
 }
 
+// Thread tid of the grid's `stride` takes head word tid (tid < head),
+// the body's vectors tid, tid + stride, ... (UNROLL loads issued before
+// the first store; the last batch predicated) and tail word tid. The
+// body starts 16-byte aligned in `in` and in `out`.
+template <int UNROLL>
 __global__ void __launch_bounds__(kThreads)
-    flip_kernel(const unsigned* in, unsigned* out, long long begin,
-                long long n) {
+    flip_kernel(const unsigned* in, unsigned* out, long long n, int head) {
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = begin + blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < n; i += stride) {
-    out[i] = flip(in[i]);
+  const long long n_vec = (n - head) / 4;
+  if (tid < head) __stcs(out + tid, flip(__ldcs(in + tid)));
+  const uint4* body = reinterpret_cast<const uint4*>(in + head);
+  uint4* out_body = reinterpret_cast<uint4*>(out + head);
+  for (long long i = tid; i < n_vec; i += UNROLL * stride) {
+    uint4 v[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (i + u * stride < n_vec) v[u] = __ldcs(body + i + u * stride);
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (i + u * stride < n_vec) {
+        __stcs(out_body + i + u * stride, flip4(v[u]));
+      }
+    }
   }
+  const long long t = head + 4 * n_vec + tid;
+  if (t < n) __stcs(out + t, flip(__ldcs(in + t)));
 }
 
-int launch_flip(const void* in, void* out, long long n, int grid,
-                cudaStream_t stream) {
-  if (n < 0 || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+int launch_flip(const void* in, void* out, long long n, int head,
+                int unroll, int grid, cudaStream_t stream) {
   if (n == 0) return 0;
-  long long done = 0;
-  if (reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0 && n >= 4) {
-    flip_vec_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const uint4*>(in), static_cast<uint4*>(out), n / 4);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    done = n / 4 * 4;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(in);
+  const uintptr_t b = reinterpret_cast<uintptr_t>(out);
+  // The body's vectors start on in's 16-byte grid and out's.
+  if (n < 0 || head < 0 || head > 3 || head > n || grid < 1 || a % 4 != 0 ||
+      a % 16 != b % 16 || (n - head >= 4 && (a + 4 * head) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (done < n) {
-    flip_kernel<<<grid, kThreads, 0, stream>>>(
-        static_cast<const unsigned*>(in), static_cast<unsigned*>(out), done,
-        n);
+  const unsigned* src = static_cast<const unsigned*>(in);
+  unsigned* dst = static_cast<unsigned*>(out);
+  switch (unroll) {
+    case 4:
+      flip_kernel<4><<<grid, kThreads, 0, stream>>>(src, dst, n, head);
+      break;
+    case 8:
+      flip_kernel<8><<<grid, kThreads, 0, stream>>>(src, dst, n, head);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -241,14 +278,18 @@ __global__ void __launch_bounds__(T, 1024 / T)
 
 extern "C" {
 
-int anr_xpack_keys(const float* x, int* keys, long long n, int grid,
-                   void* stream) {
-  return launch_flip(x, keys, n, grid, static_cast<cudaStream_t>(stream));
+// head: the words before x's (keys') first 16-byte boundary, at most n;
+// unroll: 4 or 8 16-byte loads in flight a thread.
+int anr_xpack_keys(const float* x, int* keys, long long n, int head,
+                   int unroll, int grid, void* stream) {
+  return launch_flip(x, keys, n, head, unroll, grid,
+                     static_cast<cudaStream_t>(stream));
 }
 
-int anr_xpack_values(const int* keys, float* x, long long n, int grid,
-                     void* stream) {
-  return launch_flip(keys, x, n, grid, static_cast<cudaStream_t>(stream));
+int anr_xpack_values(const int* keys, float* x, long long n, int head,
+                     int unroll, int grid, void* stream) {
+  return launch_flip(keys, x, n, head, unroll, grid,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // out: [4, R] int32 on the device, rows (max as f32 bits, its lowest

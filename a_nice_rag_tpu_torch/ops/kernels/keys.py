@@ -17,28 +17,39 @@ bf16(-3e38) f32 [R], the column of the max of the packed int32 key
 ``((key16 - 0x8000) << 16) | (W - 1 - col)`` int32 [R]). W <= 65536.
 
 All in ``csrc/keys.cu``; exact, so the kernels equal their plain versions
-bit for bit. ``bf16_row_reduce`` is one pass over each row, one CTA a
-row (``row_plan``); its wrapper keeps its host work light (one output
-allocation whose rows are the four results, no device switch when the
-device is current), since at the probe's shapes the call's host time
-outweighs the kernel's. On CUDA tensors each wrapper launches its kernel
-or raises; it takes its plain PyTorch version only for tensors on the
-CPU. ``.launches`` counts kernel launches.
+bit for bit. The key map is one launch for any size and storage offset
+(none for an empty tensor): a grid-stride stream of 16-byte vectors on
+the input's 16-byte grid, ``KEY_UNROLL`` loads in flight a thread, the
+words before the first boundary and after the last vector taken by
+threads of the same launch (``key_plan``). The output lies on the
+input's 16-byte phase (for a view such as ``x[1:]``, a view as many
+words into its own buffer), so the body's stores are 16 bytes too.
+``bf16_row_reduce`` is one pass over each row, one CTA a row
+(``row_plan``). Both wrappers keep their host work light (one output
+allocation, the raw current stream, no device switch when the device is
+current), since the call's host time falls inside its event pair. On
+CUDA tensors each wrapper launches its kernel or raises; it takes its
+plain PyTorch version only for tensors on the CPU. ``.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from a_nice_rag_tpu_torch.ops.kernels import _build
 from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
-from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P, _launch
-from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
+from a_nice_rag_tpu_torch.ops.kernels.fused_topk import _I, _P
+from a_nice_rag_tpu_torch.ops.kernels.stream import _sms
 
 MAX_WIDTH = 1 << 16
+# The key map's launch (key_plan): 16-byte loads in flight a thread and
+# CTAs of KEY_THREADS on each SM, chosen by probes/key_map.py's sweep.
+KEY_UNROLL, KEY_CTAS_PER_SM, KEY_THREADS = 8, 8, 256
+KEY_UNROLLS = (4, 8)
 # bf16_row_reduce's 16-byte loads in flight a thread (row_plan).
 ROW_UNROLL = 8
 _FLIP = 0x7FFFFFFF
@@ -50,7 +61,7 @@ RowReduce = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 def _library() -> ctypes.CDLL:
     lib = _build.load("keys")
     if not hasattr(lib, "_anr_bound"):
-        flip = [_P, _P, ctypes.c_longlong, _I, _P]
+        flip = [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]
         lib.anr_xpack_keys.argtypes = flip
         lib.anr_xpack_values.argtypes = flip
         lib.anr_bf16_row_reduce.argtypes = [_P, _I, _I, _I, _P, _P]
@@ -80,13 +91,62 @@ def xpack_values_torch(keys: torch.Tensor) -> torch.Tensor:
     return i.view(torch.float32)
 
 
-def _flip(fn_name: str, src: torch.Tensor, dtype: torch.dtype):
-    dev = src.device
-    out = torch.empty(src.shape, dtype=dtype, device=dev)
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch(getattr(lib, fn_name), src.data_ptr(), out.data_ptr(),
-                src.numel(), sm_grid(dev), device=dev)
+class KeyPlan(NamedTuple):
+    """The key map's launch over n 32-bit words: ``head`` words before the
+    input's first 16-byte boundary, then ``vectors`` whole 16-byte vectors,
+    then ``tail`` words; ``unroll`` vector loads in flight a thread, a grid
+    of ``grid`` CTAs of ``KEY_THREADS``."""
+
+    head: int
+    vectors: int
+    tail: int
+    unroll: int
+    grid: int
+
+
+def key_plan(n: int, offset: int, sms: int, unroll: int = KEY_UNROLL,
+             ctas_per_sm: int = KEY_CTAS_PER_SM) -> KeyPlan:
+    """The launch over ``n`` words whose first lies ``offset`` words (0-3)
+    past a 16-byte boundary, on a card of ``sms`` SMs: ``ctas_per_sm`` CTAs
+    on each, fewer where the vectors do not need them."""
+    if n < 0 or not 0 <= offset <= 3 or unroll not in KEY_UNROLLS:
+        raise ValueError(f"key_plan: n {n}, offset {offset}, unroll "
+                         f"{unroll}")
+    head = min(n, -offset % 4)
+    vectors = (n - head) // 4
+    per_cta = KEY_THREADS * unroll
+    grid = max(1, min(ctas_per_sm * sms, -(-vectors // per_cta)))
+    return KeyPlan(head, vectors, n - head - 4 * vectors, unroll, grid)
+
+
+def _flip(wrapper, fn_name: str, src: torch.Tensor, dtype: torch.dtype,
+          plan: Optional[KeyPlan] = None) -> torch.Tensor:
+    """The key map of ``src`` into a new tensor of ``dtype`` on its 16-byte
+    phase: one launch (``plan``, default ``key_plan``'s), none for an
+    empty ``src``."""
+    n, ptr, dev = src.numel(), src.data_ptr(), src.device
+    offset = ptr % 16 // 4
+    if offset:
+        out = torch.empty(offset + n, dtype=dtype, device=dev)[offset:]
+        out = out.view(src.shape)
+    else:
+        out = torch.empty(src.shape, dtype=dtype, device=dev)
+    if n == 0:
+        return out
+    index = dev.index
+    if plan is None:
+        plan = key_plan(n, offset, _sms(dev))
+    args = (ptr, out.data_ptr(), n, plan.head, plan.unroll, plan.grid,
+            torch._C._cuda_getCurrentRawStream(index))
+    fn = getattr(_library(), fn_name)
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} failed with cudaError_t {err}")
+    count_launch(wrapper)
     return out
 
 
@@ -97,9 +157,7 @@ def xpack_keys(x: torch.Tensor) -> torch.Tensor:
         return xpack_keys_torch(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    out = _flip("anr_xpack_keys", x, torch.int32)
-    count_launch(xpack_keys)
-    return out
+    return _flip(xpack_keys, "anr_xpack_keys", x, torch.int32)
 
 
 xpack_keys.launches = 0
@@ -112,9 +170,7 @@ def xpack_values(keys: torch.Tensor) -> torch.Tensor:
         return xpack_values_torch(keys)
     if keys.device.type != "cuda":
         raise ValueError(f"unsupported device {keys.device}")
-    out = _flip("anr_xpack_values", keys, torch.float32)
-    count_launch(xpack_values)
-    return out
+    return _flip(xpack_values, "anr_xpack_values", keys, torch.float32)
 
 
 xpack_values.launches = 0

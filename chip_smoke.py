@@ -314,7 +314,10 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      whole call, then on stages A and C, its counters logged and the
      exact kind's cold fold timed beside the split design's;
  15. the keys: xpack_keys / xpack_values over the 13 special values of
-     the JAX package's key test plus 2^24 normals, bit for bit, and
+     the JAX package's key test plus 2^24 normals, bit for bit, then at
+     probes.key_map's cases (2^24 words, that input from its second
+     word, 2^26 + 3) torch.equal and one CUDA kernel a call by
+     torch.profiler, each timed beside x.clone(); and
      bf16_row_reduce (probes.bf16_fold) at [128, 8192] and [256, 16384],
      then on its edge cases (R 1-4096, W 1-65536, storage offsets, ties
      across a row's warps, all-equal rows, -inf and values below the mask,
@@ -678,7 +681,7 @@ class Smoke:
     # P6's event-pair time at [256, 16384], predicted before its redesign
     # was first timed on the card (ms, low and high).
     P6_PREDICTED_MS = (0.010, 0.020)
-    KEY_NORMALS = 1 << 24
+    KEY_NORMALS, KEY_LARGE = 1 << 24, (1 << 26) + 3
     # Phase 19: corpus slots of the virtual mesh on the card, each shard's
     # probed clusters (of ~sqrt(n_local) per shard), the odd batch served
     # over dp = 2.
@@ -2743,16 +2746,14 @@ class Smoke:
 
     def phase15_keys(self) -> None:
         """T1 bit for bit over the JAX package's special values and 2^24
-        normals; P6 through its probe."""
+        normals, then timed at probes.key_map's cases; P6 through its
+        probe."""
         t0 = time.perf_counter()
         k = self.p.kernels
-        inf = float("inf")
-        special = torch.tensor(
-            [-inf, -3.3e38, -1.0, -2e-38, -1e-45, -0.0, 0.0, 1e-45, 2e-38,
-             0.5, 1.0, 3.3e38, inf], dtype=torch.float32, device=self.dev)
         g = self.seed(151)
-        x = torch.cat([special, 10 * torch.randn(
-            self.KEY_NORMALS, generator=g, device=self.dev)])
+        cases = self.p.key_map.inputs(self.dev, g, self.KEY_NORMALS,
+                                      self.KEY_LARGE)
+        x = cases["specials_and_normals"]
 
         def keys_and_back():
             keys = k.xpack_keys(x)
@@ -2798,6 +2799,7 @@ class Smoke:
             self.no_library(name, "no PyTorch call maps floats to "
                             "order-preserving int32 keys")
             self.bound(name, 8 * n, n, F32_FLOP_S)
+        self.time_keys(cases)
         self.time_row_reduce(g)
         r, w = self.BF16_SHAPES[-1]
         xr = torch.randn((r, w), generator=g, device=self.dev)
@@ -2808,6 +2810,32 @@ class Smoke:
                         "argmax only, not the masked max or the packed key")
         self.bound("bf16_row_reduce", r * w * 4 + r * 16, 6 * r * w,
                    F32_FLOP_S)
+
+    def time_keys(self, cases) -> None:
+        """T1 at each of probes.key_map's cases (2^24 + 13 words, 2^24, the
+        first from its second word, 2^26 + 3): both maps and the round
+        trip torch.equal to the plain versions, one CUDA kernel a call
+        (torch.profiler), and each map's event pair, device loop, kernel
+        alone and host ms beside x.clone()'s (the same bytes through
+        CUDA's device-to-device copy) and the HBM bound."""
+        shapes = self.p.key_map.measure(cases, self.p.kernels, self.p)
+        for line in shapes:
+            if not line["equal_plain"]:
+                raise AssertionError(f"the key map at {line['case']} is not "
+                                     "bit-exact")
+            for name in ("xpack_keys", "xpack_values"):
+                if line[name]["launches"] != 1:
+                    raise AssertionError(
+                        f"{name} at {line['case']}: "
+                        f"{line[name]['launches']} CUDA kernels a call, "
+                        "expected 1")
+        log(timing="keys_shapes", shapes=shapes, card=self.card,
+            method="event_ms: CUDA events around one call, median of 10 "
+            "after 3 warm-ups; device_ms: 50 calls between one pair of "
+            "events, best of 3; kernel_ms / launches: torch.profiler, the "
+            "device time and CUDA kernels of one call over 50 calls; "
+            "host_ms: host clock over 50 calls without a synchronize; "
+            "clone: x.clone() of the same input")
 
     def time_row_reduce(self, g) -> None:
         """P6 at both probe shapes, warm (one input, which stays in the 50
@@ -6712,6 +6740,7 @@ class _Port:
             int4,
             iteration_count,
             kernel_anatomy,
+            key_map,
         )
         from a_nice_rag_tpu_torch.ops.quantized import (
             QuantizedDense,
@@ -6983,6 +7012,9 @@ class _Port:
         self.device_loop_ms, self.chained_ms = device_loop_ms, chained_ms
         self.profiled_kernel_ms = profiled_kernel_ms
         self.profiled_device_ms = profiled_device_ms
+        self.profiled_call = (lambda fn, n: profiled_device_ms(fn, n,
+                                                               warmup=3))
+        self.key_map = key_map
         self.profiled_top_kernels = profiled_top_kernels
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf

@@ -71,6 +71,7 @@ class TinySmoke(chip_smoke.Smoke):
     HEADLINE = dict(n_docs=600, dim=2048, batch=64, vocab=20000, iters=2,
                     single_iters=2, p50_samples=3, recall_queries=64)
     INT4_N, BF16_SHAPES, KEY_NORMALS = 4096, ((8, 512), (16, 1024)), 4096
+    KEY_LARGE = 4 * 4096 + 3
     BF16_EDGE_SHAPES = ((1, 1), (7, 3), (4, 1025))
     FOLD_EDGE_N, FOLD_EDGE_D, FOLD_EDGE_B = (100, 301), (8, 40, 1024), (1, 65)
     # Phase 18: the calibrated corpus at a tiny size (its expected rows
@@ -211,6 +212,18 @@ def _host_ms(fn, n=3, warmup=1):
     return statistics.median(samples)
 
 
+def _counted_call(fn, n):
+    """The host ms of one call and the wrappers' launches a call (each
+    plain-version call through a wrapper counts as one), for the CUDA
+    kernels torch.profiler counts on the card."""
+    def launched():
+        return sum(getattr(mod, name).launches for mod, name in WRAPPED)
+
+    before = launched()
+    ms = _host_ms(fn, n, warmup=0)
+    return ms, (launched() - before) / n
+
+
 def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(TinySmoke, "SWEEP_CSV",
                         _sweep_csv(tmp_path / "sweep.csv"))
@@ -272,6 +285,7 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     port.profiled_kernel_ms = lambda fn, kernel, n: _host_ms(fn, n)
     # No CUDA kernel to trace on the CPU.
     port.profiled_device_ms = lambda fn, n: (0.0, 0.0)
+    port.profiled_call = _counted_call
     port.profiled_top_kernels = lambda fn: []
     monkeypatch.setattr(port.bench, "gen_profile", lambda fn: [])
     port.sm_grid = lambda device, ctas_per_sm=4: 8
@@ -536,6 +550,18 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
     assert keys[0]["bit_equal_plain"] and keys[0]["special_values"] == 13
     assert [f["packed_argmax_agreement"] for f in keys[0]["bf16_fold"]] \
         == [1.0, 1.0]
+    kt = [r for r in records if r.get("timing") == "keys_shapes"]
+    assert [(s["case"], s["n"], s["offset_words"]) for s in kt[0]["shapes"]] \
+        == [("specials_and_normals", 4109, 0), ("normals", 4096, 0),
+            ("offset_1", 4108, 1), ("large", 4 * 4096 + 3, 0)]
+    for s in kt[0]["shapes"]:
+        assert s["equal_plain"] and s["bound_ms"] == 8 * s["n"] / 3.35e12 * 1e3
+        for fn in ("xpack_keys", "xpack_values", "clone"):
+            for key in ("event_ms", "device_ms", "kernel_ms", "host_ms"):
+                assert s[fn][key] > 0, (fn, key)
+        # One launch a call of each map; the copy launches no kernel of ours.
+        assert [s[fn]["launches"] for fn in
+                ("xpack_keys", "xpack_values", "clone")] == [1.0, 1.0, 0.0]
     p6 = [r for r in records if r.get("probe") == "bf16_row_reduce_edges"]
     # 3 shapes x 7 kinds x 3 storage offsets.
     assert p6[0]["outputs_equal_plain"] and p6[0]["cases"] == 3 * 7 * 3

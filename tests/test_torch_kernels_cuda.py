@@ -96,6 +96,7 @@ from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (
     subsample_tau_torch,
     workspace_bytes_of_source,
 )
+from a_nice_rag_tpu_torch.ops.kernels import keys as keys_module
 from a_nice_rag_tpu_torch.ops.kernels import stream
 from a_nice_rag_tpu_torch.ops.kernels.stream import abs_total
 from a_nice_rag_tpu_torch.probes import bf16_fold
@@ -106,6 +107,7 @@ from a_nice_rag_tpu_torch.ops.quantized import (
     quantize_queries,
 )
 from a_nice_rag_tpu_torch.testing.parity import check_top_k
+from a_nice_rag_tpu_torch.testing.timing import profiled_device_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -682,25 +684,59 @@ def test_cuda_counted_fold_matches_plain(cuda_device, kind, n, d, b, k):
         assert got[2].shape == (b, splits, 4)
 
 
-def test_cuda_keys_bit_exact(cuda_device):
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, (1 << 20) + 13])
+def test_cuda_keys_bit_exact(cuda_device, n, offset):
+    # offset: the input starts that many words into its buffer, so its
+    # head, vectors and tail fall on each phase of the 16-byte grid; the
+    # output lies on the input's phase.
     inf = float("inf")
     special = torch.tensor([-inf, -3.3e38, -1.0, -2e-38, -1e-45, -0.0, 0.0,
                             1e-45, 2e-38, 0.5, 1.0, 3.3e38, inf])
-    g = torch.Generator().manual_seed(9)
-    x = torch.cat([special, 10 * torch.randn(100_003, generator=g)])
-    x = x.to(cuda_device)
-    for start in (0, 1, 2, 3):  # 16-byte vectors and the scalar path
-        view = x[start:]
-        before = xpack_keys.launches
-        keys = xpack_keys(view)
-        back = xpack_values(keys[start % 2:])
-        torch.cuda.synchronize()
-        assert xpack_keys.launches == before + 1
-        assert torch.equal(keys, xpack_keys_torch(view))
-        assert torch.equal(back.view(torch.int32),
-                           view[start % 2:].view(torch.int32))
-    ordered = x[torch.argsort(xpack_keys(x))]
+    g = torch.Generator().manual_seed(9 + n)
+    vals = torch.cat([special, 10 * torch.randn(n, generator=g)])[:n]
+    x = torch.empty(offset + n, device=cuda_device)[offset:]
+    x.copy_(vals)
+    before = xpack_keys.launches, xpack_values.launches
+    keys = xpack_keys(x)
+    k_view = torch.empty(offset + n, dtype=torch.int32,
+                         device=cuda_device)[offset:]
+    k_view.copy_(keys)
+    back = xpack_values(k_view)
+    torch.cuda.synchronize()
+    launched = int(n > 0)
+    assert (xpack_keys.launches, xpack_values.launches) == (
+        before[0] + launched, before[1] + launched)
+    assert keys.shape == back.shape == (n,)
+    if n:
+        assert keys.data_ptr() % 16 == back.data_ptr() % 16 == 4 * offset
+    assert torch.equal(keys, xpack_keys_torch(x))
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+    if n == 0:
+        return
+    for fn, arg in ((xpack_keys, x), (xpack_values, k_view)):
+        assert profiled_device_ms(lambda: fn(arg), n=3)[1] == 1.0
+    ordered = x[torch.argsort(keys)]
     assert bool((ordered[1:] >= ordered[:-1]).all())
+
+
+def test_cuda_keys_bad_launch_raises(cuda_device):
+    # A head that leaves the vectors off the input's 16-byte grid: the
+    # kernel refuses the launch, the wrapper raises and counts nothing.
+    x = torch.randn(64, device=cuda_device)
+    plan = keys_module.key_plan(64, 0, 1)._replace(head=1)
+    before = xpack_keys.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        keys_module._flip(xpack_keys, "anr_xpack_keys", x, torch.int32,
+                          plan)
+    assert xpack_keys.launches == before
+    # An output on another 16-byte phase than the input: refused too.
+    out = torch.empty(64, dtype=torch.int32, device=cuda_device)
+    p = keys_module.key_plan(63, 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert keys_module._library().anr_xpack_keys(
+        x[1:].data_ptr(), out.data_ptr(), 63, p.head, p.unroll, p.grid,
+        stream) != 0
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])

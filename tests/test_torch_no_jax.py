@@ -159,6 +159,7 @@ names = ["chip_smoke", "a_nice_rag_tpu_torch.bench",
          "a_nice_rag_tpu_torch.probes.bf16_cluster",
          "a_nice_rag_tpu_torch.probes.rounded_int8",
          "a_nice_rag_tpu_torch.probes.served_tail",
+         "a_nice_rag_tpu_torch.probes.key_map",
          "a_nice_rag_tpu_torch.ops.kernels.keys",
          "a_nice_rag_tpu_torch.ops.kernels.int4",
          "a_nice_rag_tpu_torch.evals",
@@ -194,4 +195,4 @@ def test_bench_probes_and_smoke_import_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.split() == ["33"]
+    assert proc.stdout.split() == ["34"]
