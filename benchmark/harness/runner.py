@@ -1,0 +1,254 @@
+"""One run of one cell: set-up, the measured window, the check.
+
+Set-up (``setup_s``, from the process's start to the window's opening):
+the data and the query pool made on the device from the seed, the index
+and the retriever built, the pool started, every bucket the traffic can
+make warmed through the retriever (the kernel libraries are built on the
+first call, into the checkout's ``a_nice_rag_tpu_torch/_build/``), and
+two requests a client through the pool.
+
+The window: the traffic's closed-loop clients send for ``seconds``; it
+closes when the last reply of a request sent in it arrives. ``qps`` is
+the rows of every request sent in the window over its length; ``p50_ms``
+and ``p95_ms`` the median and 95th percentile of every such request's
+time from submit to reply. A traced run (``trace``) wraps the window in
+``torch.profiler`` and reports the per-layer metrics instead.
+
+Then the device's peak memory is read, the pool stopped and the
+program's index freed, and the sampled replies are judged
+(``check.py``).
+"""
+
+from __future__ import annotations
+
+import gc
+import subprocess
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from benchmark.harness import check, gen, system, trace
+from benchmark.harness.spec import Cell
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "a_nice_rag_tpu")
+
+
+def forbidden_modules() -> list:
+    """Loaded modules whose top-level name is the JAX package's or JAX's
+    (compared whole: ``a_nice_rag_tpu_torch`` is not ``a_nice_rag_tpu``)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)}
+                  & set(FORBIDDEN))
+
+
+def power_limit() -> Optional[str]:
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else None
+
+
+def rehearsal_config(cfg: dict) -> dict:
+    """The configuration at its rehearsal size (CPU, plain versions)."""
+    small = dict(cfg)
+    over = cfg["rehearsal"]
+    for key, v in over.items():
+        if isinstance(v, dict):
+            small[key] = {**cfg[key], **v}
+        else:
+            small[key] = v
+    return small
+
+
+def build(cfg: dict, seed: int, device, pool_rows: int, mark=None):
+    """(data, query pool, index): everything from the seed. ``mark(name)``
+    notes the time after the data and after the index."""
+    data = {"device": device}
+    if cfg["dense_dtype"] == "bfloat16":
+        data["bf16"] = gen.dense_bf16(cfg, seed, device)
+    else:
+        data["int8"] = gen.dense_int8(cfg, seed, device)
+    tc = impacts = None
+    if "bm25" in cfg:
+        tc = gen.term_corpus(cfg, seed, device)
+        impacts = gen.index_impacts(tc, cfg["bm25"])
+        data["terms"] = tc
+    pool = gen.query_pool(
+        cfg, pool_rows, seed, device, bf16_rows=data.get("bf16"),
+        int8_rows=data.get("int8"), tc=tc, t_max=cfg["scheduler"]["t_max"],
+        budget=cfg["retriever"]["budget"] if tc is not None else None)
+    if tc is not None:
+        # The passages' words serve only the queries' draws.
+        tc.words = tc.offsets = None
+    if mark is not None:
+        mark("data")
+    index = system.build_index(cfg, dense=data.get("bf16"),
+                               int8=data.get("int8"), tc=tc, impacts=impacts)
+    del impacts
+    if mark is not None:
+        mark("index")
+    return data, pool, index
+
+
+def run(cell: Cell, seed: int, seconds: float, traced: bool,
+        t_process: float, rehearse: bool = False,
+        control: bool = False, marks: Optional[dict] = None) -> dict:
+    """One run; returns the result line's object. ``control`` adds the
+    control's numbers on the same sampled rows, its verdict against the
+    cell's limits, and every number the program read (``control.py``).
+
+    ``info.setup_marks`` holds the seconds from the process's start at
+    which each step of set-up ended, after any given in ``marks``."""
+    cfg = rehearsal_config(cell.config) if rehearse else cell.config
+    traffic = dict(cell.traffic)
+    if traffic["loop"] != "closed":
+        raise ValueError(f"traffic loop {traffic['loop']!r}: "
+                         f"system.drive runs closed loops only")
+    if rehearse:
+        traffic.update(cfg.get("rehearsal_traffic", {}))
+    device = torch.device("cpu") if rehearse else torch.device("cuda", 0)
+    rows = traffic["rows_per_request"]
+    clients = traffic["clients"]
+    info = {}
+    marks = info["setup_marks"] = dict(marks or {})
+
+    def mark(name):
+        marks[name] = time.perf_counter() - t_process
+
+    mark("imports")
+    if device.type == "cuda":
+        torch.zeros(1, device=device)
+        torch.cuda.synchronize(device)
+        mark("cuda")
+
+    data, pool, index = build(cfg, seed, device, traffic["pool_rows"], mark)
+    retriever = system.build_retriever(
+        cfg, index, dense_backend="kernel" if rehearse else None)
+    info.update(rows_cut=pool.rows_cut, use_kernel=retriever.use_kernel)
+    if pool.terms is not None:
+        info["max_postings"] = int(gen.postings_of(data["terms"],
+                                                   pool.terms).max())
+    queries = pool.dense.cpu().numpy()
+    terms = pool.terms.cpu().numpy() if pool.terms is not None else None
+    del pool
+    served = system.Served(cfg, retriever, queries, terms, rows)
+    order = np.random.default_rng(
+        np.random.SeedSequence([int(seed), 3])).permutation(
+            served.n_requests)
+    mark("served")
+    served.warm(clients)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    mark("warm")
+    setup_s = marks["warm"]
+
+    before = served.stats()
+    served.recorder.on = True
+    prof = None
+    if traced:
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    requests = system.drive(served, clients, seconds, order=order)
+    t1 = max(r.end for r in requests)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    window_s = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    served.recorder.on = False
+    after = served.stats()
+    stats = {k: after[k] - before[k] for k in after}
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    served.close()
+
+    lat = np.array([(r.end - r.start) * 1e3 for r in requests])
+    e2e = {"qps": len(requests) * rows / (t1 - t0),
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p95_ms": float(np.percentile(lat, 95)),
+           "setup_s": setup_s}
+    info["latency_ms"] = {q: float(np.percentile(lat, q))
+                          for q in (90, 99, 100)}
+    info["latency_ms"]["mean"] = float(lat.mean())
+
+    layer, extra = {}, {}
+    if prof is not None:
+        tr = trace.export(prof)
+        del prof
+        busy = trace.busy_s(tr.device)
+        w = trace.Window(
+            device_ops=tr.device, busy_s=busy, window_s=window_s,
+            batch_rows=[b.queries.shape[0] for b in served.recorder.batches],
+            stats=stats, config=cfg)
+        layer = trace.read_metrics(cell.readers, w)
+        extra = {"busy_s": busy, "window_s": window_s,
+                 "breakdown": trace.breakdown(tr)}
+        del tr, w
+
+    # The program's state goes before the reference runs; the generated
+    # inputs (data) stay: the reference reads them too.
+    served.recorder._inner = None
+    served.pool = None
+    del index, retriever
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    picks = check.sample_requests(requests, rows, traffic["check_rows"], seed)
+    numbers, sampled = check.judge(served, requests, picks)
+    limits = cfg["limits"]
+    if sampled is not None:
+        numbers.update(check.list_numbers(cfg, sampled, data))
+        if control:
+            ctl = check.list_numbers(cfg, sampled, data, control=True)
+            info["control"] = ctl
+            info["control_correct"] = check.verdict(
+                {k: v for k, v in ctl.items() if k in limits}, limits)
+            info["program"] = dict(numbers)
+    numbers = {k: numbers[k] for k in limits if k in numbers}
+    ok = sampled is not None and check.verdict(numbers, limits) \
+        and set(numbers) == set(limits)
+
+    result = {"correct": bool(ok), "attempted": len(requests),
+              "failed": int(numbers.get("missing", 0))}
+    if not rehearse:
+        want = {m["name"] for m in (cell.per_layer if traced
+                                    else cell.end_to_end)}
+        units = {m["name"]: m["unit"]
+                 for m in cell.end_to_end + cell.per_layer}
+        values = layer if traced else e2e
+        result["metrics"] = {k: {"value": v, "unit": units[k]}
+                             for k, v in values.items() if k in want}
+        result["device"] = {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(device),
+            "count": 1, "memory_peak_bytes": int(peak),
+            **({"busy_s": extra["busy_s"], "window_s": extra["window_s"]}
+               if traced else {})}
+        if traced:
+            result["breakdown"] = extra["breakdown"]
+    else:
+        result["rehearsal"] = True
+    # Read once the window and the check are over: not set-up.
+    info["power"] = None if rehearse else power_limit()
+    result["info"] = info
+    result["checks"] = {k: {"value": v, "limit": limits[k]}
+                        for k, v in numbers.items()}
+    return result
+
+
+def checks_text(result: dict) -> str:
+    lines = [f"check {k}: {c['value']!r} (limit {c['limit']!r})"
+             for k, c in result["checks"].items()]
+    lines.append(f"correct: {result['correct']}")
+    return "\n".join(lines)
+
