@@ -65,7 +65,7 @@ def evaluate(
         show_progress=show_progress,
         batch_size=batch_size,
     )
-    trace = QueryTrace(query="evaluation")
+    trace = QueryTrace()
     multi = dataset.is_multi_turn()
     for sample in dataset.samples:
         for metric in metrics:
@@ -84,7 +84,7 @@ def evaluate(
                     )
                 executor.submit(metric.single_turn_ascore, sample)
 
-    with trace.span("run", jobs=len(dataset) * len(metrics)):
+    with trace.span("run"):
         flat = executor.results()
 
     # Un-inject so metric objects can be reused with other judges.
@@ -100,5 +100,5 @@ def evaluate(
         for s in range(len(dataset))
     ]
     return EvaluationResult(
-        scores=scores, dataset=dataset, traces=[trace.to_dict()]
+        scores=scores, dataset=dataset, traces=[dict(trace.durations)]
     )

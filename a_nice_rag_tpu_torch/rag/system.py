@@ -233,7 +233,7 @@ class RAGSystem:
         if model_weights is None:
             model_weights = self.config.DEFAULT_MODEL_WEIGHTS.copy()
         source = InfoSource(info_source.lower())
-        trace = QueryTrace(query=query_text, source=info_source)
+        trace = QueryTrace()
 
         if source not in self.engines:
             yield f"Error: No data available for source {info_source}", "", "", []

@@ -58,6 +58,7 @@ from a_nice_rag_tpu_torch.ops.quantized import (
 from a_nice_rag_tpu_torch.ops.topk import masked_top_k
 from a_nice_rag_tpu_torch.retrieval.rerank import Reranker, apply_rerank
 from a_nice_rag_tpu_torch.text import preprocess_text
+from a_nice_rag_tpu_torch.utils.trace import span
 
 logger = logging.getLogger(__name__)
 
@@ -301,50 +302,54 @@ class FusedRetriever:
         rounded = rounded_fold(self.kernel_config)
         lists = []
         for mat, q, iv in zip(dense_mats, q_embs, self._ivf_structs):
-            if self._probe(iv, q.shape[0], mask):
-                lists.append(self._ivf_list(iv, q))
-                continue
-            quantized = isinstance(mat, QuantizedDense)
-            if self.use_kernel and quantized:
-                qv, qs = quantize_queries(q)
-                _, idx = fused_dense_top_k_int8(
-                    mat.values, mat.scales, qv, qs, k, mask=mask,
-                    rounded=rounded,
+            with span("dense"):
+                if self._probe(iv, q.shape[0], mask):
+                    lists.append(self._ivf_list(iv, q))
+                    continue
+                quantized = isinstance(mat, QuantizedDense)
+                if self.use_kernel and quantized:
+                    qv, qs = quantize_queries(q)
+                    _, idx = fused_dense_top_k_int8(
+                        mat.values, mat.scales, qv, qs, k, mask=mask,
+                        rounded=rounded,
+                    )
+                    lists.append(idx)
+                    continue
+                if self.use_kernel:
+                    _, idx = fused_dense_top_k(
+                        mat, q, k, mask=mask,
+                        plan=plan_for(self.kernel_config, q.shape[0]),
+                        rounded=rounded)
+                    lists.append(idx)
+                    continue
+                if quantized:
+                    qv, qs = quantize_queries(q)
+                    scores = quantized_dense_scores(mat, qv, qs)
+                else:
+                    scores = dense_scores(mat, q)
+                vals, idx = masked_top_k(
+                    scores, k, None if mask is None else mask[None, :]
                 )
-                lists.append(idx)
-                continue
-            if self.use_kernel:
-                _, idx = fused_dense_top_k(mat, q, k, mask=mask,
-                                           plan=plan_for(self.kernel_config,
-                                                         q.shape[0]),
-                                           rounded=rounded)
-                lists.append(idx)
-                continue
-            if quantized:
-                qv, qs = quantize_queries(q)
-                scores = quantized_dense_scores(mat, qv, qs)
-            else:
-                scores = dense_scores(mat, q)
-            vals, idx = masked_top_k(
-                scores, k, None if mask is None else mask[None, :]
-            )
-            lists.append(_finite_ids(vals, idx))
+                lists.append(_finite_ids(vals, idx))
         if self.use_bm25:
-            lists.append(self._bm25_list(bm25_arrays, q_terms, bm25_mask))
+            with span("bm25"):
+                lists.append(self._bm25_list(bm25_arrays, q_terms,
+                                             bm25_mask))
         if len(lists) == 1:
             ids = lists[0][:, :n]
             return (ids, torch.zeros(ids.shape, device=ids.device),
                     lists[0][None])
-        all_idx = torch.stack(lists)  # [L, B, K]
-        if self.use_kernel:
-            # Large corpora: fuse on the id lists directly (the scatter
-            # form would allocate [B, N_pad]).
-            fvals, fids = wrrf_top_n_sparse(all_idx, weights, n, wrrf_k)
-        else:
-            fvals, fids = wrrf_top_n(
-                all_idx, weights, n, self.index.n_docs_padded, wrrf_k
-            )
-        return _finite_ids(fvals, fids), fvals, all_idx
+        with span("fusion"):
+            all_idx = torch.stack(lists)  # [L, B, K]
+            if self.use_kernel:
+                # Large corpora: fuse on the id lists directly (the
+                # scatter form would allocate [B, N_pad]).
+                fvals, fids = wrrf_top_n_sparse(all_idx, weights, n, wrrf_k)
+            else:
+                fvals, fids = wrrf_top_n(
+                    all_idx, weights, n, self.index.n_docs_padded, wrrf_k
+                )
+            return _finite_ids(fvals, fids), fvals, all_idx
 
     def _probe(self, iv, batch: int, mask) -> bool:
         """The IVF route for this call: an IVF is attached, no mask is
@@ -463,28 +468,32 @@ class FusedRetriever:
         """Device-to-device path: inputs and outputs stay on the index's
         device (no host sync). Returns (fused ids, fused scores, per-list
         ids) as tensors."""
-        idx = self.index
-        dense_mats = tuple(idx.dense_matrix(m) for m in self.model_names)
-        q_tuple = tuple(self._as_device(q_embs[m]) for m in self.model_names)
-        # None when all-true: the kernels then run without a mask operand.
-        mask = idx.filter_mask_or_none(filename_type_filter)
-        if self.use_bm25:
-            bm25_mask = self._bm25_mask(mask, filename_type_filter)
-            terms = self._as_device(q_terms, torch.int32)
-            if self._two_tier is not None:
-                bm25_arrays = self._two_tier
-            elif idx.bm25_dense is not None:
-                bm25_arrays = idx.bm25_dense
+        with span("retriever"):
+            idx = self.index
+            dense_mats = tuple(idx.dense_matrix(m) for m in self.model_names)
+            with span("retriever.upload"):
+                q_tuple = tuple(self._as_device(q_embs[m])
+                                for m in self.model_names)
+                terms = (self._as_device(q_terms, torch.int32)
+                         if self.use_bm25 else None)
+            # None when all-true: the kernels then run without a mask
+            # operand.
+            mask = idx.filter_mask_or_none(filename_type_filter)
+            if self.use_bm25:
+                bm25_mask = self._bm25_mask(mask, filename_type_filter)
+                if self._two_tier is not None:
+                    bm25_arrays = self._two_tier
+                elif idx.bm25_dense is not None:
+                    bm25_arrays = idx.bm25_dense
+                else:
+                    bm25_arrays = idx.bm25
             else:
+                bm25_mask = mask
                 bm25_arrays = idx.bm25
-        else:
-            terms = None
-            bm25_mask = mask
-            bm25_arrays = idx.bm25
-        return self.run(
-            dense_mats, bm25_arrays, q_tuple, terms, mask, bm25_mask,
-            self._weights_device(weights), float(wrrf_k),
-        )
+            return self.run(
+                dense_mats, bm25_arrays, q_tuple, terms, mask, bm25_mask,
+                self._weights_device(weights), float(wrrf_k),
+            )
 
     def __call__(
         self,

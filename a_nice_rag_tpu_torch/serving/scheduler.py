@@ -32,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from a_nice_rag_tpu_torch.utils.trace import span
 
 DEFAULT_MAX_BATCH = 256
 
@@ -52,6 +53,7 @@ class _Pending:
     rows: int = 1
     batched: bool = False
     threadsafe: bool = False
+    arrival: float = 0.0  # time.monotonic() when the entry arrived
 
 
 def retriever_device(retriever) -> torch.device:
@@ -111,6 +113,10 @@ class BatchScheduler:
         self._inter_ewma_s: Optional[float] = None  # mean inter-arrival
         self.batches_run = 0
         self.queries_served = 0
+        # Entries that reached a batch slot, and the seconds they waited
+        # for it since arrival (queued or not).
+        self.entries_run = 0
+        self.queue_s = 0.0
         self._count_mu = threading.Lock()  # batches finish on worker threads
 
     @property
@@ -201,10 +207,11 @@ class BatchScheduler:
         self._queue.put_nowait(pending)
 
     def _note_arrival(self, pending: _Pending) -> None:
-        """A single query updates the arrival-rate estimate; a client
-        batch marks the arrival only."""
+        """Stamp the entry's arrival. A single query updates the
+        arrival-rate estimate; a client batch marks the arrival only."""
         with self._arrival_mu:
             now = time.monotonic()
+            pending.arrival = now
             if not pending.batched and self._last_arrival is not None:
                 dt = max(now - self._last_arrival, 1e-7)
                 self._inter_ewma_s = (
@@ -311,6 +318,41 @@ class BatchScheduler:
         return results
 
     def _run_batch(self, batch: List[_Pending]):
+        """Run one batch on a held slot: the padded host buffers, the
+        retriever's device call, the fused outputs' download."""
+        now = time.monotonic()
+        waited = sum(now - p.arrival for p in batch)
+        with self._count_mu:
+            self.entries_run += len(batch)
+            self.queue_s += waited
+        with span("sched.batch"):
+            with span("sched.assemble"):
+                q_embs, terms, b = self._assemble(batch)
+            # Device path + download of ONLY the fused outputs (the
+            # per-list ids stay on the device), one copy each.
+            d_fids, d_fvals, _ = self.retriever.retrieve_device(
+                q_embs, terms, self.weights, self.filename_type_filter,
+                self.wrrf_k
+            )
+            with span("sched.download"):
+                fids = d_fids.cpu().numpy()
+                fvals = d_fvals.cpu().numpy()
+            with self._count_mu:
+                self.batches_run += 1
+                self.queries_served += b
+            out = []
+            i = 0
+            for p in batch:
+                if p.rows == 1 and not p.batched:
+                    out.append((fids[i], fvals[i]))
+                else:
+                    out.append((fids[i:i + p.rows], fvals[i:i + p.rows]))
+                i += p.rows
+            return out
+
+    def _assemble(self, batch: List[_Pending]):
+        """The entries coalesced into padded host buffers (bf16 bits
+        uploaded): (queries by model, term ids [b_pad, t_max], rows)."""
         models = self.retriever.model_names
         b = sum(p.rows for p in batch)
         b_pad = self._bucket(b)
@@ -344,25 +386,7 @@ class BatchScheduler:
                     w = min(t.shape[1], self.t_max)
                     terms[i:i + p.rows, :w] = t[:, :w]
                 i += p.rows
-        # Device path + download of ONLY the fused outputs (the per-list
-        # ids stay on the device), one copy each.
-        d_fids, d_fvals, _ = self.retriever.retrieve_device(
-            q_embs, terms, self.weights, self.filename_type_filter, self.wrrf_k
-        )
-        fids = d_fids.cpu().numpy()
-        fvals = d_fvals.cpu().numpy()
-        with self._count_mu:
-            self.batches_run += 1
-            self.queries_served += b
-        out = []
-        i = 0
-        for p in batch:
-            if p.rows == 1 and not p.batched:
-                out.append((fids[i], fvals[i]))
-            else:
-                out.append((fids[i:i + p.rows], fvals[i:i + p.rows]))
-            i += p.rows
-        return out
+        return q_embs, terms, b
 
 
 def _resolve(future, out) -> None:
@@ -487,6 +511,8 @@ class SchedulerPool:
             str(k): {
                 "batches_run": s.batches_run,
                 "queries_served": s.queries_served,
+                "entries_run": s.entries_run,
+                "queue_s": s.queue_s,
             }
             for k, s in self._pool.items()
         }

@@ -1,12 +1,17 @@
-"""Query-level tracing.
+"""Spans and the profiler trace.
 
-The reference records a per-evaluation ChainRun tree via langchain
-callbacks (ragas_modified/callbacks.py:80-121) and logs wall-clock
-timers around DB load / retrieval / LLM stages (src/query_rag.py:414-415,
-:520-523). ``QueryTrace`` unifies both: named spans with durations and a
-parent/child run tree, exportable as plain dicts. A ``torch.profiler``
-trace of the host and the card can be layered on via
-:func:`device_profile`.
+:func:`span` names a stretch of host work. Under a recording
+``torch.profiler`` it is a ``record_function`` range: a
+``user_annotation`` event in the same Chrome trace as the kernels and
+copies it launched, on the same clock, with the id of the thread that
+opened it. With no profiler recording it is one shared null context, so
+the served path pays a flag check a span.
+
+``QueryTrace`` times named stages of one query (the reference logs
+wall-clock timers around DB load / retrieval / LLM stages,
+src/query_rag.py:414-415, :520-523) and opens a :func:`span` for each.
+:func:`device_profile` records a ``torch.profiler`` trace of every
+thread around a block.
 
 Counterpart of ``a_nice_rag_tpu/utils/trace.py``.
 """
@@ -14,80 +19,49 @@ Counterpart of ``a_nice_rag_tpu/utils/trace.py``.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import time
-import uuid
-from typing import Any, Dict, List, Optional
+from typing import Dict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
-@dataclasses.dataclass
-class TraceRun:
-    """One node in a trace tree (a stage, metric, or LLM call)."""
-
-    name: str
-    run_id: str = dataclasses.field(
-        default_factory=lambda: uuid.uuid4().hex[:12]
-    )
-    parent_id: Optional[str] = None
-    inputs: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    outputs: Dict[str, Any] = dataclasses.field(default_factory=dict)
-    start: float = 0.0
-    end: float = 0.0
-    children: List["TraceRun"] = dataclasses.field(default_factory=list)
-
-    @property
-    def duration(self) -> float:
-        return max(0.0, self.end - self.start)
-
-    def to_dict(self) -> Dict[str, Any]:
-        return {
-            "name": self.name,
-            "run_id": self.run_id,
-            "parent_id": self.parent_id,
-            "inputs": self.inputs,
-            "outputs": self.outputs,
-            "duration_s": self.duration,
-            "children": [c.to_dict() for c in self.children],
-        }
+def span(name: str):
+    """A context manager naming the host work inside it: a
+    ``torch.profiler.record_function`` range while a profiler records,
+    else a shared null context. The profiler's flag is read at each call
+    (it is set for every thread while a profile is open)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class QueryTrace:
-    """Span recorder for one query's trip through the pipeline."""
+    """Stage timer for one query's trip through the pipeline:
+    ``durations[name]`` is the last span of that name, in seconds."""
 
-    def __init__(self, query: str = "", source: str = ""):
-        self.root = TraceRun(name="query", inputs={"query": query, "source": source})
-        self.root.start = time.time()
+    def __init__(self):
         self.durations: Dict[str, float] = {}
-        self._stack: List[TraceRun] = [self.root]
 
     @contextlib.contextmanager
-    def span(self, name: str, **inputs):
-        run = TraceRun(
-            name=name, parent_id=self._stack[-1].run_id, inputs=inputs
-        )
-        run.start = time.time()
-        self._stack[-1].children.append(run)
-        self._stack.append(run)
+    def span(self, name: str):
+        start = time.perf_counter()
         try:
-            yield run
+            with span(name):
+                yield
         finally:
-            run.end = time.time()
-            self._stack.pop()
-            self.durations[name] = run.duration
-
-    def to_dict(self) -> Dict[str, Any]:
-        self.root.end = time.time()
-        return self.root.to_dict()
+            self.durations[name] = time.perf_counter() - start
 
 
 @contextlib.contextmanager
 def device_profile(log_dir: str):
     """``torch.profiler`` trace around a block, the counterpart of
-    ``jax.profiler.start_trace``: CPU activity, plus CUDA kernels and
-    copies when a card is present, exported as a Chrome trace
+    ``jax.profiler.start_trace``: CPU activity of every thread (a serving
+    process's batches run on its worker and caller threads), plus CUDA
+    kernels and copies when a card is present, exported as a Chrome trace
     (``trace.json``, readable by chrome://tracing and Perfetto) into
     ``log_dir``. Yields the profiler; the trace's path is its
     ``trace_path`` attribute once the block has ended."""
@@ -97,7 +71,11 @@ def device_profile(log_dir: str):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    prof = profile(activities=activities)
+    # Without the flag only the thread that opens the profile records
+    # host operations and spans.
+    prof = profile(activities=activities,
+                   experimental_config=torch._C._profiler._ExperimentalConfig(
+                       profile_all_threads=True))
     prof.start()
     try:
         yield prof

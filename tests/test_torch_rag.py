@@ -203,18 +203,12 @@ def test_trace_recorded(rag):
     _, system, _, queries, _, _ = rag
     list(system.query_rag_stream(queries[1], "fake-llm"))
     t = system.last_trace
-    assert "retrieval" in t.durations and "llm" in t.durations
-    d = t.to_dict()
-    assert d["name"] == "query" and d["inputs"]["query"] == queries[1]
-    assert {c["name"] for c in d["children"]} >= {"retrieval", "llm"}
-    assert all(c["parent_id"] == d["run_id"] for c in d["children"])
-    trace = QueryTrace("q")
+    assert set(t.durations) == {"retrieval", "llm"}
+    assert all(v >= 0.0 for v in t.durations.values())
+    trace = QueryTrace()
     with trace.span("outer"):
-        with trace.span("inner", k=3) as run:
+        with trace.span("inner"):
             pass
-    assert run.inputs == {"k": 3}
-    outer = trace.to_dict()["children"][0]
-    assert outer["children"][0]["name"] == "inner"
     assert trace.durations["outer"] >= trace.durations["inner"] >= 0.0
 
 
