@@ -31,12 +31,21 @@ class Bm25Arrays:
              sentinel slot points at the dump row ``n_docs_padded``.
     impact:  [nnz + 1] float32 — BM25 impact per posting; sentinel 0.
     n_docs_padded: padded document-axis length (scatter target).
+
+    Every index constructor of the package writes each term's postings
+    strictly ascending by document id (each document once a term). The
+    card's sparse top-k kernel (``ops.kernels.bm25_sparse``) needs that;
+    it checks it once per object (``postings_ascend``, cached in
+    ``_postings_ascend``) and leaves arrays that break it to the torch
+    route.
     """
 
     indptr: torch.Tensor
     doc_ids: torch.Tensor
     impact: torch.Tensor
     n_docs_padded: int
+    _postings_ascend: Optional[bool] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def nnz(self) -> int:

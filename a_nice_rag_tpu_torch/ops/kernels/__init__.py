@@ -21,6 +21,10 @@ from a_nice_rag_tpu_torch.ops.kernels.anatomy import (  # noqa: F401
     fused_top_k_counted_int8_torch,
     fused_top_k_counted_torch,
 )
+from a_nice_rag_tpu_torch.ops.kernels.bm25_sparse import (  # noqa: F401
+    bm25_sparse_top_k,
+    bm25_sparse_top_k_torch,
+)
 from a_nice_rag_tpu_torch.ops.kernels.fused_topk import (  # noqa: F401
     fused_dense_top_k,
     fused_dense_top_k_bf16_compare,
@@ -69,7 +73,7 @@ from a_nice_rag_tpu_torch.ops.kernels.stream import (  # noqa: F401
 
 # csrc/<name>.cu
 SOURCES = ("fused_topk", "ivf_topk", "stream_sum", "anatomy", "keys", "int4",
-           "cluster_topk", "cluster_probe")
+           "cluster_topk", "cluster_probe", "bm25_sparse")
 WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
             fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
             ivf_dense_top_k,
@@ -79,7 +83,7 @@ WRAPPERS = (fused_dense_top_k, fused_dense_top_k_int8,
             anatomy_top_k_int8_cluster, fused_top_k_counted_cluster,
             fused_top_k_counted_int8_cluster, xpack_keys, xpack_values,
             bf16_row_reduce, int4_scores, int8_fold_max, int4_fold_max,
-            fused_dense_top_k_bf16_compare)
+            fused_dense_top_k_bf16_compare, bm25_sparse_top_k)
 
 
 def build_kernels() -> None:
@@ -94,3 +98,4 @@ def reset_launch_counts() -> None:
     for fn in (fused_dense_top_k_rounded, fused_dense_top_k_int8_rounded,
                fused_dense_top_k_bf16_compare):
         fn.split_launches = 0
+    bm25_sparse_top_k.torch_route = 0

@@ -47,8 +47,13 @@ from a_nice_rag_tpu_torch.ops.bm25 import (
 from a_nice_rag_tpu_torch.ops.dense import dense_scores
 from a_nice_rag_tpu_torch.ops.fusion import wrrf_top_n, wrrf_top_n_sparse
 from a_nice_rag_tpu_torch.ops.kernels import (
+    bm25_sparse_top_k,
     fused_dense_top_k,
     fused_dense_top_k_int8,
+)
+from a_nice_rag_tpu_torch.ops.kernels._launches import count_launch
+from a_nice_rag_tpu_torch.ops.kernels.bm25_sparse import (
+    kernel_route as bm25_kernel_route,
 )
 from a_nice_rag_tpu_torch.ops.quantized import (
     QuantizedDense,
@@ -394,14 +399,22 @@ class FusedRetriever:
                 df_cap=self._tt_rare_cap,
             )
         elif self.use_kernel:
-            # Million-doc CSR index: sort-based sparse top-k, window
-            # fetch when the corpus's df skew allows.
+            # Million-doc CSR index: sparse top-k, window fetch when the
+            # corpus's df skew allows; on the card the slab kernel where
+            # its rule allows, else the sort-based torch route.
             t = q_terms.shape[1]
-            vals, idx = bm25_top_k_sparse(
-                bm25_arrays, q_terms, k, mask=bm25_mask, budget=budget,
-                df_cap=cap if cap is not None and t * cap <= 4 * budget
-                else None,
-            )
+            df_cap = cap if cap is not None and t * cap <= 4 * budget else None
+            if bm25_kernel_route(bm25_arrays, k):
+                vals, idx = bm25_sparse_top_k(
+                    bm25_arrays, q_terms, k, mask=bm25_mask, budget=budget,
+                    df_cap=df_cap,
+                )
+            else:
+                count_launch(bm25_sparse_top_k, "torch_route")
+                vals, idx = bm25_top_k_sparse(
+                    bm25_arrays, q_terms, k, mask=bm25_mask, budget=budget,
+                    df_cap=df_cap,
+                )
         elif cap is not None and q_terms.shape[1] * cap <= 4 * budget:
             # CSR-only index on the torch route: the same lossless
             # window-fetch sparse top-k.

@@ -331,7 +331,14 @@ port's bench (``a_nice_rag_tpu_torch.bench``) and stream probes:
      each torch.equal; then stage 2's folds over stage C's int8 matrix and
      a 5.4 GB packed one, all three kernels torch.equal to their plain
      versions there (both unpacks), and each fold's stream alone beside
-     the whole fold.
+     the whole fold;
+ 28. BM25's sparse top-k (bm25_sparse_top_k, csrc/bm25_sparse.cu; no TPU
+     kernel: it replaces the port's sort-based torch route on the card)
+     at probes.bm25_sparse's BEIR-NQ shape (2,681,468 passages, Zipf(1)
+     words, B = 256, budget 2^19, k = 25): torch.equal to its plain
+     version, three CUDA kernels a call (torch.profiler), and timed
+     beside it and the torch route, against the bytes of the fetched
+     postings.
 
 Stages A-C also print the retrieve_device time of one call (CUDA
 events, median of 10). Each kernel, its plain version and a one-call
@@ -379,6 +386,7 @@ KEYS_SOURCE = "a_nice_rag_tpu_torch/csrc/keys.cu"
 INT4_SOURCE = "a_nice_rag_tpu_torch/csrc/int4.cu"
 CLUSTER_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_topk.cu"
 CLUSTER_PROBE_SOURCE = "a_nice_rag_tpu_torch/csrc/cluster_probe.cu"
+BM25_SOURCE = "a_nice_rag_tpu_torch/csrc/bm25_sparse.cu"
 KERNELS = {  # name -> (source, TPU kernel it replaces)
     "fused_dense_top_k": (K1_SOURCE,
                           "a_nice_rag_tpu/ops/pallas/fused_topk.py:1440"),
@@ -420,6 +428,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "int4_scores": (INT4_SOURCE, "scripts/probe_int4.py:83"),
     "int8_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:167"),
     "int4_fold_max": (INT4_SOURCE, "scripts/probe_int4.py:188"),
+    # Port-only: the sort-based sparse BM25 route of ops/bm25.py (plain
+    # jnp in the JAX package), on the card.
+    "bm25_sparse_top_k": (BM25_SOURCE, "a_nice_rag_tpu_torch/ops/bm25.py:170"),
     # K1r / K2r: the rounded fold (algo="packed"), and K1c: the bf16
     # compare fold (compare_dtype="bfloat16"), on the cluster kernel (a
     # cluster of query blocks on one TMA-multicast stream, wgmma bf16 on
@@ -816,6 +827,9 @@ class Smoke:
     # batches timed at stage A's shape (phases 26 (b), 27 (b)), 16 the
     # largest on K1's kernel.
     BF16_D, BF16_TIMED_B = (32, 33, 256, 1024), (8, 16, 64, 256, 512)
+    # Phase 28: probes.bm25_sparse's shape (its defaults: BEIR-NQ), and
+    # the CUDA kernels of one call.
+    BM25_SHAPE, BM25_KERNELS = {}, 3
 
     def __init__(self, port):
         self.p = port
@@ -2810,6 +2824,52 @@ class Smoke:
                         "argmax only, not the masked max or the packed key")
         self.bound("bf16_row_reduce", r * w * 4 + r * 16, 6 * r * w,
                    F32_FLOP_S)
+
+    def phase28_bm25_sparse(self) -> None:
+        """BM25's sparse top-k at probes.bm25_sparse's shape: torch.equal
+        to its plain version, three CUDA kernels a call, timed beside it
+        and the sort-based torch route."""
+        t0 = time.perf_counter()
+        probe, k = self.p.bm25_probe, self.p.kernels
+        shape = probe.Shape(**self.BM25_SHAPE)
+        bm, q = probe.case(171, self.dev, shape)
+        kk, budget = probe.K, shape.budget
+        got, counts = self.main_path(
+            lambda: k.bm25_sparse_top_k(bm, q, kk, budget=budget))
+        self.expect("bm25 sparse", counts, bm25_sparse_top_k=1)
+        plain = k.bm25_sparse_top_k_torch(bm, q, kk, budget=budget)
+        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                              plain[1])):
+            raise AssertionError("bm25_sparse_top_k != its plain version")
+        self.max_err["bm25_sparse_top_k"] = 0.0
+        def route():
+            return self.p.bm25_top_k_sparse(bm, q, kk, budget=budget)
+
+        ids_route = route()[1]
+        launches = self.p.profiled_call(
+            lambda: k.bm25_sparse_top_k(bm, q, kk, budget=budget), 3)[1]
+        if launches != self.BM25_KERNELS:
+            raise AssertionError(f"bm25_sparse_top_k: {launches} kernels a "
+                                 f"call, not {self.BM25_KERNELS}")
+        self.time_pair(
+            "bm25_sparse_top_k",
+            lambda: k.bm25_sparse_top_k(bm, q, kk, budget=budget),
+            lambda: k.bm25_sparse_top_k_torch(bm, q, kk, budget=budget),
+            f"{shape.docs} docs, {bm.nnz} postings, B = {shape.b}, "
+            f"budget {budget}, k = {kk}", plain_n=3)
+        log(probe="bm25_sparse", shape=shape._asdict(), nnz=bm.nnz,
+            kernels_per_call=launches, equal_plain=True,
+            ids_equal_route=float((got[1] == ids_route).double().mean()),
+            route_ms=min(self.p.cuda_event_ms(route, n=3, warmup=1)
+                         for _ in range(2)),
+            card=self.card, seconds=time.perf_counter() - t0)
+        self.no_library("bm25_sparse_top_k", "no PyTorch call totals "
+                        "postings by document; the sort-based torch route "
+                        "is the probe line's route_ms")
+        fetched = probe.fetched(bm, q, shape)
+        self.bound("bm25_sparse_top_k", probe.call_bytes(bm, q, shape),
+                   fetched, F32_FLOP_S)
+        del bm, q, got, plain, ids_route
 
     def time_keys(self, cases) -> None:
         """T1 at each of probes.key_map's cases (2^24 + 13 words, 2^24, the
@@ -6569,6 +6629,8 @@ class Smoke:
         self.phase15_keys()
         self.phase16_int4_exact()
         torch.cuda.empty_cache()
+        self.phase28_bm25_sparse()
+        torch.cuda.empty_cache()
         self.phase10_stage_f()
         torch.cuda.empty_cache()
         emb, gold, q, bm25, terms = self.phase4_stage_a()
@@ -6700,7 +6762,7 @@ class _Port:
             default_max_tiles,
         )
         from a_nice_rag_tpu_torch.ops import kernels
-        from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
+        from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays, bm25_top_k_sparse
         from a_nice_rag_tpu_torch.ops.kernels._build import build_log
         from a_nice_rag_tpu_torch.ops.kernels.keys import row_plan
         from a_nice_rag_tpu_torch.ops.kernels.stream import sm_grid
@@ -6734,6 +6796,7 @@ class _Port:
             sharded_dense_top_k,
         )
         from a_nice_rag_tpu_torch.parallel.sharded import _gather_merge
+        from a_nice_rag_tpu_torch.probes import bm25_sparse as bm25_probe
         from a_nice_rag_tpu_torch.probes import (
             bf16_fold,
             dma_overlap,
@@ -7015,6 +7078,8 @@ class _Port:
         self.profiled_call = (lambda fn, n: profiled_device_ms(fn, n,
                                                                warmup=3))
         self.key_map = key_map
+        self.bm25_probe = bm25_probe
+        self.bm25_top_k_sparse = bm25_top_k_sparse
         self.profiled_top_kernels = profiled_top_kernels
         self.ArrayIndex, self.CorpusMeta = ArrayIndex, CorpusMeta
         self.IVFDense, self.attach_ivf = IVFDense, attach_ivf

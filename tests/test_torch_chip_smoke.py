@@ -24,6 +24,7 @@ import torch
 
 import chip_smoke
 from a_nice_rag_tpu_torch.ops.kernels import anatomy as an
+from a_nice_rag_tpu_torch.ops.kernels import bm25_sparse as bs
 from a_nice_rag_tpu_torch.ops.kernels import cluster_probe as cp
 from a_nice_rag_tpu_torch.ops.kernels import cluster_topk as ct
 from a_nice_rag_tpu_torch.ops.kernels import fused_topk as ft
@@ -46,6 +47,7 @@ WRAPPED = ((ft, "fused_dense_top_k"), (ft, "fused_dense_top_k_int8"),
            (ks, "xpack_keys"), (ks, "xpack_values"),
            (ks, "bf16_row_reduce"), (i4, "int4_scores"),
            (i4, "int8_fold_max"), (i4, "int4_fold_max"),
+           (bs, "bm25_sparse_top_k"),
            (ft, "fused_dense_top_k_rounded"),
            (ft, "fused_dense_top_k_int8_rounded"),
            (ft, "fused_dense_top_k_bf16_compare"))
@@ -143,6 +145,11 @@ class TinySmoke(chip_smoke.Smoke):
     # the rehearsal's route (_tiny_bf16_route), and their timed batches
     # around B.
     BF16_D, BF16_TIMED_B = (32, 33, 64), (8, 16, 32)
+    # Phase 28: 3,000 passages over 4,096 ranks, 16 queries; a wrapper
+    # call counts one launch here (three kernels on the card).
+    BM25_SHAPE = dict(docs=3000, ranks=4096, stopwords=20, b=16,
+                      budget=5000)
+    BM25_KERNELS = 1
 
 
 def _tiny_bf16_route(n, b, d, k, rows, score, aligned=True):
@@ -384,7 +391,8 @@ def test_chip_smoke_phases_on_cpu(monkeypatch, capsys, tmp_path):
                   "fused_top_k_counted_int8", "fused_top_k_counted_cluster",
                   "fused_top_k_counted_int8_cluster", "xpack_keys",
                   "xpack_values",
-                  "bf16_row_reduce", "int4_scores", "int4_fold_max"}
+                  "bf16_row_reduce", "int4_scores", "int4_fold_max",
+                  "bm25_sparse_top_k"}
     for k in kernels:
         assert k["bound_by"] in ("bytes", "operations")
         assert k["route"] == "cuda" and k["source"].endswith(".cu")

@@ -47,8 +47,17 @@ block, the cluster and its groups, k up to 128, N = 1024, a zero query
 (K1c: half masks and a misaligned N too), one and two query groups a
 CTA; within one bf16 ulp of the largest |value| on unit rows; the route
 (``.split_launches``) as ``bf16_cluster_route`` says; the plan against
-the source; a failed build or launch raises.
+the source; a failed build or launch raises. BM25's sparse top-k
+(``csrc/bm25_sparse.cu``): torch.equal to its plain version and to the
+sort-based torch route on integer impacts (the flat budget cut in a
+term, the window fetch, repeated terms, padding rows, fewer than k
+matches, a mask, postings past the dump row, ties, 70 slots, one row;
+slabs of 2^12 and 2^15); on float impacts equal to its
+plain version and within T - 1 float32 roundings of float64 totals;
+three kernels and one ``.launches`` a call; the retriever's route.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -1374,3 +1383,201 @@ def test_cuda_cluster_probe_raises_instead_of_falling_back(cuda_device,
         anatomy.fused_top_k_counted(rows, q, 8, design="cluster")
     assert anatomy.anatomy_top_k_cluster.launches == before[0]
     assert anatomy.fused_top_k_counted_cluster.launches == before[3]
+
+
+# -- BM25's sparse top-k (csrc/bm25_sparse.cu) -------------------------------
+
+def _bm25_csr(dev, seed, n, v, df_max, values=None, past=0):
+    """CSR postings of v terms over n documents, ids ascending in a term;
+    integer impacts in [values) where given, else floats in [0.5, 4);
+    ``past`` postings at and after the dump row n close every third
+    term."""
+    from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
+
+    g = torch.Generator().manual_seed(seed)
+    dfs = torch.randint(0, df_max + 1, (v,), generator=g)
+    ids, counts = [], []
+    for t in range(v):
+        d = torch.randperm(n, generator=g)[:int(dfs[t])].sort().values
+        if past and t % 3 == 0:
+            d = torch.cat([d, n + torch.arange(past)])
+        ids.append(d)
+        counts.append(d.numel())
+    nnz = sum(counts)
+    if values is not None:
+        imp = torch.randint(values[0], values[1], (nnz,), generator=g).float()
+    else:
+        imp = 0.5 + 3.5 * torch.rand((nnz,), generator=g)
+    indptr = torch.zeros(v + 1, dtype=torch.int64)
+    indptr[1:] = torch.cumsum(torch.tensor(counts), 0)
+    return Bm25Arrays(
+        indptr=indptr.to(torch.int32).to(dev),
+        doc_ids=torch.cat(ids + [torch.tensor([n])]).to(torch.int32).to(dev),
+        impact=torch.cat([imp, torch.zeros(1)]).to(dev),
+        n_docs_padded=n)
+
+
+def _bm25_queries(dev, seed, b, t, v):
+    g = torch.Generator().manual_seed(seed + 1)
+    return torch.randint(-1, v, (b, t), generator=g,
+                         dtype=torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("case", [
+    "flat_cut_mid_term", "window", "repeated_terms", "padding_row",
+    "fewer_than_k", "mask", "past_dump_row", "ties", "many_slots",
+    "one_row",
+])
+@pytest.mark.parametrize("shift", [12, 15])
+def test_cuda_bm25_sparse_matches_plain_on_integer_grids(cuda_device, case,
+                                                         shift):
+    from a_nice_rag_tpu_torch.ops.bm25 import bm25_top_k_sparse
+    from a_nice_rag_tpu_torch.ops.kernels.bm25_sparse import (
+        bm25_plan, bm25_sparse_top_k, bm25_sparse_top_k_torch,
+        counted_spans, kernel_route)
+
+    n = 70_001 if case != "ties" else 40_000
+    bm = _bm25_csr(cuda_device, 3, n, 300, 6000,
+                   values=(1, 2) if case == "ties" else (1, 9),
+                   past=3 if case == "past_dump_row" else 0)
+    assert kernel_route(bm, 25)
+    b, t = (1, 9) if case == "one_row" else (37, 9)
+    if case == "many_slots":
+        t = 70
+    q = _bm25_queries(cuda_device, 3, b, t, bm.vocab_size)
+    kw, k = {"budget": 1 << 15}, 25
+    if case == "flat_cut_mid_term":
+        _, dfs = counted_spans(bm.indptr, q, 1 << 40)
+        kw["budget"] = int(dfs[0, :4].sum()) + int(dfs[0, 4]) // 2 + 1
+    elif case == "window":
+        kw = {"df_cap": int(torch.diff(bm.indptr).max())}
+    elif case == "repeated_terms":
+        q[:, 5:] = q[:, :4]
+    elif case == "padding_row":
+        q[3] = -1
+    elif case == "fewer_than_k":
+        df = torch.diff(bm.indptr)
+        q[:, 1:] = -1
+        q[::2, 0] = int(torch.argmin(torch.where(df > 0, df, 1 << 30)))
+        k = 128
+    elif case == "mask":
+        g = torch.Generator().manual_seed(5)
+        kw["mask"] = (torch.rand(n, generator=g) < 0.3).to(cuda_device)
+    elif case == "ties":
+        k = 128
+    plan = bm25_plan(n, kw.get("budget", 1), shift=shift)
+    before = bm25_sparse_top_k.launches
+    got = bm25_sparse_top_k(bm, q, k, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert bm25_sparse_top_k.launches == before + 1
+    plain = bm25_sparse_top_k_torch(bm, q, k, **kw)
+    route = bm25_top_k_sparse(bm, q, k, **kw)
+    for want in (plain, route):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "fewer_than_k":
+        assert bool((got[1][::2] == -1).any())
+    if case == "ties":
+        assert _ties_kept_by_lower_id(*got)
+        assert bool((got[0][:, 1:] == got[0][:, :-1]).any())
+
+
+def test_cuda_bm25_sparse_float_impacts(cuda_device):
+    """Float impacts: the kernel's totals are the plain version's bit for
+    bit (the same sums in the same order) and within T - 1 float32
+    roundings of the float64 totals; ids equal wherever a score is apart
+    from its neighbours by more than that."""
+    from a_nice_rag_tpu_torch.ops.kernels.bm25_sparse import (
+        bm25_sparse_top_k, bm25_sparse_top_k_torch, counted_spans)
+
+    n, t = 200_003, 16
+    bm = _bm25_csr(cuda_device, 8, n, 200, 40_000)
+    q = _bm25_queries(cuda_device, 8, 64, t, bm.vocab_size)
+    q[:, 8:] = q[:, :8]  # repeated terms: totals of up to 16 impacts
+    budget = 1 << 18
+    vals, ids = bm25_sparse_top_k(bm, q, 32, budget=budget)
+    pv, pi = bm25_sparse_top_k_torch(bm, q, 32, budget=budget)
+    assert torch.equal(vals, pv) and torch.equal(ids, pi)
+    # float64 totals of the listed documents, from the counted postings.
+    starts, lens = counted_spans(bm.indptr, q, budget)
+    total = torch.zeros((q.shape[0], n), dtype=torch.float64,
+                        device=cuda_device)
+    for j in range(t):
+        w = int(lens[:, j].max())
+        pos = torch.arange(w, device=cuda_device)
+        keep = pos < lens[:, j, None]
+        g = torch.where(keep, starts[:, j, None] + pos, 0)
+        d = torch.where(keep, bm.doc_ids[g].long(), 0)
+        total.scatter_add_(1, d, torch.where(keep, bm.impact[g].double(), 0))
+    live = ids >= 0
+    exact = torch.gather(total, 1, ids.clamp(min=0).long())
+    tol = (t - 1) * 2.0 ** -24 * exact
+    assert bool(((vals.double() - exact).abs() <= tol)[live].all())
+    # The float64 order agrees wherever neighbours are further apart.
+    want = torch.sort(total, dim=1, descending=True, stable=True)
+    gap = (want.values[:, :-1] - want.values[:, 1:]).abs()
+    sep = gap[:, :32] > 2 * tol
+    sep[:, 1:] &= gap[:, :31] > 2 * tol[:, 1:]
+    assert bool((ids.long() == want.indices[:, :32])[sep & live].all())
+
+
+def test_cuda_bm25_sparse_launches(cuda_device, monkeypatch):
+    from a_nice_rag_tpu_torch.ops.kernels import bm25_sparse
+
+    bm = _bm25_csr(cuda_device, 2, 100_000, 100, 5000, values=(1, 5))
+    q = _bm25_queries(cuda_device, 2, 16, 8, bm.vocab_size)
+    fn = bm25_sparse.bm25_sparse_top_k
+    before = fn.launches
+    # Three kernels a call: the spans, the slabs, the final lists.
+    assert profiled_device_ms(lambda: fn(bm, q, 25, budget=1 << 14),
+                              n=3)[1] == 3.0
+    assert fn.launches > before
+    before = fn.launches
+    fn(bm, q, 25, budget=1 << 14)
+    assert fn.launches == before + 1
+    # Refused arguments raise; nothing falls back.
+    with pytest.raises(ValueError, match="k = 129"):
+        fn(bm, q, 129)
+    with pytest.raises(TypeError, match="int32"):
+        fn(bm, q.long(), 25)
+    with pytest.raises(TypeError, match="indptr"):
+        fn(dataclasses.replace(bm, indptr=bm.indptr.long()), q, 25)
+
+    def broken():
+        raise RuntimeError("nvcc failed building bm25_sparse.cu")
+
+    monkeypatch.setattr(bm25_sparse, "_library", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn(bm, q, 25)
+    assert fn.launches == before + 1
+
+
+def test_cuda_bm25_retriever_takes_the_kernel(cuda_device):
+    from a_nice_rag_tpu_torch.bench import array_index
+    from a_nice_rag_tpu_torch.ops.bm25 import bm25_top_k_sparse
+    from a_nice_rag_tpu_torch.ops.kernels import bm25_sparse_top_k
+    from a_nice_rag_tpu_torch.retrieval import FusedRetriever
+
+    n = 1 << 19
+    bm = _bm25_csr(cuda_device, 4, n, 120, 20_000, values=(1, 7))
+    dense = _unit(torch.randn((n, 32))).to(cuda_device)
+    r = FusedRetriever(array_index(n, dense={"m": dense}, bm25=bm), ("m",),
+                       use_bm25=True, similarity_k=25, budget=1 << 16,
+                       two_tier_common=0)
+    assert r.use_kernel
+    q = _bm25_queries(cuda_device, 4, 32, 8, bm.vocab_size)
+    launches, torch_route = (bm25_sparse_top_k.launches,
+                             bm25_sparse_top_k.torch_route)
+    ids = r._bm25_list(bm, q, None)
+    assert bm25_sparse_top_k.launches == launches + 1
+    assert bm25_sparse_top_k.torch_route == torch_route
+    want = bm25_top_k_sparse(bm, q, 25, budget=1 << 16)[1]
+    assert torch.equal(ids, want.to(ids.dtype))
+    # Postings out of order stay on the torch route, counted.
+    flipped = bm.doc_ids.clone()
+    a, z = int(bm.indptr[1]), int(bm.indptr[2])
+    flipped[a:z] = flipped[a:z].flip(0)
+    from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
+    bad = Bm25Arrays(bm.indptr, flipped, bm.impact, n)
+    r._bm25_list(bad, q, None)
+    assert bm25_sparse_top_k.launches == launches + 1
+    assert bm25_sparse_top_k.torch_route == torch_route + 1
