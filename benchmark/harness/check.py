@@ -124,8 +124,11 @@ def list_numbers(cfg: dict, s: Sampled, data: dict, control: bool = False
     k = cfg["retriever"]["similarity_k"]
     dev = data["device"]
     q = torch.as_tensor(s.queries, device=dev)
-    dense = ref.DenseReference(q, bf16_rows=data.get("bf16"),
-                               int8_rows=data.get("int8"))
+    if "int8_shards" in data:
+        dense = ref.ShardedDenseReference(q, data["int8_shards"])
+    else:
+        dense = ref.DenseReference(q, bf16_rows=data.get("bf16"),
+                                   int8_rows=data.get("int8"))
     out: Dict[str, float] = {}
     if not control:
         weights = [cfg["weights"][cfg["model"]]]

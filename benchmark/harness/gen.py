@@ -26,8 +26,9 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -49,11 +50,23 @@ def unit(x: torch.Tensor) -> torch.Tensor:
     return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
 
 
+def centres(g: torch.Generator, clusters: int, d: int,
+            device) -> torch.Tensor:
+    """[clusters, d] random unit centres."""
+    return unit(torch.randn((clusters, d), generator=g, device=device))
+
+
 def clustered_rows(g: torch.Generator, n: int, d: int, clusters: int,
                    noise: float, device) -> Iterator[Tuple[int, torch.Tensor]]:
     """(first row, f32 unit rows [<= CHUNK_ROWS, d]) around random unit
     centres."""
-    cent = unit(torch.randn((clusters, d), generator=g, device=device))
+    return rows_around(g, centres(g, clusters, d, device), n, noise, device)
+
+
+def rows_around(g: torch.Generator, cent: torch.Tensor, n: int, noise: float,
+                device) -> Iterator[Tuple[int, torch.Tensor]]:
+    """(first row, f32 unit rows [<= CHUNK_ROWS, d]) around ``cent``."""
+    clusters, d = cent.shape
     for r0 in range(0, n, CHUNK_ROWS):
         m = min(CHUNK_ROWS, n - r0)
         a = torch.randint(0, clusters, (m,), generator=g, device=device)
@@ -94,6 +107,64 @@ def dense_int8(cfg: dict, seed: int, device
         values[r0:r0 + x.shape[0]] = v
         scales[r0:r0 + x.shape[0]] = s
     return values, scales
+
+
+def shard_rows(n: int, shards: int) -> int:
+    """Rows a corpus shard holds (``n_local``), as the port lays a corpus
+    over a mesh: ceil(n / shards) rounded up to a multiple of 128. Shard s
+    holds global rows [s * n_local, (s + 1) * n_local); rows past ``n``
+    are zero pad rows."""
+    n_local = -(-n // shards)
+    return -(-n_local // 128) * 128
+
+
+@dataclasses.dataclass
+class Int8Shard:
+    """One shard's int8 rows on its own device: global rows [offset,
+    offset + n_real) and zero pad rows after them."""
+
+    values: torch.Tensor   # [n_local, D] int8
+    scales: torch.Tensor   # [n_local] f32
+    offset: int
+    n_real: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+
+def dense_int8_shards(cfg: dict, seed: int, devices
+                      ) -> List[Int8Shard]:
+    """The int8 corpus laid out by shard, shard s made on ``devices[s]``.
+    The centres come from one stream, the same on every device; each
+    shard's rows from a stream of their own, named after the seed and the
+    shard, so a shard's rows do not depend on the others or on the order
+    they are made in. Blocks of ``CHUNK_ROWS`` go to the devices in turn,
+    so that every device works while the host queues the next."""
+    n, d = cfg["n_docs"], cfg["dim"]
+    n_local = shard_rows(n, len(devices))
+    out, blocks = [], []
+    for s, dev in enumerate(devices):
+        cent = centres(make_generator(dev, seed, "dense"), cfg["clusters"],
+                       d, dev)
+        offset = s * n_local
+        n_real = max(0, min(n_local, n - offset))
+        sh = Int8Shard(
+            values=torch.zeros((n_local, d), dtype=torch.int8, device=dev),
+            scales=torch.zeros((n_local,), dtype=torch.float32, device=dev),
+            offset=offset, n_real=n_real)
+        out.append(sh)
+        blocks.append(rows_around(make_generator(dev, seed, f"dense/{s}"),
+                                  cent, n_real, cfg["row_noise"], dev))
+    for turn in itertools.zip_longest(*blocks):
+        for sh, block in zip(out, turn):
+            if block is None:
+                continue
+            r0, x = block
+            v, sc = quantize_rows(x)
+            sh.values[r0:r0 + x.shape[0]] = v
+            sh.scales[r0:r0 + x.shape[0]] = sc
+    return out
 
 
 def zipf_cdf(ranks: int, exponent: float, device) -> torch.Tensor:
@@ -196,12 +267,18 @@ def query_pool(cfg: dict, rows: int, seed: int, device,
                bf16_rows: Optional[torch.Tensor] = None,
                int8_rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                tc: Optional[TermCorpus] = None, t_max: int = 32,
-               budget: Optional[int] = None) -> QueryPool:
+               budget: Optional[int] = None,
+               int8_shards: Optional[Sequence[Int8Shard]] = None
+               ) -> QueryPool:
+    """``int8_shards``: the corpus laid out by shard; each gold row is
+    gathered from the shard that holds it, onto ``device``."""
     n = cfg["n_docs"]
     g = make_generator(device, seed, "queries")
     gold = torch.randint(0, n, (rows,), generator=g, device=device)
     if bf16_rows is not None:
         base = bf16_rows[gold].float()
+    elif int8_shards is not None:
+        base = _gather_shards(int8_shards, gold, cfg["dim"])
     else:
         values, scales = int8_rows
         base = values[gold].float() * scales[gold][:, None]
@@ -211,6 +288,23 @@ def query_pool(cfg: dict, rows: int, seed: int, device,
     if tc is not None:
         terms, cut = _query_terms(cfg["bm25"], tc, gold, g, t_max, budget)
     return QueryPool(dense=dense.contiguous(), terms=terms, rows_cut=cut)
+
+
+def _gather_shards(shards: Sequence[Int8Shard], gold: torch.Tensor,
+                   d: int) -> torch.Tensor:
+    """[R, d] f32 dequantized rows ``gold`` (global ids) on gold's device,
+    each from the shard that holds it."""
+    base = torch.empty((gold.shape[0], d), dtype=torch.float32,
+                       device=gold.device)
+    for sh in shards:
+        at = torch.nonzero((gold >= sh.offset)
+                           & (gold < sh.offset + sh.n_real)).flatten()
+        if at.numel() == 0:
+            continue
+        local = (gold[at] - sh.offset).to(sh.device)
+        rows = sh.values[local].float() * sh.scales[local][:, None]
+        base[at] = rows.to(gold.device)
+    return base
 
 
 def _query_terms(bm: dict, tc: TermCorpus, gold: torch.Tensor,

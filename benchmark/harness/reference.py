@@ -25,6 +25,9 @@ fusion are worked out here again.
 * The control: the same lists computed a precision lower than the
   configuration states (bf16 rows: int8 rows and queries; int8 rows:
   int4; f32 BM25 impacts: bf16).
+* A corpus laid out by shard over several devices is scored shard by
+  shard on the device that holds it, with global ids, and the shards' k
+  best merged: the same lists as over the whole matrix.
 """
 
 from __future__ import annotations
@@ -69,6 +72,13 @@ def _top_values(scores_fn, n: int, rows: int, k: int, device
 
 def _top_ids(scores_fn, n: int, rows: int, k: int, device) -> torch.Tensor:
     """[rows, k] ids of the k best scores (score desc, id asc)."""
+    best_v, best_i = _top_pairs(scores_fn, n, rows, k, device)
+    return torch.where(torch.isfinite(best_v), best_i, -1)
+
+
+def _top_pairs(scores_fn, n: int, rows: int, k: int, device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([rows, k] float64 k best scores, their ids), score desc, id asc."""
     best_v = torch.full((rows, k), -math.inf, dtype=torch.float64,
                         device=device)
     best_i = torch.full((rows, k), -1, dtype=torch.int64, device=device)
@@ -76,13 +86,17 @@ def _top_ids(scores_fn, n: int, rows: int, k: int, device) -> torch.Tensor:
         d1 = min(n, d0 + DOC_CHUNK)
         s = scores_fn(d0, d1)
         ids = torch.arange(d0, d1, device=device).expand(rows, -1)
-        v = torch.cat([best_v, s], dim=1)
-        i = torch.cat([best_i, ids], dim=1)
-        # Stable over id-ordered positions: the lower id first among ties.
-        order = torch.sort(v, dim=1, descending=True, stable=True).indices
-        best_v = torch.gather(v, 1, order[:, :k])
-        best_i = torch.gather(i, 1, order[:, :k])
-    return torch.where(torch.isfinite(best_v), best_i, -1)
+        best_v, best_i = _keep_best(torch.cat([best_v, s], dim=1),
+                                    torch.cat([best_i, ids], dim=1), k)
+    return best_v, best_i
+
+
+def _keep_best(v: torch.Tensor, i: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best of (scores, ids) whose positions run in id order."""
+    # Stable over id-ordered positions: the lower id first among ties.
+    order = torch.sort(v, dim=1, descending=True, stable=True).indices
+    return torch.gather(v, 1, order[:, :k]), torch.gather(i, 1, order[:, :k])
 
 
 class DenseReference:
@@ -133,6 +147,12 @@ class DenseReference:
     def control_ids(self, q: torch.Tensor, k: int) -> torch.Tensor:
         """The control's lists: rows and queries one precision lower
         (bf16 rows: int8; int8 rows: int4), per-row scales."""
+        v, i = self.control_pairs(q, k)
+        return torch.where(torch.isfinite(v), i, -1)
+
+    def control_pairs(self, q: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The control's k best (scores, ids), score desc, id asc."""
         levels = 127 if self.bf16_rows is not None else 7
         cq, cs = quantize(q, levels)
         cs64 = cs.to(torch.float64)
@@ -147,7 +167,52 @@ class DenseReference:
             acc = (cq @ v.T).to(torch.float64)
             return acc * s.to(torch.float64)[None] * cs64[:, None]
 
-        return _top_ids(scores, self.n, q.shape[0], k, q.device)
+        return _top_pairs(scores, self.n, q.shape[0], k, q.device)
+
+
+class ShardedDenseReference:
+    """:class:`DenseReference` over int8 rows laid out by shard: shard s
+    (``gen.Int8Shard``) holds global rows [offset, offset + n_real) on its
+    own device. Each shard's rows are scored on its device, a block at a
+    time, and the shards' k best merged on the queries' device."""
+
+    def __init__(self, q: torch.Tensor, shards):
+        self.device = q.device
+        self.parts = [
+            (DenseReference(q.to(sh.device), int8_rows=(
+                sh.values[:sh.n_real], sh.scales[:sh.n_real])), sh.offset)
+            for sh in shards]
+
+    def best(self, k: int) -> torch.Tensor:
+        """[rows, k] the k best scores over every shard, descending."""
+        got = [part.best(k).to(self.device) for part, _ in self.parts]
+        return torch.topk(torch.cat(got, dim=1), k, dim=1).values
+
+    def scores_of(self, ids: torch.Tensor) -> torch.Tensor:
+        """[rows, k] exact scores of the given global ids, each scored on
+        the shard that holds it (-inf for -1 and ids no shard holds)."""
+        out = torch.full(ids.shape, -math.inf, dtype=torch.float64,
+                         device=self.device)
+        for part, offset in self.parts:
+            local = ids.long() - offset
+            mine = (ids >= 0) & (local >= 0) & (local < part.n)
+            got = part.scores_of(torch.where(mine, local, -1).to(
+                part.int8_rows[0].device)).to(self.device)
+            out = torch.where(mine, got, out)
+        return out
+
+    def control_ids(self, q: torch.Tensor, k: int) -> torch.Tensor:
+        """The control's lists (int4 rows and queries) over every shard,
+        merged as the shards' own: score desc, id asc."""
+        vals, ids = [], []
+        for part, offset in self.parts:
+            v, i = part.control_pairs(q.to(part.int8_rows[0].device), k)
+            vals.append(v.to(self.device))
+            ids.append(torch.where(i >= 0, i + offset, -1).to(self.device))
+        # The shards in global order: equal scores stay id-ascending.
+        best_v, best_i = _keep_best(torch.cat(vals, dim=1),
+                                    torch.cat(ids, dim=1), k)
+        return torch.where(torch.isfinite(best_v), best_i, -1)
 
 
 class Bm25Reference:

@@ -66,6 +66,36 @@ def rehearsal_config(cfg: dict) -> dict:
     return small
 
 
+def mesh_devices(cfg: dict, rehearse: bool) -> Optional[list]:
+    """The devices of the configuration's mesh, one a slot (dp x corpus):
+    cuda:0 ... on the card, slots that share the CPU in a rehearsal; None
+    without a mesh."""
+    mesh = cfg.get("mesh")
+    if mesh is None:
+        return None
+    slots = mesh["dp"] * mesh["corpus"]
+    return ([torch.device("cpu")] * slots if rehearse
+            else [torch.device("cuda", i) for i in range(slots)])
+
+
+def build_sharded(cfg: dict, seed: int, devices: list, pool_rows: int,
+                  mark=None):
+    """``build`` for a configuration with a mesh: each shard's int8 rows
+    made on its device, the query pool on the first."""
+    if cfg["dense_dtype"] != "int8" or "bm25" in cfg:
+        raise ValueError("a mesh lays out int8 dense rows only")
+    shards = gen.dense_int8_shards(cfg, seed, devices)
+    data = {"device": devices[0], "int8_shards": shards}
+    pool = gen.query_pool(cfg, pool_rows, seed, devices[0],
+                          int8_shards=shards)
+    if mark is not None:
+        mark("data")
+    index = system.build_sharded_index(cfg, shards, devices)
+    if mark is not None:
+        mark("index")
+    return data, pool, index
+
+
 def build(cfg: dict, seed: int, device, pool_rows: int, mark=None):
     """(data, query pool, index): everything from the seed. ``mark(name)``
     notes the time after the data and after the index."""
@@ -112,6 +142,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
                          f"system.drive runs closed loops only")
     if rehearse:
         traffic.update(cfg.get("rehearsal_traffic", {}))
+    devices = mesh_devices(cfg, rehearse)
     device = torch.device("cpu") if rehearse else torch.device("cuda", 0)
     rows = traffic["rows_per_request"]
     clients = traffic["clients"]
@@ -123,11 +154,17 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
 
     mark("imports")
     if device.type == "cuda":
-        torch.zeros(1, device=device)
-        torch.cuda.synchronize(device)
+        for dev in devices or [device]:
+            torch.zeros(1, device=dev)
+        system.synchronize(devices or [device])
         mark("cuda")
 
-    data, pool, index = build(cfg, seed, device, traffic["pool_rows"], mark)
+    if devices is None:
+        data, pool, index = build(cfg, seed, device, traffic["pool_rows"],
+                                  mark)
+    else:
+        data, pool, index = build_sharded(cfg, seed, devices,
+                                          traffic["pool_rows"], mark)
     retriever = system.build_retriever(
         cfg, index, dense_backend="kernel" if rehearse else None)
     info.update(rows_cut=pool.rows_cut, use_kernel=retriever.use_kernel)
@@ -143,9 +180,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
             served.n_requests)
     mark("served")
     served.warm(clients)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    cards = [d for d in served.devices if d.type == "cuda"]
+    system.synchronize(cards)
+    for dev in cards:
+        torch.cuda.reset_peak_memory_stats(dev)
     mark("warm")
     setup_s = marks["warm"]
 
@@ -160,16 +198,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     t0 = time.perf_counter()
     requests = system.drive(served, clients, seconds, order=order)
     t1 = max(r.end for r in requests)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    system.synchronize(cards)
     window_s = time.perf_counter() - t0
     if prof is not None:
         prof.__exit__(None, None, None)
     served.recorder.on = False
     after = served.stats()
     stats = {k: after[k] - before[k] for k in after}
-    peak = (torch.cuda.max_memory_allocated(device)
-            if device.type == "cuda" else None)
+    peaks = [torch.cuda.max_memory_allocated(dev) for dev in cards]
+    if len(peaks) > 1:
+        info["memory_peak_bytes_by_card"] = peaks
     served.close()
 
     lat = np.array([(r.end - r.start) * 1e3 for r in requests])
@@ -185,12 +223,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     if prof is not None:
         tr = trace.export(prof)
         del prof
-        busy = trace.busy_s(tr.device)
+        spans = trace.card_spans(tr, cell.chips)
+        busy = trace.mean_busy_s(spans)
         w = trace.Window(
             device_ops=tr.device, busy_s=busy, window_s=window_s,
             batch_rows=[b.queries.shape[0] for b in served.recorder.batches],
-            stats=stats, config=cfg)
+            stats=stats, config=cfg, chips=cell.chips, card_spans=spans,
+            card_busy_s={c: trace.spans_s(sp) for c, sp in spans.items()})
         layer = trace.read_metrics(cell.readers, w)
+        if cell.chips > 1:
+            info["card_busy_s"] = w.card_busy_s
         extra = {"busy_s": busy, "window_s": window_s,
                  "breakdown": trace.breakdown(tr)}
         del tr, w
@@ -226,12 +268,13 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
                                     else cell.end_to_end)}
         units = {m["name"]: m["unit"]
                  for m in cell.end_to_end + cell.per_layer}
-        values = layer if traced else e2e
+        values = layer if traced else {
+            m["name"]: e2e[m["name"]] for m in cell.end_to_end}
         result["metrics"] = {k: {"value": v, "unit": units[k]}
                              for k, v in values.items() if k in want}
         result["device"] = {
             "platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": 1, "memory_peak_bytes": int(peak),
+            "count": cell.chips, "memory_peak_bytes": int(max(peaks)),
             **({"busy_s": extra["busy_s"], "window_s": extra["window_s"]}
                if traced else {})}
         if traced:

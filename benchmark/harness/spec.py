@@ -81,6 +81,11 @@ def load_cell(name: str, root: Path = ROOT,
     configs = {c["name"]: c for c in spec["configs"]}
     config = json.loads((root / configs[check_name(w["config"])]["file"])
                         .read_text())
+    mesh = config.get("mesh")
+    slots = mesh["dp"] * mesh["corpus"] if mesh else 1
+    if slots != int(w["chips"]):
+        raise ValueError(f"{name}: {w['chips']} chips, but its "
+                         f"configuration lays out {slots} slot(s)")
     traffic = json.loads((bench_dir / "traffic"
                           / f"{check_name(w['traffic'])}.json").read_text())
     e2e = [m for m in spec["end_to_end"]

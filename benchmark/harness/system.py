@@ -1,7 +1,9 @@
 """The system under test: the port's served retrieval path, in process.
 
 A ``FusedRetriever`` over an ``ArrayIndex`` made from the generated
-arrays, a ``SchedulerPool`` around it with the configuration's
+arrays (or, where the configuration names a ``mesh``, a
+``ShardedRetriever`` over a ``ShardedIndex`` of the shards made on their
+devices), a ``SchedulerPool`` around it with the configuration's
 ``BatchScheduler`` settings, and closed-loop client threads that call
 the pool's ``submit_threadsafe`` and wait for each reply, as the HTTP
 front's handlers do, without the HTTP front.
@@ -27,10 +29,19 @@ import torch
 from a_nice_rag_tpu_torch.index.array_index import ArrayIndex, CorpusMeta
 from a_nice_rag_tpu_torch.ops.bm25 import Bm25Arrays
 from a_nice_rag_tpu_torch.ops.quantized import QuantizedDense
+from a_nice_rag_tpu_torch.parallel.mesh import make_mesh
+from a_nice_rag_tpu_torch.parallel.sharded import (
+    IndexShard,
+    ShardedIndex,
+    ShardedRetriever,
+)
 from a_nice_rag_tpu_torch.retrieval.engine import FusedRetriever
-from a_nice_rag_tpu_torch.serving.scheduler import SchedulerPool
+from a_nice_rag_tpu_torch.serving.scheduler import (
+    SchedulerPool,
+    retriever_device,
+)
 
-from benchmark.harness.gen import bucket
+from benchmark.harness.gen import Int8Shard, bucket
 
 REPLY_TIMEOUT_S = 120.0
 
@@ -62,9 +73,45 @@ def build_index(cfg: dict, dense=None, int8=None, tc=None,
     )
 
 
-def build_retriever(cfg: dict, index: ArrayIndex,
-                    dense_backend: Optional[str] = None) -> FusedRetriever:
+def build_sharded_index(cfg: dict, shards: Sequence[Int8Shard],
+                        devices: Sequence) -> ShardedIndex:
+    """The port's sharded index over int8 shards already on their devices:
+    one ``IndexShard`` a slot of a dp x corpus mesh (``cfg["mesh"]``), in
+    the port's shard geometry, over a base index that holds only the
+    corpus's metadata (the shards' pad rows are masked by it)."""
+    mesh_cfg = cfg["mesh"]
+    mesh = make_mesh(shape=(mesh_cfg["dp"], mesh_cfg["corpus"]),
+                     axis_names=("dp", "corpus"), devices=list(devices))
+    if mesh_cfg["dp"] != 1 or len(shards) != mesh_cfg["corpus"]:
+        raise ValueError(f"mesh {mesh_cfg}: one dp group of "
+                         f"{len(shards)} shards is what the harness lays out")
+    n_local = shards[0].values.shape[0]
+    n_shards = len(shards)
+    meta = CorpusMeta(ids=[], sources=[], contents=[], urls=[],
+                      n_docs=cfg["n_docs"], n_docs_padded=n_local * n_shards)
+    base = ArrayIndex(meta=meta, dense={}, bm25=None, vocab=None,
+                      bm25_stats=None)
+    row = [IndexShard(device=slot.device, offset=sh.offset, n_real=sh.n_real,
+                      dense={cfg["model"]: QuantizedDense(sh.values,
+                                                          sh.scales)},
+                      bm25=None)
+           for slot, sh in zip(mesh.slot_grid("dp", "corpus")[0], shards)]
+    return ShardedIndex(mesh=mesh, replicas=[row], base_index=base,
+                        n_local=n_local, n_shards=n_shards)
+
+
+def build_retriever(cfg: dict, index,
+                    dense_backend: Optional[str] = None):
+    """A ``FusedRetriever`` over an ``ArrayIndex``, or a
+    ``ShardedRetriever`` over a ``ShardedIndex``, with the configuration's
+    settings."""
     r = cfg["retriever"]
+    if isinstance(index, ShardedIndex):
+        return ShardedRetriever(
+            index, (cfg["model"],), use_bm25=False,
+            similarity_k=r["similarity_k"],
+            common_sections_n=r["common_sections_n"], budget=r["budget"],
+            dense_backend=dense_backend or r["dense_backend"])
     return FusedRetriever(
         index, (cfg["model"],), use_bm25="bm25" in cfg,
         similarity_k=r["similarity_k"],
@@ -73,6 +120,21 @@ def build_retriever(cfg: dict, index: ArrayIndex,
         two_tier_common=r["two_tier_common"],
         two_tier_dtype=r["two_tier_dtype"],
         t_max_hint=cfg["scheduler"]["t_max"])
+
+
+def devices_of(retriever) -> List[torch.device]:
+    """Every device a retriever runs on, first the one it takes its
+    queries on."""
+    sidx = getattr(retriever, "sidx", None)
+    shards = [] if sidx is None else [sh.device for rep in sidx.replicas
+                                      for sh in rep]
+    return list(dict.fromkeys([retriever_device(retriever)] + shards))
+
+
+def synchronize(devices: Sequence[torch.device]) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 @dataclasses.dataclass
@@ -102,13 +164,16 @@ class Recorder:
 
     def retrieve_device(self, q_embs, q_terms, weights,
                         filename_type_filter=None, wrrf_k=40.0):
-        out = self._inner.retrieve_device(q_embs, q_terms, weights,
-                                          filename_type_filter, wrrf_k)
+        # A ShardedRetriever's retrieve_device is retrieve_lists[:2]: the
+        # same work, with the merged lists it leaves out.
+        lists_of = getattr(self._inner, "retrieve_lists", None)
+        out = (lists_of or self._inner.retrieve_device)(
+            q_embs, q_terms, weights, filename_type_filter, wrrf_k)
         if self.on:
             q = next(iter(q_embs.values()))
             self.batches.append(Batch(q, q_terms if self._inner.use_bm25
                                       else None, *out, time.perf_counter()))
-        return out
+        return out if lists_of is None else out[:2] + (None,)
 
 
 @dataclasses.dataclass
@@ -128,6 +193,7 @@ class Served:
         s = cfg["scheduler"]
         self.cfg = cfg
         self.recorder = Recorder(retriever)
+        self.devices = devices_of(retriever)
         self.pool = SchedulerPool(
             self.recorder, max_batch=s["max_batch"],
             max_wait_ms=s["max_wait_ms"], t_max=s["t_max"],
@@ -176,7 +242,6 @@ class Served:
         """Every bucket the traffic can make, twice, straight through the
         retriever; then two requests a client through the pool. Kernel
         libraries are built on the first call."""
-        dev = self.recorder.device
         for b in self.buckets(clients):
             b_rows = min(b, self.queries.shape[0])
             q = np.zeros((b, self.queries.shape[1]), np.float32)
@@ -188,8 +253,7 @@ class Served:
             for _ in range(2):
                 self.recorder.retrieve_device(
                     {self.model: q}, t, self.weights, None, self.wrrf_k)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        synchronize(self.devices)
         drive(self, clients, seconds=None, max_requests=2 * clients)
 
     def stats(self) -> Dict[str, int]:

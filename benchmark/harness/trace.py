@@ -3,8 +3,10 @@
 The traced run wraps its window in ``torch.profiler`` (CPU and CUDA
 activity) and exports a Chrome trace, read back here: device operations
 are the events of category ``kernel``, ``gpu_memcpy`` and ``gpu_memset``;
-host operations those of ``cpu_op``. Busy time is the union of the device
-operations' intervals.
+host operations those of ``cpu_op``. A device operation's card is its
+event's ``args.device``. A card's busy time is the union of its device
+operations' intervals; the device's busy time (``busy_s``) the mean of
+its cards'.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ NAME_CHARS = 120
 class Trace:
     device: List[Tuple[str, float, float]]  # (name, start us, duration us)
     host: List[Tuple[str, float, float]]
+    # The card of each device operation (None where the trace names none).
+    cards: List[Optional[int]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -41,6 +45,12 @@ class Window:
     batch_rows: List[int]       # padded rows of every batch in the window
     stats: Dict[str, int]       # batches_run, queries_served in the window
     config: dict
+    chips: int = 1              # the cards the cell runs on
+    # Each card's busy intervals (us, ascending, disjoint), and their
+    # seconds; every card of the cell, busy or not.
+    card_spans: Dict[int, List[Tuple[float, float]]] = dataclasses.field(
+        default_factory=dict)
+    card_busy_s: Dict[int, float] = dataclasses.field(default_factory=dict)
 
 
 def parse(events: list) -> Trace:
@@ -51,11 +61,13 @@ def parse(events: list) -> Trace:
         cat = e.get("cat")
         item = (str(e.get("name", "")), float(e["ts"]), float(e["dur"]))
         if cat in DEVICE_CATS:
-            dev.append(item)
+            card = (e.get("args") or {}).get("device")
+            dev.append((item, None if card is None else int(card)))
         elif cat in HOST_CATS:
             host.append(item)
-    dev.sort(key=lambda x: x[1])
-    return Trace(device=dev, host=host)
+    dev.sort(key=lambda x: x[0][1])
+    return Trace(device=[op for op, _ in dev], host=host,
+                 cards=[card for _, card in dev])
 
 
 def load(path: str) -> Trace:
@@ -88,7 +100,54 @@ def _union(ops) -> List[Tuple[float, float]]:
 
 def busy_s(ops) -> float:
     """Seconds in which some device operation ran (``ops`` by start)."""
-    return sum(b - a for a, b in _union(ops)) / 1e6
+    return spans_s(_union(ops))
+
+
+def spans_s(spans) -> float:
+    return sum(b - a for a, b in spans) / 1e6
+
+
+def card_spans(tr: Trace, chips: int) -> Dict[int, List[Tuple[float, float]]]:
+    """Each card's busy intervals, for cards 0 .. chips - 1. On one card
+    every device operation is that card's; on more, the trace's card
+    numbers are the CUDA ordinals the run used."""
+    if chips == 1:
+        return {0: _union(tr.device)}
+    ops: Dict[int, list] = {c: [] for c in range(chips)}
+    for op, card in zip(tr.device, tr.cards):
+        if card in ops:
+            ops[card].append(op)
+    return {c: _union(o) for c, o in ops.items()}
+
+
+def mean_busy_s(spans: Dict[int, List[Tuple[float, float]]]) -> float:
+    """The cards' busy seconds, averaged over the cards."""
+    return sum(spans_s(sp) for sp in spans.values()) / len(spans)
+
+
+def all_busy_s(spans: Dict[int, List[Tuple[float, float]]]) -> float:
+    """Seconds in which every card ran a device operation at once."""
+    cards = list(spans.values())
+    if not cards:
+        return 0.0
+    common = cards[0]
+    for other in cards[1:]:
+        common = _intersect(common, other)
+    return spans_s(common)
+
+
+def _intersect(a, b) -> List[Tuple[float, float]]:
+    """The intersection of two ascending lists of disjoint intervals."""
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo < hi:
+            out.append((lo, hi))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
 
 
 def breakdown(tr: Trace, top: int = 10) -> dict:

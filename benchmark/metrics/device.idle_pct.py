@@ -1,7 +1,11 @@
-"""Share of the traced window in which no device operation ran."""
+"""Share of the traced window in which no device operation ran: each
+card's idle share, averaged over the cell's cards (on one card, that
+card's share)."""
 
 
 def read(w):
     if not w.device_ops or w.window_s <= 0:
         return None
-    return 100.0 * (1.0 - w.busy_s / w.window_s)
+    busy = w.card_busy_s or {0: w.busy_s}
+    idle = [1.0 - busy.get(c, 0.0) / w.window_s for c in range(w.chips)]
+    return 100.0 * sum(idle) / w.chips

@@ -12,6 +12,7 @@ import torch
 
 from benchmark.harness import runner
 from benchmark.harness.spec import ROOT, load_cell
+from a_nice_rag_tpu_torch.parallel import sharded
 from a_nice_rag_tpu_torch.retrieval.engine import FusedRetriever
 
 CELLS = [w["name"] for w in json.loads(
@@ -38,13 +39,22 @@ def test_rehearsal_is_correct(cell):
         "imports", "data", "index", "served", "warm"]
 
 
-def _broken(monkeypatch, alter):
-    real = FusedRetriever.retrieve_device
+def _sharded(cell):
+    return "mesh" in load_cell(cell).config
+
+
+def _broken(monkeypatch, cell, alter):
+    """``alter`` the outputs of the cell's retriever where they are
+    produced: a FusedRetriever's retrieve_device, a ShardedRetriever's
+    retrieve_lists (which its retrieve_device returns the first two of)."""
+    cls, name = ((sharded.ShardedRetriever, "retrieve_lists")
+                 if _sharded(cell) else (FusedRetriever, "retrieve_device"))
+    real = getattr(cls, name)
 
     def broken(self, *a, **kw):
         return alter(*real(self, *a, **kw))
 
-    monkeypatch.setattr(FusedRetriever, "retrieve_device", broken)
+    monkeypatch.setattr(cls, name, broken)
 
 
 def _half_left_out(fids, fvals, lists):
@@ -84,12 +94,30 @@ FAULTS = [(c, f) for c in CELLS for f in (_half_left_out, _answer_altered,
 @pytest.mark.parametrize("cell,fault", FAULTS,
                          ids=[f"{c}-{f.__name__}" for c, f in FAULTS])
 def test_fault_makes_it_incorrect(monkeypatch, cell, fault):
-    _broken(monkeypatch, fault)
+    _broken(monkeypatch, cell, fault)
     out = _rehearse(cell)
     assert not out["correct"], out["checks"]
 
 
-def test_routing_fault_is_caught(monkeypatch):
+SHARDED = [c for c in CELLS if _sharded(c)]
+
+
+@pytest.mark.parametrize("cell", SHARDED)
+def test_exchange_left_out_is_caught(monkeypatch, cell):
+    """The exchange between the cards left out: the lead card merges its
+    own shard's list alone."""
+    real = sharded._merge_over
+
+    def lead_only(sidx, vals, gidx, k, lead):
+        return real(sidx, vals[:1], gidx[:1], k, lead)
+
+    monkeypatch.setattr(sharded, "_merge_over", lead_only)
+    out = _rehearse(cell)
+    assert not out["correct"], out["checks"]
+    assert out["checks"]["dense_gap"]["value"] > 0
+
+
+def _routing_fault(monkeypatch, cell):
     """Replies routed to the wrong request: the scheduler's rows reversed
     after the device call."""
     from a_nice_rag_tpu_torch.serving import scheduler
@@ -103,9 +131,18 @@ def test_routing_fault_is_caught(monkeypatch):
 
     monkeypatch.setattr(scheduler.BatchScheduler, "_run_batch",
                         reversed_rows)
-    out = _rehearse("msmarco-q1024-int8.frames")
+    out = _rehearse(cell)
     assert not out["correct"]
     assert out["checks"]["route_err"]["value"] > 0
+
+
+def test_routing_fault_is_caught(monkeypatch):
+    _routing_fault(monkeypatch, "msmarco-q1024-int8.frames")
+
+
+@pytest.mark.parametrize("cell", SHARDED)
+def test_routing_fault_is_caught_sharded(monkeypatch, cell):
+    _routing_fault(monkeypatch, cell)
 
 
 def test_measuring_run_needs_a_card():
@@ -163,4 +200,5 @@ def test_cell_on_the_card(cell):
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["correct"], out["checks"]
-    assert set(out["metrics"]) == {"qps", "p50_ms", "p95_ms", "setup_s"}
+    assert set(out["metrics"]) == {m["name"]
+                                   for m in load_cell(cell).end_to_end}

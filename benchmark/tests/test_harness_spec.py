@@ -82,6 +82,23 @@ def test_new_files_found_by_name_without_edits(tmp_path):
     assert "sched.rows_per_batch" in cell.readers
 
 
+@pytest.mark.parametrize("chips", [1, 2])
+def test_chips_must_match_the_mesh(tmp_path, chips):
+    """A cell's chips and its configuration's mesh (dp x corpus, one slot
+    without a mesh) state one number: where they differ, it is refused."""
+    shutil.copytree(BENCH_DIR, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    doc = json.loads((ROOT / "BENCHMARK.json").read_text())
+    for w in doc["workloads"]:
+        slots = load_cell(w["name"]).config.get("mesh", {"dp": 1,
+                                                          "corpus": 1})
+        if slots["dp"] * slots["corpus"] != chips:
+            w["chips"] = chips
+            (tmp_path / "BENCHMARK.json").write_text(json.dumps(doc))
+            with pytest.raises(ValueError, match="slot"):
+                load_cell(w["name"], root=tmp_path)
+
+
 def test_every_cell_reports_setup_another_e2e_and_a_layer():
     doc = json.loads((ROOT / "BENCHMARK.json").read_text())
     for w in doc["workloads"]:
