@@ -7,11 +7,12 @@ process.
 
 Each seed is a whole run (``run.py``'s set-up, a window of ``--seconds``
 at the cell's own load, the check); the control is the reference put in
-the program's place one precision lower (``harness/reference.py``), on
-the rows the run sampled, and judged by the cell's limits as the
-program is (``control_correct``, false where the control fails). One
-JSON line a seed, with every number the program read, also those that
-have no limit yet. The benchmark's own runs never run the control.
+the program's place one precision lower (``harness/reference.py``; for a
+model, its arch file's ``reference_logprobs``), on the rows or replies
+the run sampled, and judged by the cell's limits as the program is
+(``control_correct``, false where the control fails). One JSON line a
+seed, with every number the program read, also those that have no limit
+yet. The benchmark's own runs never run the control.
 """
 
 import json
@@ -33,13 +34,13 @@ def main() -> int:
                    help="compute the control on the first N seeds only")
     args = p.parse_args()
 
-    from benchmark.harness import runner
     from benchmark.harness.spec import load_cell
 
     cell = load_cell(args.workload)
+    run = cell.driver.run
     for i, seed in enumerate(int(s) for s in args.seeds.split(",")):
-        out = runner.run(cell, seed, args.seconds, False, time.perf_counter(),
-                         control=i < args.control_seeds)
+        out = run(cell, seed, args.seconds, False, time.perf_counter(),
+                  control=i < args.control_seeds)
         info = out["info"]
         line = {"seed": seed, "correct": out["correct"],
                 "program": info.get("program") or {

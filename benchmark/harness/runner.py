@@ -34,6 +34,13 @@ from benchmark.harness import check, gen, system, trace
 from benchmark.harness.spec import Cell
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "a_nice_rag_tpu")
+# What this system's traced window gives its per-layer readers (a
+# metric's ``READS``; ``trace.Window``): ``device``, the trace itself;
+# ``batches``, the scheduler's batches (``batch_rows``, and ``stats``'
+# ``batches_run`` and ``queries_served``).
+FEEDS = ("device", "batches")
+# The axes of a configuration's ``mesh``: dp x corpus slots, a card each.
+MESH_AXES = ("dp", "corpus")
 
 
 def forbidden_modules() -> list:
@@ -189,12 +196,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
 
     before = served.stats()
     served.recorder.on = True
-    prof = None
-    if traced:
-        from torch.profiler import ProfilerActivity, profile
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
-        prof.__enter__()
+    prof = start_profile() if traced else None
     t0 = time.perf_counter()
     requests = system.drive(served, clients, seconds, order=order)
     t1 = max(r.end for r in requests)
@@ -221,21 +223,12 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
 
     layer, extra = {}, {}
     if prof is not None:
-        tr = trace.export(prof)
+        layer, extra = traced_window(
+            prof, cell, cfg, window_s, stats,
+            batch_rows=[b.queries.shape[0] for b in served.recorder.batches])
         del prof
-        spans = trace.card_spans(tr, cell.chips)
-        busy = trace.mean_busy_s(spans)
-        w = trace.Window(
-            device_ops=tr.device, busy_s=busy, window_s=window_s,
-            batch_rows=[b.queries.shape[0] for b in served.recorder.batches],
-            stats=stats, config=cfg, chips=cell.chips, card_spans=spans,
-            card_busy_s={c: trace.spans_s(sp) for c, sp in spans.items()})
-        layer = trace.read_metrics(cell.readers, w)
         if cell.chips > 1:
-            info["card_busy_s"] = w.card_busy_s
-        extra = {"busy_s": busy, "window_s": window_s,
-                 "breakdown": trace.breakdown(tr)}
-        del tr, w
+            info["card_busy_s"] = extra["card_busy_s"]
 
     # The program's state goes before the reference runs; the generated
     # inputs (data) stay: the reference reads them too.
@@ -261,8 +254,55 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     ok = sampled is not None and check.verdict(numbers, limits) \
         and set(numbers) == set(limits)
 
-    result = {"correct": bool(ok), "attempted": len(requests),
-              "failed": int(numbers.get("missing", 0))}
+    return result_line(
+        cell, ok=ok, attempted=len(requests),
+        failed=int(numbers.get("missing", 0)), rehearse=rehearse,
+        traced=traced, e2e=e2e, layer=layer, extra=extra,
+        peak=max(peaks) if peaks else 0, device=device, info=info,
+        numbers=numbers, limits=limits)
+
+
+def start_profile():
+    """``torch.profiler`` over the window, CPU and CUDA activity, entered:
+    each driver's traced run records the same."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def traced_window(prof, cell: Cell, cfg: dict, window_s: float,
+                  stats: dict, batch_rows=()) -> tuple:
+    """(per-layer readings, extra) of a traced window: the trace read
+    back, each card's busy spans, the ``trace.Window`` the cell's readers
+    get (``stats``, ``batch_rows``: what the driver feeds), and the
+    line's ``busy_s``, ``window_s``, ``breakdown`` and ``card_busy_s``."""
+    tr = trace.export(prof)
+    spans = trace.card_spans(tr, cell.chips)
+    busy = trace.mean_busy_s(spans)
+    w = trace.Window(
+        device_ops=tr.device, busy_s=busy, window_s=window_s,
+        batch_rows=list(batch_rows), stats=stats, config=cfg,
+        chips=cell.chips, card_spans=spans,
+        card_busy_s={c: trace.spans_s(sp) for c, sp in spans.items()})
+    layer = trace.read_metrics(cell.readers, w)
+    return layer, {"busy_s": busy, "window_s": window_s,
+                   "breakdown": trace.breakdown(tr),
+                   "card_busy_s": w.card_busy_s}
+
+
+def result_line(cell: Cell, *, ok: bool, attempted: int, failed: int,
+                rehearse: bool, traced: bool, e2e: dict, layer: dict,
+                extra: dict, peak: int, device, info: dict, numbers: dict,
+                limits: dict) -> dict:
+    """The result line's object: the verdict and counts; the cell's
+    end-to-end metrics (``e2e``) or, traced, its per-layer readings
+    (``layer``); the device (``peak``: the fullest card's peak bytes);
+    ``breakdown`` where traced; ``info`` with the power limit; and last
+    each number compared beside its limit. A rehearsal has no metrics and
+    no device."""
+    result = {"correct": bool(ok), "attempted": attempted, "failed": failed}
     if not rehearse:
         want = {m["name"] for m in (cell.per_layer if traced
                                     else cell.end_to_end)}
@@ -274,7 +314,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
                              for k, v in values.items() if k in want}
         result["device"] = {
             "platform": "gpu", "kind": torch.cuda.get_device_name(device),
-            "count": cell.chips, "memory_peak_bytes": int(max(peaks)),
+            "count": cell.chips, "memory_peak_bytes": int(peak),
             **({"busy_s": extra["busy_s"], "window_s": extra["window_s"]}
                if traced else {})}
         if traced:

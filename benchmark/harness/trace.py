@@ -37,13 +37,19 @@ class Trace:
 
 @dataclasses.dataclass
 class Window:
-    """What a per-layer metric's ``read`` gets."""
+    """What a per-layer metric's ``read`` gets, by feed (a metric's
+    ``READS``, a driver's ``FEEDS``): ``device``, which every driver
+    feeds, is the trace (``device_ops``, ``busy_s``, ``window_s``,
+    ``chips``, the cards' spans); ``batches`` (retrieval) is
+    ``batch_rows`` and ``stats``' batches_run and queries_served;
+    ``server`` (generation) is ``stats``' ticks, tokens_emitted,
+    prefix_cache_hits and prompt_tokens."""
 
     device_ops: List[Tuple[str, float, float]]
     busy_s: float
     window_s: float
     batch_rows: List[int]       # padded rows of every batch in the window
-    stats: Dict[str, int]       # batches_run, queries_served in the window
+    stats: Dict[str, int]       # the driver's counters over the window
     config: dict
     chips: int = 1              # the cards the cell runs on
     # Each card's busy intervals (us, ascending, disjoint), and their

@@ -5,6 +5,8 @@ card has nothing to read."""
 
 from benchmark.harness.trace import all_busy_s
 
+READS = ("device",)
+
 
 def read(w):
     if w.chips < 2 or not w.card_spans or w.window_s <= 0:

@@ -2,6 +2,8 @@
 card's idle share, averaged over the cell's cards (on one card, that
 card's share)."""
 
+READS = ("device",)
+
 
 def read(w):
     if not w.device_ops or w.window_s <= 0:

@@ -7,6 +7,8 @@ padded row count, as the call computes."""
 
 from benchmark.harness.roofline import k1_bound_s
 
+READS = ("device", "batches")
+
 
 def _is_k1(name):
     return (("topk_kernel" in name and "FloatRows" in name)

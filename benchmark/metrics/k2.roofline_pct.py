@@ -7,6 +7,8 @@ is the batch's padded row count, as the call computes."""
 
 from benchmark.harness.roofline import k2_bound_s
 
+READS = ("device", "batches")
+
 
 def _is_k2(name):
     return ("topk_kernel" in name and "Int8Rows" in name) \

@@ -1,6 +1,8 @@
 """Device milliseconds a batch: every device operation's time in the
 traced window (kernels, copies, sets) over the batches the pool ran."""
 
+READS = ("device", "batches")
+
 
 def read(w):
     if not w.device_ops or not w.stats.get("batches_run"):

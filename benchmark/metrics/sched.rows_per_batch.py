@@ -1,6 +1,8 @@
 """Rows a device batch carried over the window: the scheduler's own
 counters (``SchedulerPool.stats``: queries_served / batches_run)."""
 
+READS = ("batches",)
+
 
 def read(w):
     if not w.stats.get("batches_run"):

@@ -71,9 +71,9 @@ def main(argv=None) -> int:
             print(f"{args.workload} needs {cell.chips} CUDA device(s); "
                   f"found {have}", file=sys.stderr)
             return 2
-    result = runner.run(cell, args.seed, args.seconds, bool(args.trace),
-                        T_PROCESS, rehearse=args.rehearse,
-                        marks={"torch": t_torch})
+    result = cell.driver.run(cell, args.seed, args.seconds, bool(args.trace),
+                             T_PROCESS, rehearse=args.rehearse,
+                             marks={"torch": t_torch})
     bad = runner.forbidden_modules()
     if bad:
         print(f"loaded in this process: {', '.join(bad)}", file=sys.stderr)

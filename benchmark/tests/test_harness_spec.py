@@ -55,7 +55,7 @@ def test_new_files_found_by_name_without_edits(tmp_path):
         {"loop": "closed", "clients": 3, "rows_per_request": 7,
          "pool_rows": 70, "check_rows": 14}))
     (bench / "metrics" / "new.metric.py").write_text(
-        "def read(w):\n    return 42.0\n")
+        "READS = ('device',)\n\n\ndef read(w):\n    return 42.0\n")
     doc["configs"].append({"name": "newcfg", "source": "x",
                            "file": "benchmark/configs/newcfg.json",
                            "reduced": [], "why": "x"})
@@ -79,7 +79,8 @@ def test_new_files_found_by_name_without_edits(tmp_path):
     # Metrics listed for other cells stay out; unlisted ones come in by
     # the end-to-end metric they move.
     assert "k1.roofline_pct" not in cell.readers
-    assert "sched.rows_per_batch" in cell.readers
+    assert "sched.rows_per_batch" not in cell.readers
+    assert "device.idle_pct" in cell.readers
 
 
 @pytest.mark.parametrize("chips", [1, 2])

@@ -3,12 +3,13 @@
     python3 benchmark/trace_threads.py --workload <cell> --seed <n> \\
         --seconds <s> [--rehearse]
 
-From the root of a checkout. Runs ``runner.run`` as ``run.py --trace 1``
-does (the same set-up, traffic, window and check), with hooks for the
-length of the call: ``torch.profiler`` records the host operations of
-every thread (``spans.all_threads_config``), the pool's stats sum every
-counter of its schedulers, and the exported trace and the window are
-kept for ``harness/spans.py``. Prints one JSON line:
+From the root of a checkout. Runs the cell's driver (``runner.run`` for
+retrieval) as ``run.py --trace 1`` does (the same set-up, traffic,
+window and check), with hooks for the length of the call:
+``torch.profiler`` records the host operations of every thread
+(``spans.all_threads_config``), the pool's stats sum every counter of
+its schedulers, and the exported trace and the window are kept for
+``harness/spans.py``. Prints one JSON line:
 
 - ``correct``, ``metrics`` (the cell's per-layer metrics, as in
   ``run.py``'s line) and ``stats`` (the pool's counters in the window);
@@ -133,7 +134,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from benchmark.harness import runner, spans, trace
+    from benchmark.harness import spans, trace
     from benchmark.harness.spec import load_cell
 
     cell = load_cell(args.workload)
@@ -148,8 +149,8 @@ def main(argv=None) -> int:
         return 4
     cost = _span_cost_us()
     with every_thread({}) as kept:
-        out = runner.run(cell, args.seed, args.seconds, True,
-                         time.perf_counter(), rehearse=args.rehearse)
+        out = cell.driver.run(cell, args.seed, args.seconds, True,
+                              time.perf_counter(), rehearse=args.rehearse)
     tr, sp, w = kept["trace"], kept["spans"], kept["window"]
     stats = w.stats
     span_s = spans.span_device_s(sp)
@@ -157,7 +158,7 @@ def main(argv=None) -> int:
     labelled: dict = {}
     for k, s, _ in gaps:
         labelled[k] = labelled.get(k, 0.0) + s
-    batches = max(stats["batches_run"], 1)
+    batches = max(stats.get("batches_run", 0), 1)
     device_s = sum(b - a for _, a, b, _ in sp.device) / 1e6
     idle_s = max(sum(s for _, s, _ in gaps), 1e-12)
     result = {
